@@ -1,0 +1,101 @@
+"""Backend-aware kernel dispatch — the op table the model forwards consume.
+
+The port of the reference's ``kernels/dispatch.py`` for the transformer
+family. ``kernel_dispatch(backend).table("transformer")`` returns the
+per-op callables ``models.transformer`` takes as ``kernels=``, or None for
+the dense masked path (see ``kernels/backend.py``).
+
+Every op derives its runtime prefixes from the 0/1 prefix masks the spec
+table ships, as (B,) int32 *tensors* (``(mask > 0).sum(-1)``), never as
+Python ints: a batch whose rows are different submodels runs one launch,
+and spec churn changes tensor values only.
+
+=============  ==============================================================
+op             contract
+=============  ==============================================================
+``mlp``        ``op(params, x, act, width_mask)``, x (B, S, d), width_mask
+               None, (d_ff,) or (B, d_ff). Up/gate projections skip output
+               columns past ``k = sum(width_mask)``; the down projection
+               skips contraction past the same ``k``. Activation fused into
+               the gate (or up) launch. Three ``elastic_dense`` launches.
+``attention``  ``op(q, k, v, *, causal, window, cap, head_mask)``, head_mask
+               None, (H,) or (B, H): query heads past ``sum(head_mask)`` are
+               skipped inside ``flash_attention``. One launch.
+``moe``        not ported yet (ROADMAP Queue B, B5/B6: grouped matmul and
+               MoE dispatch) — raises NotImplementedError.
+``ssd``        not ported yet (ROADMAP Queue B, B7/B8: SSD chunk scan) —
+               raises NotImplementedError.
+=============  ==============================================================
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels.backend import resolve_backend
+from repro_torch.kernels.elastic_matmul import elastic_dense
+from repro_torch.kernels.flash_attention import flash_attention
+
+
+def active_len(mask: torch.Tensor, batch: int) -> torch.Tensor:
+    """(batch,) int32 prefix lengths of a 0/1 prefix mask of shape (n,) or
+    (batch, n) — computed on the mask's device, no host sync."""
+    n = (mask > 0).sum(dim=-1).to(torch.int32)
+    return n.expand(batch).contiguous() if n.dim() == 0 else n
+
+
+def mlp_op(params, x, act, width_mask):
+    B = x.shape[0]
+    ka = None if width_mask is None else active_len(width_mask, B)
+    wi = params["wi"].to(x.dtype)
+    wo = params["wo"].to(x.dtype)
+    if "wg" in params:
+        h = elastic_dense(x, wi, n_active=ka)
+        h = elastic_dense(x, params["wg"].to(x.dtype), n_active=ka,
+                          act=act) * h
+    else:
+        h = elastic_dense(x, wi, n_active=ka, act=act)
+    return elastic_dense(h, wo, k_active=ka)
+
+
+def attention_op(q, k, v, *, causal=True, window=None, cap=None,
+                 head_mask=None):
+    ha = None if head_mask is None else active_len(head_mask, q.shape[0])
+    o, _ = flash_attention(q, k, v, ha, causal=causal, window=window,
+                           cap=cap)
+    return o
+
+
+def moe_op(*args, **kwargs):
+    raise NotImplementedError(
+        "the moe op is not ported yet (ROADMAP Queue B, B5/B6)")
+
+
+def ssd_op(*args, **kwargs):
+    raise NotImplementedError(
+        "the ssd op is not ported yet (ROADMAP Queue B, B7/B8)")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelDispatch:
+    """Resolved backend; ``table(family)`` returns the op dict a family's
+    forward consumes, or None for the dense masked path."""
+
+    backend: str
+
+    def table(self, family: str = "transformer") -> Optional[Dict]:
+        if self.backend == "dense":
+            return None
+        if family != "transformer":
+            raise NotImplementedError(
+                f"no {family!r} op table yet (ROADMAP Slice 2)")
+        return {"mlp": mlp_op, "attention": attention_op, "moe": moe_op,
+                "ssd": ssd_op}
+
+
+def kernel_dispatch(backend: Optional[str] = "auto") -> KernelDispatch:
+    """'auto' / 'cuda' -> the hand-kernel table; None / 'dense' -> no
+    table. Raises ValueError on unknown names."""
+    return KernelDispatch(resolve_backend(backend))
