@@ -12,7 +12,8 @@ printing its own lines; any failed phase exits non-zero:
 2. build — compiles every kernel of ``src/repro_torch/csrc`` (one ``nvcc``
    per source, in parallel) and prints the build seconds and the
    compiler's register / shared-memory report.
-3. kernels — each kernel against its plain PyTorch version on the card,
+3. kernels — each kernel against its plain PyTorch version on the card
+   (3b: the MoE kernels K5–K7, and K2–K4 at the MoE attention shape),
    at the serving and the training path's shapes and at the edges (prefix
    0, full, ragged, per-group prefixes and weights that differ, transposed
    operands, shapes that are not tile multiples, window and softcap), each
@@ -41,6 +42,20 @@ printing its own lines; any failed phase exits non-zero:
    the two paths' round-1 models must agree within a stated tolerance.
    Prints round seconds, training tokens/s, peak device memory and one
    local step's device idle share.
+8. times, MoE shapes — the same columns for K5 (grouped expert-prefix
+   matmul: forward, dxs and dws at the MoE cohort's expert prefixes, and a
+   decode step), K6 (the dispatch gather) and K7 (the combine
+   gather-reduce), and K2–K4 at head_dim 64. (Phase 3b holds K5–K7 to
+   their plain versions at these shapes and the edges, and K2–K4 at the
+   MoE path's attention shape.)
+9. MoE training slice — phase 7 for granite-moe-1b-a400m at its published
+   width (32 experts top-8), depth cut to 12 layers, 4 clients with
+   expert prefixes 32 / 16 / 24 / 8: K5–K7 and K2–K4 must launch as the
+   design says; also counts the routing decisions (top-k expert sets) on
+   which the two paths differ.
+10. MoE serving slice — phase 5 for granite-moe-1b-a400m at all 24
+   layers: K5–K7 and K2 must launch, greedy tokens must equal the dense
+   path's.
 
 The last lines are a ``kernels:`` line, the slices' stats, the card line,
 one JSON object with every kernel's launches and times, and the result
@@ -66,6 +81,9 @@ K1_TOL = 1e-4                  # K up to 12800 fp32 products, outputs O(1)
 K2_TOL = 2e-5                  # D-length dots and one softmax, outputs O(1)
 K34_TOL = 1e-4                 # two D-length dots per pair, then sums over up
                                # to G·S pairs; outputs O(1-10)
+K5_TOL = 1e-4                  # K ≤ 1024 fp32 products, outputs O(1), as K1
+K7_RTOL = 1e-6                 # k ≤ 8 fp32 terms, relative to max|out|; K6
+                               # copies bit for bit
 SLICE_LOGIT_RTOL = 1e-3        # 40 fp32 layers summed in another order
 TRAIN_LOSS_RTOL = 1e-4         # eval CE after a round: 2 fp32 layers and 2
                                # SGD steps summed in another order
@@ -81,6 +99,16 @@ TRAIN = dict(n_layers=2, clients=4, batch=4, seq_len=128, train_seqs=8,
 # (drops the first layer, ff_frac, attn_head_frac)
 TRAIN_SPECS = ((False, 1.0, 1.0), (False, 0.5, 1.0), (False, 1.0, 0.5),
                (True, 0.75, 0.75))
+# the MoE slices: granite-moe-1b-a400m at its published width; training
+# with the depth cut to 12 layers (4 clients' parameters, momenta and
+# gradients of all 24 would need ~91 GB), serving at all 24; the other
+# settings as the dense slices'
+MOE_SLICE = dict(SLICE, arch="granite-moe-1b-a400m")
+MOE_TRAIN = dict(TRAIN, n_layers=12)
+# (drops the first layer, expert_frac, attn_head_frac): routed experts
+# 32 / 16 / 24 / 8 of 32
+MOE_TRAIN_SPECS = ((False, 1.0, 1.0), (False, 0.5, 1.0), (False, 0.75, 0.5),
+                   (True, 0.25, 1.0))
 
 
 class PhaseError(RuntimeError):
@@ -256,59 +284,17 @@ def _k2_inputs(B, S, H, KV, D, ha, device, gen):
     return q, k, v, (_i32(ha, device) if ha is not None else None)
 
 
-def phase_kernels(device, d_model, d_ff, n_heads, n_kv, head_dim, slots,
-                  prompt_len, clients=2, rows=4, seq=40, ff=None,
-                  heads=None):
-    """Each kernel against its plain version, at the serving shapes, the
-    training shapes (``clients`` clients of ``rows`` sequences of ``seq``
-    tokens; ``ff`` / ``heads``: each client's d_ff and query-head prefix,
-    full by default) and the edges; returns the worst error of each
-    kernel. Raises PhaseError past a tolerance."""
+def check_flash(device, cases, gen, worst, failed):
+    """K2 forward, then K3 / K4 fed by K2's own o and lse (the plain
+    backward takes the plain forward's), each against its plain version on
+    ``cases`` (``k34_cases`` rows); records the worst errors in ``worst``
+    and failed labels in ``failed``."""
     import torch
-    from repro_torch.kernels.elastic_matmul import (elastic_dense,
-                                                    elastic_dense_plain)
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_dkv, flash_attention_dkv_plain,
         flash_attention_dq, flash_attention_dq_plain,
         flash_attention_fwd_plain)
-    gen = torch.Generator(device=device).manual_seed(1)
-    worst = {"elastic_dense": 0.0, "flash_attention": 0.0,
-             "flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
-    failed = []
-    for label, G, M, K, N, pre, act, bias in k1_cases(d_model, d_ff, slots,
-                                                      prompt_len):
-        x, w, b, p = _k1_inputs(G, M, K, N, pre, bias, device, gen)
-        got = elastic_dense(x, w, b, act=act, **p)
-        want = elastic_dense_plain(x, w, b, act=act, **p)
-        sync(device)
-        err = float((got - want).abs().max())
-        worst["elastic_dense"] = max(worst["elastic_dense"], err)
-        ok = err <= K1_TOL and bool(torch.isfinite(got).all())
-        print(f"  elastic_dense {label:22s} G={G} M={M} K={K} N={N} "
-              f"act={act} max|err|={err:.3e} tol={K1_TOL:g} "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            failed.append(f"elastic_dense {label}")
-    ff = list(ff) if ff is not None else [d_ff] * clients
-    heads = list(heads) if heads is not None else [n_heads] * clients
-    for label, G, M, K, N, pre, act, layout in k1_train_cases(
-            d_model, d_ff, ff, rows * seq):
-        x, w, _, p = _k1_inputs(G, M, K, N, pre, False, device, gen, layout)
-        got = elastic_dense(x, w, act=act, **p)
-        want = elastic_dense_plain(x, w, act=act, **p)
-        sync(device)
-        err = float((got - want).abs().max())
-        worst["elastic_dense"] = max(worst["elastic_dense"], err)
-        ok = err <= K1_TOL and bool(torch.isfinite(got).all())
-        print(f"  elastic_dense {label:22s} G={G} M={M} K={K} N={N} "
-              f"act={act} layout={layout} max|err|={err:.3e} "
-              f"tol={K1_TOL:g} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failed.append(f"elastic_dense {label}")
-    # the training path's attention as it runs there: K2's o and lse feed
-    # K3/K4; the plain backward takes the plain forward's
-    for label, B, S, H, KV, D, ha, causal, window, cap in k34_cases(
-            n_heads, n_kv, head_dim, heads, rows, seq):
+    for label, B, S, H, KV, D, ha, causal, window, cap in cases:
         q, k, v, hat = _k2_inputs(B, S, H, KV, D, ha, device, gen)
         do = torch.randn(q.shape, generator=gen, device=device)
         kw = dict(causal=causal, window=window, cap=cap)
@@ -345,6 +331,58 @@ def phase_kernels(device, d_model, d_ff, n_heads, n_kv, head_dim, slots,
               f"{scale:.2f}, tol {K34_TOL:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(f"flash fwd+bwd {label}")
+
+
+def phase_kernels(device, d_model, d_ff, n_heads, n_kv, head_dim, slots,
+                  prompt_len, clients=2, rows=4, seq=40, ff=None,
+                  heads=None):
+    """Each kernel against its plain version, at the serving shapes, the
+    training shapes (``clients`` clients of ``rows`` sequences of ``seq``
+    tokens; ``ff`` / ``heads``: each client's d_ff and query-head prefix,
+    full by default) and the edges; returns the worst error of each
+    kernel. Raises PhaseError past a tolerance."""
+    import torch
+    from repro_torch.kernels.elastic_matmul import (elastic_dense,
+                                                    elastic_dense_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_fwd_plain)
+    gen = torch.Generator(device=device).manual_seed(1)
+    worst = {"elastic_dense": 0.0, "flash_attention": 0.0,
+             "flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
+    failed = []
+    for label, G, M, K, N, pre, act, bias in k1_cases(d_model, d_ff, slots,
+                                                      prompt_len):
+        x, w, b, p = _k1_inputs(G, M, K, N, pre, bias, device, gen)
+        got = elastic_dense(x, w, b, act=act, **p)
+        want = elastic_dense_plain(x, w, b, act=act, **p)
+        sync(device)
+        err = float((got - want).abs().max())
+        worst["elastic_dense"] = max(worst["elastic_dense"], err)
+        ok = err <= K1_TOL and bool(torch.isfinite(got).all())
+        print(f"  elastic_dense {label:22s} G={G} M={M} K={K} N={N} "
+              f"act={act} max|err|={err:.3e} tol={K1_TOL:g} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"elastic_dense {label}")
+    ff = list(ff) if ff is not None else [d_ff] * clients
+    heads = list(heads) if heads is not None else [n_heads] * clients
+    for label, G, M, K, N, pre, act, layout in k1_train_cases(
+            d_model, d_ff, ff, rows * seq):
+        x, w, _, p = _k1_inputs(G, M, K, N, pre, False, device, gen, layout)
+        got = elastic_dense(x, w, act=act, **p)
+        want = elastic_dense_plain(x, w, act=act, **p)
+        sync(device)
+        err = float((got - want).abs().max())
+        worst["elastic_dense"] = max(worst["elastic_dense"], err)
+        ok = err <= K1_TOL and bool(torch.isfinite(got).all())
+        print(f"  elastic_dense {label:22s} G={G} M={M} K={K} N={N} "
+              f"act={act} layout={layout} max|err|={err:.3e} "
+              f"tol={K1_TOL:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"elastic_dense {label}")
+    # the training path's attention as it runs there
+    check_flash(device, k34_cases(n_heads, n_kv, head_dim, heads, rows,
+                                  seq), gen, worst, failed)
     for label, B, S, H, KV, D, ha, causal, window, cap in k2_cases(
             n_heads, n_kv, head_dim, prompt_len):
         q, k, v, hat = _k2_inputs(B, S, H, KV, D, ha, device, gen)
@@ -365,6 +403,197 @@ def phase_kernels(device, d_model, d_ff, n_heads, n_kv, head_dim, slots,
             failed.append(f"flash_attention {label}")
     if failed:
         raise PhaseError(f"kernels disagree with their plain versions: "
+                         f"{failed}")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the MoE kernels against their plain versions
+# ---------------------------------------------------------------------------
+def k5_cases(d_model, d_ff, n_experts, clients, cap, slots, experts):
+    """(label, G, E, M, K, N, layout, g_active) for grouped_matmul: the
+    training path's products (forward on one layer of a client-stacked
+    weight, the VJP's dxs with wsᵀ and dws with xsᵀ read in place) at the
+    cohort's expert prefixes, the decode and prefill shapes (shared
+    weights, one prefix per slot), then the edges."""
+    E, ga = n_experts, list(experts)
+    dec = [E, max(1, E // 4)] + [E // 2] * (slots - 2)
+    return [
+        ("train up/gate", clients, E, cap, d_model, d_ff, "layer", ga),
+        ("train down", clients, E, cap, d_ff, d_model, "layer", ga),
+        ("train dxs up", clients, E, cap, d_ff, d_model, "dx", ga),
+        ("train dxs down", clients, E, cap, d_model, d_ff, "dx", ga),
+        ("train dws up", clients, E, d_model, cap, d_ff, "dw", ga),
+        ("train dws down", clients, E, d_ff, cap, d_model, "dw", ga),
+        ("decode up", slots, E, 8, d_model, d_ff, "shared", dec[:slots]),
+        ("decode down", slots, E, 8, d_ff, d_model, "shared",
+         dec[:slots][::-1]),
+        ("prefill up", 1, E, 16, d_model, d_ff, "shared", [E * 3 // 4]),
+        ("prefix 0", 3, 5, 13, 37, 70, "group", [0, 0, 0]),
+        ("tiles ragged", 3, 5, 70, 37, 130, "group", [0, 3, 5]),
+        ("shared rows ragged", 5, 4, 3, 100, 65, "shared", [4, 0, 2, 1, 3]),
+        ("shared dxs", 2, 3, 9, 33, 70, "shared dx", [3, 1]),
+        ("dxs ragged", 2, 3, 65, 40, 17, "dx", [1, 3]),
+        ("dws ragged", 3, 2, 50, 77, 66, "dw", [2, 0, 1]),
+        ("no prefix", 2, 3, 10, 20, 30, "group", None),
+    ]
+
+
+def _k5_inputs(G, E, M, K, N, layout, device, gen):
+    """xs, ws in ``layout``: "shared" (E, K, N); "group" (G, E, K, N);
+    "layer" one layer of a (G, 2, E, K, N) stack (a strided view); "dx" /
+    "shared dx" ws a transposed view; "dw" xs a transposed view."""
+    import torch
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    x = rn(G, E, K, M).transpose(-1, -2) if layout == "dw" else \
+        rn(G, E, M, K)
+    scale = 1.0 / math.sqrt(K)
+    if layout == "shared":
+        w = rn(E, K, N) * scale
+    elif layout == "shared dx":
+        w = (rn(E, N, K) * scale).transpose(-1, -2)
+    elif layout == "layer":
+        w = (rn(G, 2, E, K, N) * scale)[:, 1]
+    elif layout == "dx":
+        w = (rn(G, E, N, K) * scale).transpose(-1, -2)
+    else:
+        w = rn(G, E, K, N) * scale
+    return x, w
+
+
+def moe_tables(device, G, T, E, k, cap, experts, d, gen):
+    """Rows, gates and the gather kernels' 1-D tables of one MoE layer as
+    the main path builds them (``models.moe``: top-k of random router
+    logits under the groups' expert prefixes, the sort-based capacity
+    rule, the group axis flattened into the rows)."""
+    import torch
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    xt = torch.randn((G, T, d), generator=gen, device=device)
+    router = torch.randn((d, E), generator=gen, device=device) / \
+        math.sqrt(d)
+    mask = (torch.arange(E, device=device)[None, :]
+            < _i32(experts, device)[:, None]).float()
+    _, _, gates, idx = moe.route(router, xt, MoEConfig(E, k, 1), mask)
+    tables = moe.slot_tables(idx, gates, E=E, cap=cap, expert_mask=mask)
+    src, valid, dest, kept = moe.flat_tables(tables, T)
+    gate_eff = (gates * kept.reshape(G, T, k).to(gates.dtype)).reshape(
+        G * T, k).contiguous()
+    return dict(xt=xt.reshape(G * T, d), src=src, valid=valid, dest=dest,
+                kept=kept, gate_eff=gate_eff,
+                y=torch.randn((G * E * cap, d), generator=gen, device=device))
+
+
+def k67_cases(d_model, n_experts, top_k, clients, tokens, cap, slots,
+              experts):
+    """(label, G, T, E, k, cap, experts, d) of the MoE gathers: the
+    training layer, a decode step (one token per slot, cap 8), and edges
+    (a row that is not a multiple of 4 floats, k = 1, tiny capacity)."""
+    E = n_experts
+    return [
+        ("train", clients, tokens, E, top_k, cap, list(experts), d_model),
+        ("decode", slots, 1, E, top_k, 8, [E, max(top_k, E // 4)][:slots]
+         + [E] * (slots - 2), d_model),
+        ("d odd, drops", 3, 37, 5, 2, 8, [5, 2, 3], 33),
+        ("k 1", 2, 20, 3, 1, 8, [3, 1], 12),
+    ]
+
+
+def phase_moe_kernels(device, d_model, d_ff, n_experts, top_k, clients,
+                      tokens, slots, experts, n_heads=None, n_kv=None,
+                      head_dim=None, rows=4, seq=None, heads=None):
+    """K5 / K6 / K7 against their plain versions at the MoE training path's
+    shapes (``clients`` clients of ``tokens`` tokens, expert prefixes
+    ``experts``), at a decode step's and at the edges; with ``n_heads``,
+    also K2–K4 at the MoE path's attention shape and per-row head prefixes
+    (``heads`` per client, ``rows`` sequences of ``seq`` per client).
+    Returns the worst error of each kernel (K7's relative to its output's
+    largest value). Raises PhaseError past a tolerance."""
+    import torch
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                    grouped_matmul_plain)
+    from repro_torch.kernels.moe_dispatch import (
+        gather_reduce, gather_reduce_plain, gather_rows, gather_rows_plain)
+    from repro_torch.models.moe import capacity
+    gen = torch.Generator(device=device).manual_seed(4)
+    cap = capacity(tokens, MoEConfig(n_experts, top_k, d_ff))
+    worst = {"grouped_matmul": 0.0, "gather_rows": 0.0,
+             "gather_reduce": 0.0}
+    failed = []
+    for label, G, E, M, K, N, layout, ga in k5_cases(
+            d_model, d_ff, n_experts, clients, cap, slots, experts):
+        x, w = _k5_inputs(G, E, M, K, N, layout, device, gen)
+        gat = None if ga is None else _i32(ga, device)
+        got = grouped_matmul(x, w, gat)
+        want = grouped_matmul_plain(x, w, gat)
+        sync(device)
+        err = float((got - want).abs().max())
+        worst["grouped_matmul"] = max(worst["grouped_matmul"], err)
+        dead_zero = ga is None or all(not bool(got[g, n:].any())
+                                      for g, n in enumerate(ga))
+        ok = err <= K5_TOL and dead_zero and bool(torch.isfinite(got).all())
+        shown = ga if ga is None or len(ga) < 6 else "per group"
+        print(f"  grouped_matmul {label:18s} G={G} E={E} M={M} K={K} N={N} "
+              f"layout={layout} g_active={shown} "
+              f"max|err|={err:.3e} tol={K5_TOL:g} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"grouped_matmul {label}")
+        del x, w, got, want
+    for label, G, T, E, k, cp, ga, d in k67_cases(
+            d_model, n_experts, top_k, clients, tokens, cap, slots,
+            experts):
+        t = moe_tables(device, G, T, E, k, cp, ga, d, gen)
+        T_all = G * T
+        regather = (t["gate_eff"].reshape(-1) != 0).to(torch.int32)
+        k6 = [("dispatch", t["xt"], t["src"], t["valid"]),
+              ("combine vjp rows", t["y"], t["dest"], regather)]
+        if label.startswith("d odd"):          # a 16-byte-misaligned row
+            base = torch.randn(T_all * d + 1, generator=gen,
+                               device=device)
+            k6.append(("misaligned", base[1:].view(T_all, d), t["src"],
+                       t["valid"]))
+        for name, x, idx, valid in k6:
+            got = gather_rows(x, idx, valid)
+            want = gather_rows_plain(x, idx, valid)
+            sync(device)
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+            exact = bool(torch.equal(got, want))
+            worst["gather_rows"] = max(worst["gather_rows"], err)
+            print(f"  gather_rows {label:12s} {name:17s} R={idx.shape[0]} "
+                  f"from {x.shape[0]} rows, d={d}: bit-exact "
+                  f"{'yes' if exact else 'NO'} "
+                  f"{'ok' if exact else 'FAIL'}")
+            if not exact:
+                failed.append(f"gather_rows {label} {name}")
+        k7 = [("combine", t["y"], t["gate_eff"]),
+              ("dispatch vjp", t["y"], t["kept"].reshape(T_all, k).float())]
+        for name, y, gates in k7:
+            dest = t["dest"].reshape(T_all, k)
+            got = gather_reduce(y, dest, gates)
+            want = gather_reduce_plain(y, dest, gates)
+            sync(device)
+            rel = float((got - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
+            worst["gather_reduce"] = max(worst["gather_reduce"], rel)
+            ok = rel <= K7_RTOL and bool(torch.isfinite(got).all())
+            print(f"  gather_reduce {label:12s} {name:13s} T={T_all} k={k} "
+                  f"from {y.shape[0]} rows, d={d}: max|err|/max|out| "
+                  f"{rel:.3e} tol={K7_RTOL:g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"gather_reduce {label} {name}")
+        del t
+    if n_heads is not None:
+        for name in ("flash_attention", "flash_attention_dq",
+                     "flash_attention_dkv"):
+            worst[name] = 0.0
+        check_flash(device, k34_cases(n_heads, n_kv, head_dim, heads, rows,
+                                      seq)[:2], gen, worst, failed)
+    if failed:
+        raise PhaseError(f"MoE kernels disagree with their plain versions: "
                          f"{failed}")
     return worst
 
@@ -421,11 +650,7 @@ def phase_times(device, d_model, d_ff, n_heads, n_kv, head_dim, slots,
             4.0 * (2 * B * S * H * D + 2 * B * S * KV * D + B * H * S),
             4.0 * D * pairs)
         rows["flash_attention"].append(row)
-    for name, rs in rows.items():
-        for r in rs:
-            print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-                  f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print_rows(rows)
     # host cost of one call at a size whose device time is negligible: the
     # serving path makes 120 elastic_dense calls per decode step
     x, w, _, _ = _k1_inputs(2, 1, 64, 64, None, False, device, gen)
@@ -461,14 +686,25 @@ def host_us(fn, device, iters=200) -> float:
 # ---------------------------------------------------------------------------
 # phase 5: the serving slice
 # ---------------------------------------------------------------------------
+def path_counters(cfg):
+    """The kernel wrappers whose launches a path of ``cfg`` must show: K1
+    and the attention kernels on a dense parent, K5–K7 and the attention
+    kernels on a MoE parent (serving launches the forward ones only)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul, moe_dispatch
+    from repro_torch.kernels.elastic_matmul import elastic_dense
+    ffn = (grouped_matmul.grouped_matmul, moe_dispatch.gather_rows,
+           moe_dispatch.gather_reduce) if cfg.moe is not None \
+        else (elastic_dense,)
+    return ffn + (fa.flash_attention, fa.flash_attention_dq,
+                  fa.flash_attention_dkv)
+
+
 def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
     """Serve elastic requests through the kernels, then through the dense
     masked path; returns (launch counts of the kernel run, stats)."""
     import numpy as np
-    import torch
     from repro_torch.core.elastic import family_for
-    from repro_torch.kernels.elastic_matmul import elastic_dense
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.serving import EdgeServer, Request
 
     fam = family_for(cfg)
@@ -497,11 +733,11 @@ def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
         sync(device)
         return out, time.perf_counter() - t
 
-    elastic_dense.launches = 0
-    flash_attention.launches = 0
+    counters = path_counters(cfg)[:-2]           # no backward in serving
+    for c in counters:
+        c.launches = 0
     comps, secs = serve("auto")
-    launches = {"elastic_dense": elastic_dense.launches,
-                "flash_attention": flash_attention.launches}
+    launches = {c.__name__: c.launches for c in counters}
     print(f"  kernel path: {n_requests} requests, {n_requests * gen} "
           f"tokens in {secs:.3f} s -> {n_requests / secs:.3f} req/s, "
           f"{n_requests * gen / secs:.2f} tok/s; launches {launches}")
@@ -533,8 +769,9 @@ def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
     if worst > SLICE_LOGIT_RTOL:
         problems.append(f"logits differ by {worst:.3e}")
     for c in comps:
-        print(f"  req{c.uid} ff={c.spec.ff_frac} heads={c.spec.attn_head_frac}"
-              f" layers={len(c.spec.layers[0])}: {c.tokens}")
+        print(f"  req{c.uid} ff={c.spec.ff_frac} experts="
+              f"{c.spec.expert_frac} heads={c.spec.attn_head_frac} "
+              f"layers={len(c.spec.layers[0])}: {c.tokens}")
     if problems:
         raise PhaseError("; ".join(problems))
     stats = {"seconds": secs, "requests_per_s": n_requests / secs,
@@ -643,17 +880,11 @@ def phase_train_times(device, d_model, d_ff, n_heads, n_kv, head_dim,
     training slice's shapes (full prefixes). Returns {kernel: [row, ...]}
     (K1's rows: forward, dx and dw products; K2, K3, K4: one row each)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.elastic_matmul import (elastic_dense,
                                                     elastic_dense_plain)
-    from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_dkv, flash_attention_dkv_plain,
-        flash_attention_dq, flash_attention_dq_plain,
-        flash_attention_fwd_plain)
     gen = torch.Generator(device=device).manual_seed(3)
     G, M = clients, rows * seq
-    rows_out = {"elastic_dense": [], "flash_attention": [],
-                "flash_attention_dq": [], "flash_attention_dkv": []}
+    rows_out = {"elastic_dense": []}
     # (label, layout, rows, contraction, columns, act): the three products
     # of each projection — dx = dpre @ wᵀ, dw = xᵀ @ dpre
     for label, layout, Mx, K, N, act in (
@@ -676,7 +907,33 @@ def phase_train_times(device, d_model, d_ff, n_heads, n_kv, head_dim,
             4.0 * G * (Mx * K + K * N + Mx * N), 2.0 * G * Mx * K * N)
         rows_out["elastic_dense"].append(row)
         del x, w
-    B, S, H, KV, D = G * rows, seq, n_heads, n_kv, head_dim
+    rows_out.update(flash_times(device, G * rows, seq, n_heads, n_kv,
+                                head_dim, gen, iters))
+    print_rows(rows_out)
+    return rows_out
+
+
+def print_rows(rows_out):
+    for name, rs in rows_out.items():
+        for r in rs:
+            print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+                  f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    if "flash_attention_dq" in rows_out:
+        print("  (library for dq and dk/dv: one torch.autograd.grad through "
+              "F.scaled_dot_product_attention, all three gradients)")
+
+
+def flash_times(device, B, S, H, KV, D, gen, iters=5):
+    """Kernel / plain / library ms and the bound of K2, K3 and K4 at one
+    causal training shape (full head prefixes): {kernel: [row]}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_dkv, flash_attention_dkv_plain,
+        flash_attention_dq, flash_attention_dq_plain,
+        flash_attention_fwd_plain)
+    rows_out = {}
     q, k, v, _ = _k2_inputs(B, S, H, KV, D, None, device, gen)
     do = torch.randn(q.shape, generator=gen, device=device)
     o, lse = flash_attention(q, k, v)
@@ -705,7 +962,7 @@ def phase_train_times(device, d_model, d_ff, n_heads, n_kv, head_dim,
                        is_causal=True), device, iters))
     fwd["bound_ms"], fwd["bound_by"] = bound(
         2 * qbytes + 2 * kvbytes + rbytes, 4.0 * D * pairs)
-    rows_out["flash_attention"].append(fwd)
+    rows_out["flash_attention"] = [fwd]
     args = (q, k, v, do, lse, delta)
     dq = dict(shape=shape,
               ms=cuda_ms(lambda: flash_attention_dq(*args), device, iters),
@@ -714,7 +971,7 @@ def phase_train_times(device, d_model, d_ff, n_heads, n_kv, head_dim,
               library_ms=sdpa_bwd_ms)
     dq["bound_ms"], dq["bound_by"] = bound(
         3 * qbytes + 2 * kvbytes + 2 * rbytes, 6.0 * D * pairs)
-    rows_out["flash_attention_dq"].append(dq)
+    rows_out["flash_attention_dq"] = [dq]
     dkv = dict(shape=shape,
                ms=cuda_ms(lambda: flash_attention_dkv(*args), device, iters),
                plain_ms=cuda_ms(lambda: flash_attention_dkv_plain(*args),
@@ -722,15 +979,119 @@ def phase_train_times(device, d_model, d_ff, n_heads, n_kv, head_dim,
                library_ms=sdpa_bwd_ms)
     dkv["bound_ms"], dkv["bound_by"] = bound(
         2 * qbytes + 4 * kvbytes + 2 * rbytes, 8.0 * D * pairs)
-    rows_out["flash_attention_dkv"].append(dkv)
-    for name, rs in rows_out.items():
-        for r in rs:
-            print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-                  f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    print("  (library for dq and dk/dv: one torch.autograd.grad through "
-          "F.scaled_dot_product_attention, all three gradients)")
+    rows_out["flash_attention_dkv"] = [dkv]
     return rows_out
+
+
+
+
+# ---------------------------------------------------------------------------
+# phase 8: kernel times at the MoE slices' shapes
+# ---------------------------------------------------------------------------
+def k5_bound(G, E, M, K, N, ga, shared):
+    """K5's least time: each live expert's rows and weights read once (a
+    shared weight once for every group), every output written once; 2
+    operations per multiply-add of the live experts."""
+    live = sum(ga)
+    w_reads = max(ga) if shared else live
+    return bound(4.0 * (live * M * K + w_reads * K * N + G * E * M * N),
+                 2.0 * live * M * K * N)
+
+
+def phase_moe_times(device, d_model, d_ff, n_experts, top_k, n_heads, n_kv,
+                    head_dim, clients, rows, seq, slots, experts, iters=5):
+    """Kernel / plain / library ms and the bound of K5, K6 and K7 at the MoE
+    training slice's shapes (the cohort's expert prefixes) and at a decode
+    step's, and of K2–K4 at the MoE path's attention shape (head_dim 64).
+    Returns {kernel: [row, ...]}. Library calls (timed here only):
+    ``torch.bmm`` over the G·E expert matrices (``torch.matmul`` with the
+    weights broadcast at decode) for K5; ``torch.index_select`` then the
+    validity mask for K6; ``torch.index_select`` then ``torch.einsum``
+    for K7 (two calls: no single call computes it)."""
+    import torch
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                    grouped_matmul_plain)
+    from repro_torch.kernels.moe_dispatch import (
+        gather_reduce, gather_reduce_plain, gather_rows, gather_rows_plain)
+    from repro_torch.models.moe import capacity
+    gen = torch.Generator(device=device).manual_seed(5)
+    G, E, tokens = clients, n_experts, rows * seq
+    cap = capacity(tokens, MoEConfig(E, top_k, d_ff))
+    ga = list(experts)
+    dec = [E, max(1, E // 4)][:slots] + [E // 2] * (slots - 2)
+    out = {"grouped_matmul": [], "gather_rows": [], "gather_reduce": []}
+    for label, g, M, K, N, layout, pre in (
+            ("train up/gate fwd", G, cap, d_model, d_ff, "layer", ga),
+            ("train down fwd", G, cap, d_ff, d_model, "layer", ga),
+            ("train dxs up", G, cap, d_ff, d_model, "dx", ga),
+            ("train dxs down", G, cap, d_model, d_ff, "dx", ga),
+            ("train dws up", G, d_model, cap, d_ff, "dw", ga),
+            ("train dws down", G, d_ff, cap, d_model, "dw", ga),
+            ("decode up/gate", slots, 8, d_model, d_ff, "shared", dec),
+            ("decode down", slots, 8, d_ff, d_model, "shared", dec)):
+        x, w = _k5_inputs(g, E, M, K, N, layout, device, gen)
+        gat = _i32(pre, device)
+        if layout == "shared":
+            lib = lambda: torch.matmul(x, w)                 # noqa: E731
+        else:
+            xb = x.reshape(g * E, M, K) if x.is_contiguous() else \
+                x.contiguous().reshape(g * E, M, K)
+            wb = w.contiguous().reshape(g * E, K, N)
+            lib = lambda: torch.bmm(xb, wb)                  # noqa: E731
+        row = dict(shape=f"{label} ({g},{E},{M},{K})@{tuple(w.shape)} "
+                         f"g_active={pre}",
+                   ms=cuda_ms(lambda: grouped_matmul(x, w, gat), device,
+                              iters, 1),
+                   plain_ms=cuda_ms(lambda: grouped_matmul_plain(x, w, gat),
+                                    device, iters, 1),
+                   library_ms=cuda_ms(lib, device, iters, 1))
+        row["bound_ms"], row["bound_by"] = k5_bound(
+            g, E, M, K, N, pre, layout == "shared")
+        out["grouped_matmul"].append(row)
+        del x, w, lib
+    for label, g, T, cp, pre in (("train", G, tokens, cap, ga),
+                                 ("decode", slots, 1, 8, dec)):
+        t = moe_tables(device, g, T, E, top_k, cp, pre, d_model, gen)
+        d, R, T_all = d_model, t["src"].shape[0], g * T
+        n_valid = int(t["valid"].sum())
+        valid_f = t["valid"].float()[:, None]
+        src_c = t["src"].long().clamp(max=T_all - 1)
+        row = dict(shape=f"{label} dispatch R={R} from {T_all} tokens, "
+                         f"d={d}, {n_valid} valid",
+                   ms=cuda_ms(lambda: gather_rows(t["xt"], t["src"],
+                                                  t["valid"]), device, iters),
+                   plain_ms=cuda_ms(lambda: gather_rows_plain(
+                       t["xt"], t["src"], t["valid"]), device, iters),
+                   library_ms=cuda_ms(lambda: torch.index_select(
+                       t["xt"], 0, src_c) * valid_f, device, iters))
+        row["bound_ms"], row["bound_by"] = bound(
+            4.0 * d * (n_valid + R) + 8.0 * R, 0.0)
+        out["gather_rows"].append(row)
+        dest = t["dest"].reshape(T_all, top_k)
+        nnz = int((t["gate_eff"] != 0).sum())
+        dest_c = t["dest"].long().clamp(max=t["y"].shape[0] - 1)
+        row = dict(shape=f"{label} combine T={T_all} k={top_k} from "
+                         f"{t['y'].shape[0]} slots, d={d}, {nnz} gathered",
+                   ms=cuda_ms(lambda: gather_reduce(t["y"], dest,
+                                                    t["gate_eff"]),
+                              device, iters),
+                   plain_ms=cuda_ms(lambda: gather_reduce_plain(
+                       t["y"], dest, t["gate_eff"]), device, iters),
+                   library_ms=cuda_ms(lambda: torch.einsum(
+                       "tj,tjd->td", t["gate_eff"], torch.index_select(
+                           t["y"], 0, dest_c).view(T_all, top_k, d)),
+                       device, iters))
+        row["bound_ms"], row["bound_by"] = bound(
+            4.0 * d * (nnz + T_all) + 8.0 * T_all * top_k, 2.0 * nnz * d)
+        out["gather_reduce"].append(row)
+        del t
+    out.update(flash_times(device, G * rows, seq, n_heads, n_kv, head_dim,
+                           gen, iters))
+    print_rows(out)
+    print("  (library for K7: torch.index_select then torch.einsum, two "
+          "calls; for K6: torch.index_select then the validity mask)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -743,38 +1104,49 @@ def train_family(cfg, n_layers):
     from repro_torch.core.elastic import family_for
     return family_for(dataclasses.replace(
         cfg, name=f"{cfg.name}-{n_layers}l", n_layers=n_layers,
-        segments=uniform_segments(n_layers)))
+        segments=uniform_segments(n_layers,
+                                  use_moe=cfg.segments[0].use_moe)))
 
 
 def train_specs(fam):
-    """The cohort's specs (``TRAIN_SPECS``): the full spec plus three from
-    the elastic grid that together cut d_ff, cut the query heads and drop
-    a layer."""
+    """The cohort's specs: the full spec plus three from the elastic grid
+    that together cut d_ff (``TRAIN_SPECS``; the routed experts on a MoE
+    parent, ``MOE_TRAIN_SPECS``), cut the query heads and drop a layer."""
     from repro_torch.core.submodel import TransformerSubSpec
     n = fam.cfg.segments[0].n_layers
+    moe = fam.cfg.moe is not None
+    width = "expert_frac" if moe else "ff_frac"
     return [TransformerSubSpec((tuple(range(1 if drop else 0, n)),),
-                               ff_frac=ff, attn_head_frac=ah)
-            for drop, ff, ah in TRAIN_SPECS]
+                               attn_head_frac=ah, **{width: w})
+            for drop, w, ah in (MOE_TRAIN_SPECS if moe else TRAIN_SPECS)]
 
 
 def train_prefixes(fam):
-    """Each client's d_ff and query-head prefix in the training cohort,
-    read off the cohort's forward masks (host side)."""
+    """Each client's d_ff (or routed-expert) and query-head prefix in the
+    training cohort, read off the cohort's forward masks (host side)."""
     fwd = fam.cohort_masks(train_specs(fam), "cpu").fwd
-    return dict(ff=[int(n) for n in fwd["ff"].sum(-1)],
-                heads=[int(n) for n in fwd["heads"].sum(-1)])
+    width = "experts" if fam.cfg.moe is not None else "ff"
+    return {width: [int(n) for n in fwd[width].sum(-1)],
+            "heads": [int(n) for n in fwd["heads"].sum(-1)]}
 
 
-def design_launches(n_layers, steps, rounds):
+def design_launches(n_layers, steps, rounds, moe=False):
     """Launches per kernel that the design gives for ``rounds`` rounds of
-    ``steps`` local steps (every client stepping) and one eval pass each:
-    per layer and step, K1 3 forward + 7 backward (dx and dw of up, gate
-    and down, and the gate's pre-activation recomputed), K2 1, K3 1, K4 1;
-    per layer and eval pass, K1 3 and K2 1."""
-    return {"elastic_dense": rounds * n_layers * (10 * steps + 3),
-            "flash_attention": rounds * n_layers * (steps + 1),
-            "flash_attention_dq": rounds * n_layers * steps,
-            "flash_attention_dkv": rounds * n_layers * steps}
+    ``steps`` local steps (every client stepping) and one eval pass each,
+    per layer: K2 1 per step and eval pass, K3 and K4 1 per step; on a
+    dense parent K1 3 forward + 7 backward per step (dx and dw of up, gate
+    and down, and the gate's pre-activation recomputed) and 3 per eval
+    pass; on a MoE parent, per step K5 3 + 6 (dxs and dws of up, gate and
+    down), K6 1 + 2 (the dispatch; the combine's VJP gathers the slot rows'
+    cotangent and re-gathers the rows of its gate cotangent), K7 1 + 1 (the
+    combine; the dispatch's VJP), and per eval pass K5 3, K6 1, K7 1."""
+    per = {"flash_attention": (1, 1), "flash_attention_dq": (1, 0),
+           "flash_attention_dkv": (1, 0)}
+    per.update({"grouped_matmul": (9, 3), "gather_rows": (3, 1),
+                "gather_reduce": (2, 1)} if moe
+               else {"elastic_dense": (10, 3)})
+    return {name: rounds * n_layers * (step * steps + ev)
+            for name, (step, ev) in per.items()}
 
 
 def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
@@ -790,7 +1162,7 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
     import torch
     from repro_torch.data.synth import make_lm_dataset
     from repro_torch.fl.engine import BatchedRoundEngine
-    from repro_torch.kernels import elastic_matmul, flash_attention as fa
+    from repro_torch.models import moe as moe_mod
     from repro_torch.optim.optimizers import tree_leaves
 
     fam = train_family(cfg, n_layers)
@@ -812,26 +1184,53 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
           f"init {time.perf_counter() - t0:.1f} s")
     for k, sp in enumerate(specs):
         print(f"  client {k}: layers {sp.layers[0]} ff_frac {sp.ff_frac} "
-              f"attn_head_frac {sp.attn_head_frac}")
+              f"expert_frac {sp.expert_frac} attn_head_frac "
+              f"{sp.attn_head_frac}")
     kw = dict(batch_size=batch, epochs=1)
-    counters = (elastic_matmul.elastic_dense, fa.flash_attention,
-                fa.flash_attention_dq, fa.flash_attention_dkv)
+    moe = cfg.moe is not None
+    counters = path_counters(cfg)
+    routes = {}
 
-    def run(backend):
+    def run(backend, replay=None):
+        """The rounds on ``backend``'s path. Every MoE layer call's top-k
+        ids and top-k margin (the k-th probability less the next one) are
+        logged in call order under ``routes[backend or replay]``; with
+        ``replay`` (a list of logged ids), each call takes the logged ids
+        in place of its own top-k and gates them with its own
+        probabilities (renormalised, as ``models.moe.route`` does)."""
         eng = BatchedRoundEngine(fam, lr=lr, momentum=momentum,
                                  grad_clip=grad_clip, backend=backend,
                                  device=device)
+        log = routes.setdefault("replay" if replay else backend, [])
+        real_route = moe_mod.route
+        ids = iter(replay or ())
+
+        def recording(router, xt, moe_cfg, expert_mask=None):
+            out = real_route(router, xt, moe_cfg, expert_mask)
+            top = torch.topk(out[1].detach(), moe_cfg.top_k + 1,
+                             dim=-1).values
+            if replay:
+                idx = next(ids)
+                g = torch.gather(out[1], -1, idx)
+                out = out[:2] + ((g / g.sum(-1, keepdim=True)).to(
+                    xt.dtype), idx)
+            log.append((out[3].detach(), (top[..., -2] - top[..., -1])))
+            return out
+        moe_mod.route = recording
         p, out = params0, []
-        for r in range(rounds):
-            sync(device)
-            t = time.perf_counter()
-            p, accs, n_steps = eng.run_fl_round(
-                p, specs, train, test, sizes, coverage_norm=r > 0,
-                seeds=[seed * 1000 + r * clients + k
-                       for k in range(clients)], **kw)
-            sync(device)
-            out.append(dict(params=p, accs=accs, n_steps=n_steps,
-                            seconds=time.perf_counter() - t))
+        try:
+            for r in range(rounds):
+                sync(device)
+                t = time.perf_counter()
+                p, accs, n_steps = eng.run_fl_round(
+                    p, specs, train, test, sizes, coverage_norm=r > 0,
+                    seeds=[seed * 1000 + r * clients + k
+                           for k in range(clients)], **kw)
+                sync(device)
+                out.append(dict(params=p, accs=accs, n_steps=n_steps,
+                                seconds=time.perf_counter() - t))
+        finally:
+            moe_mod.route = real_route
         return eng, out
 
     cuda = device.type == "cuda"
@@ -843,10 +1242,23 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
     launches = {c.__name__: c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     steps = int(kern[0]["n_steps"].max())
-    want = design_launches(n_layers, steps, rounds)
+    want = design_launches(n_layers, steps, rounds, moe=moe)
     tokens = int(sum(kern[0]["n_steps"])) * batch * seq_len
     _, dense = run(None)
     problems = []
+    route_stats = replayed = None
+    if moe:
+        route_stats = routing_stats(routes["auto"], routes[None],
+                                    cfg.moe.top_k, n_layers)
+        if route_stats["calls"][0] != route_stats["calls"][1]:
+            problems.append("the paths made different numbers of MoE "
+                            "layer calls")
+        # the dense path again, under the kernel path's routing: top-k is
+        # discontinuous, so a flip from 1e-7 noise upstream cascades (see
+        # routing_stats); with the routes held equal the two paths compute
+        # the same function and their parameters must agree
+        _, replayed = run(None, replay=[i for i, _ in routes["auto"]])
+        routes.clear()
     for name, n in launches.items():
         print(f"  {name}: {n} launches (design: {want[name]})")
         if n <= 0 or n != want[name]:
@@ -868,31 +1280,41 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
         if not all(bool(torch.isfinite(t).all())
                    for t in tree_leaves(a["params"])):
             problems.append(f"round {r + 1}: non-finite parameters")
-    diff = max(float((x - y).abs().max()) for x, y in zip(
-        tree_leaves(kern[0]["params"]), tree_leaves(dense[0]["params"])))
     moved = max(float((y - z).abs().max()) for y, z in zip(
         tree_leaves(dense[0]["params"]), tree_leaves(params0)))
-    print(f"  round-1 parameters: max|kernel - dense| {diff:.3e}, "
-          f"max|dense - initial| {moved:.3e}, ratio {diff / moved:.3e} "
-          f"(tol 1e-3)")
-    if not diff <= 1e-3 * moved:
-        problems.append(f"round-1 parameters differ by {diff:.3e} > 1e-3 x "
-                        f"{moved:.3e}")
+    ratios = {}
+    for name, other in (("dense", dense), ("dense, kernel routes", replayed)):
+        if other is None:
+            continue
+        diff = max(float((x - y).abs().max()) for x, y in zip(
+            tree_leaves(kern[0]["params"]), tree_leaves(other[0]["params"])))
+        ratios[name] = diff / moved
+        held = other is replayed or not moe
+        print(f"  round-1 parameters: max|kernel - {name}| {diff:.3e}, "
+              f"max|dense - initial| {moved:.3e}, ratio {diff / moved:.3e} "
+              + ("(tol 1e-3)" if held else "(not held: routes differ)"))
+        if held and not diff <= 1e-3 * moved:
+            problems.append(f"round-1 parameters ({name}) differ by "
+                            f"{diff:.3e} > 1e-3 x {moved:.3e}")
     # accuracies stay near 0 at these settings (random weights, 2 steps):
     # each path's round-1 model also scores every client's test set by its
     # own forward (the kernels', or the dense masked path)
-    loss = {name: eval_losses(fam, specs, test, out[0]["params"], backend,
-                              device)
-            for name, backend, out in (("kernel", "auto", kern),
-                                       ("dense", None, dense))}
-    worst_loss = float(np.max(np.abs(loss["kernel"] - loss["dense"])
-                              / np.abs(loss["dense"])))
-    print(f"  round-1 eval CE per client: kernel "
-          f"{np.round(loss['kernel'], 6).tolist()} dense "
-          f"{np.round(loss['dense'], 6).tolist()}; max relative difference "
-          f"{worst_loss:.3e} (tol {TRAIN_LOSS_RTOL:g})")
-    if not worst_loss <= TRAIN_LOSS_RTOL:
-        problems.append(f"round-1 eval losses differ by {worst_loss:.3e}")
+    loss = {"kernel": eval_losses(fam, specs, test, kern[0]["params"],
+                                  "auto", device)}
+    for name, other in (("dense", dense), ("dense, kernel routes", replayed)):
+        if other is None:
+            continue
+        loss[name] = eval_losses(fam, specs, test, other[0]["params"], None,
+                                 device)
+        worst_loss = float(np.max(np.abs(loss["kernel"] - loss[name])
+                                  / np.abs(loss[name])))
+        print(f"  round-1 eval CE per client: kernel "
+              f"{np.round(loss['kernel'], 6).tolist()} {name} "
+              f"{np.round(loss[name], 6).tolist()}; max relative "
+              f"difference {worst_loss:.3e} (tol {TRAIN_LOSS_RTOL:g})")
+        if not worst_loss <= TRAIN_LOSS_RTOL:
+            problems.append(f"round-1 eval losses ({name}) differ by "
+                            f"{worst_loss:.3e}")
     print(f"  peak device memory (kernel-path rounds): {peak / 2**30:.2f} "
           f"GiB")
     stats = {"round_seconds": [a["seconds"] for a in kern],
@@ -903,12 +1325,12 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
                                           for b in dense],
              "accs": [a["accs"] for a in kern],
              "dense_accs": [b["accs"] for b in dense],
-             "round1_max_param_diff": diff, "round1_max_param_move": moved,
-             "round1_eval_ce": loss["kernel"].tolist(),
-             "dense_round1_eval_ce": loss["dense"].tolist(),
+             "round1_param_diff_over_move": ratios,
+             "round1_max_param_move": moved,
+             "round1_eval_ce": {k: v.tolist() for k, v in loss.items()},
              "max_memory_allocated_gib": peak / 2**30,
-             "launches_design": want}
-    del kern, dense
+             "launches_design": want, "routing": route_stats}
+    del kern, dense, replayed
     if problems:
         raise PhaseError("; ".join(problems))
     if not cuda:
@@ -923,6 +1345,40 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
     print(f"  kernel path local step ({clients} clients x {batch} x "
           f"{seq_len}): {json.dumps(prof)}")
     return launches, stats
+
+
+def routing_stats(kern, dense, top_k, n_layers):
+    """Where two paths' MoE routing differs: logs of (top-k ids, top-k
+    margin) per MoE layer call, in call order. Counts the token-layer
+    decisions whose expert *sets* differ, per call, and, at the first call
+    with a difference, the kernel path's margins of the tokens that differ
+    (a flip from noise upstream shows a margin near the noise; later
+    differences cascade from it through attention, capacity and the next
+    layers)."""
+    import torch
+    per_call = [int((torch.sort(a, -1).values != torch.sort(b, -1).values)
+                    .any(-1).sum()) for (a, _), (b, _) in zip(kern, dense)]
+    decisions = sum(a.shape[0] * a.shape[1] for a, _ in kern)
+    first = next((i for i, n in enumerate(per_call) if n), None)
+    margins = None
+    if first is not None:
+        (a, m), (b, _) = kern[first], dense[first]
+        diff = (torch.sort(a, -1).values != torch.sort(b, -1).values).any(-1)
+        margins = sorted(float(x) for x in m[diff])[:8]
+    stats = {"decisions": decisions, "differ": sum(per_call),
+             "per_call": per_call, "calls": [len(kern), len(dense)],
+             "first_call": first, "first_margins": margins,
+             "min_margin": min(float(m.min()) for _, m in kern)}
+    where = "" if first is None else (
+        f"; first at call {first} (pass {first // n_layers}, layer "
+        f"{first % n_layers}), kernel-path top-{top_k} margins of its "
+        f"differing tokens {margins}")
+    print(f"  routing: {stats['differ']} of {decisions} token-layer top-"
+          f"{top_k} expert sets differ between the kernel and the dense "
+          f"path ({len(kern)} / {len(dense)} MoE layer calls){where}; "
+          f"per call {per_call}; smallest margin of any decision "
+          f"{stats['min_margin']:.3e}")
+    return stats
 
 
 def eval_losses(fam, specs, test, params, backend, device):
@@ -962,6 +1418,10 @@ def local_step_fn(eng, fam, params0, specs, train, batch, device):
 
 
 # ---------------------------------------------------------------------------
+def without_arch(settings):
+    return {k: v for k, v in settings.items() if k != "arch"}
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     try:
@@ -1009,19 +1469,32 @@ def main() -> int:
     tdims = dict(clients=TRAIN["clients"], rows=TRAIN["batch"],
                  seq=TRAIN["seq_len"])
     tpre = train_prefixes(train_family(cfg, TRAIN["n_layers"]))
+    mcfg = get_config(MOE_SLICE["arch"])
+    mpre = train_prefixes(train_family(mcfg, MOE_TRAIN["n_layers"]))
+    mdims = dict(d_model=mcfg.d_model, d_ff=mcfg.moe.d_ff_expert,
+                 n_experts=mcfg.moe.n_experts, top_k=mcfg.moe.top_k,
+                 n_heads=mcfg.n_heads, n_kv=mcfg.n_kv_heads,
+                 head_dim=mcfg.head_dim, clients=MOE_TRAIN["clients"],
+                 rows=MOE_TRAIN["batch"], seq=MOE_TRAIN["seq_len"],
+                 slots=MOE_SLICE["slots"], experts=mpre["experts"])
+
+    def release():                   # the last phase's models leave the card
+        gc.collect()
+        torch.cuda.empty_cache()
     try:
         print("== 3. kernels against their plain versions")
         worst = phase_kernels(device, **dims, **tdims, **tpre)
+        print("== 3b. MoE kernels against their plain versions (K5, K6, K7; "
+              "K2-K4 at head_dim 64)")
+        mworst = phase_moe_kernels(device, tokens=mdims["rows"] *
+                                   mdims["seq"], heads=mpre["heads"],
+                                   **mdims)
         print("== 4. times: serving shapes")
         times = phase_times(device, **dims)
         print("== 5. slice: granite-3-8b serving, full width and depth, "
               "fp32")
-        launches, stats = phase_slice(
-            device, cfg, slots=SLICE["slots"],
-            n_requests=SLICE["n_requests"], prompt_len=SLICE["prompt_len"],
-            gen=SLICE["gen"], seed=SLICE["seed"])
-        gc.collect()                 # the serving model leaves the card
-        torch.cuda.empty_cache()
+        launches, stats = phase_slice(device, cfg, **without_arch(SLICE))
+        release()
         print("== 6. times: training shapes")
         train_times = phase_train_times(
             device, **{k: v for k, v in dims.items()
@@ -1030,6 +1503,20 @@ def main() -> int:
               f"{TRAIN['n_layers']} layers, {TRAIN['clients']} clients, "
               f"{TRAIN['rounds']} CFL rounds, fp32")
         train_launches, train_stats = phase_train(device, cfg, **TRAIN)
+        release()
+        print("== 8. times: MoE shapes")
+        moe_times = phase_moe_times(device, **mdims)
+        release()
+        print(f"== 9. slice: granite-moe-1b-a400m training, full width, "
+              f"{MOE_TRAIN['n_layers']} layers, {MOE_TRAIN['clients']} "
+              f"clients, {MOE_TRAIN['rounds']} CFL rounds, fp32")
+        moe_train_launches, moe_train_stats = phase_train(device, mcfg,
+                                                          **MOE_TRAIN)
+        release()
+        print("== 10. slice: granite-moe-1b-a400m serving, full width and "
+              "depth, fp32")
+        moe_launches, moe_stats = phase_slice(device, mcfg,
+                                              **without_arch(MOE_SLICE))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1047,19 +1534,36 @@ def main() -> int:
         "flash_attention_dkv": dict(
             source="src/repro_torch/csrc/flash_attention_bwd.cu",
             replaces="src/repro/kernels/flash_attention.py:309"),
+        "grouped_matmul": dict(
+            source="src/repro_torch/csrc/grouped_matmul.cu",
+            replaces="src/repro/kernels/grouped_matmul.py:35"),
+        "gather_rows": dict(
+            source="src/repro_torch/csrc/moe_dispatch.cu",
+            replaces="src/repro/kernels/moe_dispatch.py:47"),
+        "gather_reduce": dict(
+            source="src/repro_torch/csrc/moe_dispatch.cu",
+            replaces="src/repro/kernels/moe_dispatch.py:94"),
     }
-    # the headline row of each kernel is its first training-path shape;
-    # ``launches`` counts the training path's run, ``launches_by_path``
-    # both paths' runs (each counted from 0 just before it)
+    # the headline row of each kernel is its first training-path shape (the
+    # dense slice's for K1–K4, the MoE slice's for K5–K7), and ``launches``
+    # counts that path's run; ``launches_by_path`` every path's run (each
+    # counted from 0 just before it)
+    by_path = {"serving": launches, "training": train_launches,
+               "moe_training": moe_train_launches, "moe_serving": moe_launches}
+    for name, err in mworst.items():
+        worst[name] = max(worst.get(name, 0.0), err)
     entries = []
-    for name, rows in train_times.items():
+    for name in meta:
+        moe_row = name in ("grouped_matmul", "gather_rows", "gather_reduce")
+        rows = moe_times[name] if moe_row else train_times[name]
         head, serving = rows[0], times.get(name, [])
+        extra = [] if moe_row else moe_times.get(name, [])
         entries.append(dict(
             name=name, route="cuda", source=meta[name]["source"],
             replaces=meta[name]["replaces"],
-            launches=train_launches[name],
-            launches_by_path={"serving": launches.get(name, 0),
-                              "training": train_launches[name]},
+            launches=by_path["moe_training" if moe_row
+                             else "training"].get(name, 0),
+            launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
             max_abs_err=worst[name], ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
@@ -1067,12 +1571,14 @@ def main() -> int:
             host_us=serving[0].get("host_us") if serving else None,
             library_host_us=(serving[0].get("library_host_us")
                              if serving else None),
-            other_shapes=rows[1:] + serving))
-    print("kernels: serving " + " ".join(
-        f"{n}={c}" for n, c in launches.items()) + "; training " + " ".join(
-        f"{n}={c}" for n, c in train_launches.items()))
+            other_shapes=rows[1:] + serving + extra))
+    print("kernels: " + "; ".join(
+        f"{p} " + " ".join(f"{n}={c}" for n, c in counts.items())
+        for p, counts in by_path.items()))
     print(f"slice: {json.dumps(stats)}")
     print(f"training: {json.dumps(train_stats)}")
+    print(f"moe training: {json.dumps(moe_train_stats)}")
+    print(f"moe slice: {json.dumps(moe_stats)}")
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -15,16 +15,22 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.kernels.backend import resolve_device
 
-def params_from_numpy(tree: Any, device="cpu") -> Any:
+
+def params_from_numpy(tree: Any, device=None) -> Any:
     """Nested dicts / lists / tuples of numpy arrays -> same nesting of
-    tensors on ``device``."""
+    tensors on ``device`` (the card unless the caller asks for the CPU)."""
+    return _from_numpy(tree, resolve_device(device))
+
+
+def _from_numpy(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+        return {k: _from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*[params_from_numpy(v, device) for v in tree])
+        return type(tree)(*[_from_numpy(v, device) for v in tree])
     if isinstance(tree, (list, tuple)):
-        vals = [params_from_numpy(v, device) for v in tree]
+        vals = [_from_numpy(v, device) for v in tree]
         return vals if isinstance(tree, list) else tuple(vals)
     if tree is None:
         return None

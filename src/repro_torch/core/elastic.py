@@ -1,9 +1,10 @@
 """The transformer elastic family: spec algebra, masks, masked compute.
 
 The port of the reference's ``core/elastic.py::TransformerElasticFamily``
-for dense GQA parents: the spec algebra (``full_spec``, ``random_spec``),
-parent init, the forward masks of a spec (``decode_masks``, the serving
-surface), and the training surface the batched round engine runs on —
+for GQA parents, dense or MoE: the spec algebra (``full_spec``,
+``random_spec``), parent init, the forward masks of a spec
+(``decode_masks``, the serving surface), and the training surface the
+batched round engine runs on —
 ``spec_masks`` (coverage + forward masks, LRU-cached by genes),
 ``cohort_masks`` (stacked over clients, on the device) and
 ``masked_loss`` / ``masked_metric`` over client-stacked parameters.
@@ -29,6 +30,7 @@ from repro_torch.core.submodel import (TransformerSubSpec,
                                        coverage_factors,
                                        full_transformer_spec,
                                        transformer_attn_heads,
+                                       transformer_experts,
                                        transformer_ff)
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import transformer as T
@@ -110,9 +112,11 @@ def _lm_per_sample_acc(logits, tokens):
 
 
 class TransformerElasticFamily:
-    """Parent-space elastic dims of a dense GQA parent: d_ff prefix
-    (``ff_frac``), query-head prefix in whole GQA groups
-    (``attn_head_frac``) and per-segment kept layers (depth gates)."""
+    """Parent-space elastic dims of a GQA parent: d_ff prefix
+    (``ff_frac``), routed-expert prefix on MoE parents (``expert_frac``:
+    the router masks the suffix, the grouped matmul skips it),
+    query-head prefix in whole GQA groups (``attn_head_frac``) and
+    per-segment kept layers (depth gates)."""
 
     name = "transformer"
 
@@ -149,6 +153,7 @@ class TransformerElasticFamily:
         return TransformerSubSpec(
             layers=tuple(layers),
             ff_frac=rng.choice(widths),
+            expert_frac=rng.choice(widths) if cfg.moe is not None else 1.0,
             attn_head_frac=(rng.choice(widths) if self._attn_elastic
                             else 1.0))
 
@@ -157,14 +162,19 @@ class TransformerElasticFamily:
 
     def decode_masks(self, spec: TransformerSubSpec) -> Dict:
         """Host (numpy) forward masks of ``spec``: ``ff`` (d_ff,),
-        ``heads`` (H,) and ``depth`` (one (n_layers,) per segment) — the
-        values the reference's ``_build_spec_masks`` gives them."""
+        ``experts`` (E,) on MoE parents, ``heads`` (H,) and ``depth`` (one
+        (n_layers,) per segment) — the values the reference's
+        ``_build_spec_masks`` gives them."""
         cfg = self.cfg
         fwd: Dict = {}
         if cfg.d_ff:
             m = np.zeros((cfg.d_ff,), np.float32)
             m[:transformer_ff(cfg, spec.ff_frac)] = 1.0
             fwd["ff"] = m
+        if cfg.moe is not None:
+            m = np.zeros((cfg.moe.n_experts,), np.float32)
+            m[:transformer_experts(cfg, spec.expert_frac)] = 1.0
+            fwd["experts"] = m
         if self._attn_elastic:
             ah = (cfg.n_heads if spec.attn_head_frac >= 1.0
                   else transformer_attn_heads(cfg, spec.attn_head_frac))

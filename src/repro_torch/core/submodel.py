@@ -5,10 +5,10 @@ the transformer half of the reference's ``core/submodel.py``).
 Coverage is the reference's extract → pad round trip on an all-ones
 parent: 1 on every parent entry the submodel trains, 0 elsewhere. The port
 builds it per leaf from the prefixes, as factors — one 0/1 vector per
-masked axis (kept layers, kept d_ff columns, kept heads), size-1 axes
-elsewhere — whose broadcast product is the reference's mask, so no
-parent-sized template is ever made. Extract and pad themselves (the
-sequential reference path) are not ported yet (ROADMAP A8).
+masked axis (kept layers, kept d_ff columns, kept routed experts, kept
+heads), size-1 axes elsewhere — whose broadcast product is the reference's
+mask, so no parent-sized template is ever made. Extract and pad themselves
+(the sequential reference path) are not ported yet (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -57,6 +57,14 @@ def transformer_ff(cfg: ModelConfig, frac: float) -> int:
     return _round8(int(cfg.d_ff * frac)) if cfg.d_ff else 0
 
 
+def transformer_experts(cfg: ModelConfig, frac: float) -> Optional[int]:
+    """Kept routed experts (a prefix), never fewer than ``top_k``; None on
+    parents without MoE."""
+    if cfg.moe is None:
+        return None
+    return max(cfg.moe.top_k, int(round(cfg.moe.n_experts * frac)))
+
+
 def transformer_attn_heads(cfg: ModelConfig, frac: float) -> Optional[int]:
     """Kept attention query heads: a multiple of the GQA group size (every
     kept KV head keeps its whole query group), at least one group. None
@@ -70,14 +78,18 @@ def transformer_attn_heads(cfg: ModelConfig, frac: float) -> Optional[int]:
 
 
 def _elastic_dims(cfg: ModelConfig, spec: TransformerSubSpec):
-    """Resolved (ff, ah_keep) of a dense GQA spec: the kept d_ff prefix
-    (always resolved, as the reference slices it) and the kept query heads
-    (None when the spec keeps them all)."""
+    """Resolved (ff, n_exp, ah_keep) of a GQA spec: the kept d_ff prefix
+    (always resolved, as the reference slices it), the kept routed experts
+    and the kept query heads (each None when the spec keeps them all or
+    the parent has no such dim)."""
     ff = transformer_ff(cfg, spec.ff_frac)
+    n_exp = None
+    if cfg.moe is not None and spec.expert_frac < 1.0:
+        n_exp = transformer_experts(cfg, spec.expert_frac)
     ah_keep = None
     if spec.attn_head_frac < 1.0:
         ah_keep = transformer_attn_heads(cfg, spec.attn_head_frac)
-    return ff, ah_keep
+    return ff, n_exp, ah_keep
 
 
 def _prefix(n: int, keep: int) -> np.ndarray:
@@ -87,16 +99,22 @@ def _prefix(n: int, keep: int) -> np.ndarray:
 
 
 def _block_coverage(cfg: ModelConfig, tree: Dict, n_layers: int, keep,
-                    ff: int, ah_keep: Optional[int]) -> Dict:
+                    ff: int, n_exp: Optional[int],
+                    ah_keep: Optional[int]) -> Dict:
     """Factors of one segment's stacked (L, ...) block tree: every leaf
     gets its kept-layer vector on axis 0 and, where the spec slices it,
-    the kept prefix on its width axis (the reference's ``_slice_width``)."""
+    the kept prefix on its width axis (the reference's ``_slice_width``:
+    d_ff, query / KV heads, and the routed experts of a ``moe`` leaf —
+    the router's last axis and the expert axis ``ndim-3`` of ``wi`` /
+    ``wg`` / ``wo``; shared experts are kept whole)."""
     layers = np.zeros((n_layers,), np.float32)
     layers[np.asarray(keep, np.int64)] = 1.0
     g = cfg.n_heads // max(cfg.n_kv_heads, 1)
     # every spec gets the same factor shapes (so a cohort stacks): the
     # head axis is always resolved, all heads when the spec keeps them all
     heads = cfg.n_heads if ah_keep is None else ah_keep
+    experts = None if cfg.moe is None else (
+        cfg.moe.n_experts if n_exp is None else n_exp)
 
     def factor(shape, axis=None, vec=None):
         f = layers.reshape((n_layers,) + (1,) * (len(shape) - 1))
@@ -117,6 +135,12 @@ def _block_coverage(cfg: ModelConfig, tree: Dict, n_layers: int, keep,
                 out[k] = factor(shape, len(shape) - 1, _prefix(shape[-1], ff))
             elif parent == "mlp" and ff and k == "wo":
                 out[k] = factor(shape, len(shape) - 2, _prefix(shape[-2], ff))
+            elif parent == "moe" and k == "router":
+                out[k] = factor(shape, len(shape) - 1,
+                                _prefix(shape[-1], experts))
+            elif parent == "moe" and k in ("wi", "wg", "wo"):
+                out[k] = factor(shape, len(shape) - 3,
+                                _prefix(shape[-3], experts))
             elif parent == "attn" and k == "wq":
                 out[k] = factor(shape, len(shape) - 2,
                                 _prefix(shape[-2], heads))
@@ -134,17 +158,18 @@ def _block_coverage(cfg: ModelConfig, tree: Dict, n_layers: int, keep,
 
 def coverage_factors(cfg: ModelConfig, spec: TransformerSubSpec,
                      shapes: Dict) -> Dict:
-    """The 0/1 coverage of ``spec`` over a dense GQA parent, as per-leaf
-    factors (numpy, each with its leaf's number of axes) whose broadcast
-    equals the reference's extract → pad round trip on all-ones.
+    """The 0/1 coverage of ``spec`` over a GQA parent (dense or MoE), as
+    per-leaf factors (numpy, each with its leaf's number of axes) whose
+    broadcast equals the reference's extract → pad round trip on all-ones.
 
     ``shapes``: the parent's tree with each leaf replaced by its shape
     tuple. Embedding, final norm and untied head are covered whole; a
     block leaf is covered on its kept layers, within the kept d_ff prefix
-    (mlp ``wi``/``wg`` columns, ``wo`` rows) and, when the spec drops
-    heads, the kept query heads (``wq``/``wo``) and their KV heads
-    (``wk``/``wv``)."""
-    ff, ah_keep = _elastic_dims(cfg, spec)
+    (mlp ``wi``/``wg`` columns, ``wo`` rows), within the kept routed
+    experts (the router's columns, the experts of ``wi``/``wg``/``wo``;
+    shared experts whole) and, when the spec drops heads, the kept query
+    heads (``wq``/``wo``) and their KV heads (``wk``/``wv``)."""
+    ff, n_exp, ah_keep = _elastic_dims(cfg, spec)
 
     def whole(tree):
         if isinstance(tree, dict):
@@ -154,7 +179,7 @@ def coverage_factors(cfg: ModelConfig, spec: TransformerSubSpec,
     out = {k: whole(v) for k, v in shapes.items() if k != "segments"}
     out["segments"] = [
         {"blocks": _block_coverage(cfg, seg_shapes["blocks"], seg.n_layers,
-                                   keep, ff, ah_keep)}
+                                   keep, ff, n_exp, ah_keep)}
         for seg_shapes, seg, keep in zip(shapes["segments"], cfg.segments,
                                          spec.layers)]
     return out

@@ -16,11 +16,13 @@ flags (an invalid step leaves the client's parameters and momentum
 untouched), partial batches carry sample weights — the same index streams
 as the per-client loader.
 
-The kernel path (``backend="auto"``) runs the MLP and attention through
-the hand-written kernels, forward and backward (``kernels.dispatch``);
-``backend=None`` is the dense masked path of plain tensor ops, the A/B
-baseline. Per-client prefixes reach the kernels as (G,) or (G·B,) int32
-device tensors derived from the masks.
+The kernel path (``backend="auto"``) runs the MLP (or, on a MoE parent,
+the expert dispatch, grouped expert matmul and combine) and attention
+through the hand-written kernels, forward and backward
+(``kernels.dispatch``); ``backend=None`` is the dense masked path of plain
+tensor ops, the A/B baseline. Per-client prefixes (d_ff, experts, heads)
+reach the kernels as (G,) or (G·B,) int32 device tensors derived from the
+masks; the engine itself has no MoE logic.
 
 Not ported yet, and raising NotImplementedError: partial participation
 (``participation=``, ROADMAP A12), the double-buffered prefetch ring

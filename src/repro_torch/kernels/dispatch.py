@@ -27,8 +27,16 @@ op             contract
                skipped inside ``flash_attention``. One launch forward;
                differentiable, with one ``flash_attention_dq`` and one
                ``flash_attention_dkv`` launch in the backward.
-``moe``        not ported yet (ROADMAP Queue B, B5/B6: grouped matmul and
-               MoE dispatch) — raises NotImplementedError.
+``moe``        ``op(eb, w, g_active)``: the grouped expert-prefix matmul
+               ``grouped_matmul`` over an expert buffer eb (G, E, cap, d)
+               and expert weights (E, d, f) shared or (G, E, d, f) per
+               group, skipping experts past ``g_active`` — a (G,) int32
+               tensor (the sum of each group's expert mask) or None. One
+               launch; differentiable, with two more in the backward. The
+               op carries ``op.dispatch`` / ``op.combine``, the K6 / K7
+               token-movement pair (``kernels.moe_dispatch``) whose VJPs
+               are each other's kernels: ``models.moe`` routes its wide
+               (·, d) row traffic through them when present.
 ``ssd``        not ported yet (ROADMAP Queue B, B7/B8: SSD chunk scan) —
                raises NotImplementedError.
 =============  ==============================================================
@@ -43,6 +51,8 @@ import torch
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.elastic_matmul import elastic_dense
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.grouped_matmul import grouped_matmul
+from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
 
 
 def active_len(mask: torch.Tensor, batch: int) -> torch.Tensor:
@@ -74,9 +84,12 @@ def attention_op(q, k, v, *, causal=True, window=None, cap=None,
     return o
 
 
-def moe_op(*args, **kwargs):
-    raise NotImplementedError(
-        "the moe op is not ported yet (ROADMAP Queue B, B5/B6)")
+def moe_op(eb, w, g_active):
+    return grouped_matmul(eb, w.to(eb.dtype), g_active)
+
+
+moe_op.dispatch = moe_dispatch
+moe_op.combine = moe_combine
 
 
 def ssd_op(*args, **kwargs):

@@ -7,6 +7,9 @@ published width and depth. Runs on the card unless ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
       --batch 4 --prompt-len 32 --gen 8 --full --elastic --backend auto
+
+``--arch granite-moe-1b-a400m`` serves the MoE parent the same way (each
+request's random spec then also cuts the routed experts).
 """
 from __future__ import annotations
 

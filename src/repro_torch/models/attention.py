@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.layers import apply_rope, rmsnorm, softcap
 
 NEG_INF = -2.0 ** 30
@@ -79,7 +80,10 @@ class KVCache(NamedTuple):
 
 
 def gqa_cache_init(batch, max_len, n_kv, head_dim, window=None,
-                   dtype=torch.float32, device="cpu"):
+                   dtype=torch.float32, device=None):
+    """A zeroed (batch, C, KV, D) cache on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
     c = min(max_len, window) if window else max_len
     shape = (batch, c, n_kv, head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),

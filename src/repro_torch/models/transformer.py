@@ -1,5 +1,5 @@
-"""Dense GQA transformer: parameter init, the training forward, fused
-prefill and cached decode.
+"""GQA transformer (MLP or MoE blocks): parameter init, the training
+forward, fused prefill and cached decode.
 
 The port of the reference's ``models/transformer.py`` for ``"attn"``
 segments. A segment's layer weights are stacked with a leading
@@ -17,9 +17,15 @@ Two batch layouts replace the reference's ``vmap``:
   submodel — with tokens (G, B, S). No remat: at the training slice's
   shapes the activations of a step fit beside the optimizer state.
 
+MoE blocks (``Segment.use_moe``: a ``moe`` leaf in place of ``mlp``) run
+``models.moe.moe_forward`` with the ``experts`` mask and the ``moe`` op:
+one group per client in training, one group per row in decode (the
+server's ``vmap`` over slots), and in prefill one group for the whole
+batch — or one per row when the expert mask carries a batch axis.
+
 Not ported yet, and raising NotImplementedError when a config needs them:
-MoE blocks (ROADMAP A9), SSM blocks (A10), MLA attention, ``attn_pair``
-segments and the shared hybrid block (A11).
+SSM blocks (ROADMAP A10), MLA attention, ``attn_pair`` segments and the
+shared hybrid block (A11).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (embed, layernorm, mlp, rmsnorm,
                                        softcap)
 
@@ -40,9 +47,6 @@ Params = Dict[str, Any]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming the ROADMAP item for any part of
     ``cfg`` this slice does not run."""
-    if cfg.moe is not None or any(s.use_moe for s in cfg.segments):
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported "
-                                  "yet (ROADMAP A9)")
     if cfg.ssm is not None or any(s.kind == "ssm" for s in cfg.segments):
         raise NotImplementedError(f"{cfg.name}: SSM blocks are not ported "
                                   "yet (ROADMAP A10)")
@@ -91,6 +95,22 @@ def _masks_get(masks, name):
     return None if masks is None else masks.get(name)
 
 
+def _ffn(bp, h, cfg: ModelConfig, masks, kernels, per_row: bool):
+    """The block's feed-forward: the MLP, or the MoE layer of a ``moe``
+    block. h (B, S, d); with ``per_row`` every row of h is its own MoE
+    group (own capacity, own expert prefix), else the B·S tokens form one
+    group."""
+    if "moe" not in bp:
+        return mlp(bp["mlp"], h, cfg.act, width_mask=_masks_get(masks, "ff"),
+                   kernel=_masks_get(kernels, "mlp"))
+    x = h if per_row else h.reshape(1, -1, h.shape[-1])
+    m, _ = moe_lib.moe_forward(
+        bp["moe"], x, cfg.moe, act=cfg.act,
+        expert_mask=_masks_get(masks, "experts"),
+        kernel=_masks_get(kernels, "moe"), return_aux=False)
+    return m.reshape(h.shape)
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -121,12 +141,20 @@ def _param_tree(cfg: ModelConfig, leaf) -> Params:
             else:
                 shape, fan_in = spec
                 attn[name] = leaf(L + shape, 1.0 / math.sqrt(fan_in))
-        mlp_p = {"wi": leaf(L + (d, f), 1.0 / math.sqrt(d)),
-                 "wo": leaf(L + (f, d), 1.0 / math.sqrt(f))}
-        if cfg.mlp_gated:
-            mlp_p["wg"] = leaf(L + (d, f), 1.0 / math.sqrt(d))
-        blocks = {"ln1": norm(L, d), "ln2": norm(L, d), "attn": attn,
-                  "mlp": mlp_p}
+        blocks = {"ln1": norm(L, d), "ln2": norm(L, d), "attn": attn}
+        if seg.use_moe:
+            def stacked(spec):
+                if isinstance(spec, dict):
+                    return {k: stacked(v) for k, v in spec.items()}
+                return leaf(L + spec[0], spec[1])
+            blocks["moe"] = stacked(moe_lib.moe_param_specs(
+                d, cfg.moe, cfg.mlp_gated))
+        else:
+            mlp_p = {"wi": leaf(L + (d, f), 1.0 / math.sqrt(d)),
+                     "wo": leaf(L + (f, d), 1.0 / math.sqrt(f))}
+            if cfg.mlp_gated:
+                mlp_p["wg"] = leaf(L + (d, f), 1.0 / math.sqrt(d))
+            blocks["mlp"] = mlp_p
         if cfg.post_norms:
             blocks["post_ln1"] = norm(L, d)
             blocks["post_ln2"] = norm(L, d)
@@ -201,8 +229,7 @@ def _cohort_attn_block(bp, x, cfg: ModelConfig, seq_len: int, window,
         a = a * _gate(gate, a)
     x = x + a
     h = _norm(cfg, bp["ln2"], x)
-    m = mlp(bp["mlp"], h, cfg.act, width_mask=_masks_get(masks, "ff"),
-            kernel=_masks_get(kernels, "mlp"))
+    m = _ffn(bp, h, cfg, masks, kernels, per_row=True)
     if cfg.post_norms:
         m = _norm(cfg, bp["post_ln2"], m)
     if gate is not None:
@@ -261,8 +288,9 @@ def _apply_attn_block(bp, x, positions, cfg: ModelConfig, window, masks,
         a = a * _gate(gate, a)
     x = x + a
     h = _norm(cfg, bp["ln2"], x)
-    m = mlp(bp["mlp"], h, cfg.act, width_mask=_masks_get(masks, "ff"),
-            kernel=_masks_get(kernels, "mlp"))
+    experts = _masks_get(masks, "experts")
+    m = _ffn(bp, h, cfg, masks, kernels,
+             per_row=experts is not None and experts.dim() == 2)
     if cfg.post_norms:
         m = _norm(cfg, bp["post_ln2"], m)
     if gate is not None:
@@ -312,8 +340,11 @@ def prefill(params: Params, cfg: ModelConfig, tokens, max_len: int, *,
 # decode (single token, cached)
 # ---------------------------------------------------------------------------
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
-                       dtype=torch.float32, device="cpu") -> DecodeCaches:
+                       dtype=torch.float32, device=None) -> DecodeCaches:
+    """Zeroed ring-buffer caches of ``batch`` rows on ``device`` (the card
+    unless the caller asks for the CPU)."""
     check_supported(cfg)
+    device = resolve_device(device)
     segs = []
     for seg in cfg.segments:
         window = seg.sliding_window or cfg.sliding_window
@@ -340,8 +371,7 @@ def _decode_attn_block(bp, x, cache, pos, cfg: ModelConfig, window,
         a = a * _gate(gate, a)
     x = x + a
     h = _norm(cfg, bp["ln2"], x)
-    m = mlp(bp["mlp"], h, cfg.act, width_mask=_masks_get(masks, "ff"),
-            kernel=_masks_get(kernels, "mlp"))
+    m = _ffn(bp, h, cfg, masks, kernels, per_row=True)
     if cfg.post_norms:
         m = _norm(cfg, bp["post_ln2"], m)
     if gate is not None:

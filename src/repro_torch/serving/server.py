@@ -9,8 +9,11 @@ the port writes that axis out as the batch dimension:
 * per-slot positions — a (slots,) position tensor: each slot writes its
   own ring slot and masks its own cache validity;
 * per-slot masks — head masks (slots, H), depth gates (slots, n_layers)
-  and d_ff masks (slots, d_ff); the ``mlp`` op turns them into per-slot
-  prefix tensors for ``elastic_dense``, so one launch serves every spec;
+  and d_ff masks (slots, d_ff), or expert masks (slots, E) on a MoE
+  parent; the ``mlp`` / ``moe`` ops turn them into per-slot prefix tensors
+  for ``elastic_dense`` / ``grouped_matmul``, so one launch serves every
+  spec (a MoE layer routes each slot as its own group, with its own
+  capacity, as the reference's ``vmap`` over slots does);
 * no host syncs on the prefixes — no prefix is ever a Python int; tenant
   admit/evict changes tensor values only (the port's form of the
   reference's three-program bound).

@@ -188,8 +188,16 @@ def test_dispatch_table_and_unported_ops():
     assert dispatch.kernel_dispatch("dense").table() is None
     table = dispatch.kernel_dispatch("auto").table("transformer")
     assert set(table) == {"mlp", "attention", "moe", "ssd"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        table["moe"]()
+    # the moe op is the grouped matmul, carrying the gather pair
+    moe = table["moe"]
+    assert callable(moe.dispatch) and callable(moe.combine)
+    eb = torch.randn(2, 3, 4, 5)
+    w = torch.randn(3, 5, 6)
+    ga = torch.tensor([3, 1], dtype=torch.int32)
+    y = moe(eb, w, ga)
+    assert y.shape == (2, 3, 4, 6)
+    torch.testing.assert_close(y[0], torch.matmul(eb[0], w))
+    assert not y[1, 1:].any()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         table["ssd"]()
     with pytest.raises(ValueError):

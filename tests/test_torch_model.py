@@ -204,7 +204,7 @@ def test_gqa_decode_per_row_positions_match_reference():
 def test_prefill_and_batched_decode_match_reference(window):
     ref_cfg, cfg = _configs(window)
     ref_params = _ref_params(ref_cfg, seed=5)
-    params = params_from_numpy(_np(ref_params))
+    params = params_from_numpy(_np(ref_params), device="cpu")
     ref_fam = ref_family_for(ref_cfg)
     fam = family_for(cfg)
     rng = random.Random(6)
@@ -215,7 +215,7 @@ def test_prefill_and_batched_decode_match_reference(window):
     ref_tab = ref_dispatch("interpret").table()
     tab = kernel_dispatch("auto").table()
 
-    port_caches = PT.init_decode_caches(cfg, 2, max_len)
+    port_caches = PT.init_decode_caches(cfg, 2, max_len, device="cpu")
     ref_out = []
     for i, (spec, prompt) in enumerate(zip(specs, prompts)):
         host = ref_fam.spec_masks(spec).fwd
@@ -261,7 +261,7 @@ def test_fused_prefill_matches_stepwise_decode(window):
         0, cfg.vocab_size, (2, 9)))
     tab = kernel_dispatch("auto").table()
     logits_f, caches_f = PT.prefill(params, cfg, toks, 12, kernels=tab)
-    caches_s = PT.init_decode_caches(cfg, 2, 12)
+    caches_s = PT.init_decode_caches(cfg, 2, 12, device="cpu")
     for i in range(toks.shape[1]):
         logits_s, caches_s = PT.decode_step(params, cfg, caches_s,
                                             toks[:, i:i + 1], i, kernels=tab)
@@ -271,10 +271,14 @@ def test_fused_prefill_matches_stepwise_decode(window):
 
 
 def test_unported_configs_raise_naming_roadmap():
-    for arch in ("granite-moe-1b-a400m", "mamba2-2.7b", "gemma2-9b",
-                 "deepseek-v2-lite-16b", "zamba2-1.2b"):
+    for arch in ("mamba2-2.7b", "gemma2-9b", "deepseek-v2-lite-16b",
+                 "zamba2-1.2b"):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             family_for(reduced(ARCHS[arch], n_layers=2, d_model=64))
+    # the other MoE parent waits for MLA attention, not for MoE
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        family_for(reduced(ARCHS["deepseek-v2-lite-16b"], n_layers=2,
+                           d_model=64))
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +287,7 @@ def test_unported_configs_raise_naming_roadmap():
 def test_bridge_round_trips_bit_equal_and_init_matches_shapes():
     ref_cfg, cfg = _configs()
     ref_np = _np(_ref_params(ref_cfg, seed=8))
-    back = params_to_numpy(params_from_numpy(ref_np))
+    back = params_to_numpy(params_from_numpy(ref_np, device="cpu"))
     ref_leaves, ref_def = jax.tree.flatten(ref_np)
     back_leaves, back_def = jax.tree.flatten(back)
     assert ref_def == back_def

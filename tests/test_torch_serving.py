@@ -45,7 +45,8 @@ def _slice_setup():
                                          n_layers=2, d_model=64))
     fam = family_for(reduced(ARCHS["granite-3-8b"], n_layers=2, d_model=64))
     ref_params = ref_fam.init_params(jax.random.PRNGKey(0))
-    params = params_from_numpy(jax.tree.map(np.asarray, ref_params))
+    params = params_from_numpy(jax.tree.map(np.asarray, ref_params),
+                               device="cpu")
     rng = random.Random(0)
     specs = [fam.random_spec(rng), fam.random_spec(rng), fam.full_spec()]
     prng = np.random.default_rng(1)
@@ -184,6 +185,26 @@ def test_entry_points_never_drop_silently_to_cpu(monkeypatch):
         BatchedRoundEngine(fam, lr=0.1, momentum=0.9)
     with pytest.raises(RuntimeError, match="CUDA"):
         fam.cohort_masks([fam.full_spec()])
+
+
+def test_constructors_never_drop_silently_to_cpu(monkeypatch):
+    """The decode caches, one attention cache and the weight bridge default
+    to the card too: without CUDA and without a device they raise."""
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+    _, _, fam, _, _, _, _ = _slice_setup()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_decode_caches(fam.cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        attention.gqa_cache_init(2, 8, 1, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({"w": np.zeros((2, 3), np.float32)})
+    # the CPU when asked for
+    assert T.init_decode_caches(fam.cfg, 2, 8, device="cpu").segments[
+        0].k.device.type == "cpu"
+    assert params_from_numpy({"w": np.zeros(2, np.float32)},
+                             device="cpu")["w"].device.type == "cpu"
 
 
 def test_batcher_slot_lifecycle():

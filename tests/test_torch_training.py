@@ -193,14 +193,16 @@ def test_clip_and_sgd_per_client_match_vmapped_reference():
     grads["a"][1] *= 100.0                    # one client past the clip
     mu = _stacked_tree(rng, 3)
     want_g, want_n = jax.vmap(lambda g: ref_clip(g, 5.0))(grads)
-    got_g, got_n = clip_by_global_norm(params_from_numpy(grads), 5.0)
+    got_g, got_n = clip_by_global_norm(
+        params_from_numpy(grads, device="cpu"), 5.0)
     _leaves_close(params_to_numpy(got_g), _np(want_g), TOL)
     np.testing.assert_allclose(got_n.numpy(), np.asarray(want_n), rtol=1e-6)
     ref_opt, opt = ref_sgd(0.05, momentum=0.9), sgd(0.05, momentum=0.9)
     want_u, want_s = jax.vmap(lambda g, m: ref_opt.update(
         g, {"step": jnp.zeros((), jnp.int32), "mu": m}))(grads, mu)
-    got_u, got_s = opt.update(params_from_numpy(grads),
-                              {"step": 0, "mu": params_from_numpy(mu)})
+    got_u, got_s = opt.update(
+        params_from_numpy(grads, device="cpu"),
+        {"step": 0, "mu": params_from_numpy(mu, device="cpu")})
     _leaves_close(params_to_numpy(got_u), _np(want_u), TOL)
     _leaves_close(params_to_numpy(got_s["mu"]), _np(want_s["mu"]), TOL)
 
@@ -227,8 +229,9 @@ def test_aggregate_apply_matches_reference(coverage_norm, part, sanitize):
                                                             jnp.float32),
         sanitize=sanitize)
     got = aggregate_apply(
-        params_from_numpy(params), params_from_numpy(deltas),
-        params_from_numpy(cov), torch.from_numpy(weights),
+        params_from_numpy(params, device="cpu"),
+        params_from_numpy(deltas, device="cpu"),
+        params_from_numpy(cov, device="cpu"), torch.from_numpy(weights),
         coverage_norm=coverage_norm,
         participation=None if part is None else torch.tensor(
             part, dtype=torch.float32),
@@ -257,7 +260,7 @@ def test_cohort_forward_matches_vmapped_reference():
         stacked, ref_masks.fwd, jnp.asarray(toks))
     masks = family_for(cfg).cohort_masks(SPECS, device="cpu")
     for backend in ("auto", None):
-        got = PT.forward(params_from_numpy(stacked), cfg,
+        got = PT.forward(params_from_numpy(stacked, device="cpu"), cfg,
                          torch.from_numpy(toks).long(), masks=masks.fwd,
                          kernels=kernel_dispatch(backend).table())
         assert got.shape == want.shape and got.dtype == torch.float32
@@ -303,7 +306,7 @@ def test_run_fl_round_matches_reference(reference_rounds, backend,
     assert eng.kernel_path == ("tile-skipping" if backend else
                                "dense-masked")
     new, accs, n_steps = eng.run_fl_round(
-        params_from_numpy(params), SPECS, train, test, sizes,
+        params_from_numpy(params, device="cpu"), SPECS, train, test, sizes,
         coverage_norm=coverage_norm, **kw)
     want_new, want_accs, want_steps = reference_rounds[coverage_norm]
     np.testing.assert_array_equal(n_steps, want_steps)
@@ -322,7 +325,7 @@ def test_run_fl_round_matches_reference(reference_rounds, backend,
 def test_engine_raises_on_unported_paths():
     _, cfg, params, sizes, train, test, kw = _round_setup()
     eng = engine.BatchedRoundEngine(cfg, lr=0.5, momentum=0.9, device="cpu")
-    p = params_from_numpy(params)
+    p = params_from_numpy(params, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         eng.run_fl_round(p, SPECS, train, test, sizes, participation=object(),
                          **kw)
