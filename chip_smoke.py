@@ -56,6 +56,26 @@ printing its own lines; any failed phase exits non-zero:
 10. MoE serving slice — phase 5 for granite-moe-1b-a400m at all 24
    layers: K5–K7 and K2 must launch, greedy tokens must equal the dense
    path's.
+3c. (run after 3b) K8 / K9 — the SSD chunk scan and its transposed
+   backward — against their plain versions at the SSM slices' shapes
+   (training rows with per-client head prefixes 80 / 40 / 60 / 20, the
+   prefill) and at the edges: prefix 0, ragged and full per row, two
+   groups, one chunk and four, a chunk that is not a multiple of the
+   64-row tile, the per-chunk states, and a chunk whose Σ|dt·A| passes 88
+   (where the reference's dense path overflows).
+11. times, SSM shapes — K8 (forward, forward with states), K9 and the
+   prefill's K8: kernel ms, plain ms and the bound; no single PyTorch call
+   computes an SSD scan, so there is no library time (the dense masked
+   path's time is printed beside it as information, not as a yardstick).
+12. SSM training slice — phase 7 for mamba2-2.7b at its published width
+   (d_model 2560, 80 SSD heads of 64, d_state 128, chunk 256), depth cut
+   to 8 layers, sequences of 512 tokens (two chunks), 4 clients with SSD
+   heads 80 / 40 / 60 / 20 (the last dropping layer 0): K8 and K9 must
+   launch as the design says, every parameter of both paths must stay
+   finite.
+13. SSM serving slice — phase 5 for mamba2-2.7b at all 64 layers, prompts
+   of 512 tokens: K8 must launch 64 times per prefill, greedy tokens must
+   equal the dense path's.
 
 The last lines are a ``kernels:`` line, the slices' stats, the card line,
 one JSON object with every kernel's launches and times, and the result
@@ -84,6 +104,13 @@ K34_TOL = 1e-4                 # two D-length dots per pair, then sums over up
 K5_TOL = 1e-4                  # K ≤ 1024 fp32 products, outputs O(1), as K1
 K7_RTOL = 1e-6                 # k ≤ 8 fp32 terms, relative to max|out|; K6
                                # copies bit for bit
+K8_RTOL = 5e-5                 # y relative to max|y|: cum is bit-equal (fp64
+                               # sum), the dot products run over N, P and Q
+                               # ≤ 256 fp32 terms in another order
+K9_RTOL = 1e-4                 # each output relative to its max: three
+                               # chained products, then the du suffix sum of
+                               # Q terms; dA = Σ_s du·dt relative to
+                               # Σ_s |du·dt| (the sum cancels along s)
 SLICE_LOGIT_RTOL = 1e-3        # 40 fp32 layers summed in another order
 TRAIN_LOSS_RTOL = 1e-4         # eval CE after a round: 2 fp32 layers and 2
                                # SGD steps summed in another order
@@ -109,6 +136,13 @@ MOE_TRAIN = dict(TRAIN, n_layers=12)
 # 32 / 16 / 24 / 8 of 32
 MOE_TRAIN_SPECS = ((False, 1.0, 1.0), (False, 0.5, 1.0), (False, 0.75, 0.5),
                    (True, 0.25, 1.0))
+# the SSM slices: mamba2-2.7b at its published width; sequences of 512
+# tokens, two of the published 256-token chunks; training with the depth
+# cut to 8 layers (~450 M parameters a copy), serving at all 64
+SSM_SLICE = dict(SLICE, arch="mamba2-2.7b", prompt_len=512)
+SSM_TRAIN = dict(TRAIN, n_layers=8, seq_len=512)
+# (drops the first layer, ssm_head_frac): SSD heads 80 / 40 / 60 / 20
+SSM_TRAIN_SPECS = ((False, 1.0), (False, 0.5), (False, 0.75), (True, 0.25))
 
 
 class PhaseError(RuntimeError):
@@ -686,18 +720,22 @@ def host_us(fn, device, iters=200) -> float:
 # ---------------------------------------------------------------------------
 # phase 5: the serving slice
 # ---------------------------------------------------------------------------
-def path_counters(cfg):
+def path_counters(cfg, serving=False):
     """The kernel wrappers whose launches a path of ``cfg`` must show: K1
     and the attention kernels on a dense parent, K5–K7 and the attention
-    kernels on a MoE parent (serving launches the forward ones only)."""
+    kernels on a MoE parent, K8 and K9 on an SSM parent (serving launches
+    the forward ones only)."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import grouped_matmul, moe_dispatch
+    from repro_torch.kernels import grouped_matmul, moe_dispatch, ssd_scan
     from repro_torch.kernels.elastic_matmul import elastic_dense
+    if cfg.ssm is not None:
+        return (ssd_scan.ssd_scan,) + (() if serving
+                                       else (ssd_scan.ssd_scan_bwd,))
     ffn = (grouped_matmul.grouped_matmul, moe_dispatch.gather_rows,
            moe_dispatch.gather_reduce) if cfg.moe is not None \
         else (elastic_dense,)
-    return ffn + (fa.flash_attention, fa.flash_attention_dq,
-                  fa.flash_attention_dkv)
+    return ffn + (fa.flash_attention,) + (() if serving else (
+        fa.flash_attention_dq, fa.flash_attention_dkv))
 
 
 def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
@@ -733,7 +771,7 @@ def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
         sync(device)
         return out, time.perf_counter() - t
 
-    counters = path_counters(cfg)[:-2]           # no backward in serving
+    counters = path_counters(cfg, serving=True)
     for c in counters:
         c.launches = 0
     comps, secs = serve("auto")
@@ -752,6 +790,11 @@ def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
     for name, n in launches.items():
         if n <= 0:
             problems.append(f"{name} never launched on the serving path")
+    if cfg.ssm is not None:          # one K8 per layer and prefill
+        want = cfg.n_layers * n_requests
+        if launches["ssd_scan"] != want:
+            problems.append(f"ssd_scan launched {launches['ssd_scan']} "
+                            f"times on the serving path, design {want}")
     ref, ref_secs = serve(None)
     print(f"  dense path: {n_requests * gen / ref_secs:.2f} tok/s")
     worst = 0.0
@@ -771,6 +814,7 @@ def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
     for c in comps:
         print(f"  req{c.uid} ff={c.spec.ff_frac} experts="
               f"{c.spec.expert_frac} heads={c.spec.attn_head_frac} "
+              f"ssm_heads={c.spec.ssm_head_frac} "
               f"layers={len(c.spec.layers[0])}: {c.tokens}")
     if problems:
         raise PhaseError("; ".join(problems))
@@ -1098,22 +1142,28 @@ def phase_moe_times(device, d_model, d_ff, n_experts, top_k, n_heads, n_kv,
 # phase 7: the training slice — federated CFL rounds
 # ---------------------------------------------------------------------------
 def train_family(cfg, n_layers):
-    """The elastic family of ``cfg`` with its depth cut to ``n_layers``."""
+    """The elastic family of ``cfg`` (one segment) with its depth cut to
+    ``n_layers``."""
     import dataclasses
-    from repro_torch.configs.base import uniform_segments
     from repro_torch.core.elastic import family_for
+    seg, = cfg.segments
     return family_for(dataclasses.replace(
         cfg, name=f"{cfg.name}-{n_layers}l", n_layers=n_layers,
-        segments=uniform_segments(n_layers,
-                                  use_moe=cfg.segments[0].use_moe)))
+        segments=(dataclasses.replace(seg, n_layers=n_layers),)))
 
 
 def train_specs(fam):
     """The cohort's specs: the full spec plus three from the elastic grid
     that together cut d_ff (``TRAIN_SPECS``; the routed experts on a MoE
-    parent, ``MOE_TRAIN_SPECS``), cut the query heads and drop a layer."""
+    parent, ``MOE_TRAIN_SPECS``), cut the query heads and drop a layer; on
+    an SSM parent they cut the SSD heads and drop a layer
+    (``SSM_TRAIN_SPECS``)."""
     from repro_torch.core.submodel import TransformerSubSpec
     n = fam.cfg.segments[0].n_layers
+    if fam.cfg.ssm is not None:
+        return [TransformerSubSpec((tuple(range(1 if drop else 0, n)),),
+                                   ssm_head_frac=w)
+                for drop, w in SSM_TRAIN_SPECS]
     moe = fam.cfg.moe is not None
     width = "expert_frac" if moe else "ff_frac"
     return [TransformerSubSpec((tuple(range(1 if drop else 0, n)),),
@@ -1122,15 +1172,18 @@ def train_specs(fam):
 
 
 def train_prefixes(fam):
-    """Each client's d_ff (or routed-expert) and query-head prefix in the
-    training cohort, read off the cohort's forward masks (host side)."""
+    """Each client's d_ff (or routed-expert) and query-head prefix (SSD-head
+    prefix on an SSM parent) in the training cohort, read off the cohort's
+    forward masks (host side)."""
     fwd = fam.cohort_masks(train_specs(fam), "cpu").fwd
+    if fam.cfg.ssm is not None:
+        return {"heads": [int(n) for n in fwd["ssm_heads"].sum(-1)]}
     width = "experts" if fam.cfg.moe is not None else "ff"
     return {width: [int(n) for n in fwd[width].sum(-1)],
             "heads": [int(n) for n in fwd["heads"].sum(-1)]}
 
 
-def design_launches(n_layers, steps, rounds, moe=False):
+def design_launches(n_layers, steps, rounds, moe=False, ssm=False):
     """Launches per kernel that the design gives for ``rounds`` rounds of
     ``steps`` local steps (every client stepping) and one eval pass each,
     per layer: K2 1 per step and eval pass, K3 and K4 1 per step; on a
@@ -1139,7 +1192,13 @@ def design_launches(n_layers, steps, rounds, moe=False):
     pass; on a MoE parent, per step K5 3 + 6 (dxs and dws of up, gate and
     down), K6 1 + 2 (the dispatch; the combine's VJP gathers the slot rows'
     cotangent and re-gathers the rows of its gate cotangent), K7 1 + 1 (the
-    combine; the dispatch's VJP), and per eval pass K5 3, K6 1, K7 1."""
+    combine; the dispatch's VJP), and per eval pass K5 3, K6 1, K7 1. On an
+    SSM parent, per step K8 2 (the forward, and the backward's rerun for
+    the per-chunk states) and K9 1, and per eval pass K8 1."""
+    if ssm:
+        per = {"ssd_scan": (2, 1), "ssd_scan_bwd": (1, 0)}
+        return {name: rounds * n_layers * (step * steps + ev)
+                for name, (step, ev) in per.items()}
     per = {"flash_attention": (1, 1), "flash_attention_dq": (1, 0),
            "flash_attention_dkv": (1, 0)}
     per.update({"grouped_matmul": (9, 3), "gather_rows": (3, 1),
@@ -1185,7 +1244,7 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
     for k, sp in enumerate(specs):
         print(f"  client {k}: layers {sp.layers[0]} ff_frac {sp.ff_frac} "
               f"expert_frac {sp.expert_frac} attn_head_frac "
-              f"{sp.attn_head_frac}")
+              f"{sp.attn_head_frac} ssm_head_frac {sp.ssm_head_frac}")
     kw = dict(batch_size=batch, epochs=1)
     moe = cfg.moe is not None
     counters = path_counters(cfg)
@@ -1242,7 +1301,8 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
     launches = {c.__name__: c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     steps = int(kern[0]["n_steps"].max())
-    want = design_launches(n_layers, steps, rounds, moe=moe)
+    want = design_launches(n_layers, steps, rounds, moe=moe,
+                           ssm=cfg.ssm is not None)
     tokens = int(sum(kern[0]["n_steps"])) * batch * seq_len
     _, dense = run(None)
     problems = []
@@ -1277,9 +1337,11 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
         if worst_acc > 1.0 / eval_tokens + 1e-6:
             problems.append(f"round {r + 1}: accuracies differ by "
                             f"{worst_acc:.5f} > one eval token")
-        if not all(bool(torch.isfinite(t).all())
-                   for t in tree_leaves(a["params"])):
-            problems.append(f"round {r + 1}: non-finite parameters")
+        for name, res in (("kernel", a), ("dense", b)):
+            if not all(bool(torch.isfinite(t).all())
+                       for t in tree_leaves(res["params"])):
+                problems.append(f"round {r + 1}: non-finite parameters on "
+                                f"the {name} path")
     moved = max(float((y - z).abs().max()) for y, z in zip(
         tree_leaves(dense[0]["params"]), tree_leaves(params0)))
     ratios = {}
@@ -1308,6 +1370,9 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
                                  device)
         worst_loss = float(np.max(np.abs(loss["kernel"] - loss[name])
                                   / np.abs(loss[name])))
+        if not (np.isfinite(loss["kernel"]).all()
+                and np.isfinite(loss[name]).all()):
+            problems.append(f"round-1 eval losses ({name}) not finite")
         print(f"  round-1 eval CE per client: kernel "
               f"{np.round(loss['kernel'], 6).tolist()} {name} "
               f"{np.round(loss[name], 6).tolist()}; max relative "
@@ -1418,6 +1483,222 @@ def local_step_fn(eng, fam, params0, specs, train, batch, device):
 
 
 # ---------------------------------------------------------------------------
+# phases 3c and 11: the SSD scan kernels (K8, K9)
+# ---------------------------------------------------------------------------
+def ssd_cases(d_model, head_dim, d_state, clients, rows, seq, chunk, heads,
+              prompt_len):
+    """(label, R, S, H, P, G, N, Q, h_active, dt range) for K8 / K9: the
+    training path's shapes (R = clients × rows; row r belongs to client
+    r // rows, with that client's SSD-head prefix), the prefill, then the
+    edges (prefix 0 / ragged / full per row, two groups, one chunk and
+    four, a chunk that is not a multiple of the 64-row tile, and dt = 1
+    with A down to −16, whose Σ|dt·A| in a chunk passes 88)."""
+    H = 2 * d_model // head_dim
+    has = [heads[r // rows] for r in range(clients * rows)]
+    return [
+        ("train", clients * rows, seq, H, head_dim, 1, d_state, chunk, has,
+         (0.01, 0.3)),
+        ("prefill", 1, prompt_len, H, head_dim, 1, d_state, chunk, None,
+         (0.01, 0.3)),
+        ("prefix 0/ragged/full", 3, 128, 40, 64, 1, 32, 64, [0, 37, 40],
+         (0.01, 0.3)),
+        ("groups 2", 2, 128, 8, 32, 2, 16, 32, [8, 5], (0.01, 0.3)),
+        ("one chunk", 2, 64, 4, 64, 1, 128, 64, [4, 1], (0.01, 0.3)),
+        ("chunk 100", 2, 300, 3, 32, 1, 64, 100, [3, 2], (0.01, 0.3)),
+        ("sum|dt A| > 88", 1, 256, 4, 64, 1, 128, 128, None, (1.0, 1.0)),
+    ]
+
+
+def _ssd_inputs(R, S, H, P, G, N, dt_range, device, gen):
+    import torch
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    lo, hi = dt_range
+    dt = lo + (hi - lo) * torch.rand((R, S, H), generator=gen,
+                                     device=device)
+    # each row its own A (each client its own A_log), −1 … −16
+    A = -torch.exp(torch.linspace(0.0, math.log(16.0), H, device=device)
+                   )[None].expand(R, H) * (
+        1.0 + 0.1 * torch.rand((R, 1), generator=gen, device=device))
+    return rn(R, S, H, P), dt.contiguous(), A.contiguous(), \
+        rn(R, S, G, N), rn(R, S, G, N)
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def phase_ssd_kernels(device, d_model, head_dim, d_state, clients, rows,
+                      seq, chunk, heads, prompt_len):
+    """K8 (y and the per-chunk states) and K9 (its own outputs dx, ddt, du,
+    dB, dC, fed by K8's own states; the plain backward takes the plain
+    forward's) against their plain versions on ``ssd_cases``, each error
+    relative to the largest value of its output; and dA, the wrapper's
+    reduction Σ_s du·dt, relative to Σ_s |du·dt|. Returns the worst error
+    of each kernel. Raises PhaseError past a tolerance or on a non-finite
+    value."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd_raw,
+                                              ssd_scan_bwd_raw_plain,
+                                              ssd_scan_plain)
+    gen = torch.Generator(device=device).manual_seed(6)
+    worst = {"ssd_scan": 0.0, "ssd_scan_bwd": 0.0}
+    failed = []
+    for label, R, S, H, P, G, N, Q, ha, dtr in ssd_cases(
+            d_model, head_dim, d_state, clients, rows, seq, chunk, heads,
+            prompt_len):
+        x, dt, A, Bm, Cm = _ssd_inputs(R, S, H, P, G, N, dtr, device, gen)
+        hat = None if ha is None else _i32(ha, device)
+        y, st = ssd_scan(x, dt, A, Bm, Cm, Q, h_active=hat,
+                         return_states=True)
+        y1 = ssd_scan(x, dt, A, Bm, Cm, Q, h_active=hat)
+        y_p, st_p = ssd_scan_plain(x, dt, A, Bm, Cm, Q, hat, True)
+        dy = torch.randn(x.shape, generator=gen, device=device)
+        g = ssd_scan_bwd_raw(x, dt, A, Bm, Cm, st, dy, Q, h_active=hat)
+        g_p = ssd_scan_bwd_raw_plain(x, dt, A, Bm, Cm, st_p, dy, Q, hat)
+        sync(device)
+        e8 = max(_rel_err(y, y_p), _rel_err(st, st_p) if st_p.any() else
+                 float(st.abs().max()))
+        e9s = {n: _rel_err(a, b)
+               for n, a, b in zip(("dx", "ddt", "du", "dB", "dC"), g, g_p)}
+        # dA = Σ_s du·dt, the wrapper's torch reduction of K9's du, cancels
+        # along s: its rounding scales with Σ_s |du·dt|, not with |dA|
+        dA, dA_p = (torch.einsum("rsh,rsh->rh", u, dt)
+                    for u in (g[2], g_p[2]))
+        e9s["dA"] = float((dA - dA_p).abs().max()) / max(float(
+            torch.einsum("rsh,rsh->rh", g_p[2].abs(), dt).max()), 1e-30)
+        e9 = max(e9s.values())
+        worst["ssd_scan"] = max(worst["ssd_scan"], e8)
+        worst["ssd_scan_bwd"] = max(worst["ssd_scan_bwd"], e9)
+        finite = all(bool(torch.isfinite(t).all()) for t in (y, st) + g)
+        dead_zero = ha is None or all(
+            not bool(y[r, :, n:].any()) and not bool(g[0][r, :, n:].any())
+            for r, n in enumerate(ha))
+        ok = e8 <= K8_RTOL and e9 <= K9_RTOL and finite and dead_zero and \
+            bool(torch.equal(y, y1))
+        shown = ha if ha is None or len(ha) < 6 else "per client"
+        sum_dA = float((dt * A[:, None, :]).reshape(
+            R, S // Q, Q, H).sum(2).abs().max())
+        print(f"  ssd_scan fwd+bwd {label:20s} R={R} S={S} H={H} P={P} G={G}"
+              f" N={N} Q={Q} h_active={shown} max chunk sum|dt A| "
+              f"{sum_dA:.1f}: max|err|/max y,states {e8:.3e} (tol "
+              f"{K8_RTOL:g}), cotangents {e9:.3e} (tol {K9_RTOL:g}; "
+              f"worst {max(e9s, key=e9s.get)}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"ssd_scan {label}")
+        del x, dt, A, Bm, Cm, y, st, y_p, st_p, g, g_p
+    if failed:
+        raise PhaseError(f"SSD kernels disagree with their plain versions: "
+                         f"{failed}")
+    return worst
+
+
+def ssd_work(R, S, H, P, G, N, Q, ha, backward=False, states=False):
+    """(bytes, operations) K8 (or K9) must at least move and do: per live
+    (row, head, chunk), with the causal triangle T = Q(Q+1)/2, K8 2T(N+P) +
+    4QPN and K9 2T(3N+2P) + 10QPN operations; x and y (K9: x, dy and dx)
+    once per live head, B, C and dt once per row, the states written (K8)
+    or read (K9) once per live head, and K9's per-head outputs (ddt, du,
+    dB, dC) once."""
+    live = sum(ha) if ha is not None else R * H
+    nc = S // Q
+    T = Q * (Q + 1) / 2
+    if backward:
+        ops = 2 * T * (3 * N + 2 * P) + 10 * Q * P * N
+        nbytes = 4.0 * (3 * live * S * P + R * S * (2 * G * N + H)
+                        + live * nc * P * N + R * S * H * (2 + 2 * N))
+    else:
+        ops = 2 * T * (N + P) + 4 * Q * P * N
+        nbytes = 4.0 * (2 * live * S * P + R * S * (2 * G * N + H)
+                        + (live * nc * P * N if states else 0))
+    return nbytes, ops * live * nc
+
+
+def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
+                    chunk, heads, prompt_len, iters=5):
+    """Kernel / plain ms and the bound of K8 (forward; forward with the
+    states) and K9 at the SSM training slice's shapes (its head prefixes),
+    and of K8 at the prefill's. No single PyTorch call computes an SSD
+    scan (``library_ms`` None); the dense masked path's time
+    (``models.ssm.ssd_chunked``, and autograd through it) is kept as
+    ``dense_ms``, information and not a yardstick."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd_raw,
+                                              ssd_scan_bwd_raw_plain,
+                                              ssd_scan_plain)
+    from repro_torch.models.ssm import ssd_chunked
+    gen = torch.Generator(device=device).manual_seed(7)
+    H = 2 * d_model // head_dim
+    out = {"ssd_scan": [], "ssd_scan_bwd": []}
+    R = clients * rows
+    ha = [heads[r // rows] for r in range(R)]
+    x, dt, A, Bm, Cm = _ssd_inputs(R, seq, H, head_dim, 1, d_state,
+                                   (0.01, 0.3), device, gen)
+    hat = _i32(ha, device)
+    shape = (f"train xh({R},{seq},{H},{head_dim}) B,C({R},{seq},1,"
+             f"{d_state}) chunk {chunk} h_active {sorted(set(heads))}")
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, dt, A, Bm, Cm)]
+    y_d, _ = ssd_chunked(*leaves, chunk)
+    dy = torch.randn(x.shape, generator=gen, device=device)
+    for label, states in (("fwd", False), ("fwd+states", True)):
+        row = dict(shape=f"{shape} {label}",
+                   ms=cuda_ms(lambda: ssd_scan(
+                       x, dt, A, Bm, Cm, chunk, h_active=hat,
+                       return_states=states), device, iters, 1),
+                   plain_ms=cuda_ms(lambda: ssd_scan_plain(
+                       x, dt, A, Bm, Cm, chunk, hat, states), device, iters,
+                       1),
+                   library_ms=None)
+        with torch.no_grad():
+            row["dense_ms"] = cuda_ms(lambda: ssd_chunked(
+                x, dt, A, Bm, Cm, chunk), device, iters, 1)
+        row["bound_ms"], row["bound_by"] = bound(*ssd_work(
+            R, seq, H, head_dim, 1, d_state, chunk, ha, states=states))
+        out["ssd_scan"].append(row)
+    _, st = ssd_scan(x, dt, A, Bm, Cm, chunk, h_active=hat,
+                     return_states=True)
+    row = dict(shape=f"{shape} bwd",
+               ms=cuda_ms(lambda: ssd_scan_bwd_raw(
+                   x, dt, A, Bm, Cm, st, dy, chunk, h_active=hat), device,
+                   iters, 1),
+               plain_ms=cuda_ms(lambda: ssd_scan_bwd_raw_plain(
+                   x, dt, A, Bm, Cm, st, dy, chunk, hat), device, iters, 1),
+               library_ms=None,
+               dense_ms=cuda_ms(lambda: torch.autograd.grad(
+                   y_d, leaves, dy, retain_graph=True), device, iters, 1))
+    row["bound_ms"], row["bound_by"] = bound(*ssd_work(
+        R, seq, H, head_dim, 1, d_state, chunk, ha, backward=True))
+    out["ssd_scan_bwd"].append(row)
+    del x, dt, A, Bm, Cm, leaves, y_d, st, dy
+    x, dt, A, Bm, Cm = _ssd_inputs(1, prompt_len, H, head_dim, 1, d_state,
+                                   (0.01, 0.3), device, gen)
+    row = dict(shape=f"prefill xh(1,{prompt_len},{H},{head_dim}) chunk "
+                     f"{chunk}",
+               ms=cuda_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk), device,
+                          iters),
+               plain_ms=cuda_ms(lambda: ssd_scan_plain(x, dt, A, Bm, Cm,
+                                                       chunk), device,
+                                iters),
+               library_ms=None)
+    with torch.no_grad():
+        row["dense_ms"] = cuda_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm,
+                                                      chunk), device, iters)
+    row["bound_ms"], row["bound_by"] = bound(*ssd_work(
+        1, prompt_len, H, head_dim, 1, d_state, chunk, None))
+    out["ssd_scan"].append(row)
+    for name, rs in out.items():
+        for r in rs:
+            print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, library — (none exists), bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}); dense masked "
+                  f"path {r['dense_ms']:.4f} ms (information only)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 def without_arch(settings):
     return {k: v for k, v in settings.items() if k != "arch"}
 
@@ -1477,6 +1758,13 @@ def main() -> int:
                  head_dim=mcfg.head_dim, clients=MOE_TRAIN["clients"],
                  rows=MOE_TRAIN["batch"], seq=MOE_TRAIN["seq_len"],
                  slots=MOE_SLICE["slots"], experts=mpre["experts"])
+    scfg = get_config(SSM_SLICE["arch"])
+    spre = train_prefixes(train_family(scfg, SSM_TRAIN["n_layers"]))
+    sdims = dict(d_model=scfg.d_model, head_dim=scfg.ssm.head_dim,
+                 d_state=scfg.ssm.d_state, clients=SSM_TRAIN["clients"],
+                 rows=SSM_TRAIN["batch"], seq=SSM_TRAIN["seq_len"],
+                 chunk=scfg.ssm.chunk, heads=spre["heads"],
+                 prompt_len=SSM_SLICE["prompt_len"])
 
     def release():                   # the last phase's models leave the card
         gc.collect()
@@ -1489,6 +1777,9 @@ def main() -> int:
         mworst = phase_moe_kernels(device, tokens=mdims["rows"] *
                                    mdims["seq"], heads=mpre["heads"],
                                    **mdims)
+        print("== 3c. SSD kernels against their plain versions (K8, K9)")
+        sworst = phase_ssd_kernels(device, **sdims)
+        release()
         print("== 4. times: serving shapes")
         times = phase_times(device, **dims)
         print("== 5. slice: granite-3-8b serving, full width and depth, "
@@ -1517,6 +1808,20 @@ def main() -> int:
               "depth, fp32")
         moe_launches, moe_stats = phase_slice(device, mcfg,
                                               **without_arch(MOE_SLICE))
+        release()
+        print("== 11. times: SSM shapes")
+        ssm_times = phase_ssd_times(device, **sdims)
+        release()
+        print(f"== 12. slice: mamba2-2.7b training, full width, "
+              f"{SSM_TRAIN['n_layers']} layers, {SSM_TRAIN['clients']} "
+              f"clients, {SSM_TRAIN['rounds']} CFL rounds, fp32")
+        ssm_train_launches, ssm_train_stats = phase_train(device, scfg,
+                                                          **SSM_TRAIN)
+        release()
+        print("== 13. slice: mamba2-2.7b serving, full width and depth, "
+              "fp32")
+        ssm_launches, ssm_stats = phase_slice(device, scfg,
+                                              **without_arch(SSM_SLICE))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1543,26 +1848,37 @@ def main() -> int:
         "gather_reduce": dict(
             source="src/repro_torch/csrc/moe_dispatch.cu",
             replaces="src/repro/kernels/moe_dispatch.py:94"),
+        "ssd_scan": dict(
+            source="src/repro_torch/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:48"),
+        "ssd_scan_bwd": dict(
+            source="src/repro_torch/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:208"),
     }
     # the headline row of each kernel is its first training-path shape (the
-    # dense slice's for K1–K4, the MoE slice's for K5–K7), and ``launches``
-    # counts that path's run; ``launches_by_path`` every path's run (each
-    # counted from 0 just before it)
+    # dense slice's for K1–K4, the MoE slice's for K5–K7, the SSM slice's
+    # for K8–K9), and ``launches`` counts that path's run;
+    # ``launches_by_path`` every path's run (each counted from 0 just before
+    # it)
     by_path = {"serving": launches, "training": train_launches,
-               "moe_training": moe_train_launches, "moe_serving": moe_launches}
-    for name, err in mworst.items():
+               "moe_training": moe_train_launches, "moe_serving": moe_launches,
+               "ssm_training": ssm_train_launches, "ssm_serving": ssm_launches}
+    for name, err in list(mworst.items()) + list(sworst.items()):
         worst[name] = max(worst.get(name, 0.0), err)
+    home = {n: ("moe_training", moe_times) for n in
+            ("grouped_matmul", "gather_rows", "gather_reduce")}
+    home.update({n: ("ssm_training", ssm_times)
+                 for n in ("ssd_scan", "ssd_scan_bwd")})
     entries = []
     for name in meta:
-        moe_row = name in ("grouped_matmul", "gather_rows", "gather_reduce")
-        rows = moe_times[name] if moe_row else train_times[name]
+        path, table = home.get(name, ("training", train_times))
+        rows = table[name]
         head, serving = rows[0], times.get(name, [])
-        extra = [] if moe_row else moe_times.get(name, [])
+        extra = moe_times.get(name, []) if path == "training" else []
         entries.append(dict(
             name=name, route="cuda", source=meta[name]["source"],
             replaces=meta[name]["replaces"],
-            launches=by_path["moe_training" if moe_row
-                             else "training"].get(name, 0),
+            launches=by_path[path].get(name, 0),
             launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
             max_abs_err=worst[name], ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
@@ -1579,6 +1895,8 @@ def main() -> int:
     print(f"training: {json.dumps(train_stats)}")
     print(f"moe training: {json.dumps(moe_train_stats)}")
     print(f"moe slice: {json.dumps(moe_stats)}")
+    print(f"ssm training: {json.dumps(ssm_train_stats)}")
+    print(f"ssm slice: {json.dumps(ssm_stats)}")
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

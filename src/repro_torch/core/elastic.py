@@ -1,10 +1,10 @@
 """The transformer elastic family: spec algebra, masks, masked compute.
 
 The port of the reference's ``core/elastic.py::TransformerElasticFamily``
-for GQA parents, dense or MoE: the spec algebra (``full_spec``,
-``random_spec``), parent init, the forward masks of a spec
-(``decode_masks``, the serving surface), and the training surface the
-batched round engine runs on —
+for GQA parents, dense or MoE, and Mamba2 SSM parents: the spec algebra
+(``full_spec``, ``random_spec``), parent init, the forward masks of a
+spec (``decode_masks``, the serving surface), and the training surface
+the batched round engine runs on —
 ``spec_masks`` (coverage + forward masks, LRU-cached by genes),
 ``cohort_masks`` (stacked over clients, on the device) and
 ``masked_loss`` / ``masked_metric`` over client-stacked parameters.
@@ -31,7 +31,8 @@ from repro_torch.core.submodel import (TransformerSubSpec,
                                        full_transformer_spec,
                                        transformer_attn_heads,
                                        transformer_experts,
-                                       transformer_ff)
+                                       transformer_ff,
+                                       transformer_ssm_heads)
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import transformer as T
 
@@ -112,9 +113,10 @@ def _lm_per_sample_acc(logits, tokens):
 
 
 class TransformerElasticFamily:
-    """Parent-space elastic dims of a GQA parent: d_ff prefix
+    """Parent-space elastic dims of a GQA or SSM parent: d_ff prefix
     (``ff_frac``), routed-expert prefix on MoE parents (``expert_frac``:
-    the router masks the suffix, the grouped matmul skips it),
+    the router masks the suffix, the grouped matmul skips it), SSD-head
+    prefix on SSM parents (``ssm_head_frac``: the scan skips the suffix),
     query-head prefix in whole GQA groups (``attn_head_frac``) and
     per-segment kept layers (depth gates)."""
 
@@ -154,6 +156,7 @@ class TransformerElasticFamily:
             layers=tuple(layers),
             ff_frac=rng.choice(widths),
             expert_frac=rng.choice(widths) if cfg.moe is not None else 1.0,
+            ssm_head_frac=rng.choice(widths) if cfg.ssm is not None else 1.0,
             attn_head_frac=(rng.choice(widths) if self._attn_elastic
                             else 1.0))
 
@@ -162,9 +165,10 @@ class TransformerElasticFamily:
 
     def decode_masks(self, spec: TransformerSubSpec) -> Dict:
         """Host (numpy) forward masks of ``spec``: ``ff`` (d_ff,),
-        ``experts`` (E,) on MoE parents, ``heads`` (H,) and ``depth`` (one
-        (n_layers,) per segment) — the values the reference's
-        ``_build_spec_masks`` gives them."""
+        ``experts`` (E,) on MoE parents, ``ssm_heads`` (H_ssm,) on SSM
+        parents, ``heads`` (H,) and ``depth`` (one (n_layers,) per segment)
+        — the values the reference's ``_build_spec_masks`` gives them
+        (all-ones at frac 1.0, so every cohort member's tree matches)."""
         cfg = self.cfg
         fwd: Dict = {}
         if cfg.d_ff:
@@ -175,6 +179,13 @@ class TransformerElasticFamily:
             m = np.zeros((cfg.moe.n_experts,), np.float32)
             m[:transformer_experts(cfg, spec.expert_frac)] = 1.0
             fwd["experts"] = m
+        if cfg.ssm is not None:
+            nh = cfg.ssm.n_heads(cfg.d_model)
+            keep = (nh if spec.ssm_head_frac >= 1.0
+                    else transformer_ssm_heads(cfg, spec.ssm_head_frac))
+            m = np.zeros((nh,), np.float32)
+            m[:keep] = 1.0
+            fwd["ssm_heads"] = m
         if self._attn_elastic:
             ah = (cfg.n_heads if spec.attn_head_frac >= 1.0
                   else transformer_attn_heads(cfg, spec.attn_head_frac))

@@ -6,9 +6,10 @@ Coverage is the reference's extract → pad round trip on an all-ones
 parent: 1 on every parent entry the submodel trains, 0 elsewhere. The port
 builds it per leaf from the prefixes, as factors — one 0/1 vector per
 masked axis (kept layers, kept d_ff columns, kept routed experts, kept
-heads), size-1 axes elsewhere — whose broadcast product is the reference's
-mask, so no parent-sized template is ever made. Extract and pad themselves
-(the sequential reference path) are not ported yet (ROADMAP A8).
+attention heads, kept SSD heads), size-1 axes elsewhere — whose
+broadcast product is the reference's mask, so no parent-sized template
+is ever made. Extract and pad themselves (the sequential reference
+path) are not ported yet (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -65,6 +66,17 @@ def transformer_experts(cfg: ModelConfig, frac: float) -> Optional[int]:
     return max(cfg.moe.top_k, int(round(cfg.moe.n_experts * frac)))
 
 
+def transformer_ssm_heads(cfg: ModelConfig, frac: float) -> Optional[int]:
+    """Kept SSD heads: a multiple of n_groups (the B/C group broadcast must
+    still tile the kept heads), at least one group's worth. None on parents
+    without SSM blocks."""
+    if cfg.ssm is None:
+        return None
+    nh = cfg.ssm.n_heads(cfg.d_model)
+    ng = cfg.ssm.n_groups
+    return max(ng, (int(round(nh * frac)) // ng) * ng)
+
+
 def transformer_attn_heads(cfg: ModelConfig, frac: float) -> Optional[int]:
     """Kept attention query heads: a multiple of the GQA group size (every
     kept KV head keeps its whole query group), at least one group. None
@@ -78,18 +90,21 @@ def transformer_attn_heads(cfg: ModelConfig, frac: float) -> Optional[int]:
 
 
 def _elastic_dims(cfg: ModelConfig, spec: TransformerSubSpec):
-    """Resolved (ff, n_exp, ah_keep) of a GQA spec: the kept d_ff prefix
-    (always resolved, as the reference slices it), the kept routed experts
-    and the kept query heads (each None when the spec keeps them all or
-    the parent has no such dim)."""
+    """Resolved (ff, n_exp, nh_keep, ah_keep) of a spec: the kept d_ff
+    prefix (always resolved, as the reference slices it), the kept routed
+    experts, the kept SSD heads and the kept query heads (each None when
+    the spec keeps them all or the parent has no such dim)."""
     ff = transformer_ff(cfg, spec.ff_frac)
     n_exp = None
     if cfg.moe is not None and spec.expert_frac < 1.0:
         n_exp = transformer_experts(cfg, spec.expert_frac)
+    nh_keep = None
+    if cfg.ssm is not None and spec.ssm_head_frac < 1.0:
+        nh_keep = transformer_ssm_heads(cfg, spec.ssm_head_frac)
     ah_keep = None
     if spec.attn_head_frac < 1.0:
         ah_keep = transformer_attn_heads(cfg, spec.attn_head_frac)
-    return ff, n_exp, ah_keep
+    return ff, n_exp, nh_keep, ah_keep
 
 
 def _prefix(n: int, keep: int) -> np.ndarray:
@@ -99,14 +114,18 @@ def _prefix(n: int, keep: int) -> np.ndarray:
 
 
 def _block_coverage(cfg: ModelConfig, tree: Dict, n_layers: int, keep,
-                    ff: int, n_exp: Optional[int],
+                    ff: int, n_exp: Optional[int], nh_keep: Optional[int],
                     ah_keep: Optional[int]) -> Dict:
     """Factors of one segment's stacked (L, ...) block tree: every leaf
     gets its kept-layer vector on axis 0 and, where the spec slices it,
     the kept prefix on its width axis (the reference's ``_slice_width``:
-    d_ff, query / KV heads, and the routed experts of a ``moe`` leaf —
-    the router's last axis and the expert axis ``ndim-3`` of ``wi`` /
-    ``wg`` / ``wo``; shared experts are kept whole)."""
+    d_ff, query / KV heads, the routed experts of a ``moe`` leaf — the
+    router's last axis and the expert axis ``ndim-3`` of ``wi`` / ``wg`` /
+    ``wo``; shared experts are kept whole — and the SSD heads of a
+    ``mamba`` leaf, as ``_slice_mamba``: ``wz`` / ``wx`` / ``conv_x`` /
+    ``norm`` on the d_inner prefix of their last axis, ``out_proj`` on
+    axis ``ndim-2``, ``wdt`` / ``A_log`` / ``D`` / ``dt_bias`` on the head
+    prefix; ``wB`` / ``wC`` / ``conv_B`` / ``conv_C`` whole)."""
     layers = np.zeros((n_layers,), np.float32)
     layers[np.asarray(keep, np.int64)] = 1.0
     g = cfg.n_heads // max(cfg.n_kv_heads, 1)
@@ -115,6 +134,11 @@ def _block_coverage(cfg: ModelConfig, tree: Dict, n_layers: int, keep,
     heads = cfg.n_heads if ah_keep is None else ah_keep
     experts = None if cfg.moe is None else (
         cfg.moe.n_experts if n_exp is None else n_exp)
+    ssm_heads = di = None
+    if cfg.ssm is not None:
+        ssm_heads = cfg.ssm.n_heads(cfg.d_model) if nh_keep is None \
+            else nh_keep
+        di = ssm_heads * cfg.ssm.head_dim
 
     def factor(shape, axis=None, vec=None):
         f = layers.reshape((n_layers,) + (1,) * (len(shape) - 1))
@@ -124,14 +148,31 @@ def _block_coverage(cfg: ModelConfig, tree: Dict, n_layers: int, keep,
                          for a in range(len(shape))])
         return f * w
 
-    def walk(d, parent):
+    def last(shape, n):
+        return factor(shape, len(shape) - 1, _prefix(shape[-1], n))
+
+    def walk(d, path):
         out = {}
+        parent = path[-1] if path else None
         for k, v in d.items():
             if isinstance(v, dict):
-                out[k] = walk(v, k)
+                out[k] = walk(v, path + (k,))
                 continue
             shape = tuple(v)
-            if parent == "mlp" and ff and k in ("wi", "wg"):
+            if "mamba" in path:
+                if parent == "mamba" and k in ("wz", "wx"):
+                    out[k] = last(shape, di)
+                elif parent == "mamba" and k in ("wdt", "A_log", "D",
+                                                 "dt_bias"):
+                    out[k] = last(shape, ssm_heads)
+                elif parent in ("conv_x", "norm"):
+                    out[k] = last(shape, di)
+                elif k == "out_proj":
+                    out[k] = factor(shape, len(shape) - 2,
+                                    _prefix(shape[-2], di))
+                else:
+                    out[k] = factor(shape)
+            elif parent == "mlp" and ff and k in ("wi", "wg"):
                 out[k] = factor(shape, len(shape) - 1, _prefix(shape[-1], ff))
             elif parent == "mlp" and ff and k == "wo":
                 out[k] = factor(shape, len(shape) - 2, _prefix(shape[-2], ff))
@@ -153,12 +194,12 @@ def _block_coverage(cfg: ModelConfig, tree: Dict, n_layers: int, keep,
             else:
                 out[k] = factor(shape)
         return out
-    return walk(tree, None)
+    return walk(tree, ())
 
 
 def coverage_factors(cfg: ModelConfig, spec: TransformerSubSpec,
                      shapes: Dict) -> Dict:
-    """The 0/1 coverage of ``spec`` over a GQA parent (dense or MoE), as
+    """The 0/1 coverage of ``spec`` over a parent (dense, MoE or SSM), as
     per-leaf factors (numpy, each with its leaf's number of axes) whose
     broadcast equals the reference's extract → pad round trip on all-ones.
 
@@ -167,9 +208,10 @@ def coverage_factors(cfg: ModelConfig, spec: TransformerSubSpec,
     block leaf is covered on its kept layers, within the kept d_ff prefix
     (mlp ``wi``/``wg`` columns, ``wo`` rows), within the kept routed
     experts (the router's columns, the experts of ``wi``/``wg``/``wo``;
-    shared experts whole) and, when the spec drops heads, the kept query
-    heads (``wq``/``wo``) and their KV heads (``wk``/``wv``)."""
-    ff, n_exp, ah_keep = _elastic_dims(cfg, spec)
+    shared experts whole), within the kept SSD heads of a ``mamba`` leaf
+    and, when the spec drops heads, the kept query heads (``wq``/``wo``)
+    and their KV heads (``wk``/``wv``)."""
+    ff, n_exp, nh_keep, ah_keep = _elastic_dims(cfg, spec)
 
     def whole(tree):
         if isinstance(tree, dict):
@@ -179,7 +221,7 @@ def coverage_factors(cfg: ModelConfig, spec: TransformerSubSpec,
     out = {k: whole(v) for k, v in shapes.items() if k != "segments"}
     out["segments"] = [
         {"blocks": _block_coverage(cfg, seg_shapes["blocks"], seg.n_layers,
-                                   keep, ff, n_exp, ah_keep)}
+                                   keep, ff, n_exp, nh_keep, ah_keep)}
         for seg_shapes, seg, keep in zip(shapes["segments"], cfg.segments,
                                          spec.layers)]
     return out

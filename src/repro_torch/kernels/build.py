@@ -30,7 +30,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("elastic_dense", "flash_attention_fwd", "flash_attention_bwd",
-           "grouped_matmul", "moe_dispatch")
+           "grouped_matmul", "moe_dispatch", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

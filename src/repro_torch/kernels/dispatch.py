@@ -37,8 +37,13 @@ op             contract
                token-movement pair (``kernels.moe_dispatch``) whose VJPs
                are each other's kernels: ``models.moe`` routes its wide
                (·, d) row traffic through them when present.
-``ssd``        not ported yet (ROADMAP Queue B, B7/B8: SSD chunk scan) —
-               raises NotImplementedError.
+``ssd``        ``op(xh, dt, A, Bm, Cm, chunk, head_mask=None) -> (y, None)``,
+               xh (R, S, H, P), A (H,) or one per row (R, H), head_mask
+               None, (H,) or (R, H): the SSD chunk scan ``ssd_scan`` (K8),
+               heads past ``sum(head_mask)`` skipped. One launch forward;
+               differentiable, the backward rerunning K8 for the per-chunk
+               initial states (no O(S·P) activations kept) and then the
+               transposed scan ``ssd_scan_bwd`` (K9) under the same prefix.
 =============  ==============================================================
 """
 from __future__ import annotations
@@ -53,6 +58,7 @@ from repro_torch.kernels.elastic_matmul import elastic_dense
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.grouped_matmul import grouped_matmul
 from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 
 
 def active_len(mask: torch.Tensor, batch: int) -> torch.Tensor:
@@ -92,9 +98,35 @@ moe_op.dispatch = moe_dispatch
 moe_op.combine = moe_combine
 
 
-def ssd_op(*args, **kwargs):
-    raise NotImplementedError(
-        "the ssd op is not ported yet (ROADMAP Queue B, B7/B8)")
+class _SSD(torch.autograd.Function):
+    """The reference's ``_make_ssd_prefix`` custom VJP: K8 forward; the
+    backward reruns K8 for the per-chunk initial states, then K9 under the
+    same head prefix."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, Bm, Cm, chunk, h_active):
+        ctx.save_for_backward(xh, dt, A, Bm, Cm, h_active)
+        ctx.chunk = chunk
+        return ssd_scan(xh, dt, A, Bm, Cm, chunk, h_active=h_active)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xh, dt, A, Bm, Cm, ha = ctx.saved_tensors
+        _, states = ssd_scan(xh, dt, A, Bm, Cm, ctx.chunk, h_active=ha,
+                             return_states=True)
+        grads = ssd_scan_bwd(xh, dt, A, Bm, Cm, states, dy.contiguous(),
+                             ctx.chunk, h_active=ha)
+        return grads + (None, None)
+
+
+def ssd_op(xh, dt, A, Bm, Cm, chunk, head_mask=None):
+    ha = None if head_mask is None else active_len(head_mask, xh.shape[0])
+    args = (xh.contiguous(), dt.float().contiguous(), A, Bm.contiguous(),
+            Cm.contiguous(), int(chunk), ha)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in args[:5]):
+        return _SSD.apply(*args), None
+    return ssd_scan(*args[:6], h_active=ha), None
 
 
 @dataclasses.dataclass(frozen=True)

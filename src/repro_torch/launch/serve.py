@@ -9,7 +9,10 @@ published width and depth. Runs on the card unless ``--device cpu``.
       --batch 4 --prompt-len 32 --gen 8 --full --elastic --backend auto
 
 ``--arch granite-moe-1b-a400m`` serves the MoE parent the same way (each
-request's random spec then also cuts the routed experts).
+request's random spec then also cuts the routed experts), ``--arch
+mamba2-2.7b`` the SSM parent (the spec cuts the SSD heads; prompts split
+into chunks of 256 tokens, or of 16 in a reduced config, so use a
+multiple of the chunk when longer).
 """
 from __future__ import annotations
 

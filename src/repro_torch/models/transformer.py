@@ -1,8 +1,8 @@
-"""GQA transformer (MLP or MoE blocks): parameter init, the training
-forward, fused prefill and cached decode.
+"""GQA transformer (MLP or MoE blocks) and Mamba2 SSM stacks: parameter
+init, the training forward, fused prefill and cached decode.
 
-The port of the reference's ``models/transformer.py`` for ``"attn"``
-segments. A segment's layer weights are stacked with a leading
+The port of the reference's ``models/transformer.py`` for ``"attn"`` and
+``"ssm"`` segments. A segment's layer weights are stacked with a leading
 ``n_layers`` axis, as in the reference; a Python loop over the layers
 replaces ``lax.scan``. Elastic masks (``masks``: ``ff``, ``heads``,
 ``depth``) gate d_ff, query heads and layers in parent coordinates.
@@ -15,7 +15,8 @@ Two batch layouts replace the reference's ``vmap``:
 * training (``forward``): a leading client axis G on every parameter,
   mask and activation — each client its own weights and its own
   submodel — with tokens (G, B, S). No remat: at the training slice's
-  shapes the activations of a step fit beside the optimizer state.
+  shapes the activations of a step fit beside the optimizer state (the
+  dense SSD path checkpoints each chunk itself, as the reference does).
 
 MoE blocks (``Segment.use_moe``: a ``moe`` leaf in place of ``mlp``) run
 ``models.moe.moe_forward`` with the ``experts`` mask and the ``moe`` op:
@@ -23,9 +24,14 @@ one group per client in training, one group per row in decode (the
 server's ``vmap`` over slots), and in prefill one group for the whole
 batch — or one per row when the expert mask carries a batch axis.
 
+SSM blocks (``Segment.kind == "ssm"``: ``{"ln", "mamba"}`` per layer) run
+``x + gate · mamba(ln(x))`` (``models.ssm``) with the ``ssm_heads`` mask
+and the ``ssd`` op; their decode cache is an ``SSMCache`` (state and conv
+histories) per layer.
+
 Not ported yet, and raising NotImplementedError when a config needs them:
-SSM blocks (ROADMAP A10), MLA attention, ``attn_pair`` segments and the
-shared hybrid block (A11).
+MLA attention, ``attn_pair`` segments and the shared hybrid block of
+zamba2 (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed, layernorm, mlp, rmsnorm,
                                        softcap)
 
@@ -46,20 +53,18 @@ Params = Dict[str, Any]
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming the ROADMAP item for any part of
-    ``cfg`` this slice does not run."""
-    if cfg.ssm is not None or any(s.kind == "ssm" for s in cfg.segments):
-        raise NotImplementedError(f"{cfg.name}: SSM blocks are not ported "
-                                  "yet (ROADMAP A10)")
-    if cfg.attn_type != "gqa":
-        raise NotImplementedError(f"{cfg.name}: {cfg.attn_type} attention "
-                                  "is not ported yet (ROADMAP A11)")
-    if any(s.kind != "attn" for s in cfg.segments):
+    ``cfg`` the port does not run."""
+    if any(s.kind not in ("attn", "ssm") for s in cfg.segments):
         raise NotImplementedError(f"{cfg.name}: attn_pair segments are not "
                                   "ported yet (ROADMAP A11)")
     if cfg.shared_attn_d_ff or any(s.shared_attn_after
                                    for s in cfg.segments):
         raise NotImplementedError(f"{cfg.name}: the shared hybrid block is "
                                   "not ported yet (ROADMAP A11)")
+    if any(s.kind == "attn" for s in cfg.segments) and \
+            cfg.attn_type != "gqa":
+        raise NotImplementedError(f"{cfg.name}: {cfg.attn_type} attention "
+                                  "is not ported yet (ROADMAP A11)")
 
 
 def _norm(cfg: ModelConfig, p, x):
@@ -117,8 +122,9 @@ def _ffn(bp, h, cfg: ModelConfig, masks, kernels, per_row: bool):
 def _param_tree(cfg: ModelConfig, leaf) -> Params:
     """The parameter tree of ``cfg``, each leaf made by ``leaf(shape,
     init)``: ``init`` is a normal's std (He-normal ``1/sqrt(fan_in)``
-    weights, ``0.02`` for the embedding), ``"zeros"`` or ``"ones"``. Leaves
-    are made in the order :func:`init_params` draws them."""
+    weights, ``0.02`` for the embedding), ``"zeros"``, ``"ones"`` or one of
+    ``models.ssm.INITS``. Leaves are made in the order :func:`init_params`
+    draws them."""
     check_supported(cfg)
     d, f = cfg.d_model, cfg.d_ff
 
@@ -129,9 +135,20 @@ def _param_tree(cfg: ModelConfig, leaf) -> Params:
         return {"scale": leaf(lead + (n,), "zeros")}
 
     p: Params = {"embed": {"table": leaf((cfg.padded_vocab, d), 0.02)}}
+
+    def stacked(lead, spec):
+        if isinstance(spec, dict):
+            return {k: stacked(lead, v) for k, v in spec.items()}
+        return leaf(lead + spec[0], spec[1])
+
     segs = []
     for seg in cfg.segments:
         L = (seg.n_layers,)
+        if seg.kind == "ssm":
+            segs.append({"blocks": {
+                "ln": norm(L, d),
+                "mamba": stacked(L, ssm_lib.mamba_param_shapes(d, cfg.ssm))}})
+            continue
         attn = {}
         for name, spec in attn_lib.gqa_param_shapes(
                 d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
@@ -143,11 +160,7 @@ def _param_tree(cfg: ModelConfig, leaf) -> Params:
                 attn[name] = leaf(L + shape, 1.0 / math.sqrt(fan_in))
         blocks = {"ln1": norm(L, d), "ln2": norm(L, d), "attn": attn}
         if seg.use_moe:
-            def stacked(spec):
-                if isinstance(spec, dict):
-                    return {k: stacked(v) for k, v in spec.items()}
-                return leaf(L + spec[0], spec[1])
-            blocks["moe"] = stacked(moe_lib.moe_param_specs(
+            blocks["moe"] = stacked(L, moe_lib.moe_param_specs(
                 d, cfg.moe, cfg.mlp_gated))
         else:
             mlp_p = {"wi": leaf(L + (d, f), 1.0 / math.sqrt(d)),
@@ -184,6 +197,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
             return torch.zeros(shape, device=dev, dtype=dtype)
         if init == "ones":
             return torch.ones(shape, device=dev, dtype=dtype)
+        if init in ssm_lib.INITS:
+            return ssm_lib.init_leaf(shape, init, gen, dev).to(dtype)
         t = torch.randn(shape, generator=gen, device=dev,
                         dtype=torch.float32)
         return t.mul_(init).to(dtype)
@@ -237,15 +252,31 @@ def _cohort_attn_block(bp, x, cfg: ModelConfig, seq_len: int, window,
     return x + m
 
 
+def _cohort_ssm_block(bp, x, cfg: ModelConfig, batch: int, masks, kernels,
+                      gate=None):
+    """One SSM block over a cohort: x (G, T, d) with T = batch·S token rows
+    per client; ``x + gate · mamba(ln(x))`` (the reference's
+    ``_apply_ssm_block``)."""
+    G, T, d = x.shape
+    h = _norm(cfg, bp["ln"], x).reshape(G, batch, T // batch, d)
+    y = ssm_lib.mamba_forward_cohort(
+        bp["mamba"], h, cfg.ssm, norm_eps=cfg.norm_eps,
+        head_mask=_masks_get(masks, "ssm_heads"),
+        kernel=_masks_get(kernels, "ssd")).reshape(G, T, d)
+    if gate is not None:
+        y = y * _gate(gate, y)
+    return x + y
+
+
 def forward(params: Params, cfg: ModelConfig, tokens, *, masks=None,
             kernels=None):
     """Full-sequence forward of a cohort: every leaf of ``params`` carries
     a leading client axis G, ``tokens`` is (G, B, S), ``masks`` holds one
-    row per client (``ff`` (G, d_ff), ``heads`` (G, H), ``depth`` a
-    (G, n_layers) gate per segment). Returns fp32 softcapped logits
-    (G, B, S, V). ``kernels``: the op table of ``kernels.dispatch`` (the
-    tile-skipping path, differentiable through the kernels' closed
-    backward) or None for the dense masked path."""
+    row per client (``ff`` (G, d_ff), ``heads`` (G, H), ``ssm_heads``
+    (G, H_ssm), ``depth`` a (G, n_layers) gate per segment). Returns fp32
+    softcapped logits (G, B, S, V). ``kernels``: the op table of
+    ``kernels.dispatch`` (the tile-skipping path, differentiable through
+    the kernels' closed backward) or None for the dense masked path."""
     check_supported(cfg)
     G, B, S = tokens.shape
     x = embed(params["embed"], tokens, scale=cfg.embed_scale)
@@ -256,8 +287,11 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, masks=None,
         layers = _unbind_layers(seg_p["blocks"], seg.n_layers, dim=1)
         for l, bp in enumerate(layers):
             g = None if depth is None else depth[si][:, l]
-            x = _cohort_attn_block(bp, x, cfg, S, window, masks, kernels,
-                                   gate=g)
+            if seg.kind == "ssm":
+                x = _cohort_ssm_block(bp, x, cfg, B, masks, kernels, gate=g)
+            else:
+                x = _cohort_attn_block(bp, x, cfg, S, window, masks,
+                                       kernels, gate=g)
     x = _norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, x).reshape(G, B, S, -1)
 
@@ -299,8 +333,29 @@ def _apply_attn_block(bp, x, positions, cfg: ModelConfig, window, masks,
     return x if cache_len is None else (x, cache)
 
 
+def _apply_ssm_block(bp, x, cfg: ModelConfig, masks, kernels, gate=None,
+                     cache_dtype=None):
+    """One SSM block over a full sequence that also returns the block's
+    decode cache (fused prefill): ``x + gate · mamba(ln(x))``."""
+    h = _norm(cfg, bp["ln"], x)
+    y, cache = ssm_lib.mamba_forward(
+        bp["mamba"], h, cfg.ssm, norm_eps=cfg.norm_eps,
+        head_mask=_masks_get(masks, "ssm_heads"),
+        kernel=_masks_get(kernels, "ssd"), return_cache=True,
+        cache_dtype=cache_dtype)
+    if gate is not None:
+        y = y * _gate(gate, y)
+    return x + y, cache
+
+
+def _stack_caches(caches):
+    """Per-layer caches (one NamedTuple each) -> one NamedTuple of stacked
+    (L, B, ...) fields."""
+    return type(caches[0])(*(torch.stack(f) for f in zip(*caches)))
+
+
 class DecodeCaches(NamedTuple):
-    segments: Tuple[Any, ...]     # per-segment stacked KVCache (L, B, ...)
+    segments: Tuple[Any, ...]     # per-segment stacked KVCache / SSMCache
     shared: Any                   # shared hybrid block caches (None here)
 
 
@@ -321,16 +376,20 @@ def prefill(params: Params, cfg: ModelConfig, tokens, max_len: int, *,
     segs = []
     for si, (seg_p, seg) in enumerate(zip(params["segments"], cfg.segments)):
         window = seg.sliding_window or cfg.sliding_window
-        ks, vs = [], []
+        caches = []
         for l in range(seg.n_layers):
             g = None if depth is None else depth[si][..., l]
-            x, c = _apply_attn_block(_layer(seg_p["blocks"], l), x,
-                                     positions, cfg, window, masks, kernels,
-                                     gate=g, cache_len=max_len,
-                                     cache_dtype=cache_dtype)
-            ks.append(c.k)
-            vs.append(c.v)
-        segs.append(attn_lib.KVCache(torch.stack(ks), torch.stack(vs)))
+            bp = _layer(seg_p["blocks"], l)
+            if seg.kind == "ssm":
+                x, c = _apply_ssm_block(bp, x, cfg, masks, kernels, gate=g,
+                                        cache_dtype=cache_dtype)
+            else:
+                x, c = _apply_attn_block(bp, x, positions, cfg, window,
+                                         masks, kernels, gate=g,
+                                         cache_len=max_len,
+                                         cache_dtype=cache_dtype)
+            caches.append(c)
+        segs.append(_stack_caches(caches))
     x = _norm(cfg, params["final_norm"], x)
     logits = _logits(params, cfg, x[:, -1:, :])
     return logits[:, 0], DecodeCaches(tuple(segs), None)
@@ -348,11 +407,15 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
     segs = []
     for seg in cfg.segments:
         window = seg.sliding_window or cfg.sliding_window
-        single = attn_lib.gqa_cache_init(batch, max_len, cfg.n_kv_heads,
-                                         cfg.head_dim, window, dtype, device)
-        segs.append(attn_lib.KVCache(
-            single.k.new_zeros((seg.n_layers,) + single.k.shape),
-            single.v.new_zeros((seg.n_layers,) + single.v.shape)))
+        if seg.kind == "ssm":
+            single = ssm_lib.ssm_cache_init(batch, cfg.d_model, cfg.ssm,
+                                            dtype, device)
+        else:
+            single = attn_lib.gqa_cache_init(batch, max_len, cfg.n_kv_heads,
+                                             cfg.head_dim, window, dtype,
+                                             device)
+        segs.append(type(single)(*(f.new_zeros((seg.n_layers,) + f.shape)
+                                   for f in single)))
     return DecodeCaches(tuple(segs), None)
 
 
@@ -379,6 +442,21 @@ def _decode_attn_block(bp, x, cache, pos, cfg: ModelConfig, window,
     return x + m, cache
 
 
+def _decode_ssm_block(bp, x, cache, cfg: ModelConfig, masks=None,
+                      gate=None):
+    """One SSM block over one token; ``cache`` (per-layer views of the
+    stacked caches) is updated in place."""
+    h = _norm(cfg, bp["ln"], x)
+    y, new = ssm_lib.mamba_decode(bp["mamba"], h, cache, cfg.ssm,
+                                  norm_eps=cfg.norm_eps,
+                                  head_mask=_masks_get(masks, "ssm_heads"))
+    for f, v in zip(cache, new):
+        f.copy_(v)
+    if gate is not None:
+        y = y * _gate(gate, y)
+    return x + y
+
+
 def decode_step(params: Params, cfg: ModelConfig, caches: DecodeCaches,
                 token, pos, masks=None, kernels=None):
     """token: (B, 1) integer tensor; pos: (B,) integer tensor of per-row
@@ -397,9 +475,14 @@ def decode_step(params: Params, cfg: ModelConfig, caches: DecodeCaches,
         window = seg.sliding_window or cfg.sliding_window
         for l in range(seg.n_layers):
             g = None if depth is None else depth[si][..., l]
+            bp = _layer(seg_p["blocks"], l)
+            if seg.kind == "ssm":
+                x = _decode_ssm_block(bp, x, type(seg_c)(*(f[l]
+                                                           for f in seg_c)),
+                                      cfg, masks, gate=g)
+                continue
             x, _ = _decode_attn_block(
-                _layer(seg_p["blocks"], l), x,
-                attn_lib.KVCache(seg_c.k[l], seg_c.v[l]), pos, cfg, window,
-                masks, kernels, gate=g)
+                bp, x, attn_lib.KVCache(seg_c.k[l], seg_c.v[l]), pos, cfg,
+                window, masks, kernels, gate=g)
     x = _norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, x)[:, 0], caches

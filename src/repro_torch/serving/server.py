@@ -9,11 +9,13 @@ the port writes that axis out as the batch dimension:
 * per-slot positions — a (slots,) position tensor: each slot writes its
   own ring slot and masks its own cache validity;
 * per-slot masks — head masks (slots, H), depth gates (slots, n_layers)
-  and d_ff masks (slots, d_ff), or expert masks (slots, E) on a MoE
-  parent; the ``mlp`` / ``moe`` ops turn them into per-slot prefix tensors
-  for ``elastic_dense`` / ``grouped_matmul``, so one launch serves every
-  spec (a MoE layer routes each slot as its own group, with its own
-  capacity, as the reference's ``vmap`` over slots does);
+  and d_ff masks (slots, d_ff), expert masks (slots, E) on a MoE parent,
+  SSD-head masks (slots, H_ssm) on an SSM parent; the ``mlp`` / ``moe``
+  ops turn them into per-slot prefix tensors for ``elastic_dense`` /
+  ``grouped_matmul`` (the SSM decode is plain tensor ops, masked per
+  slot), so one launch serves every spec (a MoE layer routes each slot
+  as its own group, with its own capacity, as the reference's ``vmap``
+  over slots does);
 * no host syncs on the prefixes — no prefix is ever a Python int; tenant
   admit/evict changes tensor values only (the port's form of the
   reference's three-program bound).
@@ -119,9 +121,11 @@ class EdgeServer:
         logits, slot_caches = T.prefill(
             self.params, self.cfg, toks, self.max_len, masks=fwd,
             kernels=self._kernels)
+        # every field of a segment's stacked (L, B, ...) cache: k, v of
+        # an attention segment; the state and conv histories of an SSM one
         for full, new in zip(self._caches.segments, slot_caches.segments):
-            full.k[:, slot] = new.k[:, 0]
-            full.v[:, slot] = new.v[:, 0]
+            for f, n in zip(full, new):
+                f[:, slot] = n[:, 0]
         for k, v in fwd.items():
             pairs = zip(self._masks[k], v) if isinstance(v, tuple) \
                 else [(self._masks[k], v)]

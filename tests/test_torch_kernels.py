@@ -198,8 +198,16 @@ def test_dispatch_table_and_unported_ops():
     assert y.shape == (2, 3, 4, 6)
     torch.testing.assert_close(y[0], torch.matmul(eb[0], w))
     assert not y[1, 1:].any()
+    # the ssd op is the SSD chunk scan (K8), heads past the mask zero
+    xh = torch.randn(2, 8, 4, 3)
+    y, none = table["ssd"](xh, torch.rand(2, 8, 4), -torch.rand(4),
+                           torch.randn(2, 8, 1, 5), torch.randn(2, 8, 1, 5),
+                           4, head_mask=torch.tensor([1.0, 1.0, 0.0, 0.0]))
+    assert none is None and y.shape == xh.shape
+    assert y[:, :, :2].abs().sum() > 0 and not y[:, :, 2:].any()
+    # op tables of the families still to come name their ROADMAP item
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        table["ssd"]()
+        dispatch.kernel_dispatch("auto").table("cnn")
     with pytest.raises(ValueError):
         dispatch.kernel_dispatch("tpu")
     # per-row prefixes from (B, n) masks, broadcast from (n,) masks

@@ -271,14 +271,29 @@ def test_fused_prefill_matches_stepwise_decode(window):
 
 
 def test_unported_configs_raise_naming_roadmap():
-    for arch in ("mamba2-2.7b", "gemma2-9b", "deepseek-v2-lite-16b",
-                 "zamba2-1.2b"):
+    for arch in ("gemma2-9b", "deepseek-v2-lite-16b", "zamba2-1.2b"):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             family_for(reduced(ARCHS[arch], n_layers=2, d_model=64))
     # the other MoE parent waits for MLA attention, not for MoE
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         family_for(reduced(ARCHS["deepseek-v2-lite-16b"], n_layers=2,
                            d_model=64))
+    # zamba2 waits for its shared hybrid block, not for its SSM blocks
+    with pytest.raises(NotImplementedError, match="shared hybrid block"):
+        family_for(reduced(ARCHS["zamba2-1.2b"], n_layers=2, d_model=64))
+
+
+@pytest.mark.parametrize("reduce", [True, False])
+def test_mamba2_builds_its_family(reduce):
+    """The SSM parent is ported: its family builds at the reduced and the
+    published size, with the SSD-head dimension in its forward masks."""
+    cfg = ARCHS["mamba2-2.7b"]
+    if reduce:
+        cfg = reduced(cfg, n_layers=2, d_model=64)
+    fam = family_for(cfg)
+    masks = fam.decode_masks(fam.full_spec())
+    assert masks["ssm_heads"].shape == (cfg.ssm.n_heads(cfg.d_model),)
+    assert masks["ssm_heads"].all() and "heads" not in masks
 
 
 # ---------------------------------------------------------------------------
