@@ -21,12 +21,17 @@ printing its own lines; any failed phase exits non-zero:
 4. times, serving shapes — per kernel and shape: kernel ms, plain ms, the
    library call's ms (``torch.matmul``; ``F.scaled_dot_product_attention``
    with KV repeated — timed here only, never called by the port) and the
-   bound ``max(bytes / 3.35 TB/s, operations / 67 TFLOP/s fp32)``.
+   bound ``max(bytes / 3.35 TB/s, operations / 67 TFLOP/s fp32)``; for K1
+   and K2 also the 3×TF32 tensor-core bound ``max(bytes / 3.35 TB/s,
+   3 · operations / 495 TFLOP/s)``, the achieved rates, and the device
+   time per call of kernel and library from ``torch.profiler`` (these
+   calls are short enough that back-to-back timing measures the host).
 5. serving slice — granite-3-8b at its published width and depth (40
    layers, d_model 4096, fp32, torch-seeded weights) served by
    ``EdgeServer`` through the kernels: 4 elastic requests on 2 slots. Every
    request must finish with finite logits, both forward kernels must have
-   launched in that run, and the same requests through the dense masked
+   launched in that run, every K1 launch through a tensor-core variant
+   (``elastic_dense.launches_by_variant``), and the same requests through the dense masked
    path (no kernels) must give identical greedy tokens and logits within a
    stated tolerance. The serving model is then released.
 6. times, training shapes — the same columns for K1's forward, dx and dw
@@ -36,12 +41,12 @@ printing its own lines; any failed phase exits non-zero:
    three elastic ones) of granite-3-8b at its published width, depth cut
    to 2 layers, through ``BatchedRoundEngine.run_fl_round`` on the kernels
    and then on the dense masked path. Every kernel must launch as often as
-   the design says, the round-1 parameters of the two paths must agree
+   the design says (K1 only through its tensor-core variants), the round-1 parameters of the two paths must agree
    within 1e-3 of how far the round moved them, and every client's
    accuracy must agree to one eval token, and each client's test CE under
    the two paths' round-1 models must agree within a stated tolerance.
    Prints round seconds, training tokens/s, peak device memory and one
-   local step's device idle share.
+   local step's device idle share and K1's share of its device time.
 8. times, MoE shapes — the same columns for K5 (grouped expert-prefix
    matmul: forward, dxs and dws at the MoE cohort's expert prefixes, and a
    decode step), K6 (the dispatch gather) and K7 (the combine
@@ -97,6 +102,7 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 K1_TOL = 1e-4                  # K up to 12800 fp32 products, outputs O(1)
 K2_TOL = 2e-5                  # D-length dots and one softmax, outputs O(1)
 K34_TOL = 1e-4                 # two D-length dots per pair, then sums over up
@@ -191,6 +197,40 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def add_tc_bound(row, nbytes: float, ops: float):
+    """The 3×TF32 tensor-core bound of a K1 / K2 row beside its fp32 SIMT
+    bound: max(bytes / 3.35 TB/s, 3 · operations / 495 TFLOP/s) — three
+    TF32 products per fp32 product — and the achieved rates (operations
+    and bytes the function needs over the kernel's time)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3.0 * ops / TF32_OPS_PER_S * 1e3
+    row["tc_bound_ms"] = max(t_bytes, t_ops)
+    row["tc_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    row["tflops"] = ops / row["ms"] / 1e9
+    row["tb_per_s"] = nbytes / row["ms"] / 1e9
+
+
+def device_ms(fn, device, iters=20) -> float:
+    """Device time per call of ``fn``: the sum of its kernels' time in a
+    ``torch.profiler`` trace of ``iters`` calls (None where the profiler
+    reports no device time). Unlike ``cuda_ms`` it leaves out the host's
+    enqueue time, which bounds back-to-back calls of a short kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    if device.type != "cuda":
+        return None
+    fn()
+    sync(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync(device)
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) or 0
+             for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return us / 1e3 / iters if us else None
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -224,6 +264,22 @@ def k1_cases(d_model, d_ff, slots, prompt_len):
         ("rows ragged", 2, 3, 129, 1000, dict(m=[3, 1]), "silu", True),
         ("rows no split", 2, 1, 64, 100, dict(n=[100, 37]), "gelu", True),
         ("tiles no split", 1, 20, 50, 70, dict(k=[33]), "silu", True),
+        # 16-byte-aligned rows (the tensor-core variants): shapes that are
+        # not multiples of their tiles, row counts on both sides of the
+        # skinny / tile boundary (64), prefixes that end inside an mma
+        # fragment (k 5, n 9), prefix 0, per-group prefixes that differ
+        ("tile edge", 1, 129, 40, 136, dict(k=[5], n=[9]), "silu", True),
+        ("skinny rows 33", 1, 33, 40, 136, dict(k=[37], n=[131]), None,
+         True),
+        ("skinny rows 63", 3, 21, 256, 136,
+         dict(k=[5, 256, 0], n=[9, 136, 64], m=[21, 7, 21]), "gelu", True),
+        ("skinny rows 64", 2, 32, 128, 200, dict(k=[128, 77], n=[200, 9]),
+         "relu", False),
+        ("tile rows 65", 5, 13, 96, 136,
+         dict(k=[96, 0, 5, 40, 93], n=[136, 136, 9, 0, 100],
+              m=[13, 13, 1, 13, 0]), "silu", True),
+        ("skinny prefix 0", 2, 1, 64, 128, dict(k=[0, 0], n=[0, 128]),
+         "gelu", True),
     ]
 
 
@@ -239,6 +295,12 @@ def k2_cases(n_heads, n_kv, head_dim, prompt_len):
         ("window + softcap", 2, 70, 4, 2, 128, [4, 2], True, 9, 50.0),
         ("non-causal ragged S", 1, 45, 4, 1, 32, None, False, None, None),
         ("window non-causal", 1, 33, 2, 2, 64, [2], False, 5, 20.0),
+        # S past one 64-query tile; heads past the prefix inside a GQA
+        # group (3 of a group of 4 live in row 1)
+        ("S 65 window + softcap", 2, 65, 8, 2, 32, [8, 3], True, 17, 30.0),
+        ("S 130 D 64", 1, 130, 4, 2, 64, [3], True, None, None),
+        ("S 130 non-causal cap", 1, 130, 4, 1, 128, [4], False, None, 25.0),
+        ("S 65 D 128 window", 1, 65, 4, 2, 128, [2], True, 40, None),
     ]
 
 
@@ -265,6 +327,24 @@ def k1_train_cases(d_model, d_ff, ff, tokens):
          "dw"),
         ("group rows", 4, 2, 40, 300, dict(n=[300, 0, 150, 77]), "relu",
          "group"),
+        # aligned rows: the tensor-core variants in all three layouts, with
+        # shapes that are not tile multiples, groups of 33 to 129 rows and
+        # per-group prefixes that end inside an mma fragment
+        ("group edge", 3, 129, 40, 136,
+         dict(k=[5, 40, 0], n=[9, 136, 100], m=[129, 64, 1]), "silu",
+         "group"),
+        ("dx edge", 3, 129, 136, 40,
+         dict(k=[9, 136, 0], n=[5, 40, 33], m=[129, 65, 0]), None, "dx"),
+        ("dw edge", 3, 136, 40, 132,
+         dict(k=[5, 40, 0], n=[9, 132, 100], m=[136, 65, 1]), None, "dw"),
+        ("group rows 33", 2, 33, 64, 136, dict(k=[64, 5], n=[9, 136]),
+         "relu", "group"),
+        ("dw rows 64", 2, 64, 40, 136, dict(k=[40, 5], m=[64, 63]), None,
+         "dw"),
+        ("dx rows 65", 2, 65, 136, 40, dict(k=[136, 9], n=[40, 5]), None,
+         "dx"),
+        ("dx rows 33", 2, 33, 136, 40, dict(k=[5, 136], n=[40, 9],
+                                           m=[33, 17]), None, "dx"),
     ]
 
 
@@ -308,6 +388,15 @@ def _k1_inputs(G, M, K, N, prefixes, bias, device, gen, layout=None):
                            if prefixes and a in prefixes else None)
            for a in ("k", "n", "m")}
     return x, w, b, pre
+
+
+def k1_variant(x, w):
+    """The variant of the K1 launch plan for x and w (``plain`` on the
+    CPU, where the wrapper runs the plain version)."""
+    if x.device.type != "cuda":
+        return "plain"
+    from repro_torch.kernels.elastic_matmul import launch_plan
+    return launch_plan(x, w)[1].variant
 
 
 def _k2_inputs(B, S, H, KV, D, ha, device, gen):
@@ -394,8 +483,8 @@ def phase_kernels(device, d_model, d_ff, n_heads, n_kv, head_dim, slots,
         worst["elastic_dense"] = max(worst["elastic_dense"], err)
         ok = err <= K1_TOL and bool(torch.isfinite(got).all())
         print(f"  elastic_dense {label:22s} G={G} M={M} K={K} N={N} "
-              f"act={act} max|err|={err:.3e} tol={K1_TOL:g} "
-              f"{'ok' if ok else 'FAIL'}")
+              f"act={act} {k1_variant(x, w)} max|err|={err:.3e} "
+              f"tol={K1_TOL:g} {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(f"elastic_dense {label}")
     ff = list(ff) if ff is not None else [d_ff] * clients
@@ -410,8 +499,8 @@ def phase_kernels(device, d_model, d_ff, n_heads, n_kv, head_dim, slots,
         worst["elastic_dense"] = max(worst["elastic_dense"], err)
         ok = err <= K1_TOL and bool(torch.isfinite(got).all())
         print(f"  elastic_dense {label:22s} G={G} M={M} K={K} N={N} "
-              f"act={act} layout={layout} max|err|={err:.3e} "
-              f"tol={K1_TOL:g} {'ok' if ok else 'FAIL'}")
+              f"act={act} layout={layout} {k1_variant(x, w)} "
+              f"max|err|={err:.3e} tol={K1_TOL:g} {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(f"elastic_dense {label}")
     # the training path's attention as it runs there
@@ -662,8 +751,15 @@ def phase_times(device, d_model, d_ff, n_heads, n_kv, head_dim, slots,
                        x, w, act=act), device, iters),
                    library_ms=cuda_ms(lambda: torch.matmul(x2, w), device,
                                       iters))
-        row["bound_ms"], row["bound_by"] = bound(
-            4.0 * (G * M * K + K * N + G * M * N), 2.0 * G * M * K * N)
+        nbytes, ops = 4.0 * (G * M * K + K * N + G * M * N), \
+            2.0 * G * M * K * N
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+        add_tc_bound(row, nbytes, ops)
+        # serving calls are short: device time beside the back-to-back time
+        row["device_ms"] = device_ms(lambda: elastic_dense(x, w, act=act),
+                                     device)
+        row["library_device_ms"] = device_ms(lambda: torch.matmul(x2, w),
+                                             device)
         rows["elastic_dense"].append(row)
     for label, B, S, H, KV, D in (
             ("prefill causal", 1, prompt_len, n_heads, n_kv, head_dim),):
@@ -680,9 +776,14 @@ def phase_times(device, d_model, d_ff, n_heads, n_kv, head_dim, slots,
                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                        qt, kt, vt, is_causal=True), device, iters))
         pairs = B * H * S * (S + 1) / 2          # valid (query, key) pairs
-        row["bound_ms"], row["bound_by"] = bound(
-            4.0 * (2 * B * S * H * D + 2 * B * S * KV * D + B * H * S),
-            4.0 * D * pairs)
+        nbytes = 4.0 * (2 * B * S * H * D + 2 * B * S * KV * D + B * H * S)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * D * pairs)
+        add_tc_bound(row, nbytes, 4.0 * D * pairs)
+        row["device_ms"] = device_ms(lambda: flash_attention(q, k, v),
+                                     device)
+        row["library_device_ms"] = device_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True), device)
         rows["flash_attention"].append(row)
     print_rows(rows)
     # host cost of one call at a size whose device time is negligible: the
@@ -738,6 +839,30 @@ def path_counters(cfg, serving=False):
         fa.flash_attention_dq, fa.flash_attention_dkv))
 
 
+def reset_launches(counters):
+    """Set every counter of ``counters`` (and K1's per-variant counts) to
+    0 just before a path runs."""
+    from repro_torch.kernels.elastic_matmul import VARIANTS, elastic_dense
+    for c in counters:
+        c.launches = 0
+    elastic_dense.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def check_k1_variants(launches, problems):
+    """K1's launches of the path just run, by variant: every one must have
+    gone through a tensor-core variant (tile or skinny), none through the
+    SIMT tile kept for unaligned rows. Returns the counts."""
+    from repro_torch.kernels.elastic_matmul import elastic_dense
+    by = dict(elastic_dense.launches_by_variant)
+    if "elastic_dense" in launches:
+        print(f"  elastic_dense launches by variant: {by}")
+        if by["simt"] or sum(by.values()) != launches["elastic_dense"]:
+            problems.append(f"elastic_dense launches by variant {by}: not "
+                            f"all {launches['elastic_dense']} through the "
+                            f"tensor-core variants")
+    return by
+
+
 def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
     """Serve elastic requests through the kernels, then through the dense
     masked path; returns (launch counts of the kernel run, stats)."""
@@ -772,8 +897,7 @@ def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
         return out, time.perf_counter() - t
 
     counters = path_counters(cfg, serving=True)
-    for c in counters:
-        c.launches = 0
+    reset_launches(counters)
     comps, secs = serve("auto")
     launches = {c.__name__: c.launches for c in counters}
     print(f"  kernel path: {n_requests} requests, {n_requests * gen} "
@@ -790,6 +914,7 @@ def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
     for name, n in launches.items():
         if n <= 0:
             problems.append(f"{name} never launched on the serving path")
+    by_variant = check_k1_variants(launches, problems)
     if cfg.ssm is not None:          # one K8 per layer and prefill
         want = cfg.n_layers * n_requests
         if launches["ssd_scan"] != want:
@@ -822,12 +947,14 @@ def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
              "tokens_per_s": n_requests * gen / secs,
              "dense_tokens_per_s": n_requests * gen / ref_secs,
              "max_rel_logit_err": worst}
+    if "elastic_dense" in launches:
+        stats["elastic_dense_launches_by_variant"] = by_variant
     if device.type == "cuda":
         fns = {name: decode_step_fn(device, fam, params, specs[:slots], b)
                for name, b in (("kernel", "auto"), ("dense", None))}
         walls = {name: step_wall_ms(fn, device) for name, fn in fns.items()}
         for name, fn in fns.items():
-            busy, top = step_device_ms(fn, device)
+            busy, top, _ = step_device_ms(fn, device)
             prof = {"wall_ms": walls[name], "device_busy_ms": busy,
                     "device_idle_share": None if busy is None
                     else max(0.0, 1.0 - busy / walls[name]),
@@ -879,8 +1006,9 @@ def step_wall_ms(step, device, steps=3) -> float:
 
 
 def step_device_ms(step, device, steps=3):
-    """(device-busy ms per call of ``step``, its five costliest kernels)
-    from ``torch.profiler``; (None, {}) where it reports no device time."""
+    """(device-busy ms per call of ``step``, its five costliest kernels,
+    the ms of every kernel by name) from ``torch.profiler``; (None, {}, {})
+    where it reports no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -895,7 +1023,8 @@ def step_device_ms(step, device, steps=3):
                   if str(getattr(e, "device_type", "")).endswith("CUDA")}
     busy = sum(kernels_us.values()) / 1e3 / steps if kernels_us else None
     top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:5]
-    return busy, {k[:60]: v / 1e3 / steps for k, v in top}
+    return busy, {k[:60]: v / 1e3 / steps for k, v in top}, \
+        {k: v / 1e3 / steps for k, v in kernels_us.items()}
 
 
 def _leaves(tree):
@@ -947,8 +1076,10 @@ def phase_train_times(device, d_model, d_ff, n_heads, n_kv, head_dim,
                        x, w, act=act), device, iters, 1),
                    library_ms=cuda_ms(lambda: torch.matmul(x, w), device,
                                       iters, 1))
-        row["bound_ms"], row["bound_by"] = bound(
-            4.0 * G * (Mx * K + K * N + Mx * N), 2.0 * G * Mx * K * N)
+        nbytes, ops = 4.0 * G * (Mx * K + K * N + Mx * N), \
+            2.0 * G * Mx * K * N
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+        add_tc_bound(row, nbytes, ops)
         rows_out["elastic_dense"].append(row)
         del x, w
     rows_out.update(flash_times(device, G * rows, seq, n_heads, n_kv,
@@ -960,9 +1091,17 @@ def phase_train_times(device, d_model, d_ff, n_heads, n_kv, head_dim,
 def print_rows(rows_out):
     for name, rs in rows_out.items():
         for r in rs:
-            print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-                  f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            line = (f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+                    f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            if "tc_bound_ms" in r:
+                line += (f", 3xTF32 bound {r['tc_bound_ms']:.4f} ms "
+                         f"({r['tc_bound_by']}); {r['tflops']:.1f} TFLOP/s, "
+                         f"{r['tb_per_s']:.3f} TB/s")
+            if None not in (r.get("device_ms"), r.get("library_device_ms")):
+                line += (f"; device {r['device_ms']:.4f} ms, library "
+                         f"device {r['library_device_ms']:.4f} ms")
+            print(line)
     if "flash_attention_dq" in rows_out:
         print("  (library for dq and dk/dv: one torch.autograd.grad through "
               "F.scaled_dot_product_attention, all three gradients)")
@@ -1006,6 +1145,7 @@ def flash_times(device, B, S, H, KV, D, gen, iters=5):
                        is_causal=True), device, iters))
     fwd["bound_ms"], fwd["bound_by"] = bound(
         2 * qbytes + 2 * kvbytes + rbytes, 4.0 * D * pairs)
+    add_tc_bound(fwd, 2 * qbytes + 2 * kvbytes + rbytes, 4.0 * D * pairs)
     rows_out["flash_attention"] = [fwd]
     args = (q, k, v, do, lse, delta)
     dq = dict(shape=shape,
@@ -1295,8 +1435,7 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    for c in counters:
-        c.launches = 0
+    reset_launches(counters)
     eng, kern = run("auto")
     launches = {c.__name__: c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
@@ -1324,6 +1463,8 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
         if n <= 0 or n != want[name]:
             problems.append(f"{name} launched {n} times, design "
                             f"{want[name]}")
+    # (the dense path runs no kernel: the counts are still the kernel run's)
+    by_variant = check_k1_variants(launches, problems)
     for r, (a, b) in enumerate(zip(kern, dense)):
         print(f"  round {r + 1} ({'coverage_norm' if r else 'paper rule'}):"
               f" kernel path {a['seconds']:.3f} s "
@@ -1395,6 +1536,8 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
              "round1_eval_ce": {k: v.tolist() for k, v in loss.items()},
              "max_memory_allocated_gib": peak / 2**30,
              "launches_design": want, "routing": route_stats}
+    if "elastic_dense" in launches:
+        stats["elastic_dense_launches_by_variant"] = by_variant
     del kern, dense, replayed
     if problems:
         raise PhaseError("; ".join(problems))
@@ -1402,10 +1545,14 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
         return launches, stats
     step = local_step_fn(eng, fam, params0, specs, train, batch, device)
     wall = step_wall_ms(step, device)
-    busy, top = step_device_ms(step, device)
+    busy, top, by_name = step_device_ms(step, device)
     prof = {"wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": None if busy is None
             else max(0.0, 1.0 - busy / wall), "top_kernels_ms": top}
+    if "elastic_dense" in launches:       # K1's kernels: edense_*
+        k1 = sum(v for k, v in by_name.items() if "edense" in k)
+        prof["k1_ms"] = k1
+        prof["k1_share_of_busy"] = k1 / busy if busy else None
     stats["kernel_local_step"] = prof
     print(f"  kernel path local step ({clients} clients x {batch} x "
           f"{seq_len}): {json.dumps(prof)}")
@@ -1888,6 +2035,11 @@ def main() -> int:
             library_host_us=(serving[0].get("library_host_us")
                              if serving else None),
             other_shapes=rows[1:] + serving + extra))
+        if name == "elastic_dense":      # K1's launches by plan variant
+            entries[-1]["launches_by_variant"] = {
+                "serving": stats.get("elastic_dense_launches_by_variant"),
+                "training": train_stats.get(
+                    "elastic_dense_launches_by_variant")}
     print("kernels: " + "; ".join(
         f"{p} " + " ".join(f"{n}={c}" for n, c in counts.items())
         for p, counts in by_path.items()))

@@ -13,60 +13,74 @@
 // launch. w is (K, N), shared by all groups (serving), or (G, K, N), one
 // per group (training: every client its own weights, the reference's
 // `vmap`). bias (N,) is shared. act is 0 none, 1 silu, 2 gelu (tanh
-// approximation), 3 relu. Accumulation is IEEE fp32 (fmaf, no TF32). Shapes
-// that are not tile multiples are masked inside the kernel; nothing is
-// padded on the host.
+// approximation), 3 relu. Shapes that are not tile multiples are masked
+// inside the kernel; nothing is padded on the host.
 //
 // Layout flags: x may be stored transposed per group ((G, K, M), the xᵀ
 // of the VJP's dw = xᵀ @ dpre) and w transposed ((N, K) or (G, N, K), the
 // wᵀ of dx = dpre @ wᵀ), and a per-group w may sit at any group stride (one
 // layer of a client-stacked (G, L, K, N) parameter); the kernel reads them
-// in place, so neither pass copies an operand. A tile's loads follow the stored layout so that
-// neighbouring threads read neighbouring addresses either way.
+// in place, so neither pass copies an operand.
 //
 // The (G, M) axes are flattened to R = G·M rows, each carrying its group's
 // prefixes, so the serving path's two uses share one entry point: decode
 // (G = slots, M = 1: every slot a different submodel) and prefill
 // (G = 1, M = prompt length). With a per-group w (or a transposed x) the
-// row tiles never straddle a group: the grid's row axis is G · ⌈M/64⌉.
+// row tiles never straddle a group: the grid's row axis is G · ⌈M/BM⌉.
 //
-// What bounds it on the H100: at decode shapes the layer is a GEMV over a
-// shared weight — 2·R·K·N operations against K·N·4 weight bytes, about R/2
-// operations per byte for R ≤ 8 rows, far below the card's fp32 ridge
-// (67 TFLOP/s over 3.35 TB/s, 20 operations per byte). The least time is
-// the active weight bytes over 3.35 TB/s. At prefill (R = prompt length)
-// the product has R/2 operations per byte, still bytes-bound for R < 40.
-// At the training shapes (M = 512 token rows per client, K and N 4096 or
-// 12800, both passes) every product is far above the ridge and bound by
-// the fp32 operations: 2·G·M·K·N over 67 TFLOP/s.
+// What bounds it on the H100: the training products (M = 512 token rows
+// per client, K and N 4096 or 12800, both passes) do 2·G·M·K·N operations,
+// far above the card's ridge — bound by operations. fp32 outside the tensor
+// cores peaks at 67 TFLOP/s, which a SIMT kernel can at best equal; TF32
+// alone would break the port's fp32 parity. So the products run on the
+// tensor cores in 3×TF32 (csrc/mma_tf32.cuh): three TF32 products per fp32
+// product, a ceiling of 495 / 3 ≈ 165 TFLOP/s at about fp32 accuracy. The
+// serving products (R ≤ 64 rows: decode R = slots, prefill R = prompt
+// length) have R/2 operations per weight byte, below the ridge: bound by
+// the weight bytes over 3.35 TB/s (210 MB per call at granite-3-8b).
 //
-// What this simple design does about it:
-//  * rows kernel (R ≤ 8, shared w, decode): every weight element is read
-//    from device memory exactly once per launch, for all rows together. A
-//    block owns 32 output columns; its 8 warps split the contraction, each
-//    warp keeping 8 independent 128-byte weight loads in flight, and
-//    reduce in a fixed order through shared memory. Output column blocks
-//    with no live row, and K past the largest live k prefix, issue no
-//    weight loads at all — a narrower submodel moves fewer bytes.
-//  * tiled kernel (everything else): a classic shared-memory SGEMM tile
-//    (64 × 64 outputs, 16-deep K steps, 4 × 4 outputs per thread). The K
-//    loop of a tile stops at the largest k prefix of its live rows, rows
-//    past their own prefix load zeros, and a tile with no live output
-//    issues no loads.
-//  * split-K: a grid of output tiles alone can be too small to keep
-//    enough loads in flight (the 4096-wide down projection at decode has
-//    128 column blocks for 132 SMs), so `edense_plan` splits the
-//    contraction into chunks until there are about eight blocks per SM.
-//    Each chunk writes its raw partial sums to a (splits, R, N) scratch
-//    buffer and a second kernel adds them in a fixed order and applies
-//    bias, activation and masks — deterministic, no atomics. The training
-//    shapes have enough output tiles and run unsplit.
-// Neither kernel overlaps its loads with its math (no cp.async or TMA
-// pipeline) and neither uses the tensor cores: that is later work.
+// Three variants, chosen by the launch plan (kernels/elastic_matmul.py::
+// _plan) from the shapes, the layout flags, the operands' 16-byte
+// alignment and the SM count — never from the prefixes:
+//  * tile (`edense_mma_kernel`, BM = 128): any product with more than 64
+//    rows per row tile — the six training products and the eval forward.
+//    A 128 × 128 output tile per 256-thread block, 8 warps of 64 × 32
+//    each, mma.sync m16n8k8 in 3×TF32, fed by a 3-stage cp.async ring of
+//    16-byte copies (32-deep stages, ~37 KB each, dynamic shared memory),
+//    registers bounded for two blocks per SM. Each operand is copied in its
+//    stored layout (x or xᵀ, w or wᵀ) and never transposed: `Stage` pads
+//    it so that the fragment loads of a warp hit distinct banks in either
+//    layout, and a K-contiguous operand's fragment pair loads as one 64-bit
+//    word. (`wgmma` would need both operands K-major in shared memory,
+//    which two of the three layouts are not.)
+//  * skinny (the same kernel with BM = 16, 32 or 64 and 4 warps of
+//    BM × 32): products with at most 64 rows — the serving path's decode
+//    and prefill, bound by the weight stream. 16-byte copies along N in
+//    512-byte row segments (BN = 128 streamed faster on the card than
+//    256-byte ones), a 3-stage ring, three blocks per SM up to 32 rows
+//    (~100 KB of weight in flight per SM), and a split of the
+//    contraction that fills every resident slot of the card in one wave.
+//    x travels in the same ring (its stage is 2–9 KB, read from L2 by
+//    every column block).
+//  * simt (`edense_tiled_kernel`): the first design, a 64 × 64 SIMT tile
+//    with 16-deep K steps and fmaf, kept only for operands whose rows are
+//    not 16-byte aligned (K or N not a multiple of 4 where that is the
+//    stored row length), which cp.async cannot copy.
+// Every variant: the K loop of a tile stops at the largest k prefix of its
+// live rows, rows past their own prefix read zeros (a 16-byte copy reads
+// only the live bytes and zero-fills the rest), and a tile with no live
+// output issues no loads and no math and still writes its zeros. Bias,
+// activation and the m / n masks are applied in the epilogue.
+//
+// Split-K: where the output tiles alone are too few to fill the card,
+// the contraction is split into chunks (a multiple of the 32-deep stage).
+// Each chunk writes its raw partial sums to a (splits, R, N) scratch buffer
+// and a second kernel adds them in a fixed order and applies bias,
+// activation and masks — deterministic, no atomics.
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include <algorithm>
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -96,6 +110,9 @@ __device__ __forceinline__ int prefix(const int* p, int g, int full) {
 constexpr int kXTrans = 1;     // x stored (G, K, M)
 constexpr int kWTrans = 2;     // w stored (N, K) or (G, N, K)
 constexpr int kWPerGroup = 4;  // w has a leading group axis
+
+// Variants of `edense_forward` (kernels/elastic_matmul.py::VARIANTS).
+constexpr int kSimt = 0, kTile = 1, kSkinny = 2;
 
 // Contraction end of row r for an output tile starting at column c0: 0 when
 // the row is past r_end or has no live output in the tile (past its m
@@ -132,119 +149,292 @@ __device__ __forceinline__ void store(float acc, int r, int c, int M, int N,
     partial[((size_t)blockIdx.z * R + r) * N + c] = acc;
 }
 
-// ---------------------------------------------------------------------------
-// rows kernel: R <= 8 rows, 32 output columns per block, 8 warps split K
-// ---------------------------------------------------------------------------
-constexpr int kRows = 8;    // max rows; also the number of warps
-constexpr int kRowsBN = 32;
-constexpr int kUnroll = 8;  // weight loads in flight per warp
-// Residency floor: caps registers at 64 a thread so at least 4 blocks
-// (32 warps, 256 loads of 128 bytes) stay in flight per SM; unbounded,
-// the unrolled loads once took 152 registers and left one block per SM.
-constexpr int kRowsMinBlocks = 4;
-
-__global__ void __launch_bounds__(kRows * 32, kRowsMinBlocks)
-edense_rows_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ y,
-                   float* __restrict__ partial, const int* __restrict__ ka,
-                   const int* __restrict__ na, const int* __restrict__ ma,
-                   int G, int M, int K, int N, int kchunk, int act) {
-  __shared__ int kend_row[kRows];
-  __shared__ float red[kRows][kRows][kRowsBN];
-  const int R = G * M;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c0 = blockIdx.x * kRowsBN, c = c0 + lane;
-  if (threadIdx.x < kRows)
-    kend_row[threadIdx.x] = row_kend(threadIdx.x, R, M, K, N, c0, ka, na,
-                                     ma);
-  __syncthreads();
-  int kend = 0;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) kend = max(kend, kend_row[r]);
-  const int k_lo = blockIdx.z * kchunk;
-  const int k_hi = min(kend, k_lo + kchunk);
-  // Lane l fetches x[r][kb + l % 8] of row r = l / 8 (first load) and
-  // r + 4 (second): each step's x values arrive in two coalesced loads
-  // issued beside the weight loads, then travel by shuffle. A row past its
-  // own k prefix reads 0, which adds nothing.
-  static_assert(kRows == 2 * (32 / kUnroll), "two x loads cover the rows");
-  const int xu = lane % kUnroll, xr = lane / kUnroll;
-  const int xend_a = min(kend_row[xr], k_hi);
-  const int xend_b = min(kend_row[xr + kRows / 2], k_hi);
-
-  float acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-  const bool col_ok = c < N;
-  for (int kb = k_lo + warp * kUnroll; kb < k_hi; kb += kRows * kUnroll) {
-    float wv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      int k = kb + u;
-      wv[u] = (col_ok && k < k_hi) ? __ldg(&w[(size_t)k * N + c]) : 0.0f;
-    }
-    const int kx = kb + xu;
-    const float xa =
-        (kx < xend_a) ? __ldg(&x[(size_t)xr * K + kx]) : 0.0f;
-    const float xb = (kx < xend_b)
-        ? __ldg(&x[(size_t)(xr + kRows / 2) * K + kx]) : 0.0f;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < R) {  // uniform over the warp
-          const float xv = __shfl_sync(0xffffffffu, r < kRows / 2 ? xa : xb,
-                                       (r % (kRows / 2)) * kUnroll + u);
-          acc[r] = fmaf(xv, wv[u], acc[r]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) red[warp][r][lane] = acc[r];
-  __syncthreads();
-  const int r = warp;  // warp r reduces row r in a fixed order
-  if (r < R && col_ok) {
-    float s = 0.0f;
-#pragma unroll
-    for (int v = 0; v < kRows; ++v) s += red[v][r][lane];
-    store(s, r, c, M, N, R, bias, na, ma, act, y, partial);
+// The row tile of block row blockIdx.y: over the flattened rows, or per
+// group when each group has its own weights (or its own transposed x).
+__device__ __forceinline__ void row_tile(int bm, int G, int M, int flags,
+                                         int* r0, int* r_end) {
+  if (flags & (kWPerGroup | kXTrans)) {
+    const int tiles_m = (M + bm - 1) / bm;
+    const int g = blockIdx.y / tiles_m;
+    *r0 = g * M + (blockIdx.y - g * tiles_m) * bm;
+    *r_end = g * M + M;
+  } else {
+    *r0 = blockIdx.y * bm;
+    *r_end = G * M;
   }
 }
 
 // ---------------------------------------------------------------------------
-// tiled kernel: 64 x 64 output tile, 4 x 4 outputs per thread
+// tile / skinny: 3×TF32 mma.sync, fed by a cp.async ring
 // ---------------------------------------------------------------------------
-constexpr int kBM = 64, kBN = 64, kBK = 16, kTM = 4, kTN = 4;
-constexpr int kTiledThreads = (kBM / kTM) * (kBN / kTN);
+constexpr int kBK = 32;     // contraction depth of one ring stage
 
-__global__ void __launch_bounds__(kTiledThreads)
+// One operand's stage in shared memory: ROWS (M or N) by kBK, stored
+// K-contiguous ([ROWS][kBK + pad]) or rows-contiguous ([kBK][ROWS + 4]).
+// A warp's fragment loads take rows g < 8 at two k per thread. In the
+// permuted k order of csrc/mma_tf32.cuh (PERM: k = 2t, 2t + 1) a
+// K-contiguous row pads to kBK + 8 and its pair loads as one 64-bit word
+// (words 8g + 2t: distinct banks), a rows-contiguous one to ROWS + 4
+// (words 8t + g). When both operands are K-contiguous (the dx product, wᵀ
+// read in place) the k order stays native (k = t, t + 4) and the rows pad
+// to kBK + 4 (words 4g + t): 12 % less shared memory, so that two blocks
+// fit an SM, for scalar loads. Every row stays 16-byte aligned.
+template <int ROWS, bool KCONTIG, bool PERM>
+struct Stage {
+  static constexpr int kStride = KCONTIG ? kBK + (PERM ? 8 : 4) : ROWS + 4;
+  static constexpr int kFloats = KCONTIG ? ROWS * kStride : kBK * kStride;
+  __device__ __forceinline__ static int at(int row, int k) {
+    return KCONTIG ? row * kStride + k : k * kStride + row;
+  }
+};
+
+// The permuted k order, unless both operands are K-contiguous.
+template <bool XT, bool WT>
+struct Permuted {
+  static constexpr bool value = XT || !WT;
+};
+
+template <int BM, int BN, int STAGES, bool XT, bool WT>
+constexpr int mma_smem_bytes() {
+  constexpr bool P = Permuted<XT, WT>::value;
+  return STAGES * (Stage<BM, !XT, P>::kFloats + Stage<BN, WT, P>::kFloats) *
+         static_cast<int>(sizeof(float));
+}
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES,
+          int MIN_BLOCKS, bool XT, bool WT>
+__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MIN_BLOCKS)
+edense_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ bias, float* __restrict__ y,
+                  float* __restrict__ partial, const int* __restrict__ ka,
+                  const int* __restrict__ na, const int* __restrict__ ma,
+                  int G, int M, int K, int N, int kchunk, int act, int flags,
+                  long long w_gstride) {
+  constexpr bool PERM = Permuted<XT, WT>::value;
+  using SA = Stage<BM, !XT, PERM>;  // x: K-contiguous unless transposed
+  using SB = Stage<BN, WT, PERM>;   // w: K-contiguous only when transposed
+  constexpr int kThreads = WARPS_M * WARPS_N * 32;
+  constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;
+  constexpr int MT = WTM / 16, NT = WTN / 8;
+  static_assert(MT >= 1 && NT >= 1 && WTM % 16 == 0 && WTN % 8 == 0,
+                "warp tile of whole m16n8 tiles");
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;
+  float* Bs = smem + STAGES * SA::kFloats;
+  __shared__ long long xoff_row[BM];  // where row i's x values start
+  __shared__ int kend_row[BM];
+  __shared__ int kend_tile;
+
+  const int R = G * M;
+  int r0, r_end;
+  row_tile(BM, G, M, flags, &r0, &r_end);
+  const int c0 = blockIdx.x * BN;
+  const int tid = threadIdx.x;
+  const float* wg = (flags & kWPerGroup)
+                        ? w + (size_t)(r0 / M) * w_gstride : w;
+  if (tid == 0) kend_tile = 0;
+  __syncthreads();
+  for (int i = tid; i < BM; i += kThreads) {
+    const int r = r0 + i;
+    const int e = row_kend(r, r_end, M, K, N, c0, ka, na, ma);
+    kend_row[i] = e;
+    long long off = 0;
+    if (r < r_end) {
+      const int g = r / M, m = r - g * M;
+      off = XT ? (long long)g * K * M + m : (long long)r * K;
+    }
+    xoff_row[i] = off;
+    if (e > 0) atomicMax(&kend_tile, e);
+  }
+  __syncthreads();
+  const int k_lo = blockIdx.z * kchunk;
+  const int k_hi = min(kend_tile, k_lo + kchunk);
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
+
+  // One ring stage: the x tile (BM × kBK) and the w tile (kBK × BN) at
+  // contraction offset k0, in 16-byte copies along each operand's stored
+  // rows; bytes past a row's k prefix, the chunk end, M or N read as zero.
+  auto load_stage = [&](int stage, int k0) {
+    float* as = As + stage * SA::kFloats;
+    float* bs = Bs + stage * SB::kFloats;
+    for (int c = tid; c < BM * kBK / 4; c += kThreads) {
+      int i, kk, bytes;
+      const float* src = x;
+      if (!XT) {  // x row i, k .. k + 3
+        i = c / (kBK / 4);
+        kk = (c % (kBK / 4)) * 4;
+        const int k = k0 + kk;
+        bytes = tf32x3::live_bytes(min(kend_row[i], k_hi) - k);
+        if (bytes) src = x + xoff_row[i] + k;
+      } else {    // xᵀ row k, x rows i .. i + 3 (one group: one k prefix)
+        kk = c / (BM / 4);
+        i = (c % (BM / 4)) * 4;
+        const int k = k0 + kk;
+        bytes = k < k_hi ? tf32x3::live_bytes(r_end - (r0 + i)) : 0;
+        if (bytes) src = x + xoff_row[i] + (long long)k * M;
+      }
+      tf32x3::cp_async16(as + SA::at(i, kk), src, bytes);
+    }
+    for (int c = tid; c < BN * kBK / 4; c += kThreads) {
+      int j, kk, bytes;
+      const float* src = wg;
+      if (!WT) {  // w row k, columns j .. j + 3
+        kk = c / (BN / 4);
+        j = (c % (BN / 4)) * 4;
+        const int k = k0 + kk, col = c0 + j;
+        bytes = k < k_hi ? tf32x3::live_bytes(N - col) : 0;
+        if (bytes) src = wg + (size_t)k * N + col;
+      } else {    // wᵀ row (column j), k .. k + 3
+        j = c / (kBK / 4);
+        kk = (c % (kBK / 4)) * 4;
+        const int k = k0 + kk, col = c0 + j;
+        bytes = col < N ? tf32x3::live_bytes(k_hi - k) : 0;
+        if (bytes) src = wg + (size_t)col * K + k;
+      }
+      tf32x3::cp_async16(bs + SB::at(j, kk), src, bytes);
+    }
+  };
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp / WARPS_N) * WTM, wn = (warp % WARPS_N) * WTN;
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_stage(s, k_lo + s * kBK);
+    tf32x3::cp_async_commit();
+  }
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    tf32x3::cp_async_wait<STAGES - 2>();  // stage kt has landed
+    __syncthreads();  // ... for every thread; stage kt - 1 is free again
+    const int next = kt + STAGES - 1;
+    if (next < n_tiles) load_stage(next % STAGES, k_lo + next * kBK);
+    tf32x3::cp_async_commit();
+    const float* as = As + (kt % STAGES) * SA::kFloats;
+    const float* bs = Bs + (kt % STAGES) * SB::kFloats;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 8) {
+      // B fragments of the warp's NT column tiles, then one row tile at a
+      // time: its A fragment and its NT products (fewer live registers)
+      uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = wn + j * 8 + g;
+        float b0, b1;
+        if (!PERM) {
+          b0 = bs[SB::at(col, kk + t)];
+          b1 = bs[SB::at(col, kk + t + 4)];
+        } else if (WT) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              bs + SB::at(col, kk + 2 * t));
+          b0 = v.x;
+          b1 = v.y;
+        } else {
+          b0 = bs[SB::at(col, kk + 2 * t)];
+          b1 = bs[SB::at(col, kk + 2 * t + 1)];
+        }
+        tf32x3::split(b0, bh[j][0], bl[j][0]);
+        tf32x3::split(b1, bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int row = wm + i * 16 + g;
+        float a[4];
+        if (!PERM) {
+          a[0] = as[SA::at(row, kk + t)];
+          a[2] = as[SA::at(row, kk + t + 4)];
+          a[1] = as[SA::at(row + 8, kk + t)];
+          a[3] = as[SA::at(row + 8, kk + t + 4)];
+        } else if (!XT) {
+          const float2 v0 = *reinterpret_cast<const float2*>(
+              as + SA::at(row, kk + 2 * t));
+          const float2 v1 = *reinterpret_cast<const float2*>(
+              as + SA::at(row + 8, kk + 2 * t));
+          a[0] = v0.x;
+          a[2] = v0.y;
+          a[1] = v1.x;
+          a[3] = v1.y;
+        } else {
+          a[0] = as[SA::at(row, kk + 2 * t)];
+          a[2] = as[SA::at(row, kk + 2 * t + 1)];
+          a[1] = as[SA::at(row + 8, kk + 2 * t)];
+          a[3] = as[SA::at(row + 8, kk + 2 * t + 1)];
+        }
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tf32x3::split(a[e], ah[e], al[e]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          tf32x3::mma3_add(acc[i][j], ah, al, bh[j], bl[j]);
+      }
+    }
+  }
+  tf32x3::cp_async_wait<0>();
+
+  // epilogue: a row's group, m mask and n limit are read once; split-K
+  // chunks write raw sums to their partials, the reduction applies them
+  float* out = partial != nullptr ? partial + (size_t)blockIdx.z * R * N : y;
+  const bool pairs = (N & 1) == 0;  // (r·N + c) even: 8-byte stores
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + wm + i * 16 + g + 8 * h;
+      if (r >= r_end) continue;
+      const int grp = r / M, m = r - grp * M;
+      const int nlim = m < prefix(ma, grp, M) ? prefix(na, grp, N) : 0;
+      float* row_out = out + (size_t)r * N;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = c0 + wn + j * 8 + 2 * t;
+        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (partial == nullptr) {
+          v0 = c < nlim ? apply_act(v0 + (bias ? bias[c] : 0.0f), act)
+                        : 0.0f;
+          v1 = c + 1 < nlim
+                   ? apply_act(v1 + (bias ? bias[c + 1] : 0.0f), act)
+                   : 0.0f;
+        }
+        if (pairs && c + 1 < N) {
+          *reinterpret_cast<float2*>(row_out + c) = make_float2(v0, v1);
+        } else {
+          if (c < N) row_out[c] = v0;
+          if (c + 1 < N) row_out[c + 1] = v1;
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// simt: 64 x 64 output tile, 4 x 4 outputs per thread (unaligned rows)
+// ---------------------------------------------------------------------------
+constexpr int kSBM = 64, kSBN = 64, kSBK = 16, kTM = 4, kTN = 4;
+constexpr int kSimtThreads = (kSBM / kTM) * (kSBN / kTN);
+
+__global__ void __launch_bounds__(kSimtThreads)
 edense_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ bias, float* __restrict__ y,
                     float* __restrict__ partial, const int* __restrict__ ka,
                     const int* __restrict__ na, const int* __restrict__ ma,
                     int G, int M, int K, int N, int kchunk, int act,
                     int flags, long long w_gstride) {
-  __shared__ float xs[kBK][kBM + 1];  // transposed x tile, padded
-  __shared__ float ws[kBK][kBN + 1];
-  __shared__ size_t xoff_row[kBM];    // where row i's x values start
-  __shared__ int kend_row[kBM];
+  __shared__ float xs[kSBK][kSBM + 1];  // transposed x tile, padded
+  __shared__ float ws[kSBK][kSBN + 1];
+  __shared__ size_t xoff_row[kSBM];     // where row i's x values start
+  __shared__ int kend_row[kSBM];
   __shared__ int kend_tile;
   const int R = G * M;
-  // Row tiles: over the flattened rows, or per group when each group has
-  // its own weights (or its own transposed x block).
-  const bool grouped = (flags & (kWPerGroup | kXTrans)) != 0;
   int r0, r_end;
-  if (grouped) {
-    const int tiles_m = (M + kBM - 1) / kBM;
-    const int g = blockIdx.y / tiles_m;
-    r0 = g * M + (blockIdx.y - g * tiles_m) * kBM;
-    r_end = g * M + M;
-  } else {
-    r0 = blockIdx.y * kBM;
-    r_end = R;
-  }
-  const int c0 = blockIdx.x * kBN;
+  row_tile(kSBM, G, M, flags, &r0, &r_end);
+  const int c0 = blockIdx.x * kSBN;
   const int tid = threadIdx.x;
   const bool x_trans = (flags & kXTrans) != 0;
   const bool w_trans = (flags & kWTrans) != 0;
@@ -252,7 +442,7 @@ edense_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
                         ? w + (size_t)(r0 / M) * w_gstride : w;
   if (tid == 0) kend_tile = 0;
   __syncthreads();
-  if (tid < kBM) {
+  if (tid < kSBM) {
     const int r = r0 + tid;
     int e = row_kend(r, r_end, M, K, N, c0, ka, na, ma);
     kend_row[tid] = e;
@@ -265,7 +455,7 @@ edense_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
   __syncthreads();
   const int k_lo = blockIdx.z * kchunk;
   const int k_hi = min(kend_tile, k_lo + kchunk);
-  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
+  const int tx = tid % (kSBN / kTN), ty = tid / (kSBN / kTN);
 
   float acc[kTM][kTN];
 #pragma unroll
@@ -273,21 +463,21 @@ edense_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
+  for (int k0 = k_lo; k0 < k_hi; k0 += kSBK) {
     // neighbouring threads take neighbouring addresses of the stored layout
-    for (int e = tid; e < kBM * kBK; e += kTiledThreads) {
+    for (int e = tid; e < kSBM * kSBK; e += kSimtThreads) {
       int i, kk;
-      if (x_trans) { i = e % kBM; kk = e / kBM; }
-      else { i = e / kBK; kk = e - i * kBK; }
+      if (x_trans) { i = e % kSBM; kk = e / kSBM; }
+      else { i = e / kSBK; kk = e - i * kSBK; }
       const int k = k0 + kk;
       xs[kk][i] = (k < kend_row[i] && k < k_hi)
                       ? x[xoff_row[i] + (x_trans ? (size_t)k * M : k)]
                       : 0.0f;
     }
-    for (int e = tid; e < kBK * kBN; e += kTiledThreads) {
+    for (int e = tid; e < kSBK * kSBN; e += kSimtThreads) {
       int kk, j;
-      if (w_trans) { j = e / kBK; kk = e - j * kBK; }
-      else { kk = e / kBN; j = e - kk * kBN; }
+      if (w_trans) { j = e / kSBK; kk = e - j * kSBK; }
+      else { kk = e / kSBN; j = e - kk * kSBN; }
       const int k = k0 + kk, cc = c0 + j;
       ws[kk][j] = (k < k_hi && cc < N)
                       ? wg[w_trans ? (size_t)cc * K + k : (size_t)k * N + cc]
@@ -295,12 +485,12 @@ edense_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
+    for (int kk = 0; kk < kSBK; ++kk) {
       float a[kTM], b[kTN];
 #pragma unroll
       for (int i = 0; i < kTM; ++i) a[i] = xs[kk][ty * kTM + i];
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) b[j] = ws[kk][tx + j * (kBN / kTN)];
+      for (int j = 0; j < kTN; ++j) b[j] = ws[kk][tx + j * (kSBN / kTN)];
 #pragma unroll
       for (int i = 0; i < kTM; ++i)
 #pragma unroll
@@ -314,7 +504,7 @@ edense_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (r >= r_end) continue;
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
-      int cc = c0 + tx + j * (kBN / kTN);
+      int cc = c0 + tx + j * (kSBN / kTN);
       if (cc < N) store(acc[i][j], r, cc, M, N, R, bias, na, ma, act, y,
                         partial);
     }
@@ -340,84 +530,112 @@ __global__ void edense_reduce_kernel(const float* __restrict__ partial,
   y[i] = epilogue(s, r, c, M, N, bias, na, ma, act);
 }
 
-constexpr int kBlocksPerSM = 8;  // 256-thread blocks that fill an SM
-constexpr int kChunkAlign = kRows * kUnroll;  // multiple of kBK too
+struct Args {
+  const float* x;
+  const float* w;
+  const float* bias;
+  float* y;
+  float* partial;
+  const int* ka;
+  const int* na;
+  const int* ma;
+  int G, M, K, N, kchunk, act, flags;
+  long long w_gstride;
+};
 
-// The rows kernel takes shared, untransposed weights at decode row counts.
-bool use_rows(int R, int flags) { return R <= kRows && flags == 0; }
-
-// Row tiles of the tiled kernel (see `grouped` there).
-int row_tiles(int G, int M, int flags) {
-  if (flags & (kWPerGroup | kXTrans)) return G * ((M + kBM - 1) / kBM);
-  return (G * M + kBM - 1) / kBM;
+int row_tiles(int G, int M, int flags, int bm) {
+  if (flags & (kWPerGroup | kXTrans)) return G * ((M + bm - 1) / bm);
+  return (G * M + bm - 1) / bm;
 }
 
-int output_blocks(int G, int M, int N, int flags) {
-  if (use_rows(G * M, flags)) return (N + kRowsBN - 1) / kRowsBN;
-  return ((N + kBN - 1) / kBN) * row_tiles(G, M, flags);
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES,
+          int MIN_BLOCKS, bool XT, bool WT>
+void launch_mma(const Args& a, int splits, cudaStream_t s) {
+  constexpr int kSmem = mma_smem_bytes<BM, BN, STAGES, XT, WT>();
+  auto kernel = edense_mma_kernel<BM, BN, WARPS_M, WARPS_N, STAGES,
+                                  MIN_BLOCKS, XT, WT>;
+  static bool configured = false;  // once per instantiation (one card)
+  if (!configured) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kSmem);
+    configured = true;
+  }
+  dim3 grid((a.N + BN - 1) / BN, row_tiles(a.G, a.M, a.flags, BM), splits);
+  kernel<<<grid, WARPS_M * WARPS_N * 32, kSmem, s>>>(
+      a.x, a.w, a.bias, a.y, a.partial, a.ka, a.na, a.ma, a.G, a.M, a.K,
+      a.N, a.kchunk, a.act, a.flags, a.w_gstride);
+}
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES,
+          int MIN_BLOCKS>
+void launch_layout(const Args& a, int splits, cudaStream_t s) {
+  const bool xt = (a.flags & kXTrans) != 0, wt = (a.flags & kWTrans) != 0;
+  if (xt && wt)
+    launch_mma<BM, BN, WARPS_M, WARPS_N, STAGES, MIN_BLOCKS, true, true>(
+        a, splits, s);
+  else if (xt)
+    launch_mma<BM, BN, WARPS_M, WARPS_N, STAGES, MIN_BLOCKS, true, false>(
+        a, splits, s);
+  else if (wt)
+    launch_mma<BM, BN, WARPS_M, WARPS_N, STAGES, MIN_BLOCKS, false, true>(
+        a, splits, s);
+  else
+    launch_mma<BM, BN, WARPS_M, WARPS_N, STAGES, MIN_BLOCKS, false, false>(
+        a, splits, s);
 }
 
 }  // namespace
 
-// How a launch splits its contraction, from the shapes alone (never from
-// the prefixes, so a change of submodel never changes the plan): returns
-// the number of chunks and writes the chunk length to *kchunk. The caller
-// allocates a (splits, G·M, N) fp32 scratch buffer when splits > 1.
-extern "C" int edense_plan(int G, int M, int K, int N, int flags, int sms,
-                           int* kchunk) {
-  const int R = G * M;
-  int splits = 1;
-  if (R > 0 && N > 0 && K > kChunkAlign) {
-    const int want = kBlocksPerSM * sms;
-    const int blocks = output_blocks(G, M, N, flags);
-    splits = (want + blocks - 1) / blocks;
-    splits = std::max(1, std::min(splits, K / kChunkAlign));
-  }
-  int chunk = (K + splits - 1) / splits;
-  chunk = std::max(kChunkAlign, (chunk + kChunkAlign - 1) / kChunkAlign *
-                               kChunkAlign);
-  *kchunk = chunk;
-  return std::max(1, (K + chunk - 1) / chunk);
-}
-
 // C entry point, bound with ctypes. All pointers are device pointers; the
 // wrapper has checked shapes, dtype (fp32), contiguity and device, and
-// passes the plan of `edense_plan` (partial may be null when splits == 1).
-// A null ka / na / ma means the full extent for every group. flags: the
-// layout flags above (kXTrans, kWTrans, kWPerGroup). w_gstride: the
-// elements between two groups' weights (a layer of a client-stacked
-// parameter is a strided view); x is contiguous or a transposed view of a
-// contiguous tensor.
+// passes the plan of kernels/elastic_matmul.py::_plan: the variant (0 simt,
+// 1 tile, 2 skinny), the row tile bm (64 for simt, 128 for tile, 16 / 32 /
+// 64 for skinny), the number of contraction chunks and their length (a
+// multiple of 32, and of 64 for simt); partial is a (splits, G·M, N) fp32
+// scratch buffer, null when splits == 1. The tile and skinny variants take
+// 16-byte-aligned operand rows only (the plan checks). A null ka / na / ma
+// means the full extent for every group. flags: the layout flags above
+// (kXTrans, kWTrans, kWPerGroup). w_gstride: the elements between two
+// groups' weights (a layer of a client-stacked parameter is a strided
+// view); x is contiguous or a transposed view of a contiguous tensor.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int edense_forward(const float* x, const float* w,
                               const float* bias, float* y, float* partial,
                               const int* ka, const int* na, const int* ma,
-                              int G, int M, int K, int N, int splits,
-                              int kchunk, int act, int flags,
+                              int G, int M, int K, int N, int variant, int bm,
+                              int splits, int kchunk, int act, int flags,
                               long long w_gstride, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = G * M;
   if (R <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
-  if (splits < 1 || (splits > 1 && partial == nullptr) || kchunk < 1)
+  if (splits < 1 || (splits > 1 && partial == nullptr) || kchunk < 1 ||
+      kchunk % (variant == kSimt ? kSBK : kBK) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  float* part = splits > 1 ? partial : nullptr;
-  if (use_rows(R, flags)) {
-    dim3 grid((N + kRowsBN - 1) / kRowsBN, 1, splits);
-    edense_rows_kernel<<<grid, kRows * 32, 0, s>>>(
-        x, w, bias, y, part, ka, na, ma, G, M, K, N, kchunk, act);
-  } else {
-    dim3 grid((N + kBN - 1) / kBN, row_tiles(G, M, flags), splits);
-    edense_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(
-        x, w, bias, y, part, ka, na, ma, G, M, K, N, kchunk, act, flags,
+  const Args a{x, w, bias, y, splits > 1 ? partial : nullptr, ka, na, ma,
+               G, M, K, N, kchunk, act, flags, w_gstride};
+  if (variant == kTile && bm == 128) {
+    launch_layout<128, 128, 2, 4, 3, 2>(a, splits, s);
+  } else if (variant == kSkinny && bm == 16) {
+    launch_layout<16, 128, 1, 4, 3, 3>(a, splits, s);
+  } else if (variant == kSkinny && bm == 32) {
+    launch_layout<32, 128, 1, 4, 3, 3>(a, splits, s);
+  } else if (variant == kSkinny && bm == 64) {
+    launch_layout<64, 128, 1, 4, 3, 2>(a, splits, s);
+  } else if (variant == kSimt && bm == kSBM) {
+    dim3 grid((N + kSBN - 1) / kSBN, row_tiles(G, M, flags, kSBM), splits);
+    edense_tiled_kernel<<<grid, kSimtThreads, 0, s>>>(
+        x, w, bias, y, a.partial, ka, na, ma, G, M, K, N, kchunk, act, flags,
         w_gstride);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (splits > 1) {
     const size_t total = (size_t)R * N;
     const int threads = 256;
     const unsigned blocks = static_cast<unsigned>((total + threads - 1) /
                                                   threads);
-    edense_reduce_kernel<<<blocks, threads, 0, s>>>(part, splits, bias, y,
-                                                    na, ma, R, M, N, act);
+    edense_reduce_kernel<<<blocks, threads, 0, s>>>(a.partial, splits, bias,
+                                                    y, na, ma, R, M, N, act);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,3 +46,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run the port on the CPU")
     return dev
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream of ``device``, for a kernel
+    launched through ctypes (the cheap form of
+    ``torch.cuda.current_stream(device).cuda_stream``: the serving path
+    makes hundreds of launches a decode step and is bound by the host)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -8,8 +8,9 @@ first use, by its own ``nvcc`` process, into
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>_<hash>.so \
          src/repro_torch/csrc/<name>.cu
 
-``<hash>`` keys the library by its source and flags, so an edited source
-rebuilds and an unchanged one is reused. All missing libraries are
+``<hash>`` keys the library by its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one is reused. All missing libraries are
 compiled together (one process each, started at once) the first time any
 of them is asked for. The result is loaded with ``ctypes``; the compiler's
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
@@ -52,6 +53,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # shared device helpers
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 

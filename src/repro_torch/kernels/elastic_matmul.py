@@ -26,17 +26,24 @@ same kernel, as the reference's ``_make_edense``:
 
 Each product launches the Hopper kernel ``csrc/elastic_dense.cu`` (see its
 header for the design and what bounds it) for CUDA tensors, and takes
-``elastic_dense_plain`` only for tensors on the CPU. ``elastic_dense``'s
-``launches`` attribute counts kernel launches, forward and backward.
+``elastic_dense_plain`` only for tensors on the CPU. ``_plan`` picks the
+kernel's variant (``VARIANTS``: the 3×TF32 tensor-core ``tile``, the
+weight-streaming ``skinny`` product for at most 64 rows, and the ``simt``
+tile for rows that are not 16-byte aligned), its row tile and its split of
+the contraction. ``elastic_dense``'s ``launches`` attribute counts kernel
+launches, forward and backward, and ``launches_by_variant`` the same
+launches by variant.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.backend import stream_handle
 from repro_torch.models.layers import ACTIVATIONS
 
 ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
@@ -47,25 +54,128 @@ X_TRANS, W_TRANS, W_PER_GROUP = 1, 2, 4
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.library("elastic_dense")
-    lib.edense_plan.argtypes = [ctypes.c_int] * 6 + \
-        [ctypes.POINTER(ctypes.c_int)]
-    lib.edense_plan.restype = ctypes.c_int
     lib.edense_forward.argtypes = [ctypes.c_void_p] * 8 + \
-        [ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_void_p]
+        [ctypes.c_int] * 10 + [ctypes.c_longlong, ctypes.c_void_p]
     lib.edense_forward.restype = ctypes.c_int
     return lib
 
 
+# The kernel's variants (csrc/elastic_dense.cu): "simt" the 64 × 64 SIMT
+# tile, only for rows that are not 16-byte aligned; "tile" the 128 × 128
+# 3×TF32 tensor-core tile; "skinny" the same kernel with a 16-, 32- or
+# 64-row tile and a deeper ring, streaming the weight for at most 64 rows.
+VARIANTS = ("simt", "tile", "skinny")
+TILE_N = {"simt": 64, "tile": 128, "skinny": 128}    # output columns a block
+STAGE_K = {"simt": 16, "tile": 32, "skinny": 32}    # contraction a step
+STAGES = {"tile": 3, "skinny": 3}                   # depth of the cp.async ring
+CHUNK_ALIGN = {"simt": 64, "tile": 32, "skinny": 32}  # a split chunk's unit
+SKINNY_ROWS = 64
+SIMT_BLOCKS_PER_SM = 8             # 256-thread SIMT blocks that fill an SM
+MIN_STEPS_PER_CHUNK = 4            # contraction steps a split chunk keeps
+SM_SHARED_BYTES = 233472           # shared memory of an H100 SM
+BLOCK_RESERVED_BYTES = 1024        # ... of which each resident block takes
+
+
+class Plan(NamedTuple):
+    variant: str
+    bm: int          # rows of a block's tile
+    splits: int      # contraction chunks (1: no split, no partials)
+    kchunk: int      # contraction a chunk spans
+
+
+def _row_tiles(G, M, flags, bm):
+    """Row tiles of the grid: per group when each group has its own
+    weights (or its own transposed x), else over the flattened rows."""
+    if flags & (W_PER_GROUP | X_TRANS):
+        return G * -(-M // bm)
+    return -(-(G * M) // bm)
+
+
+def plan_blocks(plan: Plan, G, M, N, flags):
+    """Blocks of one launch of ``plan``, split chunks included."""
+    return (-(-N // TILE_N[plan.variant])
+            * _row_tiles(G, M, flags, plan.bm) * plan.splits)
+
+
+def _stage_floats(rows, k_contiguous, permuted):
+    """Floats of one operand's ring stage (``Stage`` in the source)."""
+    bk = STAGE_K["tile"]
+    if k_contiguous:
+        return rows * (bk + (8 if permuted else 4))
+    return bk * (rows + 4)
+
+
+def shared_bytes(variant, bm, flags):
+    """Shared memory of one block of a tensor-core variant: the ring and
+    the per-row tables."""
+    x_k, w_k = not flags & X_TRANS, bool(flags & W_TRANS)
+    permuted = not (x_k and w_k)
+    ring = STAGES[variant] * (
+        _stage_floats(bm, x_k, permuted)
+        + _stage_floats(TILE_N[variant], w_k, permuted))
+    return 4 * ring + 12 * bm + 4
+
+
+def resident_blocks(variant, bm, flags):
+    """Blocks of a tensor-core variant that one SM holds at once: what its
+    shared memory allows, at most the blocks its registers are bounded for
+    (``MIN_BLOCKS`` of the launch in the source: the tile 2, the skinny
+    product 3 up to 32 rows and 2 above)."""
+    per_sm = SM_SHARED_BYTES // (shared_bytes(variant, bm, flags)
+                                 + BLOCK_RESERVED_BYTES)
+    return min(per_sm, 2 if variant == "tile" or bm > 32 else 3)
+
+
 @functools.lru_cache(maxsize=None)
-def _plan(G: int, M: int, K: int, N: int, flags: int, device_index: int):
-    """(splits, kchunk) of a launch: from the shapes, the layout and the
-    card's SM count only, never from the prefixes, so a change of submodel
-    never changes the launch."""
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    kchunk = ctypes.c_int(0)
-    splits = _library().edense_plan(G, M, K, N, flags, sms,
-                                    ctypes.byref(kchunk))
-    return splits, kchunk.value
+def _plan(G: int, M: int, K: int, N: int, flags: int, aligned: bool,
+          sms: int) -> Plan:
+    """The launch of one product, from the shapes, the layout flags, the
+    16-byte alignment of the operands' rows and the card's SM count alone —
+    never from the prefixes, so a change of submodel never changes the
+    launch. ``aligned``: every stored row (and group stride) of x and w is
+    a multiple of 4 floats and both start on 16 bytes (``_aligned``).
+
+    The split of the contraction: the SIMT tile aims at eight blocks per
+    SM; the tensor-core tile splits only when its output tiles do not give
+    every SM one block; the skinny product fills every resident slot of
+    the card in one wave (each block then streams an equal share of the
+    weight, and no second wave leaves SMs idle at the end)."""
+    rows = M if flags & (W_PER_GROUP | X_TRANS) else G * M
+    if not aligned:
+        variant, bm = "simt", 64
+    elif rows <= SKINNY_ROWS:
+        variant, bm = "skinny", next(b for b in (16, 32, 64) if rows <= b)
+    else:
+        variant, bm = "tile", 128
+    blocks = plan_blocks(Plan(variant, bm, 1, K), G, M, N, flags)
+    if variant == "simt":
+        want = -(-SIMT_BLOCKS_PER_SM * sms // max(blocks, 1))
+    elif variant == "tile":
+        want = -(-sms // max(blocks, 1))
+    else:
+        want = resident_blocks(variant, bm, flags) * sms // max(blocks, 1)
+    splits = max(1, min(want, K // (MIN_STEPS_PER_CHUNK * STAGE_K[variant])))
+    step = CHUNK_ALIGN[variant]
+    kchunk = max(step, -(-(-(-K // splits)) // step) * step)
+    return Plan(variant, bm, max(1, -(-K // kchunk)), kchunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index) \
+        .multi_processor_count
+
+
+def _aligned(x, w, flags):
+    """Whether cp.async's 16-byte copies can read x and w: each stored row,
+    the group strides and both base addresses on 16 bytes."""
+    G, M, K = x.shape
+    N = w.shape[-1]
+    x_row = M if flags & X_TRANS else K
+    w_row = K if flags & W_TRANS else N
+    strides = [x_row, w_row] + ([w.stride(0)] if flags & W_PER_GROUP else [])
+    return all(s % 4 == 0 for s in strides) and \
+        x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
 
 
 def _check_prefix(name, t, G, device):
@@ -116,6 +226,18 @@ def _layout(t, name):
                      f"transposed view of a contiguous tensor")
 
 
+def launch_plan(x, w):
+    """(layout flags, ``Plan``) of the kernel launch for CUDA operands x
+    (G, M, K) and w (K, N) or (G, K, N)."""
+    G, M, K = x.shape
+    N = w.shape[-1]
+    flags = (X_TRANS if _layout(x, "x") else 0) | \
+        (W_TRANS if _layout(w, "w") else 0) | \
+        (W_PER_GROUP if w.dim() == 3 else 0)
+    return flags, _plan(G, M, K, N, flags, _aligned(x, w, flags),
+                        _sms(x.device.index))
+
+
 def _edense(x, w, bias, ka, na, ma, act):
     """One product: the kernel for CUDA tensors, the plain version for CPU
     tensors. Shapes and prefixes are checked by the caller."""
@@ -133,25 +255,24 @@ def _edense(x, w, bias, ka, na, ma, act):
         raise ValueError("elastic_dense kernel takes a contiguous bias")
     G, M, K = x.shape
     N = w.shape[-1]
-    flags = (X_TRANS if _layout(x, "x") else 0) | \
-        (W_TRANS if _layout(w, "w") else 0) | \
-        (W_PER_GROUP if w.dim() == 3 else 0)
-    splits, kchunk = _plan(G, M, K, N, flags, x.device.index)
+    flags, plan = launch_plan(x, w)
     y = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
-    partial = torch.empty((splits, G * M, N), dtype=torch.float32,
-                          device=x.device) if splits > 1 else None
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    partial = torch.empty((plan.splits, G * M, N), dtype=torch.float32,
+                          device=x.device) if plan.splits > 1 else None
+    stream = stream_handle(x.device)
     err = _library().edense_forward(
         x.data_ptr(), w.data_ptr(),
         bias.data_ptr() if bias is not None else None, y.data_ptr(),
         partial.data_ptr() if partial is not None else None,
         *[None if t is None else t.data_ptr()      # None = full extent
           for t in (ka, na, ma)],
-        G, M, K, N, splits, kchunk, ACT_CODES[act], flags,
+        G, M, K, N, VARIANTS.index(plan.variant), plan.bm, plan.splits,
+        plan.kchunk, ACT_CODES[act], flags,
         w.stride(0) if w.dim() == 3 else 0, stream)
     if err != 0:
         raise RuntimeError(f"elastic_dense kernel launch failed: CUDA error "
                            f"{err}")
+    elastic_dense.launches_by_variant[plan.variant] += 1
     elastic_dense.launches += 1
     return y
 
@@ -238,3 +359,5 @@ def elastic_dense(x, w, bias=None, *, k_active=None, n_active=None,
 
 
 elastic_dense.launches = 0
+# launches per variant of the plan (same increments as ``launches``)
+elastic_dense.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -11,7 +11,8 @@ lse = NEG_INF.
 Three kernels, each with its plain PyTorch version beside it and a launch
 counter on its wrapper:
 
-* ``flash_attention`` (K2, ``csrc/flash_attention_fwd.cu``) -> (o, lse),
+* ``flash_attention`` (K2, ``csrc/flash_attention_fwd.cu``: 3×TF32
+  tensor-core tiles, FlashAttention-2's online softmax) -> (o, lse),
   lse (B, H, Sq) fp32. Differentiable in q, k, v: its backward runs the two
   kernels below on the saved o and lse (the reference reruns the forward
   in its backward instead; the numbers are the same, one launch fewer);
@@ -33,6 +34,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.backend import stream_handle
 
 NEG_INF = -2.0 ** 30
 KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -210,12 +212,19 @@ def _check_kernel_args(name, tensors, D):
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name} kernel supports head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {D}")
-    return torch.cuda.current_stream(dev).cuda_stream
+    return stream_handle(dev)
+
+
+@functools.lru_cache(maxsize=64)
+def _all_heads(B, H, device):
+    """A (B,) prefix of all H heads, made once per shape and device: the
+    kernels only read it, and a fill per call costs a launch on the
+    host-bound serving path."""
+    return torch.full((B,), H, dtype=torch.int32, device=device)
 
 
 def _full_heads(h_active, B, H, device):
-    return h_active if h_active is not None else torch.full(
-        (B,), H, dtype=torch.int32, device=device)
+    return h_active if h_active is not None else _all_heads(B, H, device)
 
 
 def _fwd(q, k, v, h_active, causal, window, cap, scale):
@@ -227,14 +236,20 @@ def _fwd(q, k, v, h_active, causal, window, cap, scale):
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     stream = _check_kernel_args("flash_attention", (q, k, v), D)
+    # the kernel's 16-byte cp.async copies need 16-byte-aligned rows: a
+    # contiguous view that starts off them is copied to a fresh tensor
+    ptrs = [t.data_ptr() for t in (q, k, v)]
+    if any(p % 16 for p in ptrs):
+        q, k, v = (t.clone() if p % 16 else t for t, p in zip((q, k, v),
+                                                               ptrs))
+        ptrs = [t.data_ptr() for t in (q, k, v)]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     ha = _full_heads(h_active, B, H, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     err = _library().flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), ha.data_ptr(), B, Sq, Sk, H, KV, D,
-        int(bool(causal)), int(window or 0), float(cap or 0.0),
+        *ptrs, o.data_ptr(), lse.data_ptr(), ha.data_ptr(), B, Sq, Sk, H,
+        KV, D, int(bool(causal)), int(window or 0), float(cap or 0.0),
         float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

@@ -17,6 +17,7 @@ from repro.kernels.elastic_matmul import elastic_dense as ref_edense
 from repro.kernels.flash_attention import _block_sizes, _fwd_call
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro_torch.kernels import dispatch
+from repro_torch.kernels import elastic_matmul as em
 from repro_torch.kernels.elastic_matmul import (elastic_dense,
                                                 elastic_dense_plain)
 from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
@@ -214,6 +215,116 @@ def test_dispatch_table_and_unported_ops():
     m = torch.tensor([[1, 1, 0, 0], [1, 1, 1, 1]], dtype=torch.float32)
     assert dispatch.active_len(m, 2).tolist() == [2, 4]
     assert dispatch.active_len(m[0], 3).tolist() == [2, 2, 2]
+
+
+# K1's launch plan (``elastic_matmul._plan``), computed here without a card
+# for an H100's 132 SMs: (label, G, M, K, N, layout flags, variant) at the
+# main path's shapes (granite-3-8b: chip_smoke.py phases 4 and 6)
+SMS = 132
+MAIN_PATH_PLANS = [
+    ("decode up/gate", 2, 1, 4096, 12800, 0, "skinny"),
+    ("decode down", 2, 1, 12800, 4096, 0, "skinny"),
+    ("prefill up/gate", 1, 32, 4096, 12800, 0, "skinny"),
+    ("prefill down", 1, 32, 12800, 4096, 0, "skinny"),
+    ("train up/gate fwd", 4, 512, 4096, 12800, em.W_PER_GROUP, "tile"),
+    ("train down fwd", 4, 512, 12800, 4096, em.W_PER_GROUP, "tile"),
+    ("train dx up", 4, 512, 12800, 4096, em.W_PER_GROUP | em.W_TRANS,
+     "tile"),
+    ("train dx down", 4, 512, 4096, 12800, em.W_PER_GROUP | em.W_TRANS,
+     "tile"),
+    ("train dw up", 4, 4096, 512, 12800, em.W_PER_GROUP | em.X_TRANS,
+     "tile"),
+    ("train dw down", 4, 12800, 512, 4096, em.W_PER_GROUP | em.X_TRANS,
+     "tile"),
+]
+
+
+@pytest.mark.parametrize("label,G,M,K,N,flags,variant", MAIN_PATH_PLANS,
+                         ids=[c[0] for c in MAIN_PATH_PLANS])
+def test_plan_main_path_takes_tensor_core_variants(label, G, M, K, N, flags,
+                                                   variant):
+    """Every main-path product goes to the tile or the skinny variant; its
+    split chunks are whole 32-deep stages that cover K exactly once, and a
+    split's partial sums stay far below the weight they accompany."""
+    plan = em._plan(G, M, K, N, flags, True, SMS)
+    assert plan.variant == variant
+    assert plan.kchunk % em.STAGE_K[variant] == 0
+    assert (plan.splits - 1) * plan.kchunk < K <= plan.splits * plan.kchunk
+    partial = plan.splits * G * M * N if plan.splits > 1 else 0
+    assert partial <= 0.05 * K * N * (G if flags & em.W_PER_GROUP else 1)
+    blocks = em.plan_blocks(plan, G, M, N, flags)
+    if variant == "skinny":
+        # every SM gets two or more blocks, and all of them fit at once
+        # (one wave: each block streams an equal share of the weight)
+        assert 2 * SMS <= blocks <= em.resident_blocks(
+            variant, plan.bm, flags) * SMS
+        assert em.shared_bytes(variant, plan.bm, flags) <= 227 * 1024
+    else:
+        assert blocks >= SMS and plan.splits == 1
+
+
+def test_plan_never_sees_the_prefixes():
+    """The plan is a function of the shapes, the layout flags, the rows'
+    alignment and the SM count: no prefix reaches it, so a change of
+    submodel never changes a launch (its prefixes are device tensors the
+    kernel reads)."""
+    import inspect
+    assert list(inspect.signature(em._plan).parameters) == [
+        "G", "M", "K", "N", "flags", "aligned", "sms"]
+    assert list(inspect.signature(em.launch_plan).parameters) == ["x", "w"]
+
+
+def test_plan_unaligned_rows_take_the_simt_tile(monkeypatch):
+    """Operands whose stored rows (or group stride, or start) are not on
+    16 bytes cannot be copied by cp.async: the plan picks the SIMT tile,
+    by shape alone; aligned twins of the same products do not."""
+    monkeypatch.setattr(em, "_sms", lambda index: SMS)
+    f32 = dict(dtype=torch.float32)
+    cases = [  # (x, w, aligned twin?)
+        (torch.zeros(3, 37, 1000, **f32), torch.zeros(1000, 777, **f32)),
+        (torch.zeros(5, 1, 257, **f32), torch.zeros(257, 130, **f32)),
+        (torch.zeros(2, 36, 38, **f32).transpose(-1, -2),  # xᵀ rows of 38
+         torch.zeros(2, 36, 64, **f32)),
+        (torch.zeros(1 + 2 * 64).narrow(0, 1, 2 * 64).view(2, 1, 64),
+         torch.zeros(64, 128, **f32)),                  # x starts off 16 B
+        (torch.zeros(2, 1, 64, **f32),                  # group stride 8194
+         torch.zeros(2 * (64 * 128 + 2)).as_strided((2, 64, 128),
+                                                    (64 * 128 + 2, 128, 1))),
+    ]
+    for x, w in cases:
+        flags, plan = em.launch_plan(x, w)
+        assert plan.variant == "simt" and plan.bm == 64, (x.shape, w.shape)
+    flags, plan = em.launch_plan(torch.zeros(2, 1, 64, **f32),
+                                 torch.zeros(64, 128, **f32))
+    assert plan.variant == "skinny"
+    flags, plan = em.launch_plan(
+        torch.zeros(2, 36, 40, **f32).transpose(-1, -2),
+        torch.zeros(2, 36, 64, **f32))
+    assert flags == em.X_TRANS | em.W_PER_GROUP and plan.variant == "skinny"
+
+
+def test_plan_row_boundary_between_skinny_and_tile():
+    """Up to 64 rows a tile (flattened rows, or rows per group with
+    per-group weights) the skinny product in 16-, 32- or 64-row tiles;
+    above, the 128-row tensor-core tile."""
+    for rows, bm in ((1, 16), (16, 16), (17, 32), (33, 64), (63, 64),
+                     (64, 64)):
+        plan = em._plan(1, rows, 256, 256, 0, True, SMS)
+        assert (plan.variant, plan.bm) == ("skinny", bm)
+        plan = em._plan(3, rows, 256, 256, em.W_PER_GROUP, True, SMS)
+        assert (plan.variant, plan.bm) == ("skinny", bm)
+    assert em._plan(1, 65, 256, 256, 0, True, SMS).variant == "tile"
+    assert em._plan(5, 13, 96, 136, 0, True, SMS).variant == "tile"  # R 65
+    assert em._plan(5, 13, 96, 136, em.W_PER_GROUP, True,
+                    SMS).variant == "skinny"
+
+
+def test_launch_counters_by_variant():
+    assert set(elastic_dense.launches_by_variant) == set(em.VARIANTS)
+    before = dict(elastic_dense.launches_by_variant)
+    x = torch.zeros(2, 1, 64)
+    elastic_dense(x, torch.zeros(64, 128))       # CPU: the plain version
+    assert elastic_dense.launches_by_variant == before
 
 
 @pytest.mark.cuda
