@@ -40,47 +40,60 @@ printing its own lines; any failed phase exits non-zero:
 7. training slice — two sync CFL rounds of 4 clients (the full spec and
    three elastic ones) of granite-3-8b at its published width, depth cut
    to 2 layers, through ``BatchedRoundEngine.run_fl_round`` on the kernels
-   and then on the dense masked path. Every kernel must launch as often as
-   the design says (K1 only through its tensor-core variants), the round-1 parameters of the two paths must agree
-   within 1e-3 of how far the round moved them, and every client's
-   accuracy must agree to one eval token, and each client's test CE under
-   the two paths' round-1 models must agree within a stated tolerance.
-   Prints round seconds, training tokens/s, peak device memory and one
-   local step's device idle share and K1's share of its device time.
+   and then on the dense masked path, each path after one untimed warm-up
+   round on its own copy of the starting parameters. Every kernel must
+   launch as often as the design says (K1 only through its tensor-core
+   variants), the round-1 parameters of the two paths must agree within
+   1e-3 of how far the round moved them, and every client's accuracy must
+   agree to one eval token, and each client's test CE under the two
+   paths' round-1 models must agree within a stated tolerance. Prints
+   round seconds, training tokens/s, peak device memory, one local step's
+   device idle share and each path kernel's share of its device time, and
+   the kernel path's first round (its warm-up) against a warm round, both
+   under ``torch.profiler``: host and device seconds and the entries that
+   grew.
 8. times, MoE shapes — the same columns for K5 (grouped expert-prefix
-   matmul: forward, dxs and dws at the MoE cohort's expert prefixes, and a
-   decode step), K6 (the dispatch gather) and K7 (the combine
-   gather-reduce), and K2–K4 at head_dim 64. (Phase 3b holds K5–K7 to
-   their plain versions at these shapes and the edges, and K2–K4 at the
-   MoE path's attention shape.)
+   matmul, with its plan variant: forward, dxs and dws at the MoE cohort's
+   expert prefixes, and a decode step, also beside its 3×TF32 bound and,
+   at decode, its device time), K6 (the dispatch gather) and K7 (the
+   combine gather-reduce), and K2–K4 at head_dim 64. (Phase 3b holds K5–K7
+   to their plain versions at these shapes and the edges — every K5
+   variant: tile, stream, simt — and K2–K4 at the MoE path's attention
+   shape.)
 9. MoE training slice — phase 7 for granite-moe-1b-a400m at its published
    width (32 experts top-8), depth cut to 12 layers, 4 clients with
    expert prefixes 32 / 16 / 24 / 8: K5–K7 and K2–K4 must launch as the
-   design says; also counts the routing decisions (top-k expert sets) on
-   which the two paths differ.
+   design says, every K5 launch through its tensor-core ``tile``; also
+   counts the routing decisions (top-k expert sets) on which the two
+   paths differ.
 10. MoE serving slice — phase 5 for granite-moe-1b-a400m at all 24
-   layers: K5–K7 and K2 must launch, greedy tokens must equal the dense
+   layers: K5–K7 and K2 must launch, every K5 launch through its
+   weight-streaming ``stream`` variant, greedy tokens must equal the dense
    path's.
 3c. (run after 3b) K8 / K9 — the SSD chunk scan and its transposed
-   backward — against their plain versions at the SSM slices' shapes
-   (training rows with per-client head prefixes 80 / 40 / 60 / 20, the
-   prefill) and at the edges: prefix 0, ragged and full per row, two
-   groups, one chunk and four, a chunk that is not a multiple of the
-   64-row tile, the per-chunk states, and a chunk whose Σ|dt·A| passes 88
-   (where the reference's dense path overflows).
+   backward (K9 fed by K8's own states) — against their plain versions at
+   the SSM slices' shapes (training rows with per-client head prefixes
+   80 / 40 / 60 / 20, the prefill) and at the edges: prefix 0, ragged and
+   full per row, two groups, one chunk and four, a chunk that is not a
+   multiple of the 64-row tile, the per-chunk states, a chunk whose
+   Σ|dt·A| passes 88 (where the reference's dense path overflows), the
+   prefill with a ragged head prefix, and the shapes of K8's simt
+   variant; each case prints K8's plan (variant, P tile).
 11. times, SSM shapes — K8 (forward, forward with states), K9 and the
-   prefill's K8: kernel ms, plain ms and the bound; no single PyTorch call
-   computes an SSD scan, so there is no library time (the dense masked
-   path's time is printed beside it as information, not as a yardstick).
+   prefill's K8: kernel ms, plain ms and the bound (K8's also in 3×TF32,
+   and the prefill's device time); no single PyTorch call computes an SSD
+   scan, so there is no library time (the dense masked path's time is
+   printed beside it as information, not as a yardstick).
 12. SSM training slice — phase 7 for mamba2-2.7b at its published width
    (d_model 2560, 80 SSD heads of 64, d_state 128, chunk 256), depth cut
    to 8 layers, sequences of 512 tokens (two chunks), 4 clients with SSD
    heads 80 / 40 / 60 / 20 (the last dropping layer 0): K8 and K9 must
-   launch as the design says, every parameter of both paths must stay
-   finite.
+   launch as the design says, every K8 launch through its ``mma``
+   variant, every parameter of both paths must stay finite.
 13. SSM serving slice — phase 5 for mamba2-2.7b at all 64 layers, prompts
-   of 512 tokens: K8 must launch 64 times per prefill, greedy tokens must
-   equal the dense path's.
+   of 512 tokens: K8 must launch 64 times per prefill, each through its
+   ``mma`` variant with P split, greedy tokens must equal the dense
+   path's.
 
 The last lines are a ``kernels:`` line, the slices' stats, the card line,
 one JSON object with every kernel's launches and times, and the result
@@ -151,6 +164,17 @@ SSM_TRAIN = dict(TRAIN, n_layers=8, seq_len=512)
 SSM_TRAIN_SPECS = ((False, 1.0), (False, 0.5), (False, 0.75), (True, 0.25))
 
 
+# the CUDA functions of each kernel wrapper (csrc/*.cu), by which a
+# profile's device time is attributed to it
+KERNEL_FUNCTIONS = {
+    "elastic_dense": ("edense_",), "flash_attention": ("flash_fwd_",),
+    "flash_attention_dq": ("flash_dq_",),
+    "flash_attention_dkv": ("flash_dkv_",), "grouped_matmul": ("gmm_",),
+    "gather_rows": ("gather_rows_",), "gather_reduce": ("gather_reduce_",),
+    "ssd_scan": ("ssd_fwd_", "ssd_cb_", "ssd_cum_"),
+    "ssd_scan_bwd": ("ssd_bwd_",)}
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -162,6 +186,32 @@ def card_line() -> str:
         timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
         else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def ptxas_summary(log):
+    """One line per kernel of an ``-Xptxas -v`` report: the kernel with its
+    template arguments, registers, spill stores / loads and static shared
+    memory."""
+    import re
+    out, kernel, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"\d+([a-z_]+_kernel)(I\w*?EE)?", m.group(1))
+            args = re.findall(r"L[ib](\d+)E", name.group(2) or "") \
+                if name else []
+            kernel = (name.group(1) if name else m.group(1)) + \
+                (f"<{','.join(args)}>" if args else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spills {m.group(1)} / {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line)
+        if m and kernel:
+            out.append(f"{kernel}: {m.group(1)} registers, {spill}, "
+                       f"{m.group(2) or 0} B static smem")
+            kernel = None
+    return out
 
 
 def sync(device):
@@ -559,6 +609,22 @@ def k5_cases(d_model, d_ff, n_experts, clients, cap, slots, experts):
         ("dxs ragged", 2, 3, 65, 40, 17, "dx", [1, 3]),
         ("dws ragged", 3, 2, 50, 77, 66, "dw", [2, 0, 1]),
         ("no prefix", 2, 3, 10, 20, 30, "group", None),
+        # 16-byte-aligned rows (the tensor-core variants): 160 capacity rows
+        # in every training layout with columns and contractions that are
+        # not tile multiples, prefix 0 and ragged prefixes, rows on both
+        # sides of the stream / tile boundary (64), a split contraction, and
+        # the 128-row tile with a ragged last row tile
+        ("rows 160 layer", 3, 3, 160, 36, 132, "layer", [3, 0, 2]),
+        ("rows 160 dxs", 2, 3, 160, 132, 36, "dx", [1, 3]),
+        ("rows 160 dws", 2, 3, 68, 160, 132, "dw", [3, 2]),
+        ("tile prefix 0", 2, 2, 81, 40, 136, "group", [0, 0]),
+        ("stream rows 33", 3, 5, 11, 40, 136, "shared", [5, 0, 2]),
+        ("stream rows 64", 2, 4, 32, 64, 200, "shared", [1, 4]),
+        ("tile rows 65", 5, 3, 13, 96, 136, "shared", [3, 0, 1, 2, 3]),
+        ("stream split", 2, 4, 4, 1024, 136, "shared", [4, 1]),
+        ("stream grouped", 3, 4, 24, 136, 40, "group", [4, 2, 0]),
+        ("tile 128 dws", 2, 3, 252, 160, 132, "dw", [3, 1]),
+        ("tile 128 dxs", 2, 2, 250, 136, 40, "dx", [2, 0]),
     ]
 
 
@@ -584,6 +650,16 @@ def _k5_inputs(G, E, M, K, N, layout, device, gen):
     else:
         w = rn(G, E, K, N) * scale
     return x, w
+
+
+def k5_variant(x, w):
+    """The variant (and row tile, and split) of K5's launch plan for x and
+    w (``plain`` on the CPU, where the wrapper runs the plain version)."""
+    if x.device.type != "cuda":
+        return "plain"
+    from repro_torch.kernels.grouped_matmul import launch_plan
+    plan = launch_plan(x, w)[1]
+    return f"{plan.variant} bm={plan.bm} splits={plan.splits}"
 
 
 def moe_tables(device, G, T, E, k, cap, experts, d, gen):
@@ -650,6 +726,7 @@ def phase_moe_kernels(device, d_model, d_ff, n_experts, top_k, clients,
             d_model, d_ff, n_experts, clients, cap, slots, experts):
         x, w = _k5_inputs(G, E, M, K, N, layout, device, gen)
         gat = None if ga is None else _i32(ga, device)
+        variant = k5_variant(x, w)
         got = grouped_matmul(x, w, gat)
         want = grouped_matmul_plain(x, w, gat)
         sync(device)
@@ -660,7 +737,7 @@ def phase_moe_kernels(device, d_model, d_ff, n_experts, top_k, clients,
         ok = err <= K5_TOL and dead_zero and bool(torch.isfinite(got).all())
         shown = ga if ga is None or len(ga) < 6 else "per group"
         print(f"  grouped_matmul {label:18s} G={G} E={E} M={M} K={K} N={N} "
-              f"layout={layout} g_active={shown} "
+              f"layout={layout} g_active={shown} {variant} "
               f"max|err|={err:.3e} tol={K5_TOL:g} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -839,28 +916,46 @@ def path_counters(cfg, serving=False):
         fa.flash_attention_dq, fa.flash_attention_dkv))
 
 
+def variant_counters():
+    """{kernel name: (wrapper, its variants)} of the kernels whose plan has
+    variants: K1, K5 and K8."""
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import elastic_matmul as em
+    return {"elastic_dense": (em.elastic_dense, em.VARIANTS),
+            "grouped_matmul": (gm.grouped_matmul, gm.VARIANTS),
+            "ssd_scan": (ss.ssd_scan, ss.SSD_VARIANTS)}
+
+
 def reset_launches(counters):
-    """Set every counter of ``counters`` (and K1's per-variant counts) to
-    0 just before a path runs."""
-    from repro_torch.kernels.elastic_matmul import VARIANTS, elastic_dense
+    """Set every counter of ``counters`` (and the per-variant counts of K1,
+    K5 and K8) to 0 just before a path runs."""
     for c in counters:
         c.launches = 0
-    elastic_dense.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+    for fn, variants in variant_counters().values():
+        fn.launches_by_variant = dict.fromkeys(variants, 0)
 
 
-def check_k1_variants(launches, problems):
-    """K1's launches of the path just run, by variant: every one must have
-    gone through a tensor-core variant (tile or skinny), none through the
-    SIMT tile kept for unaligned rows. Returns the counts."""
-    from repro_torch.kernels.elastic_matmul import elastic_dense
-    by = dict(elastic_dense.launches_by_variant)
-    if "elastic_dense" in launches:
-        print(f"  elastic_dense launches by variant: {by}")
-        if by["simt"] or sum(by.values()) != launches["elastic_dense"]:
-            problems.append(f"elastic_dense launches by variant {by}: not "
-                            f"all {launches['elastic_dense']} through the "
-                            f"tensor-core variants")
-    return by
+def check_variants(launches, problems, moe_variant, ssm_variant):
+    """The launches of the path just run, by plan variant, of the kernels
+    in ``launches`` that have variants: every K1 launch through a
+    tensor-core variant (tile or skinny), never the SIMT tile kept for
+    unaligned rows; every K5 launch through ``moe_variant`` (the training
+    path's ``tile``, the serving path's ``stream``); every K8 launch
+    through ``ssm_variant``. Returns {kernel: counts by variant}."""
+    want = {"elastic_dense": ("tile", "skinny"),
+            "grouped_matmul": (moe_variant,), "ssd_scan": (ssm_variant,)}
+    out = {}
+    for name, (fn, _) in variant_counters().items():
+        if name not in launches:
+            continue
+        by = dict(fn.launches_by_variant)
+        out[name] = by
+        print(f"  {name} launches by variant: {by}")
+        if sum(by[v] for v in want[name]) != launches[name]:
+            problems.append(f"{name} launches by variant {by}: not all "
+                            f"{launches[name]} through {want[name]}")
+    return out
 
 
 def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
@@ -914,7 +1009,7 @@ def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
     for name, n in launches.items():
         if n <= 0:
             problems.append(f"{name} never launched on the serving path")
-    by_variant = check_k1_variants(launches, problems)
+    by_variant = check_variants(launches, problems, "stream", "mma")
     if cfg.ssm is not None:          # one K8 per layer and prefill
         want = cfg.n_layers * n_requests
         if launches["ssd_scan"] != want:
@@ -947,8 +1042,7 @@ def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
              "tokens_per_s": n_requests * gen / secs,
              "dense_tokens_per_s": n_requests * gen / ref_secs,
              "max_rel_logit_err": worst}
-    if "elastic_dense" in launches:
-        stats["elastic_dense_launches_by_variant"] = by_variant
+    stats["launches_by_variant"] = by_variant
     if device.type == "cuda":
         fns = {name: decode_step_fn(device, fam, params, specs[:slots], b)
                for name, b in (("kernel", "auto"), ("dense", None))}
@@ -1172,14 +1266,15 @@ def flash_times(device, B, S, H, KV, D, gen, iters=5):
 # ---------------------------------------------------------------------------
 # phase 8: kernel times at the MoE slices' shapes
 # ---------------------------------------------------------------------------
-def k5_bound(G, E, M, K, N, ga, shared):
-    """K5's least time: each live expert's rows and weights read once (a
-    shared weight once for every group), every output written once; 2
-    operations per multiply-add of the live experts."""
+def k5_work(G, E, M, K, N, ga, shared):
+    """(bytes, operations) K5 must at least move and do: each live expert's
+    rows and weights read once (a shared weight once for every group),
+    every output written once; 2 operations per multiply-add of the live
+    experts."""
     live = sum(ga)
     w_reads = max(ga) if shared else live
-    return bound(4.0 * (live * M * K + w_reads * K * N + G * E * M * N),
-                 2.0 * live * M * K * N)
+    return (4.0 * (live * M * K + w_reads * K * N + G * E * M * N),
+            2.0 * live * M * K * N)
 
 
 def phase_moe_times(device, d_model, d_ff, n_experts, top_k, n_heads, n_kv,
@@ -1224,14 +1319,19 @@ def phase_moe_times(device, d_model, d_ff, n_experts, top_k, n_heads, n_kv,
             wb = w.contiguous().reshape(g * E, K, N)
             lib = lambda: torch.bmm(xb, wb)                  # noqa: E731
         row = dict(shape=f"{label} ({g},{E},{M},{K})@{tuple(w.shape)} "
-                         f"g_active={pre}",
+                         f"g_active={pre} {k5_variant(x, w)}",
                    ms=cuda_ms(lambda: grouped_matmul(x, w, gat), device,
                               iters, 1),
                    plain_ms=cuda_ms(lambda: grouped_matmul_plain(x, w, gat),
                                     device, iters, 1),
                    library_ms=cuda_ms(lib, device, iters, 1))
-        row["bound_ms"], row["bound_by"] = k5_bound(
-            g, E, M, K, N, pre, layout == "shared")
+        work = k5_work(g, E, M, K, N, pre, layout == "shared")
+        row["bound_ms"], row["bound_by"] = bound(*work)
+        add_tc_bound(row, *work)
+        if layout == "shared":     # short: device time beside back to back
+            row["device_ms"] = device_ms(lambda: grouped_matmul(x, w, gat),
+                                         device)
+            row["library_device_ms"] = device_ms(lib, device)
         out["grouped_matmul"].append(row)
         del x, w, lib
     for label, g, T, cp, pre in (("train", G, tokens, cap, ga),
@@ -1354,15 +1454,21 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
     """``rounds`` sync CFL rounds of ``clients`` clients through
     ``BatchedRoundEngine.run_fl_round`` on the kernels, then the same
     rounds on the dense masked path; returns (launch counts of the kernel
-    run, stats). Raises PhaseError unless every kernel launched as often
-    as the design says, the two paths' round-1 parameters agree and every
-    client's accuracy agrees to one eval token."""
+    run, stats). Each path first runs one untimed warm-up round on its own
+    copy of the starting parameters, so that both paths' round 1 is timed
+    warm; the kernel path's warm-up round and one more warm round run
+    under ``torch.profiler``, and their split (host time, device time, the
+    entries that cost most in the first round over the warm one) says what
+    a path's first round pays. Raises PhaseError unless every kernel
+    launched as often as the design says, the two paths' round-1
+    parameters agree and every client's accuracy agrees to one eval
+    token."""
     import numpy as np
     import torch
     from repro_torch.data.synth import make_lm_dataset
     from repro_torch.fl.engine import BatchedRoundEngine
     from repro_torch.models import moe as moe_mod
-    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
 
     fam = train_family(cfg, n_layers)
     cfg = fam.cfg
@@ -1390,17 +1496,20 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
     counters = path_counters(cfg)
     routes = {}
 
-    def run(backend, replay=None):
-        """The rounds on ``backend``'s path. Every MoE layer call's top-k
-        ids and top-k margin (the k-th probability less the next one) are
-        logged in call order under ``routes[backend or replay]``; with
-        ``replay`` (a list of logged ids), each call takes the logged ids
-        in place of its own top-k and gates them with its own
-        probabilities (renormalised, as ``models.moe.route`` does)."""
+    def run(backend, replay=None, n_rounds=rounds, start=None, log=True):
+        """``n_rounds`` rounds on ``backend``'s path from ``start`` (the
+        starting parameters by default). Every MoE layer call's top-k ids
+        and top-k margin (the k-th probability less the next one) are
+        logged in call order under ``routes[backend or replay]`` (with
+        ``log``; a warm-up round logs nothing); with ``replay`` (a list of
+        logged ids), each call takes the logged ids in place of its own
+        top-k and gates them with its own probabilities (renormalised, as
+        ``models.moe.route`` does)."""
         eng = BatchedRoundEngine(fam, lr=lr, momentum=momentum,
                                  grad_clip=grad_clip, backend=backend,
                                  device=device)
-        log = routes.setdefault("replay" if replay else backend, [])
+        log = routes.setdefault("replay" if replay else backend, []) \
+            if log else []
         real_route = moe_mod.route
         ids = iter(replay or ())
 
@@ -1416,9 +1525,9 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
             log.append((out[3].detach(), (top[..., -2] - top[..., -1])))
             return out
         moe_mod.route = recording
-        p, out = params0, []
+        p, out = params0 if start is None else start, []
         try:
-            for r in range(rounds):
+            for r in range(n_rounds):
                 sync(device)
                 t = time.perf_counter()
                 p, accs, n_steps = eng.run_fl_round(
@@ -1432,7 +1541,55 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
             moe_mod.route = real_route
         return eng, out
 
+    def profiled_rounds(backend):
+        """The first two rounds of ``backend``'s path, each on its own copy
+        of the starting parameters, in one ``torch.profiler`` session (a
+        second session slows a host-bound path's launches): for each, wall
+        seconds, the host's self time, the device's busy time, and per
+        entry (operator, runtime call or kernel) its host and device ms.
+        Events are assigned to a round by their start time (the device is
+        synchronised at the end of each round)."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                         else [])
+        walls = []
+        with profile(activities=acts) as prof:
+            for label in ("first", "warm"):
+                start = tree_map(lambda a: a.clone(), params0)
+                sync(device)
+                t = time.perf_counter()
+                with record_function(f"chip_smoke {label} round"):
+                    run(backend, n_rounds=1, start=start, log=False)
+                    sync(device)
+                walls.append(time.perf_counter() - t)
+                del start
+        events = prof.events()
+        second = min(e.time_range.start for e in events
+                     if e.name == "chip_smoke warm round")
+        out = [{"wall_s": w, "entries": {}} for w in walls]
+        for e in events:
+            if e.name.startswith("chip_smoke "):
+                continue
+            on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
+            us = (getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0)) or 0) \
+                if on_device else e.self_cpu_time_total
+            entries = out[int(e.time_range.start >= second)]["entries"]
+            host, dev = entries.get(e.key, (0.0, 0.0))
+            entries[e.key] = (host + (0 if on_device else us / 1e3),
+                              dev + (us / 1e3 if on_device else 0))
+        for o in out:
+            o["host_self_s"] = sum(h for h, _ in o["entries"].values()) / 1e3
+            o["device_busy_s"] = sum(d for _, d in
+                                     o["entries"].values()) / 1e3
+        return out
+
     cuda = device.type == "cuda"
+    # untimed warm-up rounds, each path on its own copy of the starting
+    # parameters: the kernel path's first two under the profiler
+    first, warm = profiled_rounds("auto")
+    run(None, n_rounds=1, start=tree_map(lambda a: a.clone(), params0),
+        log=False)
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     reset_launches(counters)
@@ -1464,9 +1621,15 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
             problems.append(f"{name} launched {n} times, design "
                             f"{want[name]}")
     # (the dense path runs no kernel: the counts are still the kernel run's)
-    by_variant = check_k1_variants(launches, problems)
+    by_variant = check_variants(launches, problems, "tile", "mma")
+    # the first round's cost: the kernel path's warm-up round against the
+    # warm round after it, both under the profiler
+    split = first_round_split(first, warm)
+    print(f"  kernel path, first round (the warm-up) against a warm round, "
+          f"both under torch.profiler: {json.dumps(split)}")
     for r, (a, b) in enumerate(zip(kern, dense)):
-        print(f"  round {r + 1} ({'coverage_norm' if r else 'paper rule'}):"
+        print(f"  round {r + 1} ({'coverage_norm' if r else 'paper rule'},"
+              f" after a warm-up round per path):"
               f" kernel path {a['seconds']:.3f} s "
               f"({tokens / a['seconds']:.0f} train tok/s), dense path "
               f"{b['seconds']:.3f} s ({tokens / b['seconds']:.0f} tok/s); "
@@ -1535,9 +1698,8 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
              "round1_max_param_move": moved,
              "round1_eval_ce": {k: v.tolist() for k, v in loss.items()},
              "max_memory_allocated_gib": peak / 2**30,
-             "launches_design": want, "routing": route_stats}
-    if "elastic_dense" in launches:
-        stats["elastic_dense_launches_by_variant"] = by_variant
+             "launches_design": want, "routing": route_stats,
+             "first_round_split": split, "launches_by_variant": by_variant}
     del kern, dense, replayed
     if problems:
         raise PhaseError("; ".join(problems))
@@ -1549,14 +1711,39 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
     prof = {"wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": None if busy is None
             else max(0.0, 1.0 - busy / wall), "top_kernels_ms": top}
-    if "elastic_dense" in launches:       # K1's kernels: edense_*
-        k1 = sum(v for k, v in by_name.items() if "edense" in k)
-        prof["k1_ms"] = k1
-        prof["k1_share_of_busy"] = k1 / busy if busy else None
+    # each kernel of the path: its device ms in the step and share of busy
+    prof["kernels_ms"] = {}
+    for name in launches:
+        ms = sum(v for k, v in by_name.items()
+                 if any(f in k for f in KERNEL_FUNCTIONS[name]))
+        prof["kernels_ms"][name] = ms
+        prof["kernels_ms"][f"{name} share"] = ms / busy if busy else None
     stats["kernel_local_step"] = prof
     print(f"  kernel path local step ({clients} clients x {batch} x "
           f"{seq_len}): {json.dumps(prof)}")
     return launches, stats
+
+
+def first_round_split(first, warm, top=6):
+    """Where a path's first round goes: wall, host self and device busy
+    seconds of the first (cold) round and of a warm one, and the entries
+    whose host + device ms grew most from the warm round to the first."""
+    keys = set(first["entries"]) | set(warm["entries"])
+    grown = []
+    for k in keys:
+        h1, d1 = first["entries"].get(k, (0.0, 0.0))
+        h2, d2 = warm["entries"].get(k, (0.0, 0.0))
+        grown.append(((h1 + d1) - (h2 + d2), k, h1, h2, d1, d2))
+    grown.sort(reverse=True)
+    return {name: {"first": first[f], "warm": warm[f]}
+            for name, f in (("wall_s", "wall_s"),
+                            ("host_self_s", "host_self_s"),
+                            ("device_busy_s", "device_busy_s"))} | {
+        "largest_new_ms": [
+            {"entry": k[:70], "host_first": round(h1, 3),
+             "host_warm": round(h2, 3), "device_first": round(d1, 3),
+             "device_warm": round(d2, 3)}
+            for _, k, h1, h2, d1, d2 in grown[:top]]}
 
 
 def routing_stats(kern, dense, top_k, n_layers):
@@ -1638,8 +1825,9 @@ def ssd_cases(d_model, head_dim, d_state, clients, rows, seq, chunk, heads,
     training path's shapes (R = clients × rows; row r belongs to client
     r // rows, with that client's SSD-head prefix), the prefill, then the
     edges (prefix 0 / ragged / full per row, two groups, one chunk and
-    four, a chunk that is not a multiple of the 64-row tile, and dt = 1
-    with A down to −16, whose Σ|dt·A| in a chunk passes 88)."""
+    four, a chunk that is not a multiple of the 64-row tile, dt = 1 with A
+    down to −16, whose Σ|dt·A| in a chunk passes 88, the prefill with a
+    ragged head prefix, and two shapes of K8's simt variant)."""
     H = 2 * d_model // head_dim
     has = [heads[r // rows] for r in range(clients * rows)]
     return [
@@ -1653,7 +1841,23 @@ def ssd_cases(d_model, head_dim, d_state, clients, rows, seq, chunk, heads,
         ("one chunk", 2, 64, 4, 64, 1, 128, 64, [4, 1], (0.01, 0.3)),
         ("chunk 100", 2, 300, 3, 32, 1, 64, 100, [3, 2], (0.01, 0.3)),
         ("sum|dt A| > 88", 1, 256, 4, 64, 1, 128, 128, None, (1.0, 1.0)),
+        # the prefill's P split with heads past a ragged prefix; d_state
+        # not a multiple of 8 and a chunk above 256 (the simt variant)
+        ("prefill heads ragged", 1, prompt_len, H, head_dim, 1, d_state,
+         chunk, [H // 2 + 3], (0.01, 0.3)),
+        ("d_state 20", 2, 64, 4, 32, 1, 20, 32, [4, 2], (0.01, 0.3)),
+        ("chunk 320", 1, 640, 2, 64, 1, 64, 320, None, (0.01, 0.3)),
     ]
+
+
+def k8_plan(x, Bm, Cm, Q):
+    """K8's launch plan for these operands, as text (``plain`` on the CPU,
+    where the wrapper runs the plain version)."""
+    if x.device.type != "cuda":
+        return "plain"
+    from repro_torch.kernels.ssd_scan import launch_plan
+    plan = launch_plan(x, Bm, Cm, Q)
+    return f"{plan.variant} p_tile={plan.p_tile}"
 
 
 def _ssd_inputs(R, S, H, P, G, N, dt_range, device, gen):
@@ -1698,6 +1902,7 @@ def phase_ssd_kernels(device, d_model, head_dim, d_state, clients, rows,
             prompt_len):
         x, dt, A, Bm, Cm = _ssd_inputs(R, S, H, P, G, N, dtr, device, gen)
         hat = None if ha is None else _i32(ha, device)
+        plan = k8_plan(x, Bm, Cm, Q)
         y, st = ssd_scan(x, dt, A, Bm, Cm, Q, h_active=hat,
                          return_states=True)
         y1 = ssd_scan(x, dt, A, Bm, Cm, Q, h_active=hat)
@@ -1729,7 +1934,7 @@ def phase_ssd_kernels(device, d_model, head_dim, d_state, clients, rows,
         sum_dA = float((dt * A[:, None, :]).reshape(
             R, S // Q, Q, H).sum(2).abs().max())
         print(f"  ssd_scan fwd+bwd {label:20s} R={R} S={S} H={H} P={P} G={G}"
-              f" N={N} Q={Q} h_active={shown} max chunk sum|dt A| "
+              f" N={N} Q={Q} h_active={shown} {plan} max chunk sum|dt A| "
               f"{sum_dA:.1f}: max|err|/max y,states {e8:.3e} (tol "
               f"{K8_RTOL:g}), cotangents {e9:.3e} (tol {K9_RTOL:g}; "
               f"worst {max(e9s, key=e9s.get)}) {'ok' if ok else 'FAIL'}")
@@ -1743,24 +1948,28 @@ def phase_ssd_kernels(device, d_model, head_dim, d_state, clients, rows,
 
 
 def ssd_work(R, S, H, P, G, N, Q, ha, backward=False, states=False):
-    """(bytes, operations) K8 (or K9) must at least move and do: per live
-    (row, head, chunk), with the causal triangle T = Q(Q+1)/2, K8 2T(N+P) +
-    4QPN and K9 2T(3N+2P) + 10QPN operations; x and y (K9: x, dy and dx)
-    once per live head, B, C and dt once per row, the states written (K8)
-    or read (K9) once per live head, and K9's per-head outputs (ddt, du,
-    dB, dC) once."""
-    live = sum(ha) if ha is not None else R * H
+    """(bytes, operations) K8 (or K9) must at least move and do, with the
+    causal triangle T = Q(Q+1)/2: K8 2T·P + 4QPN per live (row, head,
+    chunk) and 2T·N per (row, group, chunk) with a live head (C·Bᵀ is one
+    product per group); K9 2T(3N+2P) + 10QPN per live (row, head, chunk).
+    x and y (K9: x, dy and dx) once per live head, B, C and dt once per
+    row, the states written (K8) or read (K9) once per live head, and K9's
+    per-head outputs (ddt, du, dB, dC) once."""
+    has = list(ha) if ha is not None else [H] * R
+    live = sum(has)
+    groups = sum(-(-min(h, H) // (H // G)) for h in has)
     nc = S // Q
     T = Q * (Q + 1) / 2
     if backward:
-        ops = 2 * T * (3 * N + 2 * P) + 10 * Q * P * N
+        ops = (2 * T * (3 * N + 2 * P) + 10 * Q * P * N) * live * nc
         nbytes = 4.0 * (3 * live * S * P + R * S * (2 * G * N + H)
                         + live * nc * P * N + R * S * H * (2 + 2 * N))
     else:
-        ops = 2 * T * (N + P) + 4 * Q * P * N
+        ops = (2 * T * P + 4 * Q * P * N) * live * nc \
+            + 2 * T * N * groups * nc
         nbytes = 4.0 * (2 * live * S * P + R * S * (2 * G * N + H)
                         + (live * nc * P * N if states else 0))
-    return nbytes, ops * live * nc
+    return nbytes, ops
 
 
 def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
@@ -1790,6 +1999,7 @@ def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
               for t in (x, dt, A, Bm, Cm)]
     y_d, _ = ssd_chunked(*leaves, chunk)
     dy = torch.randn(x.shape, generator=gen, device=device)
+    shape += f" {k8_plan(x, Bm, Cm, chunk)}"
     for label, states in (("fwd", False), ("fwd+states", True)):
         row = dict(shape=f"{shape} {label}",
                    ms=cuda_ms(lambda: ssd_scan(
@@ -1802,8 +2012,10 @@ def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
         with torch.no_grad():
             row["dense_ms"] = cuda_ms(lambda: ssd_chunked(
                 x, dt, A, Bm, Cm, chunk), device, iters, 1)
-        row["bound_ms"], row["bound_by"] = bound(*ssd_work(
-            R, seq, H, head_dim, 1, d_state, chunk, ha, states=states))
+        work = ssd_work(R, seq, H, head_dim, 1, d_state, chunk, ha,
+                        states=states)
+        row["bound_ms"], row["bound_by"] = bound(*work)
+        add_tc_bound(row, *work)
         out["ssd_scan"].append(row)
     _, st = ssd_scan(x, dt, A, Bm, Cm, chunk, h_active=hat,
                      return_states=True)
@@ -1823,7 +2035,7 @@ def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
     x, dt, A, Bm, Cm = _ssd_inputs(1, prompt_len, H, head_dim, 1, d_state,
                                    (0.01, 0.3), device, gen)
     row = dict(shape=f"prefill xh(1,{prompt_len},{H},{head_dim}) chunk "
-                     f"{chunk}",
+                     f"{chunk} {k8_plan(x, Bm, Cm, chunk)}",
                ms=cuda_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk), device,
                           iters),
                plain_ms=cuda_ms(lambda: ssd_scan_plain(x, dt, A, Bm, Cm,
@@ -1833,15 +2045,24 @@ def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
     with torch.no_grad():
         row["dense_ms"] = cuda_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm,
                                                       chunk), device, iters)
-    row["bound_ms"], row["bound_by"] = bound(*ssd_work(
-        1, prompt_len, H, head_dim, 1, d_state, chunk, None))
+    work = ssd_work(1, prompt_len, H, head_dim, 1, d_state, chunk, None)
+    row["bound_ms"], row["bound_by"] = bound(*work)
+    add_tc_bound(row, *work)
+    row["device_ms"] = device_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk),
+                                 device)
     out["ssd_scan"].append(row)
     for name, rs in out.items():
         for r in rs:
-            print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, library — (none exists), bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}); dense masked "
-                  f"path {r['dense_ms']:.4f} ms (information only)")
+            line = (f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms, library — (none exists), "
+                    f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            if "tc_bound_ms" in r:
+                line += (f", 3xTF32 bound {r['tc_bound_ms']:.4f} ms "
+                         f"({r['tc_bound_by']}); {r['tflops']:.1f} TFLOP/s")
+            if r.get("device_ms") is not None:
+                line += f"; device {r['device_ms']:.4f} ms"
+            print(line + f"; dense masked path {r['dense_ms']:.4f} ms "
+                  f"(information only)")
     return out
 
 
@@ -1886,9 +2107,8 @@ def main() -> int:
     print(f"  built in {time.perf_counter() - t0:.1f} s "
           f"(per source: {build.build_seconds})")
     for name in build.SOURCES:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in ptxas_summary(build.build_log(name)):
+            print(f"  {name}: {line}")
 
     cfg = get_config(SLICE["arch"])
     dims = dict(d_model=cfg.d_model, d_ff=cfg.d_ff, n_heads=cfg.n_heads,
@@ -2030,16 +2250,21 @@ def main() -> int:
             max_abs_err=worst[name], ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
+            tc_bound_ms=head.get("tc_bound_ms"),
             shape=head["shape"],
             host_us=serving[0].get("host_us") if serving else None,
             library_host_us=(serving[0].get("library_host_us")
                              if serving else None),
             other_shapes=rows[1:] + serving + extra))
-        if name == "elastic_dense":      # K1's launches by plan variant
+        if name in variant_counters():   # launches by plan variant
             entries[-1]["launches_by_variant"] = {
-                "serving": stats.get("elastic_dense_launches_by_variant"),
-                "training": train_stats.get(
-                    "elastic_dense_launches_by_variant")}
+                p: st.get("launches_by_variant", {}).get(name)
+                for p, st in (("serving", stats), ("training", train_stats),
+                              ("moe_serving", moe_stats),
+                              ("moe_training", moe_train_stats),
+                              ("ssm_serving", ssm_stats),
+                              ("ssm_training", ssm_train_stats))
+                if name in st.get("launches_by_variant", {})}
     print("kernels: " + "; ".join(
         f"{p} " + " ".join(f"{n}={c}" for n, c in counts.items())
         for p, counts in by_path.items()))

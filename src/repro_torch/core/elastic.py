@@ -253,4 +253,4 @@ def family_for(cfg) -> TransformerElasticFamily:
     if isinstance(cfg, ModelConfig):
         return TransformerElasticFamily(cfg)
     raise TypeError(f"no elastic family for {type(cfg).__name__} (the CNN "
-                    "family comes with ROADMAP Slice 2)")
+                    "family comes with ROADMAP A4)")

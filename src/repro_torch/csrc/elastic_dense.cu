@@ -167,32 +167,9 @@ __device__ __forceinline__ void row_tile(int bm, int G, int M, int flags,
 // ---------------------------------------------------------------------------
 // tile / skinny: 3×TF32 mma.sync, fed by a cp.async ring
 // ---------------------------------------------------------------------------
-constexpr int kBK = 32;     // contraction depth of one ring stage
-
-// One operand's stage in shared memory: ROWS (M or N) by kBK, stored
-// K-contiguous ([ROWS][kBK + pad]) or rows-contiguous ([kBK][ROWS + 4]).
-// A warp's fragment loads take rows g < 8 at two k per thread. In the
-// permuted k order of csrc/mma_tf32.cuh (PERM: k = 2t, 2t + 1) a
-// K-contiguous row pads to kBK + 8 and its pair loads as one 64-bit word
-// (words 8g + 2t: distinct banks), a rows-contiguous one to ROWS + 4
-// (words 8t + g). When both operands are K-contiguous (the dx product, wᵀ
-// read in place) the k order stays native (k = t, t + 4) and the rows pad
-// to kBK + 4 (words 4g + t): 12 % less shared memory, so that two blocks
-// fit an SM, for scalar loads. Every row stays 16-byte aligned.
-template <int ROWS, bool KCONTIG, bool PERM>
-struct Stage {
-  static constexpr int kStride = KCONTIG ? kBK + (PERM ? 8 : 4) : ROWS + 4;
-  static constexpr int kFloats = KCONTIG ? ROWS * kStride : kBK * kStride;
-  __device__ __forceinline__ static int at(int row, int k) {
-    return KCONTIG ? row * kStride + k : k * kStride + row;
-  }
-};
-
-// The permuted k order, unless both operands are K-contiguous.
-template <bool XT, bool WT>
-struct Permuted {
-  static constexpr bool value = XT || !WT;
-};
+constexpr int kBK = tf32x3::kStageK;  // contraction depth of a ring stage
+using tf32x3::Permuted;
+using tf32x3::Stage;
 
 template <int BM, int BN, int STAGES, bool XT, bool WT>
 constexpr int mma_smem_bytes() {
@@ -319,62 +296,7 @@ edense_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
     tf32x3::cp_async_commit();
     const float* as = As + (kt % STAGES) * SA::kFloats;
     const float* bs = Bs + (kt % STAGES) * SB::kFloats;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 8) {
-      // B fragments of the warp's NT column tiles, then one row tile at a
-      // time: its A fragment and its NT products (fewer live registers)
-      uint32_t bh[NT][2], bl[NT][2];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = wn + j * 8 + g;
-        float b0, b1;
-        if (!PERM) {
-          b0 = bs[SB::at(col, kk + t)];
-          b1 = bs[SB::at(col, kk + t + 4)];
-        } else if (WT) {
-          const float2 v = *reinterpret_cast<const float2*>(
-              bs + SB::at(col, kk + 2 * t));
-          b0 = v.x;
-          b1 = v.y;
-        } else {
-          b0 = bs[SB::at(col, kk + 2 * t)];
-          b1 = bs[SB::at(col, kk + 2 * t + 1)];
-        }
-        tf32x3::split(b0, bh[j][0], bl[j][0]);
-        tf32x3::split(b1, bh[j][1], bl[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int row = wm + i * 16 + g;
-        float a[4];
-        if (!PERM) {
-          a[0] = as[SA::at(row, kk + t)];
-          a[2] = as[SA::at(row, kk + t + 4)];
-          a[1] = as[SA::at(row + 8, kk + t)];
-          a[3] = as[SA::at(row + 8, kk + t + 4)];
-        } else if (!XT) {
-          const float2 v0 = *reinterpret_cast<const float2*>(
-              as + SA::at(row, kk + 2 * t));
-          const float2 v1 = *reinterpret_cast<const float2*>(
-              as + SA::at(row + 8, kk + 2 * t));
-          a[0] = v0.x;
-          a[2] = v0.y;
-          a[1] = v1.x;
-          a[3] = v1.y;
-        } else {
-          a[0] = as[SA::at(row, kk + 2 * t)];
-          a[2] = as[SA::at(row, kk + 2 * t + 1)];
-          a[1] = as[SA::at(row + 8, kk + 2 * t)];
-          a[3] = as[SA::at(row + 8, kk + 2 * t + 1)];
-        }
-        uint32_t ah[4], al[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tf32x3::split(a[e], ah[e], al[e]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          tf32x3::mma3_add(acc[i][j], ah, al, bh[j], bl[j]);
-      }
-    }
+    tf32x3::stage_mma<BM, BN, MT, NT, XT, WT>(as, bs, wm, wn, g, t, acc);
   }
   tf32x3::cp_async_wait<0>();
 

@@ -1,6 +1,8 @@
 // mma_tf32.cuh — fp32 products on Hopper's tensor cores at about fp32
-// accuracy ("3×TF32"), and the 16-byte cp.async copies that feed them.
-// Shared by csrc/elastic_dense.cu (K1) and csrc/flash_attention_fwd.cu (K2).
+// accuracy ("3×TF32"), the 16-byte cp.async copies that feed them, and the
+// ring-stage tile of a matrix product. Shared by csrc/elastic_dense.cu
+// (K1), csrc/flash_attention_fwd.cu (K2), csrc/grouped_matmul.cu (K5) and
+// csrc/ssd_scan.cu (K8).
 //
 // A TF32 tensor-core product keeps 10 bits of each operand's mantissa;
 // fp32 keeps 23. Each operand is split where its fragment is loaded from
@@ -109,6 +111,109 @@ __device__ __forceinline__ void cp_async_wait() {
 // Bytes (0, 4, 8, 12 or 16) of a 4-float copy of which `n` floats are live.
 __device__ __forceinline__ int live_bytes(int n) {
   return n >= 4 ? 16 : (n > 0 ? 4 * n : 0);
+}
+
+// ---------------------------------------------------------------------------
+// The ring-stage tile of K1 and K5: a block's BM × BN output tile in warp
+// tiles of MT × NT m16n8 tiles, fed kStageK-deep stages of both operands
+// through a cp.async ring in shared memory.
+// ---------------------------------------------------------------------------
+constexpr int kStageK = 32;  // contraction depth of one ring stage
+
+// One operand's stage in shared memory: ROWS (M or N) by kStageK, stored
+// K-contiguous ([ROWS][kStageK + pad]) or rows-contiguous ([kStageK][ROWS +
+// 4]). A warp's fragment loads take rows g < 8 at two k per thread. In the
+// permuted k order above (PERM: k = 2t, 2t + 1) a K-contiguous row pads to
+// kStageK + 8 and its pair loads as one 64-bit word (words 8g + 2t:
+// distinct banks), a rows-contiguous one to ROWS + 4 (words 8t + g, ROWS a
+// multiple of 16). When both operands are K-contiguous (a product with wᵀ
+// read in place) the k order stays native (k = t, t + 4) and the rows pad
+// to kStageK + 4 (words 4g + t): 12 % less shared memory, so that two
+// blocks fit an SM, for scalar loads. Every row stays 16-byte aligned.
+template <int ROWS, bool KCONTIG, bool PERM>
+struct Stage {
+  static constexpr int kStride =
+      KCONTIG ? kStageK + (PERM ? 8 : 4) : ROWS + 4;
+  static constexpr int kFloats =
+      KCONTIG ? ROWS * kStride : kStageK * kStride;
+  __device__ __forceinline__ static int at(int row, int k) {
+    return KCONTIG ? row * kStride + k : k * kStride + row;
+  }
+};
+
+// The permuted k order, unless both operands are K-contiguous. XT: the
+// row operand (x) is stored transposed, rows-contiguous; WT: the column
+// operand (w) is stored transposed, K-contiguous.
+template <bool XT, bool WT>
+struct Permuted {
+  static constexpr bool value = XT || !WT;
+};
+
+// acc += the warp's share of one ring stage: the rows [wm, wm + 16·MT) of
+// the stage's x tile `as` times the columns [wn, wn + 8·NT) of its w tile
+// `bs`, kStageK / 8 steps of mma3_add (g = lane / 4, t = lane % 4).
+template <int BM, int BN, int MT, int NT, bool XT, bool WT>
+__device__ __forceinline__ void stage_mma(const float* as, const float* bs,
+                                          int wm, int wn, int g, int t,
+                                          float (&acc)[MT][NT][4]) {
+  constexpr bool PERM = Permuted<XT, WT>::value;
+  using SA = Stage<BM, !XT, PERM>;  // x: K-contiguous unless transposed
+  using SB = Stage<BN, WT, PERM>;   // w: K-contiguous only when transposed
+#pragma unroll
+  for (int kk = 0; kk < kStageK; kk += 8) {
+    // B fragments of the warp's NT column tiles, then one row tile at a
+    // time: its A fragment and its NT products (fewer live registers)
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = wn + j * 8 + g;
+      float b0, b1;
+      if (!PERM) {
+        b0 = bs[SB::at(col, kk + t)];
+        b1 = bs[SB::at(col, kk + t + 4)];
+      } else if (WT) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            bs + SB::at(col, kk + 2 * t));
+        b0 = v.x;
+        b1 = v.y;
+      } else {
+        b0 = bs[SB::at(col, kk + 2 * t)];
+        b1 = bs[SB::at(col, kk + 2 * t + 1)];
+      }
+      split(b0, bh[j][0], bl[j][0]);
+      split(b1, bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int row = wm + i * 16 + g;
+      float a[4];
+      if (!PERM) {
+        a[0] = as[SA::at(row, kk + t)];
+        a[2] = as[SA::at(row, kk + t + 4)];
+        a[1] = as[SA::at(row + 8, kk + t)];
+        a[3] = as[SA::at(row + 8, kk + t + 4)];
+      } else if (!XT) {
+        const float2 v0 = *reinterpret_cast<const float2*>(
+            as + SA::at(row, kk + 2 * t));
+        const float2 v1 = *reinterpret_cast<const float2*>(
+            as + SA::at(row + 8, kk + 2 * t));
+        a[0] = v0.x;
+        a[2] = v0.y;
+        a[1] = v1.x;
+        a[3] = v1.y;
+      } else {
+        a[0] = as[SA::at(row, kk + 2 * t)];
+        a[2] = as[SA::at(row, kk + 2 * t + 1)];
+        a[1] = as[SA::at(row + 8, kk + 2 * t)];
+        a[3] = as[SA::at(row + 8, kk + 2 * t + 1)];
+      }
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(a[e], ah[e], al[e]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma3_add(acc[i][j], ah, al, bh[j], bl[j]);
+    }
+  }
 }
 
 }  // namespace tf32x3

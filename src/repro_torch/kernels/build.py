@@ -78,14 +78,21 @@ def build_all() -> Dict[str, Path]:
                                         stderr=subprocess.STDOUT),
                        tmp, log)
     failed = []
-    for name, (proc, tmp, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        build_seconds[name] = time.perf_counter() - t0
-        if rc != 0:
-            failed.append(name)
-            continue
-        os.replace(tmp, todo[name])
+    pending = dict(procs)
+    while pending:                   # each source's own build time
+        for name, (proc, tmp, log) in list(pending.items()):
+            rc = proc.poll()
+            if rc is None:
+                continue
+            del pending[name]
+            log.close()
+            build_seconds[name] = time.perf_counter() - t0
+            if rc != 0:
+                failed.append(name)
+                continue
+            os.replace(tmp, todo[name])
+        if pending:
+            time.sleep(0.2)
     if failed:
         report = "\n".join(
             f"--- {n} ---\n" + build_log(n)[-4000:] for n in failed)

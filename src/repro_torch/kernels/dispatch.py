@@ -141,7 +141,7 @@ class KernelDispatch:
             return None
         if family != "transformer":
             raise NotImplementedError(
-                f"no {family!r} op table yet (ROADMAP Slice 2)")
+                f"no {family!r} op table yet (ROADMAP A3)")
         return {"mlp": mlp_op, "attention": attention_op, "moe": moe_op,
                 "ssd": ssd_op}
 

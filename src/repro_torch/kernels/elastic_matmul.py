@@ -67,7 +67,7 @@ def _library() -> ctypes.CDLL:
 VARIANTS = ("simt", "tile", "skinny")
 TILE_N = {"simt": 64, "tile": 128, "skinny": 128}    # output columns a block
 STAGE_K = {"simt": 16, "tile": 32, "skinny": 32}    # contraction a step
-STAGES = {"tile": 3, "skinny": 3}                   # depth of the cp.async ring
+STAGES = 3             # depth of the cp.async ring (K1's and K5's tiles)
 CHUNK_ALIGN = {"simt": 64, "tile": 32, "skinny": 32}  # a split chunk's unit
 SKINNY_ROWS = 64
 SIMT_BLOCKS_PER_SM = 8             # 256-thread SIMT blocks that fill an SM
@@ -105,25 +105,34 @@ def _stage_floats(rows, k_contiguous, permuted):
     return bk * (rows + 4)
 
 
+def ring_bytes(bm, bn, flags):
+    """Shared memory of the cp.async ring of a BM × BN tensor-core tile in
+    the layout ``flags`` (the X_TRANS / W_TRANS bits, the same in K5's
+    wrapper): ``tf32x3::Stage`` in csrc/mma_tf32.cuh."""
+    x_k, w_k = not flags & X_TRANS, bool(flags & W_TRANS)
+    permuted = not (x_k and w_k)
+    return 4 * STAGES * (_stage_floats(bm, x_k, permuted)
+                         + _stage_floats(bn, w_k, permuted))
+
+
+def blocks_per_sm(block_bytes, bm):
+    """Blocks of a tensor-core tile (K1 or K5) that one SM holds at once:
+    what its shared memory allows, at most the blocks its registers are
+    bounded for (``MIN_BLOCKS`` of the launches in the sources: 3 up to 32
+    rows a block, else 2)."""
+    return min(SM_SHARED_BYTES // (block_bytes + BLOCK_RESERVED_BYTES),
+               2 if bm > 32 else 3)
+
+
 def shared_bytes(variant, bm, flags):
     """Shared memory of one block of a tensor-core variant: the ring and
     the per-row tables."""
-    x_k, w_k = not flags & X_TRANS, bool(flags & W_TRANS)
-    permuted = not (x_k and w_k)
-    ring = STAGES[variant] * (
-        _stage_floats(bm, x_k, permuted)
-        + _stage_floats(TILE_N[variant], w_k, permuted))
-    return 4 * ring + 12 * bm + 4
+    return ring_bytes(bm, TILE_N[variant], flags) + 12 * bm + 4
 
 
 def resident_blocks(variant, bm, flags):
-    """Blocks of a tensor-core variant that one SM holds at once: what its
-    shared memory allows, at most the blocks its registers are bounded for
-    (``MIN_BLOCKS`` of the launch in the source: the tile 2, the skinny
-    product 3 up to 32 rows and 2 above)."""
-    per_sm = SM_SHARED_BYTES // (shared_bytes(variant, bm, flags)
-                                 + BLOCK_RESERVED_BYTES)
-    return min(per_sm, 2 if variant == "tile" or bm > 32 else 3)
+    """Blocks of a tensor-core variant that one SM holds at once."""
+    return blocks_per_sm(shared_bytes(variant, bm, flags), bm)
 
 
 @functools.lru_cache(maxsize=None)

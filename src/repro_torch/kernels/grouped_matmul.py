@@ -20,17 +20,25 @@ transposed views; the kernel reads them in place.
 
 Each product launches the Hopper kernel ``csrc/grouped_matmul.cu`` (see its
 header for the design and what bounds it) for CUDA tensors, and takes
-``grouped_matmul_plain`` only for tensors on the CPU. ``grouped_matmul``'s
-``launches`` attribute counts kernel launches, forward and backward.
+``grouped_matmul_plain`` only for tensors on the CPU. ``_plan`` picks the
+kernel's variant (``VARIANTS``: the 3×TF32 tensor-core ``tile`` of 80
+rows, the weight-streaming ``stream`` product for at most 64 rows a block,
+and the ``simt`` tile for rows that are not 16-byte aligned), its row tile
+and its split of the contraction. ``grouped_matmul``'s ``launches``
+attribute counts kernel launches, forward and backward, and
+``launches_by_variant`` the same launches by variant.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import elastic_matmul as em
+from repro_torch.kernels.backend import stream_handle
 
 # layout flags of csrc/grouped_matmul.cu::gmm_forward
 X_TRANS, W_TRANS, W_PER_GROUP = 1, 2, 4
@@ -39,10 +47,107 @@ X_TRANS, W_TRANS, W_PER_GROUP = 1, 2, 4
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.library("grouped_matmul")
-    lib.gmm_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
-        [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+    lib.gmm_forward.argtypes = [ctypes.c_void_p] * 5 + \
+        [ctypes.c_int] * 10 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
     lib.gmm_forward.restype = ctypes.c_int
     return lib
+
+
+# The kernel's variants (csrc/grouped_matmul.cu): "simt" the 64 × 64 SIMT
+# tile, for rows that are not 16-byte aligned or x and w both transposed;
+# "tile" the 3×TF32 tensor-core tile of 80 or 128 rows; "stream" the same
+# kernel with a 16-, 32- or 64-row tile, streaming the weights.
+VARIANTS = ("simt", "tile", "stream")
+TILE_ROWS = (80, 128)          # 160 capacity rows: two whole 80-row tiles
+TILE_N = {"simt": 64, "tile": 128, "stream": 128}  # output columns a block
+STAGE_K = em.STAGE_K["tile"]   # contraction of one ring stage
+STREAM_ROWS = 64
+MIN_STEPS_PER_CHUNK = 4        # ring stages a split chunk keeps
+
+
+class Plan(NamedTuple):
+    variant: str
+    bm: int          # rows of a block's tile
+    splits: int      # contraction chunks (1: no split, no partials)
+    kchunk: int      # contraction a chunk spans
+
+
+def _grouped(flags) -> bool:
+    """A block per (group, expert) — per-group weights or a transposed x —
+    rather than per expert with its rows over every group."""
+    return bool(flags & (W_PER_GROUP | X_TRANS))
+
+
+def plan_blocks(plan: Plan, G, E, M, N, flags):
+    """Blocks of one launch of ``plan``, split chunks included (dead experts'
+    blocks too: the plan never sees the prefixes)."""
+    rows, pairs = (M, G * E) if _grouped(flags) else (G * M, E)
+    return (-(-N // TILE_N[plan.variant]) * -(-rows // plan.bm) * pairs
+            * plan.splits)
+
+
+def shared_bytes(variant, bm, flags):
+    """Shared memory of one block of a tensor-core variant: K1's ring
+    (``elastic_matmul.ring_bytes``) and the per-row tables."""
+    return em.ring_bytes(bm, TILE_N[variant], flags) + 20 * bm
+
+
+def resident_blocks(variant, bm, flags):
+    """Blocks of a tensor-core variant that one SM holds at once."""
+    return em.blocks_per_sm(shared_bytes(variant, bm, flags), bm)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(G: int, E: int, M: int, K: int, N: int, flags: int, aligned: bool,
+          sms: int) -> Plan:
+    """The launch of one product, from the shapes, the layout flags, the
+    16-byte alignment of the operands' rows and strides and the card's SM
+    count alone — never from the prefixes, so a change of submodel never
+    changes the launch. ``aligned``: see ``_aligned``.
+
+    At most 64 rows a block with x K-contiguous and w N-contiguous (the
+    serving path's shared weights) stream the weights; every other aligned
+    product but xᵀ with wᵀ takes the tile of 80 or 128 rows whose last row
+    tile is fullest (ties: 128, twice the warps). The split of the
+    contraction: the tile splits only when its blocks do not give every SM
+    one; the stream product fills every resident slot of the card in one
+    wave (each block then streams an equal share of the weights)."""
+    rows = M if _grouped(flags) else G * M
+    both_t = flags & X_TRANS and flags & W_TRANS
+    if not aligned or both_t:
+        return Plan("simt", 64, 1, K)
+    if rows <= STREAM_ROWS and not flags & (X_TRANS | W_TRANS):
+        variant, bm = "stream", next(b for b in (16, 32, 64) if rows <= b)
+    else:
+        variant, bm = "tile", min(TILE_ROWS[::-1],
+                                  key=lambda b: -(-rows // b) * b - rows)
+    blocks = plan_blocks(Plan(variant, bm, 1, K), G, E, M, N, flags)
+    if variant == "tile":
+        want = -(-sms // blocks)
+    else:
+        want = resident_blocks(variant, bm, flags) * sms // blocks
+    splits = max(1, min(want, K // (MIN_STEPS_PER_CHUNK * STAGE_K)))
+    kchunk = max(STAGE_K, -(-(-(-K // splits)) // STAGE_K) * STAGE_K)
+    return Plan(variant, bm, max(1, -(-K // kchunk)), kchunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index) \
+        .multi_processor_count
+
+
+def _aligned(xs, ws, flags) -> bool:
+    """Whether cp.async's 16-byte copies can read xs and ws: each stored
+    row, the group and expert strides and both base addresses on 16
+    bytes."""
+    M, K = xs.shape[-2:]
+    N = ws.shape[-1]
+    strides = [M if flags & X_TRANS else K, K if flags & W_TRANS else N,
+               xs.stride(0), xs.stride(1), ws.stride(-3)] + \
+        ([ws.stride(0)] if flags & W_PER_GROUP else [])
+    return all(s % 4 == 0 for s in strides) and \
+        xs.data_ptr() % 16 == 0 and ws.data_ptr() % 16 == 0
 
 
 def grouped_matmul_plain(xs, ws, g_active=None):
@@ -73,6 +178,17 @@ def _inner_layout(t, name) -> bool:
                      f"{t.stride()} for shape {tuple(t.shape)}")
 
 
+def launch_plan(xs, ws):
+    """(layout flags, ``Plan``) of the kernel launch for CUDA operands xs
+    (G, E, M, K) and ws (E, K, N) or (G, E, K, N)."""
+    G, E, M, K = xs.shape
+    flags = (X_TRANS if _inner_layout(xs, "xs") else 0) | \
+        (W_TRANS if _inner_layout(ws, "ws") else 0) | \
+        (W_PER_GROUP if ws.dim() == 4 else 0)
+    return flags, _plan(G, E, M, K, ws.shape[-1], flags,
+                        _aligned(xs, ws, flags), _sms(xs.device.index))
+
+
 def _gmm(xs, ws, ga):
     """One product: the kernel for CUDA tensors, the plain version for CPU
     tensors. Shapes and the prefix are checked by the caller."""
@@ -87,20 +203,22 @@ def _gmm(xs, ws, ga):
                              "one device")
     G, E, M, K = xs.shape
     N = ws.shape[-1]
-    per_group = ws.dim() == 4
-    flags = (X_TRANS if _inner_layout(xs, "xs") else 0) | \
-        (W_TRANS if _inner_layout(ws, "ws") else 0) | \
-        (W_PER_GROUP if per_group else 0)
+    flags, plan = launch_plan(xs, ws)
     y = torch.empty((G, E, M, N), dtype=xs.dtype, device=xs.device)
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
+    partial = torch.empty((plan.splits, G, E, M, N), dtype=torch.float32,
+                          device=xs.device) if plan.splits > 1 else None
     err = _library().gmm_forward(
         xs.data_ptr(), ws.data_ptr(), y.data_ptr(),
-        None if ga is None else ga.data_ptr(), G, E, M, K, N, flags,
-        xs.stride(0), xs.stride(1), ws.stride(0) if per_group else 0,
-        ws.stride(-3), stream)
+        None if partial is None else partial.data_ptr(),
+        None if ga is None else ga.data_ptr(), G, E, M, K, N,
+        VARIANTS.index(plan.variant), plan.bm, plan.splits, plan.kchunk,
+        flags, xs.stride(0), xs.stride(1),
+        ws.stride(0) if flags & W_PER_GROUP else 0, ws.stride(-3),
+        stream_handle(xs.device))
     if err != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA error "
                            f"{err}")
+    grouped_matmul.launches_by_variant[plan.variant] += 1
     grouped_matmul.launches += 1
     return y
 
@@ -157,3 +275,5 @@ def grouped_matmul(xs, ws, g_active=None):
 
 
 grouped_matmul.launches = 0
+# launches per variant of the plan (same increments as ``launches``)
+grouped_matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -21,7 +21,12 @@ float64): the two agree to the last bit whatever order the sum runs in.
 
 * ``ssd_scan`` (K8, ``csrc/ssd_scan.cu``) -> y, and with
   ``return_states=True`` also the state each chunk *entered* with,
-  (R, S/Q, H, P, N) fp32 — the residual the backward consumes;
+  (R, S/Q, H, P, N) fp32 — the residual the backward consumes. ``ssd_plan``
+  picks its variant from the shapes (``SSD_VARIANTS``: ``mma``, C·Bᵀ once
+  per group and the scan on 3×TF32 tensor cores, a block per (row, head,
+  P tile); ``simt``, the first design, for shapes the mma variant does not
+  take) and the P tile; ``ssd_scan.launches_by_variant`` counts launches
+  by variant (one per call, though the mma variant runs three kernels);
 * ``ssd_scan_bwd`` (K9, same source) -> (dx, ddt, dA, dB, dC): the
   transposed scan, chunks in reverse carrying the state cotangent. The
   kernel (``ssd_scan_bwd_raw``) emits dx, ddt, du (the cotangent of
@@ -42,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,13 +55,58 @@ from repro_torch.kernels import build
 
 KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_MAX_STATE = 128
+# K8's variants (csrc/ssd_scan.cu::ssd_scan_fwd)
+SSD_VARIANTS = ("simt", "mma")
+MMA_MAX_CHUNK = 256      # 16 query tiles of 16: two per warp
+CB_TILE = 64             # C·Bᵀ tiles; the buffer's rows are padded to it
+
+
+class SsdPlan(NamedTuple):
+    variant: str
+    p_tile: int          # columns of P a block owns (P for simt)
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_plan(R: int, H: int, P: int, N: int, Q: int, aligned: bool,
+             sms: int) -> SsdPlan:
+    """K8's launch from the shapes, the operands' 16-byte alignment and the
+    card's SM count alone — never from ``h_active``. The mma variant owns
+    32 columns of P a block (two blocks per SM fit its registers and
+    shared memory; the state's P rows are independent, so a slice is
+    exact); where that gives fewer blocks than SMs, 16. Shapes it does not
+    take (d_state not a multiple of 8, a chunk above 256, unaligned rows)
+    run the simt variant, a block per (row, head)."""
+    if not aligned or N % 8 or N > KERNEL_MAX_STATE or Q > MMA_MAX_CHUNK:
+        return SsdPlan("simt", P)
+    wide = SsdPlan("mma", 32)
+    return wide if plan_blocks(wide, R, H, P) >= sms else SsdPlan("mma", 16)
+
+
+def plan_blocks(plan: SsdPlan, R, H, P):
+    """Blocks of the scan kernel of ``plan`` (dead heads' blocks too)."""
+    return R * H * (P // plan.p_tile)
+
+
+def shared_bytes(p_tile, N, Q):
+    """Shared memory of one block of the mma variant's scan
+    (``mma_fwd_floats`` in the source): the state slice (rows padded to
+    N + 8), the 3-stage ring of 32-key x and B tiles (rows padded by 4)
+    and four chunk vectors."""
+    qr = -(-Q // 32) * 32
+    return 4 * (p_tile * (N + 8) + 3 * 32 * (p_tile + 4 + N + 4) + 4 * qr)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index) \
+        .multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.library("ssd_scan")
-    lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 8 + \
-        [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 10 + \
+        [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.ssd_scan_fwd.restype = ctypes.c_int
     lib.ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 13 + \
         [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -286,18 +337,37 @@ def ssd_scan(xh, dt, A, Bm, Cm, chunk, *, h_active=None,
     G, N = Bm.shape[2], Bm.shape[3]
     A = row_A(A, R).contiguous()
     stream = _kernel_args("ssd_scan", (xh, dt, A, Bm, Cm), P, N)
+    plan = launch_plan(xh, Bm, Cm, chunk)
     y = torch.empty_like(xh)
     states = torch.empty((R, S // chunk, H, P, N), dtype=torch.float32,
                          device=xh.device) if return_states else None
+    cb = cum = None
+    if plan.variant == "mma":        # C·Bᵀ per group, cum per head
+        qp = -(-chunk // CB_TILE) * CB_TILE
+        cb = torch.empty((R, G, S // chunk, qp, qp), dtype=torch.float32,
+                         device=xh.device)
+        cum = torch.empty((R, H, S), dtype=torch.float32, device=xh.device)
     err = _library().ssd_scan_fwd(
         xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), _ptr(h_active), y.data_ptr(), _ptr(states), R, S, H,
-        P, G, N, chunk, stream)
+        Cm.data_ptr(), _ptr(h_active), y.data_ptr(), _ptr(states), _ptr(cb),
+        _ptr(cum), R, S, H, P, G, N, chunk,
+        SSD_VARIANTS.index(plan.variant), plan.p_tile, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
                            f"{err}")
+    ssd_scan.launches_by_variant[plan.variant] += 1
     ssd_scan.launches += 1
     return (y, states) if return_states else y
+
+
+def launch_plan(xh, Bm, Cm, chunk) -> SsdPlan:
+    """K8's ``SsdPlan`` for contiguous CUDA operands: 16-byte-aligned rows
+    (d_state a multiple of 4) and base addresses."""
+    R, S, H, P = xh.shape
+    N = Bm.shape[3]
+    aligned = N % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                 for t in (xh, Bm, Cm))
+    return ssd_plan(R, H, P, N, chunk, aligned, _sms(xh.device.index))
 
 
 def ssd_scan_bwd_raw(xh, dt, A, Bm, Cm, states, dy, chunk, *,
@@ -347,4 +417,6 @@ def ssd_scan_bwd(xh, dt, A, Bm, Cm, states, dy, chunk, *, h_active=None):
 
 
 ssd_scan.launches = 0
+# launches per variant of the plan (same increments as ``launches``)
+ssd_scan.launches_by_variant = dict.fromkeys(SSD_VARIANTS, 0)
 ssd_scan_bwd.launches = 0

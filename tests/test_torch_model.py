@@ -270,6 +270,14 @@ def test_fused_prefill_matches_stepwise_decode(window):
     _close(caches_f.segments[0].v, caches_s.segments[0].v)
 
 
+def test_cnn_family_raises_naming_its_roadmap_item():
+    """The CNN family is not ported yet: ``family_for`` sends a CNN config
+    to ROADMAP A4 (the CNN half of ``core/elastic.py``)."""
+    from repro.configs.paper_cnn import CNNConfig
+    with pytest.raises(TypeError, match="ROADMAP A4"):
+        family_for(CNNConfig())
+
+
 def test_unported_configs_raise_naming_roadmap():
     for arch in ("gemma2-9b", "deepseek-v2-lite-16b", "zamba2-1.2b"):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
