@@ -17,7 +17,9 @@ printing its own lines; any failed phase exits non-zero:
    at the serving and the training path's shapes and at the edges (prefix
    0, full, ragged, per-group prefixes and weights that differ, transposed
    operands, shapes that are not tile multiples, window and softcap), each
-   held to a stated fp32 tolerance.
+   held to a stated fp32 tolerance. K3 / K4 run in their plan's variant
+   (printed) and in the simt variant, each twice and bit-equal to itself,
+   and once on an offset view, which the plan sends to simt.
 4. times, serving shapes — per kernel and shape: kernel ms, plain ms, the
    library call's ms (``torch.matmul``; ``F.scaled_dot_product_attention``
    with KV repeated — timed here only, never called by the port) and the
@@ -36,21 +38,26 @@ printing its own lines; any failed phase exits non-zero:
    stated tolerance. The serving model is then released.
 6. times, training shapes — the same columns for K1's forward, dx and dw
    products, K2, and the backward kernels K3 (dq) and K4 (dk/dv), whose
-   library call is ``torch.autograd.grad`` through SDPA.
+   library call is ``torch.autograd.grad`` through SDPA (all three
+   gradients). K3, K4 and SDPA are timed in turns: 7 rounds of the pair as
+   the autograd backward runs it (delta, K3, K4), K3 and K4 mma, K3 and K4
+   simt, SDPA pinned to the backend the default dispatch picks (named) and
+   SDPA unpinned; medians and min–max, and a row for the pair.
 7. training slice — two sync CFL rounds of 4 clients (the full spec and
    three elastic ones) of granite-3-8b at its published width, depth cut
    to 2 layers, through ``BatchedRoundEngine.run_fl_round`` on the kernels
    and then on the dense masked path, each path after one untimed warm-up
    round on its own copy of the starting parameters. Every kernel must
    launch as often as the design says (K1 only through its tensor-core
-   variants), the round-1 parameters of the two paths must agree within
-   1e-3 of how far the round moved them, and every client's accuracy must
-   agree to one eval token, and each client's test CE under the two
-   paths' round-1 models must agree within a stated tolerance. Prints
-   round seconds, training tokens/s, peak device memory, one local step's
-   device idle share and each path kernel's share of its device time, and
-   the kernel path's first round (its warm-up) against a warm round, both
-   under ``torch.profiler``: host and device seconds and the entries that
+   variants, K3 / K4 only through ``mma``), the round-1 parameters of the
+   two paths must agree within 1e-3 of how far the round moved them, and
+   every client's accuracy must agree to one eval token, and each client's
+   test CE under the two paths' round-1 models must agree within a stated
+   tolerance. Prints round seconds, training tokens/s, peak device memory,
+   one local step's device idle share and each path kernel's share of its
+   device time (K3 / K4's device ms printed apart), and the kernel path's
+   first round (its warm-up) against a warm round, both under
+   ``torch.profiler``: host and device seconds and the entries that
    grew.
 8. times, MoE shapes — the same columns for K5 (grouped expert-prefix
    matmul, with its plan variant: forward, dxs and dws at the MoE cohort's
@@ -63,7 +70,8 @@ printing its own lines; any failed phase exits non-zero:
 9. MoE training slice — phase 7 for granite-moe-1b-a400m at its published
    width (32 experts top-8), depth cut to 12 layers, 4 clients with
    expert prefixes 32 / 16 / 24 / 8: K5–K7 and K2–K4 must launch as the
-   design says, every K5 launch through its tensor-core ``tile``; also
+   design says, every K5 launch through its tensor-core ``tile``, every
+   K3 / K4 launch through ``mma``; also
    counts the routing decisions (top-k expert sets) on which the two
    paths differ.
 10. MoE serving slice — phase 5 for granite-moe-1b-a400m at all 24
@@ -457,16 +465,36 @@ def _k2_inputs(B, S, H, KV, D, ha, device, gen):
     return q, k, v, (_i32(ha, device) if ha is not None else None)
 
 
+def flash_bwd_variant(q, k, v, do):
+    """The variant of the K3 / K4 launch plan for these operands (``plain``
+    on the CPU, where the wrappers run the plain versions)."""
+    if q.device.type != "cuda":
+        return "plain"
+    from repro_torch.kernels.flash_attention import bwd_launch_plan
+    return bwd_launch_plan(q, k, v, do).variant
+
+
 def check_flash(device, cases, gen, worst, failed):
     """K2 forward, then K3 / K4 fed by K2's own o and lse (the plain
     backward takes the plain forward's), each against its plain version on
-    ``cases`` (``k34_cases`` rows); records the worst errors in ``worst``
-    and failed labels in ``failed``."""
+    ``cases`` (``k34_cases`` rows): K3 and K4 in the plan's variant and in
+    the simt variant, each run twice and required to agree with itself bit
+    for bit; then K3 / K4 on an offset view (rows not 16-byte aligned),
+    which the plan sends to the simt variant. Records the worst errors in
+    ``worst`` and failed labels in ``failed``."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_dkv, flash_attention_dkv_plain,
         flash_attention_dq, flash_attention_dq_plain,
         flash_attention_fwd_plain)
+
+    def bwd(variant, *args, **kw):
+        """K3 and K4 twice in ``variant``: (dq, dk, dv), bit-equal?"""
+        runs = [(flash_attention_dq(*args, variant=variant, **kw),)
+                + flash_attention_dkv(*args, variant=variant, **kw)
+                for _ in range(2)]
+        return runs[0], all(torch.equal(a, b) for a, b in zip(*runs))
+
     for label, B, S, H, KV, D, ha, causal, window, cap in cases:
         q, k, v, hat = _k2_inputs(B, S, H, KV, D, ha, device, gen)
         do = torch.randn(q.shape, generator=gen, device=device)
@@ -475,35 +503,66 @@ def check_flash(device, cases, gen, worst, failed):
         o_p, lse_p = flash_attention_fwd_plain(q, k, v, hat, **kw)
         delta = torch.einsum("bshd,bshd->bhs", do, o).contiguous()
         delta_p = torch.einsum("bshd,bshd->bhs", do, o_p).contiguous()
-        dq = flash_attention_dq(q, k, v, do, lse, delta, hat, **kw)
-        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, hat, **kw)
-        dq_p = flash_attention_dq_plain(q, k, v, do, lse_p, delta_p, hat,
-                                        **kw)
-        dk_p, dv_p = flash_attention_dkv_plain(q, k, v, do, lse_p, delta_p,
-                                               hat, **kw)
+        want = (flash_attention_dq_plain(q, k, v, do, lse_p, delta_p, hat,
+                                         **kw),) + \
+            flash_attention_dkv_plain(q, k, v, do, lse_p, delta_p, hat, **kw)
+        args = (q, k, v, do, lse, delta, hat)
+        plan = flash_bwd_variant(q, k, v, do)
+        got = {plan: bwd(None, *args, **kw)}
+        if plan != "plain":
+            got["simt"] = bwd("simt", *args, **kw)
         sync(device)
-        errs = {"flash_attention": max(float((o - o_p).abs().max()),
-                                       float((lse - lse_p).abs().max())),
-                "flash_attention_dq": float((dq - dq_p).abs().max()),
-                "flash_attention_dkv": max(float((dk - dk_p).abs().max()),
-                                           float((dv - dv_p).abs().max()))}
-        scale = max(float(t.abs().max()) for t in (dq_p, dk_p, dv_p))
-        for name, err in errs.items():
-            worst[name] = max(worst[name], err)
-        ok = (errs["flash_attention"] <= K2_TOL
-              and errs["flash_attention_dq"] <= K34_TOL
-              and errs["flash_attention_dkv"] <= K34_TOL
-              and all(bool(torch.isfinite(t).all())
-                      for t in (o, lse, dq, dk, dv)))
+        err_fwd = max(float((o - o_p).abs().max()),
+                      float((lse - lse_p).abs().max()))
+        worst["flash_attention"] = max(worst["flash_attention"], err_fwd)
+        ok = err_fwd <= K2_TOL and all(bool(torch.isfinite(t).all())
+                                       for t in (o, lse))
+        scale = max(float(t.abs().max()) for t in want)
+        parts = []
+        for variant, ((dq, dk, dv), same) in got.items():
+            e_dq = float((dq - want[0]).abs().max())
+            e_dkv = max(float((dk - want[1]).abs().max()),
+                        float((dv - want[2]).abs().max()))
+            worst["flash_attention_dq"] = max(worst["flash_attention_dq"],
+                                              e_dq)
+            worst["flash_attention_dkv"] = max(worst["flash_attention_dkv"],
+                                               e_dkv)
+            ok = ok and same and e_dq <= K34_TOL and e_dkv <= K34_TOL and \
+                all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+            parts.append(f"{variant}: dq={e_dq:.3e} dk,dv={e_dkv:.3e}"
+                         f"{' bit-equal' if same else ' NOT bit-equal'}")
         print(f"  flash fwd+bwd {label:22s} B={B} S={S} H={H} KV={KV} "
               f"D={D} h_active={'per row' if ha and len(ha) > 4 else ha} "
               f"causal={causal} window={window} cap={cap} "
-              f"max|err| o,lse={errs['flash_attention']:.3e} "
-              f"(tol {K2_TOL:g}) dq={errs['flash_attention_dq']:.3e} "
-              f"dk,dv={errs['flash_attention_dkv']:.3e} (max|grad| "
-              f"{scale:.2f}, tol {K34_TOL:g}) {'ok' if ok else 'FAIL'}")
+              f"max|err| o,lse={err_fwd:.3e} (tol {K2_TOL:g}); "
+              f"{'; '.join(parts)} (max|grad| {scale:.2f}, tol "
+              f"{K34_TOL:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(f"flash fwd+bwd {label}")
+    # an offset view: q starts 4 bytes past an aligned address
+    D = cases[0][5]
+    q, k, v, _ = _k2_inputs(2, 40, 8, 2, D, None, device, gen)
+    qo = torch.empty(q.numel() + 1, device=device)[1:].view(q.shape)
+    qo.copy_(q)
+    do = torch.randn(q.shape, generator=gen, device=device)
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v)
+    delta = torch.einsum("bshd,bshd->bhs", do, o_p).contiguous()
+    want = (flash_attention_dq_plain(q, k, v, do, lse_p, delta),) + \
+        flash_attention_dkv_plain(q, k, v, do, lse_p, delta)
+    plan = flash_bwd_variant(qo, k, v, do)
+    (dq, dk, dv), same = bwd(None, qo, k, v, do, lse_p, delta)
+    sync(device)
+    errs = [float((a - b).abs().max()) for a, b in zip((dq, dk, dv), want)]
+    worst["flash_attention_dq"] = max(worst["flash_attention_dq"], errs[0])
+    worst["flash_attention_dkv"] = max(worst["flash_attention_dkv"],
+                                       *errs[1:])
+    ok = same and max(errs) <= K34_TOL and plan in ("simt", "plain")
+    print(f"  flash bwd offset view q B=2 S=40 H=8 KV=2 D={D}: {plan} "
+          f"dq={errs[0]:.3e} dk,dv={max(errs[1:]):.3e} "
+          f"{'bit-equal' if same else 'NOT bit-equal'} (tol {K34_TOL:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append("flash bwd offset view")
 
 
 def phase_kernels(device, d_model, d_ff, n_heads, n_kv, head_dim, slots,
@@ -918,18 +977,23 @@ def path_counters(cfg, serving=False):
 
 def variant_counters():
     """{kernel name: (wrapper, its variants)} of the kernels whose plan has
-    variants: K1, K5 and K8."""
+    variants: K1, K3, K4, K5 and K8."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import elastic_matmul as em
     return {"elastic_dense": (em.elastic_dense, em.VARIANTS),
+            "flash_attention_dq": (fa.flash_attention_dq,
+                                   fa.FLASH_BWD_VARIANTS),
+            "flash_attention_dkv": (fa.flash_attention_dkv,
+                                    fa.FLASH_BWD_VARIANTS),
             "grouped_matmul": (gm.grouped_matmul, gm.VARIANTS),
             "ssd_scan": (ss.ssd_scan, ss.SSD_VARIANTS)}
 
 
 def reset_launches(counters):
     """Set every counter of ``counters`` (and the per-variant counts of K1,
-    K5 and K8) to 0 just before a path runs."""
+    K3, K4, K5 and K8) to 0 just before a path runs."""
     for c in counters:
         c.launches = 0
     for fn, variants in variant_counters().values():
@@ -940,10 +1004,12 @@ def check_variants(launches, problems, moe_variant, ssm_variant):
     """The launches of the path just run, by plan variant, of the kernels
     in ``launches`` that have variants: every K1 launch through a
     tensor-core variant (tile or skinny), never the SIMT tile kept for
-    unaligned rows; every K5 launch through ``moe_variant`` (the training
-    path's ``tile``, the serving path's ``stream``); every K8 launch
-    through ``ssm_variant``. Returns {kernel: counts by variant}."""
+    unaligned rows; every K3 / K4 launch through the tensor-core ``mma``;
+    every K5 launch through ``moe_variant`` (the training path's ``tile``,
+    the serving path's ``stream``); every K8 launch through
+    ``ssm_variant``. Returns {kernel: counts by variant}."""
     want = {"elastic_dense": ("tile", "skinny"),
+            "flash_attention_dq": ("mma",), "flash_attention_dkv": ("mma",),
             "grouped_matmul": (moe_variant,), "ssd_scan": (ssm_variant,)}
     out = {}
     for name, (fn, _) in variant_counters().items():
@@ -1196,20 +1262,42 @@ def print_rows(rows_out):
                 line += (f"; device {r['device_ms']:.4f} ms, library "
                          f"device {r['library_device_ms']:.4f} ms")
             print(line)
+            if name == "flash_attention_bwd":   # K3 / K4 / SDPA in turns
+                print("    in turns (median [min, max] ms over "
+                      f"{r['rounds']} rounds): " + "; ".join(
+                          f"{k} {v['median']:.4f} [{v['min']:.4f}, "
+                          f"{v['max']:.4f}]" for k, v in r["turns"].items()))
     if "flash_attention_dq" in rows_out:
-        print("  (library for dq and dk/dv: one torch.autograd.grad through "
-              "F.scaled_dot_product_attention, all three gradients)")
+        print("  (library for dq, dk/dv and the pair: one "
+              "torch.autograd.grad through F.scaled_dot_product_attention, "
+              "all three gradients, pinned to the backend the default "
+              "dispatch picks)")
 
 
-def flash_times(device, B, S, H, KV, D, gen, iters=5):
+def _spread(ts):
+    ts = sorted(ts)
+    n = len(ts)
+    med = ts[n // 2] if n % 2 else 0.5 * (ts[n // 2 - 1] + ts[n // 2])
+    return {"median": med, "min": ts[0], "max": ts[-1]}
+
+
+def flash_times(device, B, S, H, KV, D, gen, iters=5, rounds=7):
     """Kernel / plain / library ms and the bound of K2, K3 and K4 at one
-    causal training shape (full head prefixes): {kernel: [row]}."""
+    causal training shape (full head prefixes): {kernel: [row]}, with a
+    ``flash_attention_bwd`` row for the backward pair. K3, K4 and SDPA's
+    all-grads backward are timed in turns: ``rounds`` rounds, each timing
+    (``iters`` calls, one warm-up) back to back in this order the pair as
+    ``_Flash.backward`` runs it (delta, K3, K4), K3 and K4 in the mma
+    variant, K3 and K4 in the simt variant, SDPA's backward pinned to the
+    backend the default dispatch picks for these fp32 inputs, and SDPA's
+    backward unpinned; each row's ``ms`` (and ``library_ms``) is the
+    median, ``turns`` holds every median, min and max."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_dkv, flash_attention_dkv_plain,
-        flash_attention_dq, flash_attention_dq_plain,
-        flash_attention_fwd_plain)
+        flash_attention, flash_attention_bwd, flash_attention_dkv,
+        flash_attention_dkv_plain, flash_attention_dq,
+        flash_attention_dq_plain, flash_attention_fwd_plain)
     rows_out = {}
     q, k, v, _ = _k2_inputs(B, S, H, KV, D, None, device, gen)
     do = torch.randn(q.shape, generator=gen, device=device)
@@ -1221,10 +1309,18 @@ def flash_times(device, B, S, H, KV, D, gen, iters=5):
         .requires_grad_(True)
     vt = v.repeat_interleave(Gq, dim=2).transpose(1, 2).contiguous() \
         .requires_grad_(True)
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2).contiguous()
-    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        ot, (qt, kt, vt), dot, retain_graph=True), device, iters, 1)
+    backend = sdpa_backend(qt, kt, vt)
+    if backend is None:
+        ot_pin, backend_name = None, "unknown (default dispatch)"
+    else:
+        from torch.nn.attention import sdpa_kernel
+        with sdpa_kernel([backend]):
+            ot_pin = F.scaled_dot_product_attention(qt, kt, vt,
+                                                    is_causal=True)
+        backend_name = backend.name
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    ot_pin = ot if ot_pin is None else ot_pin
     shape = f"q({B},{S},{H},{D}) kv({B},{S},{KV},{D}) causal"
     pairs = attn_pairs(B, S, H)
     qbytes, kvbytes, rbytes = 4.0 * B * S * H * D, 4.0 * B * S * KV * D, \
@@ -1242,25 +1338,64 @@ def flash_times(device, B, S, H, KV, D, gen, iters=5):
     add_tc_bound(fwd, 2 * qbytes + 2 * kvbytes + rbytes, 4.0 * D * pairs)
     rows_out["flash_attention"] = [fwd]
     args = (q, k, v, do, lse, delta)
-    dq = dict(shape=shape,
-              ms=cuda_ms(lambda: flash_attention_dq(*args), device, iters),
-              plain_ms=cuda_ms(lambda: flash_attention_dq_plain(*args),
-                               device, iters),
-              library_ms=sdpa_bwd_ms)
-    dq["bound_ms"], dq["bound_by"] = bound(
-        3 * qbytes + 2 * kvbytes + 2 * rbytes, 6.0 * D * pairs)
-    rows_out["flash_attention_dq"] = [dq]
-    dkv = dict(shape=shape,
-               ms=cuda_ms(lambda: flash_attention_dkv(*args), device, iters),
-               plain_ms=cuda_ms(lambda: flash_attention_dkv_plain(*args),
-                                device, iters),
-               library_ms=sdpa_bwd_ms)
-    dkv["bound_ms"], dkv["bound_by"] = bound(
-        2 * qbytes + 4 * kvbytes + 2 * rbytes, 8.0 * D * pairs)
-    rows_out["flash_attention_dkv"] = [dkv]
+    fns = {
+        "pair": lambda: flash_attention_bwd(q, k, v, o, lse, do),
+        "dq mma": lambda: flash_attention_dq(*args, variant="mma"),
+        "dkv mma": lambda: flash_attention_dkv(*args, variant="mma"),
+        "dq simt": lambda: flash_attention_dq(*args, variant="simt"),
+        "dkv simt": lambda: flash_attention_dkv(*args, variant="simt"),
+        f"sdpa {backend_name}": lambda: torch.autograd.grad(
+            ot_pin, (qt, kt, vt), dot, retain_graph=True),
+        "sdpa unpinned": lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True)}
+    times = {n: [] for n in fns}
+    for _ in range(rounds):
+        for n, fn in fns.items():
+            times[n].append(cuda_ms(fn, device, iters, 1))
+    turns = {n: _spread(ts) for n, ts in times.items()}
+    lib = turns[f"sdpa {backend_name}"]["median"]
+    common = dict(shape=f"{shape} {flash_bwd_variant(q, k, v, do)}",
+                  library_ms=lib,
+                  library_unpinned_ms=turns["sdpa unpinned"]["median"],
+                  sdpa_backend=backend_name, rounds=rounds, turns=turns)
+
+    def row(ms, nbytes, ops, **extra):
+        r = dict(common, ms=ms, **extra)
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+        add_tc_bound(r, nbytes, ops)
+        return [r]
+    # K3 reads q, do, k, v, lse, delta and writes dq, 6·D operations a
+    # valid pair; K4 writes dk, dv, 8·D; the pair reads q, o, do, k, v, lse
+    # and writes dq, dk, dv, and the function needs S, dP, dQ, dK and dV
+    # once each: 10·D
+    rows_out["flash_attention_dq"] = row(
+        turns["dq mma"]["median"], 3 * qbytes + 2 * kvbytes + 2 * rbytes,
+        6.0 * D * pairs, simt_ms=turns["dq simt"]["median"],
+        plain_ms=cuda_ms(lambda: flash_attention_dq_plain(*args), device,
+                         iters))
+    rows_out["flash_attention_dkv"] = row(
+        turns["dkv mma"]["median"], 2 * qbytes + 4 * kvbytes + 2 * rbytes,
+        8.0 * D * pairs, simt_ms=turns["dkv simt"]["median"],
+        plain_ms=cuda_ms(lambda: flash_attention_dkv_plain(*args), device,
+                         iters))
+    rows_out["flash_attention_bwd"] = row(
+        turns["pair"]["median"], 4 * qbytes + 4 * kvbytes + rbytes,
+        10.0 * D * pairs, shape=f"{shape} K3 + K4 pair with delta",
+        plain_ms=cuda_ms(lambda: (flash_attention_dq_plain(*args),
+                                  flash_attention_dkv_plain(*args)),
+                         device, iters))
     return rows_out
 
 
+def sdpa_backend(q, k, v):
+    """The backend PyTorch's default dispatch picks for SDPA on these
+    inputs (causal), or None where this PyTorch does not say."""
+    import torch
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True))
+    except (AttributeError, ImportError, RuntimeError, ValueError):
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -1721,6 +1856,11 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
     stats["kernel_local_step"] = prof
     print(f"  kernel path local step ({clients} clients x {batch} x "
           f"{seq_len}): {json.dumps(prof)}")
+    if "flash_attention_dq" in launches and busy:
+        km = prof["kernels_ms"]
+        print(f"  K3 / K4 in the local step ({n_layers} layers, device): "
+              f"dq {km['flash_attention_dq']:.4f} ms, dk/dv "
+              f"{km['flash_attention_dkv']:.4f} ms of {busy:.4f} ms busy")
     return launches, stats
 
 
@@ -2256,6 +2396,10 @@ def main() -> int:
             library_host_us=(serving[0].get("library_host_us")
                              if serving else None),
             other_shapes=rows[1:] + serving + extra))
+        if name in ("flash_attention_dq", "flash_attention_dkv"):
+            entries[-1]["pair"] = {   # the backward pair, timed in turns
+                "training": train_times["flash_attention_bwd"][0],
+                "moe_training": moe_times["flash_attention_bwd"][0]}
         if name in variant_counters():   # launches by plan variant
             entries[-1]["launches_by_variant"] = {
                 p: st.get("launches_by_variant", {}).get(name)

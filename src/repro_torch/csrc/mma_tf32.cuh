@@ -1,8 +1,8 @@
 // mma_tf32.cuh — fp32 products on Hopper's tensor cores at about fp32
 // accuracy ("3×TF32"), the 16-byte cp.async copies that feed them, and the
 // ring-stage tile of a matrix product. Shared by csrc/elastic_dense.cu
-// (K1), csrc/flash_attention_fwd.cu (K2), csrc/grouped_matmul.cu (K5) and
-// csrc/ssd_scan.cu (K8).
+// (K1), csrc/flash_attention_fwd.cu (K2), csrc/flash_attention_bwd.cu (K3,
+// K4), csrc/grouped_matmul.cu (K5) and csrc/ssd_scan.cu (K8).
 //
 // A TF32 tensor-core product keeps 10 bits of each operand's mantissa;
 // fp32 keeps 23. Each operand is split where its fragment is loaded from
@@ -95,6 +95,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int bytes) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(bytes));
+}
+
+// 4-byte global -> shared copy (one float); with bytes == 0 nothing is
+// read and a zero is written.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(s), "l"(gmem), "r"(bytes));
 }
 

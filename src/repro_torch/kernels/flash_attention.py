@@ -13,12 +13,21 @@ counter on its wrapper:
 
 * ``flash_attention`` (K2, ``csrc/flash_attention_fwd.cu``: 3×TF32
   tensor-core tiles, FlashAttention-2's online softmax) -> (o, lse),
-  lse (B, H, Sq) fp32. Differentiable in q, k, v: its backward runs the two
-  kernels below on the saved o and lse (the reference reruns the forward
-  in its backward instead; the numbers are the same, one launch fewer);
+  lse (B, H, Sq) fp32. Differentiable in q, k, v: its backward
+  (``flash_attention_bwd``) runs the two kernels below on the saved o and
+  lse (the reference reruns the forward in its backward instead; the
+  numbers are the same, one launch fewer);
 * ``flash_attention_dq`` (K3, ``csrc/flash_attention_bwd.cu``) -> dq;
 * ``flash_attention_dkv`` (K4, same source) -> (dk, dv), summed over each
-  GQA group onto the KV heads.
+  GQA group onto the KV heads inside the kernel.
+
+K3 and K4 have two variants (``FLASH_BWD_VARIANTS``): ``mma``,
+FlashAttention-2's backward on 3×TF32 tensor cores (a block per 64 queries
+of a head for dq, per 64 keys of a KV head for dk / dv), and ``simt``, the
+first design (fp32 FMAs on 16 × 16 tiles), for rows that are not 16-byte
+aligned. ``flash_bwd_plan`` picks the variant and its tiles from the
+shapes and the alignment alone, never from the prefixes;
+``launches_by_variant`` on each wrapper counts its launches by variant.
 
 The backward kernels take ``delta = rowsum(do · o)`` ((B, H, Sq), a plain
 torch op as in the reference). Each wrapper launches its kernel for CUDA
@@ -30,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,6 +48,56 @@ from repro_torch.kernels.backend import stream_handle
 
 NEG_INF = -2.0 ** 30
 KERNEL_HEAD_DIMS = (32, 64, 128)
+# K3 / K4's variants (csrc/flash_attention_bwd.cu), in the order of the C
+# entry points' ``variant`` argument
+FLASH_BWD_VARIANTS = ("simt", "mma")
+# row stride of every shared tile of the mma variant: D + 4 floats
+BWD_ROW_PAD = 4
+
+
+class FlashBwdPlan(NamedTuple):
+    variant: str
+    dq_tile: Tuple[int, int]    # K3: (queries a block, keys a step)
+    dkv_tile: Tuple[int, int]   # K4: (keys a block, queries a step)
+
+
+_SIMT_PLAN = FlashBwdPlan("simt", (16, 16), (16, 16))
+
+
+@functools.lru_cache(maxsize=None)
+def flash_bwd_plan(B: int, Sq: int, Sk: int, H: int, KV: int, D: int,
+                   aligned: bool) -> FlashBwdPlan:
+    """K3's and K4's launch from the shapes and the operands' 16-byte
+    alignment alone — never from ``h_active``. The mma variant takes every
+    head dim of ``KERNEL_HEAD_DIMS`` and any sequence lengths: a dq block
+    of 64 queries stepping over 32-key blocks, a dk / dv block of 64 keys
+    stepping over 16-query blocks (on an H100, 16 ran at or under 32 at
+    both training shapes). Rows that are not 16-byte aligned (its cp.async
+    copies need them) run the simt variant's 16 × 16 tiles."""
+    if not aligned or D not in KERNEL_HEAD_DIMS:
+        return _SIMT_PLAN
+    return FlashBwdPlan("mma", (64, 32), (64, 16))
+
+
+def bwd_shared_bytes(plan: FlashBwdPlan, D: int) -> Tuple[int, int]:
+    """Dynamic shared memory of one K3 and one K4 block of an mma plan
+    (csrc/flash_attention_bwd.cu, ``DqTiles`` / ``DkvTiles``): K3 holds
+    Q and dO once, one or two K / V buffers (two at D ≤ 64) and the
+    exchange tile of its warp pairs; K4 holds K and V once, a two-deep ring
+    of Q, dO, lse and delta, and the exchange tile. Tiles are rows of
+    D + 4 floats; an exchange row is the step's keys or queries + 8."""
+    S = D + BWD_ROW_PAD
+    (bq, bk), (kb, qb) = plan.dq_tile, plan.dkv_tile
+    dq_bufs = 1 if D == 128 else 2
+    return (4 * (2 * bq * S + 2 * dq_bufs * bk * S + bq * (bk + 8)),
+            4 * (2 * kb * S + 2 * (2 * qb * S + 2 * qb) + kb * (qb + 8)))
+
+
+def bwd_launch_plan(q, k, v, do) -> FlashBwdPlan:
+    """The ``FlashBwdPlan`` of contiguous CUDA operands."""
+    B, Sq, H, D = q.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, do))
+    return flash_bwd_plan(B, Sq, k.shape[1], H, k.shape[2], D, aligned)
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,11 +114,11 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = build.library("flash_attention_bwd")
     lib.flash_attention_dq.argtypes = [ctypes.c_void_p] * 8 + \
-        [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float,
+        [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                               ctypes.c_void_p]
     lib.flash_attention_dq.restype = ctypes.c_int
     lib.flash_attention_dkv.argtypes = [ctypes.c_void_p] * 9 + \
-        [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float,
+        [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                               ctypes.c_void_p]
     lib.flash_attention_dkv.restype = ctypes.c_int
     return lib
@@ -258,10 +318,27 @@ def _fwd(q, k, v, h_active, causal, window, cap, scale):
     return o, lse
 
 
+def _bwd_plan(q, k, v, do, variant):
+    """The plan of a K3 / K4 launch: the operands' own, or with
+    ``variant="simt"`` the simt variant's (for measurement and tests);
+    ``variant="mma"`` raises where the operands cannot take it."""
+    plan = bwd_launch_plan(q, k, v, do)
+    if variant is None or variant == plan.variant:
+        return plan
+    if variant == "simt":
+        return _SIMT_PLAN
+    raise ValueError(f"flash backward variant {variant!r} cannot run on "
+                     f"these operands (plan {plan.variant!r}; variants "
+                     f"{FLASH_BWD_VARIANTS})")
+
+
 def flash_attention_dq(q, k, v, do, lse, delta, h_active=None, *,
-                       causal=True, window=None, cap=None, scale=None):
+                       causal=True, window=None, cap=None, scale=None,
+                       variant: Optional[str] = None):
     """dq of elastic flash attention (K3): q, do (B, Sq, H, D), k, v
-    (B, Sk, KV, D), lse and delta (B, H, Sq) fp32 -> dq (B, Sq, H, D)."""
+    (B, Sk, KV, D), lse and delta (B, H, Sq) fp32 -> dq (B, Sq, H, D).
+    ``variant`` (CUDA tensors only): None for the plan's, or one of
+    ``FLASH_BWD_VARIANTS``."""
     _check(q, k, v, h_active)
     if q.device.type == "cpu":
         return flash_attention_dq_plain(q, k, v, do, lse, delta, h_active,
@@ -271,6 +348,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, h_active=None, *,
     Sk, KV = k.shape[1], k.shape[2]
     stream = _check_kernel_args("flash_attention_dq",
                                 (q, k, v, do, lse, delta), D)
+    plan = _bwd_plan(q, k, v, do, variant)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     ha = _full_heads(h_active, B, H, q.device)
     dq = torch.empty_like(q)
@@ -278,18 +356,22 @@ def flash_attention_dq(q, k, v, do, lse, delta, h_active=None, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), ha.data_ptr(), B,
         Sq, Sk, H, KV, D, int(bool(causal)), int(window or 0),
-        float(cap or 0.0), float(scale), stream)
+        float(cap or 0.0), float(scale),
+        FLASH_BWD_VARIANTS.index(plan.variant), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_dq kernel launch failed: CUDA "
                            f"error {err}")
+    flash_attention_dq.launches_by_variant[plan.variant] += 1
     flash_attention_dq.launches += 1
     return dq
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, h_active=None, *,
-                        causal=True, window=None, cap=None, scale=None):
+                        causal=True, window=None, cap=None, scale=None,
+                        variant: Optional[str] = None):
     """dk, dv of elastic flash attention (K4), each (B, Sk, KV, D): the
-    query heads of a GQA group summed onto their KV head."""
+    query heads of a GQA group summed onto their KV head. ``variant`` as
+    for ``flash_attention_dq``."""
     _check(q, k, v, h_active)
     if q.device.type == "cpu":
         return flash_attention_dkv_plain(q, k, v, do, lse, delta, h_active,
@@ -299,6 +381,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, h_active=None, *,
     Sk, KV = k.shape[1], k.shape[2]
     stream = _check_kernel_args("flash_attention_dkv",
                                 (q, k, v, do, lse, delta), D)
+    plan = _bwd_plan(q, k, v, do, variant)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     ha = _full_heads(h_active, B, H, q.device)
     dk = torch.empty_like(k)
@@ -307,12 +390,29 @@ def flash_attention_dkv(q, k, v, do, lse, delta, h_active=None, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         ha.data_ptr(), B, Sq, Sk, H, KV, D, int(bool(causal)),
-        int(window or 0), float(cap or 0.0), float(scale), stream)
+        int(window or 0), float(cap or 0.0), float(scale),
+        FLASH_BWD_VARIANTS.index(plan.variant), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_dkv kernel launch failed: CUDA "
                            f"error {err}")
+    flash_attention_dkv.launches_by_variant[plan.variant] += 1
     flash_attention_dkv.launches += 1
     return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, h_active=None, *, causal=True,
+                        window=None, cap=None, scale=None):
+    """(dq, dk, dv) of ``flash_attention`` from its saved o and lse and the
+    output cotangent ``do``: delta = rowsum(do · o) (a plain torch op),
+    then K3 and K4."""
+    do = do.contiguous()
+    # a product and a sum: einsum lowers the rowsum to a batched dot,
+    # which ran ~3× slower on an H100
+    delta = (_acc(do) * _acc(o)).sum(-1).transpose(1, 2).contiguous()
+    opts = dict(causal=causal, window=window, cap=cap, scale=scale)
+    dq = flash_attention_dq(q, k, v, do, lse, delta, h_active, **opts)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, h_active, **opts)
+    return dq, dk, dv
 
 
 class _Flash(torch.autograd.Function):
@@ -330,13 +430,8 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse, h_active = ctx.saved_tensors
-        do = do.contiguous()
-        delta = torch.einsum("bshd,bshd->bhs", _acc(do),
-                             _acc(o)).contiguous()
-        dq = flash_attention_dq(q, k, v, do, lse, delta, h_active,
-                                **ctx.opts)
-        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, h_active,
-                                     **ctx.opts)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, h_active,
+                                         **ctx.opts)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -355,3 +450,7 @@ def flash_attention(q, k, v, h_active=None, *, causal=True, window=None,
 flash_attention.launches = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
+# launches per variant of the plan (same increments as ``launches``)
+flash_attention_dq.launches_by_variant = dict.fromkeys(FLASH_BWD_VARIANTS, 0)
+flash_attention_dkv.launches_by_variant = dict.fromkeys(FLASH_BWD_VARIANTS,
+                                                        0)

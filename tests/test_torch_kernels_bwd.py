@@ -23,7 +23,8 @@ from repro.kernels.elastic_matmul import elastic_dense as ref_edense
 from repro.kernels.flash_attention import _block_sizes, _bwd_call, _fwd_call
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro_torch.kernels.elastic_matmul import elastic_dense
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (FLASH_BWD_VARIANTS,
+                                                 flash_attention,
                                                  flash_attention_dkv,
                                                  flash_attention_dkv_plain,
                                                  flash_attention_dq,
@@ -237,8 +238,9 @@ def test_flash_gradcheck(causal, window, cap, has):
 @pytest.mark.cuda
 def test_cuda_backward_matches_plain_on_card():
     """K1's closed VJP and K3/K4 on the card against the same functions on
-    the CPU (their plain versions); runs only where there is a CUDA
-    device."""
+    the CPU (their plain versions): the autograd path (the plan's variant)
+    and each of K3 / K4's variants called directly; runs only where there
+    is a CUDA device."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -270,3 +272,17 @@ def test_cuda_backward_matches_plain_on_card():
                                                            do.to(d))])
     for a, b in zip(*grads):
         assert float((a - b).abs().max()) <= chip_smoke.K34_TOL
+    q, k, v = (t.detach() for t in (q, k, v))   # the loop set requires_grad
+    ha = _i32([8, 0, 4])
+    kw = dict(causal=True, window=9, cap=30.0)
+    o, lse = flash_attention(q, k, v, ha, **kw)
+    delta = torch.einsum("bshd,bshd->bhs", do, o)
+    args = (q, k, v, do, lse, delta, ha)
+    want = (flash_attention_dq(*args, **kw),) + flash_attention_dkv(*args,
+                                                                    **kw)
+    on_card = [t.to(dev) for t in args]
+    for variant in FLASH_BWD_VARIANTS:
+        got = (flash_attention_dq(*on_card, variant=variant, **kw),) + \
+            flash_attention_dkv(*on_card, variant=variant, **kw)
+        for a, b in zip(got, want):
+            assert float((a.cpu() - b).abs().max()) <= chip_smoke.K34_TOL
