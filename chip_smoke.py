@@ -63,7 +63,8 @@ printing its own lines; any failed phase exits non-zero:
    matmul, with its plan variant: forward, dxs and dws at the MoE cohort's
    expert prefixes, and a decode step, also beside its 3×TF32 bound and,
    at decode, its device time), K6 (the dispatch gather) and K7 (the
-   combine gather-reduce), and K2–K4 at head_dim 64. (Phase 3b holds K5–K7
+   combine gather-reduce; their decode rows also with their device time),
+   and K2–K4 at head_dim 64. (Phase 3b holds K5–K7
    to their plain versions at these shapes and the edges — every K5
    variant: tile, stream, simt — and K2–K4 at the MoE path's attention
    shape.)
@@ -86,18 +87,24 @@ printing its own lines; any failed phase exits non-zero:
    multiple of the 64-row tile, the per-chunk states, a chunk whose
    Σ|dt·A| passes 88 (where the reference's dense path overflows), the
    prefill with a ragged head prefix, and the shapes of K8's simt
-   variant; each case prints K8's plan (variant, P tile).
+   variant; each case prints K8's plan (variant, P tile) and K9's
+   (variant, head slice), and runs K9 in each variant the shapes take
+   (mma and simt, or simt alone), twice each, bit-equal.
 11. times, SSM shapes — K8 (forward, forward with states), K9 and the
-   prefill's K8: kernel ms, plain ms and the bound (K8's also in 3×TF32,
-   and the prefill's device time); no single PyTorch call computes an SSD
-   scan, so there is no library time (the dense masked path's time is
-   printed beside it as information, not as a yardstick).
+   prefill's K8: kernel ms, plain ms and the fp32 and 3×TF32 bounds (and
+   the prefill's device time); K9's mma and simt variants and the whole
+   ``ssd_scan_bwd`` in each timed in turns (7 rounds, medians, min–max),
+   with the device time of each CUDA kernel of one mma call; no single
+   PyTorch call computes an SSD scan, so there is no library time (the
+   dense masked path's time is printed beside it as information, not as a
+   yardstick).
 12. SSM training slice — phase 7 for mamba2-2.7b at its published width
    (d_model 2560, 80 SSD heads of 64, d_state 128, chunk 256), depth cut
    to 8 layers, sequences of 512 tokens (two chunks), 4 clients with SSD
    heads 80 / 40 / 60 / 20 (the last dropping layer 0): K8 and K9 must
-   launch as the design says, every K8 launch through its ``mma``
-   variant, every parameter of both paths must stay finite.
+   launch as the design says, every K8 and K9 launch through its ``mma``
+   variant (K9's device ms in the local step printed), every parameter of
+   both paths must stay finite.
 13. SSM serving slice — phase 5 for mamba2-2.7b at all 64 layers, prompts
    of 512 tokens: K8 must launch 64 times per prefill, each through its
    ``mma`` variant with P split, greedy tokens must equal the dense
@@ -268,11 +275,11 @@ def add_tc_bound(row, nbytes: float, ops: float):
     row["tb_per_s"] = nbytes / row["ms"] / 1e9
 
 
-def device_ms(fn, device, iters=20) -> float:
-    """Device time per call of ``fn``: the sum of its kernels' time in a
-    ``torch.profiler`` trace of ``iters`` calls (None where the profiler
-    reports no device time). Unlike ``cuda_ms`` it leaves out the host's
-    enqueue time, which bounds back-to-back calls of a short kernel."""
+def device_split_ms(fn, device, iters=20):
+    """{CUDA kernel: device ms per call of ``fn``} from a ``torch.profiler``
+    trace of ``iters`` calls (None off the card or without device time):
+    where a wrapper's time goes among the kernels it launches."""
+    import re
     from torch.profiler import ProfilerActivity, profile
     if device.type != "cuda":
         return None
@@ -282,11 +289,24 @@ def device_ms(fn, device, iters=20) -> float:
         for _ in range(iters):
             fn()
         sync(device)
-    us = sum(getattr(e, "self_device_time_total",
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0)) or 0
-             for e in prof.key_averages()
-             if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    return us / 1e3 / iters if us else None
+        if us and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            m = re.search(r"(\w+_kernel(?:<[^>]*>)?)", e.key)
+            name = m.group(1) if m else e.key[:40]
+            out[name] = out.get(name, 0.0) + us / 1e3 / iters
+    return out or None
+
+
+def device_ms(fn, device, iters=20) -> float:
+    """Device time per call of ``fn``: the sum of its kernels' time in a
+    ``torch.profiler`` trace of ``iters`` calls (None where the profiler
+    reports no device time). Unlike ``cuda_ms`` it leaves out the host's
+    enqueue time, which bounds back-to-back calls of a short kernel."""
+    split = device_split_ms(fn, device, iters)
+    return sum(split.values()) if split else None
 
 
 # ---------------------------------------------------------------------------
@@ -977,7 +997,7 @@ def path_counters(cfg, serving=False):
 
 def variant_counters():
     """{kernel name: (wrapper, its variants)} of the kernels whose plan has
-    variants: K1, K3, K4, K5 and K8."""
+    variants: K1, K3, K4, K5, K8 and K9."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import ssd_scan as ss
@@ -988,12 +1008,13 @@ def variant_counters():
             "flash_attention_dkv": (fa.flash_attention_dkv,
                                     fa.FLASH_BWD_VARIANTS),
             "grouped_matmul": (gm.grouped_matmul, gm.VARIANTS),
-            "ssd_scan": (ss.ssd_scan, ss.SSD_VARIANTS)}
+            "ssd_scan": (ss.ssd_scan, ss.SSD_VARIANTS),
+            "ssd_scan_bwd": (ss.ssd_scan_bwd, ss.SSD_BWD_VARIANTS)}
 
 
 def reset_launches(counters):
     """Set every counter of ``counters`` (and the per-variant counts of K1,
-    K3, K4, K5 and K8) to 0 just before a path runs."""
+    K3, K4, K5, K8 and K9) to 0 just before a path runs."""
     for c in counters:
         c.launches = 0
     for fn, variants in variant_counters().values():
@@ -1007,10 +1028,12 @@ def check_variants(launches, problems, moe_variant, ssm_variant):
     unaligned rows; every K3 / K4 launch through the tensor-core ``mma``;
     every K5 launch through ``moe_variant`` (the training path's ``tile``,
     the serving path's ``stream``); every K8 launch through
-    ``ssm_variant``. Returns {kernel: counts by variant}."""
+    ``ssm_variant``; every K9 launch through ``mma``. Returns {kernel:
+    counts by variant}."""
     want = {"elastic_dense": ("tile", "skinny"),
             "flash_attention_dq": ("mma",), "flash_attention_dkv": ("mma",),
-            "grouped_matmul": (moe_variant,), "ssd_scan": (ssm_variant,)}
+            "grouped_matmul": (moe_variant,), "ssd_scan": (ssm_variant,),
+            "ssd_scan_bwd": ("mma",)}
     out = {}
     for name, (fn, _) in variant_counters().items():
         if name not in launches:
@@ -1421,7 +1444,10 @@ def phase_moe_times(device, d_model, d_ff, n_experts, top_k, n_heads, n_kv,
     ``torch.bmm`` over the G·E expert matrices (``torch.matmul`` with the
     weights broadcast at decode) for K5; ``torch.index_select`` then the
     validity mask for K6; ``torch.index_select`` then ``torch.einsum``
-    for K7 (two calls: no single call computes it)."""
+    for K7 (two calls: no single call computes it). The decode rows of K5,
+    K6 and K7 also carry the device time per call of kernel and library
+    (``device_ms``, ``library_device_ms``): their back-to-back time is the
+    host's."""
     import torch
     from repro_torch.configs.base import MoEConfig
     from repro_torch.kernels.grouped_matmul import (grouped_matmul,
@@ -1486,6 +1512,11 @@ def phase_moe_times(device, d_model, d_ff, n_experts, top_k, n_heads, n_kv,
                        t["xt"], 0, src_c) * valid_f, device, iters))
         row["bound_ms"], row["bound_by"] = bound(
             4.0 * d * (n_valid + R) + 8.0 * R, 0.0)
+        if label == "decode":      # short: device time beside back to back
+            row["device_ms"] = device_ms(lambda: gather_rows(
+                t["xt"], t["src"], t["valid"]), device)
+            row["library_device_ms"] = device_ms(lambda: torch.index_select(
+                t["xt"], 0, src_c) * valid_f, device)
         out["gather_rows"].append(row)
         dest = t["dest"].reshape(T_all, top_k)
         nnz = int((t["gate_eff"] != 0).sum())
@@ -1503,6 +1534,12 @@ def phase_moe_times(device, d_model, d_ff, n_experts, top_k, n_heads, n_kv,
                        device, iters))
         row["bound_ms"], row["bound_by"] = bound(
             4.0 * d * (nnz + T_all) + 8.0 * T_all * top_k, 2.0 * nnz * d)
+        if label == "decode":
+            row["device_ms"] = device_ms(lambda: gather_reduce(
+                t["y"], dest, t["gate_eff"]), device)
+            row["library_device_ms"] = device_ms(lambda: torch.einsum(
+                "tj,tjd->td", t["gate_eff"], torch.index_select(
+                    t["y"], 0, dest_c).view(T_all, top_k, d)), device)
         out["gather_reduce"].append(row)
         del t
     out.update(flash_times(device, G * rows, seq, n_heads, n_kv, head_dim,
@@ -1861,6 +1898,12 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
         print(f"  K3 / K4 in the local step ({n_layers} layers, device): "
               f"dq {km['flash_attention_dq']:.4f} ms, dk/dv "
               f"{km['flash_attention_dkv']:.4f} ms of {busy:.4f} ms busy")
+    if "ssd_scan_bwd" in launches and busy:
+        km = prof["kernels_ms"]
+        print(f"  K9 in the local step ({n_layers} layers, device): "
+              f"{km['ssd_scan_bwd']:.4f} ms of {busy:.4f} ms busy "
+              f"(share {km['ssd_scan_bwd share']:.4f}); K8 "
+              f"{km['ssd_scan']:.4f} ms")
     return launches, stats
 
 
@@ -2000,6 +2043,18 @@ def k8_plan(x, Bm, Cm, Q):
     return f"{plan.variant} p_tile={plan.p_tile}"
 
 
+def k9_variants(x, Bm, Cm, st, dy, Q):
+    """K9's plan for these operands as text, and the variants phase 3c
+    runs: the plan's, and simt beside mma (``plain`` and none on the
+    CPU)."""
+    if x.device.type != "cuda":
+        return "plain", [None]
+    from repro_torch.kernels.ssd_scan import bwd_launch_plan
+    plan = bwd_launch_plan(x, Bm, Cm, st, dy, Q)
+    text = f"{plan.variant} head_slice={plan.head_slice}"
+    return text, (["mma", "simt"] if plan.variant == "mma" else ["simt"])
+
+
 def _ssd_inputs(R, S, H, P, G, N, dt_range, device, gen):
     import torch
 
@@ -2024,12 +2079,14 @@ def _rel_err(got, want):
 def phase_ssd_kernels(device, d_model, head_dim, d_state, clients, rows,
                       seq, chunk, heads, prompt_len):
     """K8 (y and the per-chunk states) and K9 (its own outputs dx, ddt, du,
-    dB, dC, fed by K8's own states; the plain backward takes the plain
-    forward's) against their plain versions on ``ssd_cases``, each error
-    relative to the largest value of its output; and dA, the wrapper's
-    reduction Σ_s du·dt, relative to Σ_s |du·dt|. Returns the worst error
-    of each kernel. Raises PhaseError past a tolerance or on a non-finite
-    value."""
+    and dB, dC per group, fed by K8's own states; the plain backward takes
+    the plain forward's) against their plain versions on ``ssd_cases``,
+    each error relative to the largest value of its output; and dA, the
+    wrapper's reduction Σ_s du·dt, relative to Σ_s |du·dt|. K9 runs in
+    each variant the operands take (mma and simt where the plan is mma),
+    twice each, and each run must equal the first bit for bit; heads past
+    the prefix must get exact zeros. Returns the worst error of each
+    kernel. Raises PhaseError past a tolerance or on a non-finite value."""
     import torch
     from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd_raw,
                                               ssd_scan_bwd_raw_plain,
@@ -2048,39 +2105,57 @@ def phase_ssd_kernels(device, d_model, head_dim, d_state, clients, rows,
         y1 = ssd_scan(x, dt, A, Bm, Cm, Q, h_active=hat)
         y_p, st_p = ssd_scan_plain(x, dt, A, Bm, Cm, Q, hat, True)
         dy = torch.randn(x.shape, generator=gen, device=device)
-        g = ssd_scan_bwd_raw(x, dt, A, Bm, Cm, st, dy, Q, h_active=hat)
         g_p = ssd_scan_bwd_raw_plain(x, dt, A, Bm, Cm, st_p, dy, Q, hat)
         sync(device)
         e8 = max(_rel_err(y, y_p), _rel_err(st, st_p) if st_p.any() else
                  float(st.abs().max()))
-        e9s = {n: _rel_err(a, b)
-               for n, a, b in zip(("dx", "ddt", "du", "dB", "dC"), g, g_p)}
-        # dA = Σ_s du·dt, the wrapper's torch reduction of K9's du, cancels
-        # along s: its rounding scales with Σ_s |du·dt|, not with |dA|
-        dA, dA_p = (torch.einsum("rsh,rsh->rh", u, dt)
-                    for u in (g[2], g_p[2]))
-        e9s["dA"] = float((dA - dA_p).abs().max()) / max(float(
-            torch.einsum("rsh,rsh->rh", g_p[2].abs(), dt).max()), 1e-30)
-        e9 = max(e9s.values())
+        ok8 = e8 <= K8_RTOL and bool(torch.equal(y, y1)) and all(
+            bool(torch.isfinite(t).all()) for t in (y, st)) and (
+            ha is None or all(not bool(y[r, :, n:].any())
+                              for r, n in enumerate(ha)))
         worst["ssd_scan"] = max(worst["ssd_scan"], e8)
-        worst["ssd_scan_bwd"] = max(worst["ssd_scan_bwd"], e9)
-        finite = all(bool(torch.isfinite(t).all()) for t in (y, st) + g)
-        dead_zero = ha is None or all(
-            not bool(y[r, :, n:].any()) and not bool(g[0][r, :, n:].any())
-            for r, n in enumerate(ha))
-        ok = e8 <= K8_RTOL and e9 <= K9_RTOL and finite and dead_zero and \
-            bool(torch.equal(y, y1))
         shown = ha if ha is None or len(ha) < 6 else "per client"
         sum_dA = float((dt * A[:, None, :]).reshape(
             R, S // Q, Q, H).sum(2).abs().max())
-        print(f"  ssd_scan fwd+bwd {label:20s} R={R} S={S} H={H} P={P} G={G}"
+        print(f"  ssd_scan fwd {label:20s} R={R} S={S} H={H} P={P} G={G}"
               f" N={N} Q={Q} h_active={shown} {plan} max chunk sum|dt A| "
               f"{sum_dA:.1f}: max|err|/max y,states {e8:.3e} (tol "
-              f"{K8_RTOL:g}), cotangents {e9:.3e} (tol {K9_RTOL:g}; "
-              f"worst {max(e9s, key=e9s.get)}) {'ok' if ok else 'FAIL'}")
-        if not ok:
+              f"{K8_RTOL:g}) {'ok' if ok8 else 'FAIL'}")
+        if not ok8:
             failed.append(f"ssd_scan {label}")
-        del x, dt, A, Bm, Cm, y, st, y_p, st_p, g, g_p
+        bplan, variants = k9_variants(x, Bm, Cm, st, dy, Q)
+        for variant in variants:
+            kw = {} if variant is None else {"variant": variant}
+            g = ssd_scan_bwd_raw(x, dt, A, Bm, Cm, st, dy, Q, h_active=hat,
+                                 **kw)
+            g1 = ssd_scan_bwd_raw(x, dt, A, Bm, Cm, st, dy, Q,
+                                  h_active=hat, **kw)
+            sync(device)
+            e9s = {n: _rel_err(a, b) for n, a, b in
+                   zip(("dx", "ddt", "du", "dB", "dC"), g, g_p)}
+            # dA = Σ_s du·dt, the wrapper's torch reduction of K9's du,
+            # cancels along s: its rounding scales with Σ_s |du·dt|
+            dA, dA_p = (torch.einsum("rsh,rsh->rh", u, dt)
+                        for u in (g[2], g_p[2]))
+            e9s["dA"] = float((dA - dA_p).abs().max()) / max(float(
+                torch.einsum("rsh,rsh->rh", g_p[2].abs(), dt).max()),
+                1e-30)
+            e9 = max(e9s.values())
+            worst["ssd_scan_bwd"] = max(worst["ssd_scan_bwd"], e9)
+            finite = all(bool(torch.isfinite(t).all()) for t in g)
+            same = all(bool(torch.equal(a, b)) for a, b in zip(g, g1))
+            dead_zero = ha is None or all(
+                not any(bool(t[r, :, n:].any()) for t in g[:3])
+                for r, n in enumerate(ha))
+            ok = e9 <= K9_RTOL and finite and same and dead_zero
+            print(f"    ssd_scan_bwd {variant or 'plain'} (plan {bplan}): "
+                  f"cotangents {e9:.3e} (tol {K9_RTOL:g}; worst "
+                  f"{max(e9s, key=e9s.get)}), second run bit-equal {same}, "
+                  f"dead heads zero {dead_zero} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"ssd_scan_bwd {variant} {label}")
+            del g, g1
+        del x, dt, A, Bm, Cm, y, st, y_p, st_p, g_p
     if failed:
         raise PhaseError(f"SSD kernels disagree with their plain versions: "
                          f"{failed}")
@@ -2089,21 +2164,30 @@ def phase_ssd_kernels(device, d_model, head_dim, d_state, clients, rows,
 
 def ssd_work(R, S, H, P, G, N, Q, ha, backward=False, states=False):
     """(bytes, operations) K8 (or K9) must at least move and do, with the
-    causal triangle T = Q(Q+1)/2: K8 2T·P + 4QPN per live (row, head,
-    chunk) and 2T·N per (row, group, chunk) with a live head (C·Bᵀ is one
-    product per group); K9 2T(3N+2P) + 10QPN per live (row, head, chunk).
-    x and y (K9: x, dy and dx) once per live head, B, C and dt once per
-    row, the states written (K8) or read (K9) once per live head, and K9's
-    per-head outputs (ddt, du, dB, dC) once."""
+    causal triangle T = Q(Q+1)/2 and 2T·N per (row, group, chunk) with a
+    live head for C·Bᵀ (one product per group). K8: 2T·P + 4QPN per live
+    (row, head, chunk). K9, per live (row, head): 2T(2N+2P) per chunk (dG,
+    and the intra-chunk products of dxdt, dC and dB), 2QPN per chunk for
+    dy·h_in (dC's inter-chunk term; inter dcum = e_t Σ_n C_t∘(dy·h_in)_t
+    reuses it), and 6QPN per chunk but one: the state terms xdt·dh and
+    B·dhᵀ where dh ≠ 0 (every chunk but the last) and dh_y where it is
+    used (every chunk but the first). (The earlier count followed the
+    simt kernel's work, 2T(3N+2P) + 10QPN per live (row, head, chunk),
+    with C·Bᵀ per head and dB / dC written per head: 87.5 GFLOP and 1.05
+    GB at the training slice.) x and y (K9: x, dy and dx) once per live head, B,
+    C and dt once per row, the states written (K8) or read (K9) once per
+    live head, and K9's outputs (ddt, du per head, dB, dC per group)
+    once."""
     has = list(ha) if ha is not None else [H] * R
     live = sum(has)
     groups = sum(-(-min(h, H) // (H // G)) for h in has)
     nc = S // Q
     T = Q * (Q + 1) / 2
     if backward:
-        ops = (2 * T * (3 * N + 2 * P) + 10 * Q * P * N) * live * nc
+        ops = (nc * (2 * T * (2 * N + 2 * P) + 2 * Q * P * N)
+               + (nc - 1) * 6 * Q * P * N) * live + 2 * T * N * groups * nc
         nbytes = 4.0 * (3 * live * S * P + R * S * (2 * G * N + H)
-                        + live * nc * P * N + R * S * H * (2 + 2 * N))
+                        + live * nc * P * N + R * S * (2 * H + 2 * G * N))
     else:
         ops = (2 * T * P + 4 * Q * P * N) * live * nc \
             + 2 * T * N * groups * nc
@@ -2113,15 +2197,21 @@ def ssd_work(R, S, H, P, G, N, Q, ha, backward=False, states=False):
 
 
 def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
-                    chunk, heads, prompt_len, iters=5):
+                    chunk, heads, prompt_len, iters=5, rounds=7):
     """Kernel / plain ms and the bound of K8 (forward; forward with the
     states) and K9 at the SSM training slice's shapes (its head prefixes),
-    and of K8 at the prefill's. No single PyTorch call computes an SSD
-    scan (``library_ms`` None); the dense masked path's time
-    (``models.ssm.ssd_chunked``, and autograd through it) is kept as
-    ``dense_ms``, information and not a yardstick."""
+    and of K8 at the prefill's. K9 is timed in turns: ``rounds`` rounds,
+    each timing (``iters`` calls, one warm-up) its mma and simt variants
+    and the whole ``ssd_scan_bwd`` (K9 and dA) in each; its row's ``ms``
+    is the plan's variant's median, ``turns`` holds every median, min and
+    max, and ``device_split_ms`` the device time of each CUDA kernel of
+    one call of the plan's variant. No single PyTorch call computes an SSD scan (``library_ms``
+    None); the dense masked path's time (``models.ssm.ssd_chunked``, and
+    autograd through it) is kept as ``dense_ms``, information and not a
+    yardstick."""
     import torch
-    from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd_raw,
+    from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd,
+                                              ssd_scan_bwd_raw,
                                               ssd_scan_bwd_raw_plain,
                                               ssd_scan_plain)
     from repro_torch.models.ssm import ssd_chunked
@@ -2159,17 +2249,37 @@ def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
         out["ssd_scan"].append(row)
     _, st = ssd_scan(x, dt, A, Bm, Cm, chunk, h_active=hat,
                      return_states=True)
-    row = dict(shape=f"{shape} bwd",
-               ms=cuda_ms(lambda: ssd_scan_bwd_raw(
-                   x, dt, A, Bm, Cm, st, dy, chunk, h_active=hat), device,
-                   iters, 1),
+    bplan, variants = k9_variants(x, Bm, Cm, st, dy, chunk)
+    raw = {v: (lambda v=v: ssd_scan_bwd_raw(
+        x, dt, A, Bm, Cm, st, dy, chunk, h_active=hat,
+        **({} if v is None else {"variant": v}))) for v in variants}
+    vjp = {v: (lambda v=v: ssd_scan_bwd(
+        x, dt, A, Bm, Cm, st, dy, chunk, h_active=hat,
+        **({} if v is None else {"variant": v}))) for v in variants}
+    fns = {**{f"K9 {v}": f for v, f in raw.items()},
+           **{f"ssd_scan_bwd {v}": f for v, f in vjp.items()}}
+    times = {n: [] for n in fns}
+    for _ in range(rounds):          # in turns: every variant each round
+        for n, fn in fns.items():
+            times[n].append(cuda_ms(fn, device, iters, 1))
+    turns = {n: _spread(ts) for n, ts in times.items()}
+    head = variants[0]
+    row = dict(shape=f"{shape} bwd {bplan}",
+               ms=turns[f"K9 {head}"]["median"],
+               simt_ms=turns.get("K9 simt", {}).get("median"),
+               vjp_ms=turns[f"ssd_scan_bwd {head}"]["median"],
+               vjp_simt_ms=turns.get("ssd_scan_bwd simt", {}).get("median"),
+               rounds=rounds, turns=turns,
                plain_ms=cuda_ms(lambda: ssd_scan_bwd_raw_plain(
                    x, dt, A, Bm, Cm, st, dy, chunk, hat), device, iters, 1),
                library_ms=None,
                dense_ms=cuda_ms(lambda: torch.autograd.grad(
                    y_d, leaves, dy, retain_graph=True), device, iters, 1))
-    row["bound_ms"], row["bound_by"] = bound(*ssd_work(
-        R, seq, H, head_dim, 1, d_state, chunk, ha, backward=True))
+    work = ssd_work(R, seq, H, head_dim, 1, d_state, chunk, ha,
+                    backward=True)
+    row["bound_ms"], row["bound_by"] = bound(*work)
+    add_tc_bound(row, *work)
+    row["device_split_ms"] = device_split_ms(raw[head], device)
     out["ssd_scan_bwd"].append(row)
     del x, dt, A, Bm, Cm, leaves, y_d, st, dy
     x, dt, A, Bm, Cm = _ssd_inputs(1, prompt_len, H, head_dim, 1, d_state,
@@ -2203,6 +2313,14 @@ def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
                 line += f"; device {r['device_ms']:.4f} ms"
             print(line + f"; dense masked path {r['dense_ms']:.4f} ms "
                   f"(information only)")
+            if "turns" in r:             # K9 in turns
+                print(f"    in turns (median [min, max] ms over "
+                      f"{r['rounds']} rounds): " + "; ".join(
+                          f"{k} {v['median']:.4f} [{v['min']:.4f}, "
+                          f"{v['max']:.4f}]" for k, v in r["turns"].items()))
+            if r.get("device_split_ms"):
+                print("    device ms per call by kernel: " + "; ".join(
+                    f"{k} {v:.4f}" for k, v in r["device_split_ms"].items()))
     return out
 
 

@@ -28,16 +28,21 @@ float64): the two agree to the last bit whatever order the sum runs in.
   take) and the P tile; ``ssd_scan.launches_by_variant`` counts launches
   by variant (one per call, though the mma variant runs three kernels);
 * ``ssd_scan_bwd`` (K9, same source) -> (dx, ddt, dA, dB, dC): the
-  transposed scan, chunks in reverse carrying the state cotangent. The
-  kernel (``ssd_scan_bwd_raw``) emits dx, ddt, du (the cotangent of
-  u = dt·A) and dB / dC per head; ``dA = Σ_s du·dt`` (per row) and the
-  sums of dB / dC over each group's heads are plain torch reductions
-  outside it, as in the reference (deterministic; no atomics across
-  heads).
+  transposed scan. The kernel (``ssd_scan_bwd_raw``) emits dx, ddt, du
+  (the cotangent of u = dt·A) and dB / dC per group; ``dA = Σ_s du·dt``
+  (per row) is a plain torch reduction outside it, as in the reference.
+  ``ssd_bwd_plan`` picks its variant from the shapes
+  (``SSD_BWD_VARIANTS``: ``mma``, the chunks in parallel on 3×TF32 tensor
+  cores after a short pass that carries the state cotangent across them,
+  dB / dC summed over each group's heads inside the kernel by head slices
+  whose partials are summed in a fixed order; ``simt``, the first design,
+  a block per (row, head) walking the chunks in reverse, whose per-head
+  dB / dC the wrapper sums over each group) and the head slice;
+  ``ssd_scan_bwd.launches_by_variant`` counts launches by variant.
 
 ``ssd_scan_plain`` (chunk by chunk) and ``ssd_scan_bwd_raw_plain`` (the
 algebra of the reference's ``_bwd_kernel``, chunks in reverse; not
-autograd of the forward; ``ssd_scan_bwd_plain`` adds the reductions) are
+autograd of the forward; ``ssd_scan_bwd_plain`` adds dA) are
 the plain versions: each wrapper takes them
 only for tensors on the CPU, and for CUDA tensors launches its kernel or
 raises. ``ssd_scan.launches`` and ``ssd_scan_bwd.launches`` count kernel
@@ -47,7 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -59,6 +64,15 @@ KERNEL_MAX_STATE = 128
 SSD_VARIANTS = ("simt", "mma")
 MMA_MAX_CHUNK = 256      # 16 query tiles of 16: two per warp
 CB_TILE = 64             # C·Bᵀ tiles; the buffer's rows are padded to it
+# K9's variants (csrc/ssd_scan.cu::ssd_scan_bwd)
+SSD_BWD_VARIANTS = ("simt", "mma")
+BWD_TILE = 64            # queries or keys of a K9 tile block
+BWD_STEP = 32            # keys or queries of a tile block's ring stage
+# tile blocks per SM the head slice aims at (two fit an SM at once): on an
+# H100 at the training slice, narrower slices evened out the causal and
+# the head-prefix imbalance and ran faster down to 5 heads, while each
+# slice adds a partial of dB and of dC
+BWD_BLOCKS_PER_SM = 8
 
 
 class SsdPlan(NamedTuple):
@@ -80,6 +94,45 @@ def ssd_plan(R: int, H: int, P: int, N: int, Q: int, aligned: bool,
         return SsdPlan("simt", P)
     wide = SsdPlan("mma", 32)
     return wide if plan_blocks(wide, R, H, P) >= sms else SsdPlan("mma", 16)
+
+
+class SsdBwdPlan(NamedTuple):
+    variant: str
+    head_slice: int      # heads of a group a tile block sums (H for simt)
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_bwd_plan(R: int, H: int, P: int, N: int, Q: int, aligned: bool,
+                 sms: int) -> SsdBwdPlan:
+    """K9's launch from the shapes, the operands' 16-byte alignment and the
+    card's SM count alone — never from ``h_active``. The mma variant's
+    tile kernels run a block per (64-row tile, row, chunk, head slice of a
+    group); the slice is cut for about ``BWD_BLOCKS_PER_SM`` blocks per SM
+    counting one chunk and one group (more chunks and groups only add
+    blocks), and each further slice costs a (R, S, G, N) partial of dB and
+    of dC. Shapes it does not take (d_state not a multiple of 8
+    or above 128, a chunk above 256, unaligned rows) run the simt
+    variant."""
+    if not aligned or N % 8 or N > KERNEL_MAX_STATE or Q > MMA_MAX_CHUNK:
+        return SsdBwdPlan("simt", H)
+    tiles = -(-Q // BWD_TILE)
+    slices = min(H, -(-BWD_BLOCKS_PER_SM * sms // (R * tiles)))
+    return SsdBwdPlan("mma", -(-H // slices))
+
+
+def bwd_slices(plan: SsdBwdPlan, H, G):
+    """Head slices of each group under an mma plan (1: no partials)."""
+    return -(-(H // G) // plan.head_slice)
+
+
+def bwd_shared_bytes(P, N, Q):
+    """Shared memory of one block of K9's tile kernels
+    (``mma_tile_floats`` in the source): a 64-row tile of P and one of N
+    (rows padded by 4 and 8), a two-deep ring of 32-row stages of P and N
+    (rows padded by 4) and two chunk vectors."""
+    qp = -(-Q // CB_TILE) * CB_TILE
+    return 4 * (BWD_TILE * (P + 4) + BWD_TILE * (N + 8)
+                + 2 * BWD_STEP * (P + 4 + N + 4) + 2 * qp)
 
 
 def plan_blocks(plan: SsdPlan, R, H, P):
@@ -108,8 +161,8 @@ def _library() -> ctypes.CDLL:
     lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 10 + \
         [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.ssd_scan_fwd.restype = ctypes.c_int
-    lib.ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 13 + \
-        [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 19 + \
+        [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.ssd_scan_bwd.restype = ctypes.c_int
     return lib
 
@@ -187,9 +240,10 @@ def ssd_scan_plain(xh, dt, A, Bm, Cm, chunk, h_active=None,
 
 def ssd_scan_bwd_raw_plain(xh, dt, A, Bm, Cm, states, dy, chunk,
                            h_active=None):
-    """The plain PyTorch version of K9's own outputs (dx, ddt, du, dB, dC
-    per head): a transcription of the reference's ``_bwd_kernel``, chunks
-    in reverse carrying the state cotangent."""
+    """The plain PyTorch version of K9's own outputs (dx, ddt, du, and dB /
+    dC per group): a transcription of the reference's ``_bwd_kernel``,
+    chunks in reverse carrying the state cotangent, then dB / dC summed
+    over each group's heads."""
     R, S, H, P = xh.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep, nc = H // G, S // chunk
@@ -250,8 +304,14 @@ def ssd_scan_bwd_raw_plain(xh, dt, A, Bm, Cm, states, dy, chunk,
     zero = torch.zeros((), dtype=torch.float32, device=xh.device)
     m4, m3 = live[:, None, :, None], live[:, None, :]
     return (torch.where(m4, dx, zero), torch.where(m3, ddt, zero),
-            torch.where(m3, du, zero), torch.where(m4, dB, zero),
-            torch.where(m4, dC, zero))
+            torch.where(m3, du, zero), group_sum(torch.where(m4, dB, zero), G),
+            group_sum(torch.where(m4, dC, zero), G))
+
+
+def group_sum(t, G):
+    """(R, S, H, N) per head -> (R, S, G, N): each group's heads summed."""
+    R, S, H, N = t.shape
+    return t.reshape(R, S, G, H // G, N).sum(3)
 
 
 def ssd_scan_bwd_plain(xh, dt, A, Bm, Cm, states, dy, chunk, h_active=None):
@@ -262,17 +322,13 @@ def ssd_scan_bwd_plain(xh, dt, A, Bm, Cm, states, dy, chunk, h_active=None):
 
 
 def _reduce_bwd(raw, xh, dt, A, Bm, Cm):
-    """K9's per-head outputs -> (dx, ddt, dA, dB, dC): dA = Σ_s du·dt per
-    row ((R, H), or (H,) for a shared A) and dB / dC summed over each
-    group's heads — plain torch reductions, as in the reference."""
-    dx, ddt, du, dBh, dCh = raw
-    R, S, H, _ = xh.shape
-    G, N = Bm.shape[2], Bm.shape[3]
+    """K9's outputs -> (dx, ddt, dA, dB, dC): dA = Σ_s du·dt per row
+    ((R, H), or (H,) for a shared A), a plain torch reduction as in the
+    reference, and each output in its input's dtype."""
+    dx, ddt, du, dB, dC = raw
     dA = torch.einsum("rsh,rsh->rh", du, dt.float())
     if A.dim() == 1:
         dA = dA.sum(0)
-    dB = dBh.reshape(R, S, G, H // G, N).sum(3)
-    dC = dCh.reshape(R, S, G, H // G, N).sum(3)
     return (dx.to(xh.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
             dB.to(Bm.dtype), dC.to(Cm.dtype))
 
@@ -370,13 +426,40 @@ def launch_plan(xh, Bm, Cm, chunk) -> SsdPlan:
     return ssd_plan(R, H, P, N, chunk, aligned, _sms(xh.device.index))
 
 
+def bwd_launch_plan(xh, Bm, Cm, states, dy, chunk) -> SsdBwdPlan:
+    """K9's ``SsdBwdPlan`` for contiguous CUDA operands: 16-byte-aligned
+    rows (d_state a multiple of 4) and base addresses."""
+    R, S, H, P = xh.shape
+    N = Bm.shape[3]
+    aligned = N % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                 for t in (xh, Bm, Cm, states, dy))
+    return ssd_bwd_plan(R, H, P, N, chunk, aligned, _sms(xh.device.index))
+
+
+def _bwd_plan(xh, Bm, Cm, states, dy, chunk, variant):
+    """The plan of a K9 launch: the operands' own, or with
+    ``variant="simt"`` the simt variant's (for measurement and tests);
+    ``variant="mma"`` raises where the operands cannot take it."""
+    plan = bwd_launch_plan(xh, Bm, Cm, states, dy, chunk)
+    if variant is None or variant == plan.variant:
+        return plan
+    if variant == "simt":
+        return SsdBwdPlan("simt", xh.shape[2])
+    raise ValueError(f"ssd_scan_bwd variant {variant!r} cannot run on "
+                     f"these operands (plan {plan.variant!r}; variants "
+                     f"{SSD_BWD_VARIANTS})")
+
+
 def ssd_scan_bwd_raw(xh, dt, A, Bm, Cm, states, dy, chunk, *,
-                     h_active=None):
+                     h_active=None, variant: Optional[str] = None):
     """K9's own outputs: dx (R, S, H, P), ddt and du (R, S, H), and dB / dC
-    per head (R, S, H, N). ``states``: the per-chunk initial states of
+    per group (R, S, G, N). ``states``: the per-chunk initial states of
     ``ssd_scan(..., return_states=True)``; ``dy`` the output cotangent.
-    Heads past the row's prefix get exactly-zero cotangents. The launch
-    counts on ``ssd_scan_bwd.launches``."""
+    Heads past the row's prefix get exactly-zero cotangents and add
+    nothing to their group's dB / dC. ``variant`` (CUDA tensors only):
+    None for the plan's, or one of ``SSD_BWD_VARIANTS``. The launch counts
+    on ``ssd_scan_bwd.launches`` (one per call, though the mma variant
+    runs six or seven kernels)."""
     _check(xh, dt, A, Bm, Cm, chunk, h_active)
     R, S, H, P = xh.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -390,29 +473,57 @@ def ssd_scan_bwd_raw(xh, dt, A, Bm, Cm, states, dy, chunk, *,
     Ar = row_A(A, R).contiguous()
     stream = _kernel_args("ssd_scan_bwd", (xh, dt, Ar, Bm, Cm, states, dy),
                           P, N)
+    plan = _bwd_plan(xh, Bm, Cm, states, dy, chunk, variant)
+    dev, f32 = xh.device, torch.float32
     dx = torch.empty_like(xh)
     ddt = torch.empty_like(dt)
     du = torch.empty_like(dt)
-    dBh = torch.empty((R, S, H, N), dtype=torch.float32, device=xh.device)
-    dCh = torch.empty_like(dBh)
+    nc = S // chunk
+    scratch = dict(cum=None, cb=None, dhs=None, dhh=None, vecs=None,
+                   parts=None)
+    if plan.variant == "simt":       # per head, summed over groups below
+        dB = torch.empty((R, S, H, N), dtype=f32, device=dev)
+        dC = torch.empty_like(dB)
+    else:
+        dB = torch.empty((R, S, G, N), dtype=f32, device=dev)
+        dC = torch.empty_like(dB)
+        qp = -(-chunk // CB_TILE) * CB_TILE
+        ns = bwd_slices(plan, H, G)
+        scratch = dict(
+            cum=torch.empty((R, H, S), dtype=f32, device=dev),
+            cb=torch.empty((R, G, nc, qp, qp), dtype=f32, device=dev),
+            dhs=torch.empty((R, nc - 1, H, P, N), dtype=f32, device=dev)
+            if nc > 1 else None,
+            dhh=torch.empty((R, H, nc, P // 32), dtype=torch.float64,
+                            device=dev),
+            vecs=torch.empty((4, R, H, S), dtype=f32, device=dev),
+            parts=torch.empty((2, ns, R, S, G, N), dtype=f32, device=dev)
+            if ns > 1 else None)
     err = _library().ssd_scan_bwd(
         xh.data_ptr(), dt.data_ptr(), Ar.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), states.data_ptr(), dy.data_ptr(), _ptr(h_active),
-        dx.data_ptr(), ddt.data_ptr(), du.data_ptr(), dBh.data_ptr(),
-        dCh.data_ptr(), R, S, H, P, G, N, chunk, stream)
+        dx.data_ptr(), ddt.data_ptr(), du.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), *(_ptr(scratch[k]) for k in
+                         ("cum", "cb", "dhs", "dhh", "vecs", "parts")),
+        R, S, H, P, G, N, chunk, SSD_BWD_VARIANTS.index(plan.variant),
+        plan.head_slice, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed: CUDA error "
                            f"{err}")
+    ssd_scan_bwd.launches_by_variant[plan.variant] += 1
     ssd_scan_bwd.launches += 1
-    return dx, ddt, du, dBh, dCh
+    if plan.variant == "simt":
+        dB, dC = group_sum(dB, G), group_sum(dC, G)
+    return dx, ddt, du, dB, dC
 
 
-def ssd_scan_bwd(xh, dt, A, Bm, Cm, states, dy, chunk, *, h_active=None):
+def ssd_scan_bwd(xh, dt, A, Bm, Cm, states, dy, chunk, *, h_active=None,
+                 variant: Optional[str] = None):
     """VJP of ``ssd_scan`` with respect to (xh, dt, A, Bm, Cm): K9
-    (``ssd_scan_bwd_raw``), then dA and the group sums in torch. Returns
-    (dxh, ddt, dA, dBm, dCm); dA has A's shape."""
+    (``ssd_scan_bwd_raw``, in ``variant``), then dA in torch. Returns (dxh,
+    ddt, dA, dBm, dCm); dA has A's shape."""
     raw = ssd_scan_bwd_raw(xh, dt, A, Bm, Cm, states, dy, chunk,
-                           h_active=h_active)
+                           h_active=h_active, variant=variant)
     return _reduce_bwd(raw, xh, dt, A, Bm, Cm)
 
 
@@ -420,3 +531,4 @@ ssd_scan.launches = 0
 # launches per variant of the plan (same increments as ``launches``)
 ssd_scan.launches_by_variant = dict.fromkeys(SSD_VARIANTS, 0)
 ssd_scan_bwd.launches = 0
+ssd_scan_bwd.launches_by_variant = dict.fromkeys(SSD_BWD_VARIANTS, 0)
