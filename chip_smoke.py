@@ -13,7 +13,10 @@ printing its own lines; any failed phase exits non-zero:
    per source, in parallel) and prints the build seconds and the
    compiler's register / shared-memory report.
 3. kernels — each kernel against its plain PyTorch version on the card
-   (3b: the MoE kernels K5–K7, and K2–K4 at the MoE attention shape),
+   (3b: the MoE kernels K5–K7 — K6's copy in both designs and its scaled
+   gather bit-exact, its gather-dot within ``K6_DOT_RTOL``, K7 in both
+   designs, bit-equal to each other — and K2–K4 at the MoE attention
+   shape),
    at the serving and the training path's shapes and at the edges (prefix
    0, full, ragged, per-group prefixes and weights that differ, transposed
    operands, shapes that are not tile multiples, window and softcap), each
@@ -63,16 +66,23 @@ printing its own lines; any failed phase exits non-zero:
    matmul, with its plan variant: forward, dxs and dws at the MoE cohort's
    expert prefixes, and a decode step, also beside its 3×TF32 bound and,
    at decode, its device time), K6 (the dispatch gather) and K7 (the
-   combine gather-reduce; their decode rows also with their device time),
-   and K2–K4 at head_dim 64. (Phase 3b holds K5–K7
-   to their plain versions at these shapes and the edges — every K5
-   variant: tile, stream, simt — and K2–K4 at the MoE path's attention
-   shape.)
+   combine gather-reduce), each timed in turns with its first design (7
+   rounds, medians and min–max; the decode rows with both designs' device
+   time), K6's scaled gather and gather-dot (the combine's VJP), the whole
+   ``_Combine.backward`` against the composition it replaced in turns,
+   each wrapper's host µs per call (and the stream lookup's, before and
+   after the wrappers took ``backend.stream_handle``), and K2–K4 at
+   head_dim 64. (Phase 3b holds K5–K7 to their plain versions at these
+   shapes and the edges — every K5 variant: tile, stream, simt; every K6
+   and K7 variant, twice each and bit-equal run to run — and K2–K4 at the
+   MoE path's attention shape.)
 9. MoE training slice — phase 7 for granite-moe-1b-a400m at its published
    width (32 experts top-8), depth cut to 12 layers, 4 clients with
-   expert prefixes 32 / 16 / 24 / 8: K5–K7 and K2–K4 must launch as the
-   design says, every K5 launch through its tensor-core ``tile``, every
-   K3 / K4 launch through ``mma``; also
+   expert prefixes 32 / 16 / 24 / 8: K5–K7 (with K6's gather-dot) and
+   K2–K4 must launch as the design says, every K5 launch through its
+   tensor-core ``tile``, every K6 / K7 launch through its redesign (K6's
+   copy or scaled gather, K7's ``split``), every K3 / K4 launch through
+   ``mma``; also
    counts the routing decisions (top-k expert sets) on which the two
    paths differ.
 10. MoE serving slice — phase 5 for granite-moe-1b-a400m at all 24
@@ -137,7 +147,12 @@ K34_TOL = 1e-4                 # two D-length dots per pair, then sums over up
                                # to G·S pairs; outputs O(1-10)
 K5_TOL = 1e-4                  # K ≤ 1024 fp32 products, outputs O(1), as K1
 K7_RTOL = 1e-6                 # k ≤ 8 fp32 terms, relative to max|out|; K6
-                               # copies bit for bit
+                               # copies (and scales) bit for bit
+K6_DOT_RTOL = 1e-5             # the gather-dot, per entry relative to its
+                               # Σ_d |z·x|: d ≤ 1024 fp32 terms, the kernel's
+                               # order (32 per lane, a 5-step butterfly, ≤ 4
+                               # slices) bounded by ~40 roundings, the plain
+                               # einsum's by its own
 K8_RTOL = 5e-5                 # y relative to max|y|: cum is bit-equal (fp64
                                # sum), the dot products run over N, P and Q
                                # ≤ 256 fp32 terms in another order
@@ -185,7 +200,8 @@ KERNEL_FUNCTIONS = {
     "elastic_dense": ("edense_",), "flash_attention": ("flash_fwd_",),
     "flash_attention_dq": ("flash_dq_",),
     "flash_attention_dkv": ("flash_dkv_",), "grouped_matmul": ("gmm_",),
-    "gather_rows": ("gather_rows_",), "gather_reduce": ("gather_reduce_",),
+    "gather_rows": ("gather_rows_",), "gather_dot": ("gather_dot_",),
+    "gather_reduce": ("gather_reduce_",),
     "ssd_scan": ("ssd_fwd_", "ssd_cb_", "ssd_cum_"),
     "ssd_scan_bwd": ("ssd_bwd_",)}
 
@@ -761,6 +777,7 @@ def moe_tables(device, G, T, E, k, cap, experts, d, gen):
         G * T, k).contiguous()
     return dict(xt=xt.reshape(G * T, d), src=src, valid=valid, dest=dest,
                 kept=kept, gate_eff=gate_eff,
+                slot_gate=tables.slot_gate.reshape(-1).contiguous(),
                 y=torch.randn((G * E * cap, d), generator=gen, device=device))
 
 
@@ -779,6 +796,100 @@ def k67_cases(d_model, n_experts, top_k, clients, tokens, cap, slots,
     ]
 
 
+def _twice(fn):
+    """Two runs of ``fn`` and whether they are bit-equal."""
+    import torch
+    a, b = fn(), fn()
+    return a, bool(torch.equal(a, b))
+
+
+def check_gathers(device, t, k, label, d, worst):
+    """K6 and K7 on one MoE layer's tables ``t`` (``moe_tables``; an
+    optional ``misaligned`` (T, d) view of token rows) against their plain
+    versions: K6's copy in both designs (the dispatch, the rows the
+    combine's gate cotangent reads, and the misaligned view), its scaled
+    gather (the combine's slot cotangent: the token rows ``xt`` standing
+    for the output cotangent, times ``slot_gate``) bit-exact with dead
+    slots exactly 0; its gather-dot within ``K6_DOT_RTOL`` of each entry's
+    Σ_d |z·x|, dropped assignments exactly 0; K7 in both designs (the
+    combine, and the dispatch's VJP) within ``K7_RTOL`` of max|out|, the
+    designs bit-equal to each other. Each launch runs twice and must be
+    bit-equal run to run. Updates ``worst``; returns the failed checks."""
+    import torch
+    from repro_torch.kernels.moe_dispatch import (
+        GATHER_VARIANTS, REDUCE_VARIANTS, gather_dot, gather_dot_plain,
+        gather_reduce, gather_reduce_plain, gather_rows, gather_rows_plain)
+    failed = []
+    T_all = t["gate_eff"].shape[0]
+    live = (t["gate_eff"].reshape(-1) != 0).to(torch.int32)
+
+    def report(name, ok, text):
+        print(f"  {name} {label:12s} {text} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{name} {label} {text.split(':')[0]}")
+    copies = [("dispatch", t["xt"], t["src"], t["valid"], None),
+              ("combine vjp rows", t["y"], t["dest"], live, None),
+              ("combine vjp dy", t["xt"], t["src"], t["valid"],
+               t["slot_gate"])]
+    if "misaligned" in t:
+        copies.append(("misaligned", t["misaligned"], t["src"], t["valid"],
+                       None))
+    for name, x, idx, valid, scale in copies:
+        want = gather_rows_plain(x, idx, valid, scale)
+        for variant in GATHER_VARIANTS if scale is None else (None,):
+            got, same = _twice(lambda: gather_rows(x, idx, valid, scale,
+                                                   variant=variant))
+            sync(device)
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+            exact = bool(torch.equal(got, want))
+            dead = not bool(got[valid == 0].any())
+            worst["gather_rows"] = max(worst.get("gather_rows", 0.0), err)
+            report("gather_rows", exact and same and dead,
+                   f"{name:17s} {variant or 'unrolled'}"
+                   f"{' scaled' if scale is not None else ''}: "
+                   f"R={idx.shape[0]} from {x.shape[0]} rows, d={d}: "
+                   f"bit-exact {'yes' if exact else 'NO'}, twice equal "
+                   f"{'yes' if same else 'NO'}, dead rows 0 "
+                   f"{'yes' if dead else 'NO'}")
+    z = t["xt"]
+    got, same = _twice(lambda: gather_dot(t["y"], t["dest"], live, z, k))
+    want = gather_dot_plain(t["y"], t["dest"], live, z, k)
+    rows = gather_rows_plain(t["y"], t["dest"], live).reshape(T_all, k, -1)
+    mag = torch.einsum("td,tjd->tj", z.abs().double(), rows.abs().double())
+    rel = float(((got.double() - want.double()).abs()
+                 / mag.clamp_min(1e-30)).max()) if got.numel() else 0.0
+    dead = not bool(got.reshape(-1)[live == 0].any())
+    worst["gather_dot"] = max(worst.get("gather_dot", 0.0), rel)
+    report("gather_dot", rel <= K6_DOT_RTOL and same and dead
+           and bool(torch.isfinite(got).all()),
+           f"combine vjp dgate T={T_all} k={k}, d={d}: max|err|/Σ|z·x| "
+           f"{rel:.3e} tol={K6_DOT_RTOL:g}, twice equal "
+           f"{'yes' if same else 'NO'}, dropped 0 {'yes' if dead else 'NO'}")
+    dest = t["dest"].reshape(T_all, k)
+    for name, gates in (("combine", t["gate_eff"]),
+                        ("dispatch vjp", t["kept"].reshape(T_all, k).float())):
+        want = gather_reduce_plain(t["y"], dest, gates)
+        outs = {}
+        for variant in REDUCE_VARIANTS:
+            outs[variant], same = _twice(lambda: gather_reduce(
+                t["y"], dest, gates, variant=variant))
+            sync(device)
+            got = outs[variant]
+            rel = float((got - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
+            worst["gather_reduce"] = max(worst.get("gather_reduce", 0.0), rel)
+            report("gather_reduce", rel <= K7_RTOL and same
+                   and bool(torch.isfinite(got).all()),
+                   f"{name:13s} {variant}: T={T_all} k={k} from "
+                   f"{t['y'].shape[0]} rows, d={d}: max|err|/max|out| "
+                   f"{rel:.3e} tol={K7_RTOL:g}, twice equal "
+                   f"{'yes' if same else 'NO'}")
+        equal = bool(torch.equal(*outs.values()))
+        report("gather_reduce", equal, f"{name:13s} designs: bit-equal "
+               f"{'yes' if equal else 'NO'}")
+    return failed
+
+
 def phase_moe_kernels(device, d_model, d_ff, n_experts, top_k, clients,
                       tokens, slots, experts, n_heads=None, n_kv=None,
                       head_dim=None, rows=4, seq=None, heads=None):
@@ -793,12 +904,10 @@ def phase_moe_kernels(device, d_model, d_ff, n_experts, top_k, clients,
     from repro_torch.configs.base import MoEConfig
     from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                     grouped_matmul_plain)
-    from repro_torch.kernels.moe_dispatch import (
-        gather_reduce, gather_reduce_plain, gather_rows, gather_rows_plain)
     from repro_torch.models.moe import capacity
     gen = torch.Generator(device=device).manual_seed(4)
     cap = capacity(tokens, MoEConfig(n_experts, top_k, d_ff))
-    worst = {"grouped_matmul": 0.0, "gather_rows": 0.0,
+    worst = {"grouped_matmul": 0.0, "gather_rows": 0.0, "gather_dot": 0.0,
              "gather_reduce": 0.0}
     failed = []
     for label, G, E, M, K, N, layout, ga in k5_cases(
@@ -826,44 +935,10 @@ def phase_moe_kernels(device, d_model, d_ff, n_experts, top_k, clients,
             d_model, n_experts, top_k, clients, tokens, cap, slots,
             experts):
         t = moe_tables(device, G, T, E, k, cp, ga, d, gen)
-        T_all = G * T
-        regather = (t["gate_eff"].reshape(-1) != 0).to(torch.int32)
-        k6 = [("dispatch", t["xt"], t["src"], t["valid"]),
-              ("combine vjp rows", t["y"], t["dest"], regather)]
         if label.startswith("d odd"):          # a 16-byte-misaligned row
-            base = torch.randn(T_all * d + 1, generator=gen,
-                               device=device)
-            k6.append(("misaligned", base[1:].view(T_all, d), t["src"],
-                       t["valid"]))
-        for name, x, idx, valid in k6:
-            got = gather_rows(x, idx, valid)
-            want = gather_rows_plain(x, idx, valid)
-            sync(device)
-            err = float((got - want).abs().max()) if got.numel() else 0.0
-            exact = bool(torch.equal(got, want))
-            worst["gather_rows"] = max(worst["gather_rows"], err)
-            print(f"  gather_rows {label:12s} {name:17s} R={idx.shape[0]} "
-                  f"from {x.shape[0]} rows, d={d}: bit-exact "
-                  f"{'yes' if exact else 'NO'} "
-                  f"{'ok' if exact else 'FAIL'}")
-            if not exact:
-                failed.append(f"gather_rows {label} {name}")
-        k7 = [("combine", t["y"], t["gate_eff"]),
-              ("dispatch vjp", t["y"], t["kept"].reshape(T_all, k).float())]
-        for name, y, gates in k7:
-            dest = t["dest"].reshape(T_all, k)
-            got = gather_reduce(y, dest, gates)
-            want = gather_reduce_plain(y, dest, gates)
-            sync(device)
-            rel = float((got - want).abs().max()) / max(
-                float(want.abs().max()), 1e-30)
-            worst["gather_reduce"] = max(worst["gather_reduce"], rel)
-            ok = rel <= K7_RTOL and bool(torch.isfinite(got).all())
-            print(f"  gather_reduce {label:12s} {name:13s} T={T_all} k={k} "
-                  f"from {y.shape[0]} rows, d={d}: max|err|/max|out| "
-                  f"{rel:.3e} tol={K7_RTOL:g} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                failed.append(f"gather_reduce {label} {name}")
+            base = torch.randn(G * T * d + 1, generator=gen, device=device)
+            t["misaligned"] = base[1:].view(G * T, d)
+        failed += check_gathers(device, t, k, label, d, worst)
         del t
     if n_heads is not None:
         for name in ("flash_attention", "flash_attention_dq",
@@ -980,8 +1055,8 @@ def host_us(fn, device, iters=200) -> float:
 def path_counters(cfg, serving=False):
     """The kernel wrappers whose launches a path of ``cfg`` must show: K1
     and the attention kernels on a dense parent, K5–K7 and the attention
-    kernels on a MoE parent, K8 and K9 on an SSM parent (serving launches
-    the forward ones only)."""
+    kernels on a MoE parent (and K6's gather-dot in training), K8 and K9
+    on an SSM parent (serving launches the forward ones only)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul, moe_dispatch, ssd_scan
     from repro_torch.kernels.elastic_matmul import elastic_dense
@@ -989,7 +1064,8 @@ def path_counters(cfg, serving=False):
         return (ssd_scan.ssd_scan,) + (() if serving
                                        else (ssd_scan.ssd_scan_bwd,))
     ffn = (grouped_matmul.grouped_matmul, moe_dispatch.gather_rows,
-           moe_dispatch.gather_reduce) if cfg.moe is not None \
+           moe_dispatch.gather_reduce) + (() if serving else (
+               moe_dispatch.gather_dot,)) if cfg.moe is not None \
         else (elastic_dense,)
     return ffn + (fa.flash_attention,) + (() if serving else (
         fa.flash_attention_dq, fa.flash_attention_dkv))
@@ -997,9 +1073,11 @@ def path_counters(cfg, serving=False):
 
 def variant_counters():
     """{kernel name: (wrapper, its variants)} of the kernels whose plan has
-    variants: K1, K3, K4, K5, K8 and K9."""
+    variants, or whose first design stays for measurement: K1, K3–K9 (K6
+    counts its first design, copy and scaled gather)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import elastic_matmul as em
     return {"elastic_dense": (em.elastic_dense, em.VARIANTS),
@@ -1008,13 +1086,15 @@ def variant_counters():
             "flash_attention_dkv": (fa.flash_attention_dkv,
                                     fa.FLASH_BWD_VARIANTS),
             "grouped_matmul": (gm.grouped_matmul, gm.VARIANTS),
+            "gather_rows": (md.gather_rows, md.GATHER_COUNTS),
+            "gather_reduce": (md.gather_reduce, md.REDUCE_VARIANTS),
             "ssd_scan": (ss.ssd_scan, ss.SSD_VARIANTS),
             "ssd_scan_bwd": (ss.ssd_scan_bwd, ss.SSD_BWD_VARIANTS)}
 
 
 def reset_launches(counters):
     """Set every counter of ``counters`` (and the per-variant counts of K1,
-    K3, K4, K5, K8 and K9) to 0 just before a path runs."""
+    K3–K9) to 0 just before a path runs."""
     for c in counters:
         c.launches = 0
     for fn, variants in variant_counters().values():
@@ -1027,13 +1107,15 @@ def check_variants(launches, problems, moe_variant, ssm_variant):
     tensor-core variant (tile or skinny), never the SIMT tile kept for
     unaligned rows; every K3 / K4 launch through the tensor-core ``mma``;
     every K5 launch through ``moe_variant`` (the training path's ``tile``,
-    the serving path's ``stream``); every K8 launch through
-    ``ssm_variant``; every K9 launch through ``mma``. Returns {kernel:
-    counts by variant}."""
+    the serving path's ``stream``); every K6 and K7 launch through the
+    redesign (K6's copy or scaled gather, K7's ``split``), never their
+    first designs; every K8 launch through ``ssm_variant``; every K9 launch
+    through ``mma``. Returns {kernel: counts by variant}."""
     want = {"elastic_dense": ("tile", "skinny"),
             "flash_attention_dq": ("mma",), "flash_attention_dkv": ("mma",),
-            "grouped_matmul": (moe_variant,), "ssd_scan": (ssm_variant,),
-            "ssd_scan_bwd": ("mma",)}
+            "grouped_matmul": (moe_variant,),
+            "gather_rows": ("copy", "scaled"), "gather_reduce": ("split",),
+            "ssd_scan": (ssm_variant,), "ssd_scan_bwd": ("mma",)}
     out = {}
     for name, (fn, _) in variant_counters().items():
         if name not in launches:
@@ -1274,9 +1356,13 @@ def phase_train_times(device, d_model, d_ff, n_heads, n_kv, head_dim,
 def print_rows(rows_out):
     for name, rs in rows_out.items():
         for r in rs:
-            line = (f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-                    f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-                    f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            lib = "-" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f} ms"
+            line = (f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms"
+                    + (f" (first design {r['first_ms']:.4f} ms)"
+                       if "first_ms" in r else "")
+                    + f", plain {r['plain_ms']:.4f} ms, library {lib}, "
+                    f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
             if "tc_bound_ms" in r:
                 line += (f", 3xTF32 bound {r['tc_bound_ms']:.4f} ms "
                          f"({r['tc_bound_by']}); {r['tflops']:.1f} TFLOP/s, "
@@ -1284,8 +1370,12 @@ def print_rows(rows_out):
             if None not in (r.get("device_ms"), r.get("library_device_ms")):
                 line += (f"; device {r['device_ms']:.4f} ms, library "
                          f"device {r['library_device_ms']:.4f} ms")
+            if r.get("first_device_ms") is not None:
+                line += f", first design device {r['first_device_ms']:.4f} ms"
             print(line)
-            if name == "flash_attention_bwd":   # K3 / K4 / SDPA in turns
+            # K3 / K4 / SDPA, and K6 / K7 against their first designs
+            if name == "flash_attention_bwd" or ("turns" in r and len(
+                    r["turns"]) > 1 and not name.startswith("flash")):
                 print("    in turns (median [min, max] ms over "
                       f"{r['rounds']} rounds): " + "; ".join(
                           f"{k} {v['median']:.4f} [{v['min']:.4f}, "
@@ -1302,6 +1392,17 @@ def _spread(ts):
     n = len(ts)
     med = ts[n // 2] if n % 2 else 0.5 * (ts[n // 2 - 1] + ts[n // 2])
     return {"median": med, "min": ts[0], "max": ts[-1]}
+
+
+def turns_ms(device, fns, iters, rounds=7):
+    """{name: median, min and max ms} of each callable of ``fns``, timed in
+    turns: ``rounds`` rounds, each timing every callable in order
+    (``iters`` calls back to back, one warm-up)."""
+    times = {n: [] for n in fns}
+    for _ in range(rounds):
+        for n, fn in fns.items():
+            times[n].append(cuda_ms(fn, device, iters, 1))
+    return {n: _spread(ts) for n, ts in times.items()}
 
 
 def flash_times(device, B, S, H, KV, D, gen, iters=5, rounds=7):
@@ -1371,11 +1472,7 @@ def flash_times(device, B, S, H, KV, D, gen, iters=5, rounds=7):
             ot_pin, (qt, kt, vt), dot, retain_graph=True),
         "sdpa unpinned": lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True)}
-    times = {n: [] for n in fns}
-    for _ in range(rounds):
-        for n, fn in fns.items():
-            times[n].append(cuda_ms(fn, device, iters, 1))
-    turns = {n: _spread(ts) for n, ts in times.items()}
+    turns = turns_ms(device, fns, iters, rounds)
     lib = turns[f"sdpa {backend_name}"]["median"]
     common = dict(shape=f"{shape} {flash_bwd_variant(q, k, v, do)}",
                   library_ms=lib,
@@ -1435,6 +1532,53 @@ def k5_work(G, E, M, K, N, ga, shared):
             2.0 * live * M * K * N)
 
 
+def design_row(device, shape, fns, iters, plain, library, nbytes, ops,
+               short, rounds=7):
+    """A timing row of a kernel whose callables ``fns`` (the design on the
+    main path first, then ``first``, the first design, where it has one) are
+    timed in turns (``turns_ms``): ``ms`` the first callable's median,
+    ``first_ms`` the first design's, ``turns`` every median and min–max;
+    ``plain_ms``, ``library_ms`` (None without a library call) and the
+    bound of ``nbytes`` and ``ops``. With ``short`` also the device time per
+    call of each design and of the library call (their back-to-back time
+    is the host's)."""
+    turns = turns_ms(device, fns, iters, rounds)
+    main = next(iter(fns))
+    row = dict(shape=shape, ms=turns[main]["median"], rounds=rounds,
+               turns=turns, plain_ms=cuda_ms(plain, device, iters),
+               library_ms=None if library is None
+               else cuda_ms(library, device, iters))
+    if "first" in fns:
+        row["first_ms"] = turns["first"]["median"]
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+    if short:
+        row["device_ms"] = device_ms(fns[main], device)
+        row["first_device_ms"] = device_ms(fns["first"], device)
+        row["library_device_ms"] = None if library is None \
+            else device_ms(library, device)
+    return row
+
+
+def combine_vjp_first(dout, y_flat, gate_eff, dest_tj, slot_src, slot_valid,
+                      slot_gate):
+    """The combine's VJP as the port ran it before its K6 functions were
+    fused (timed here only, the yardstick of ``combine_vjp``): the slot
+    rows' cotangent by K6's first design and then a multiply by the gates;
+    K6's first design again for the slot rows each assignment pointed at,
+    and an einsum."""
+    import torch
+    from repro_torch.kernels.moe_dispatch import gather_rows
+    T, k = gate_eff.shape
+    dy = gather_rows(dout, slot_src, slot_valid, variant="first") * \
+        slot_gate[:, None]
+    yg = gather_rows(y_flat, dest_tj,
+                     (gate_eff.reshape(-1) != 0).to(torch.int32),
+                     variant="first")
+    dgate = torch.einsum("td,tjd->tj", dout.float(),
+                         yg.reshape(T, k, -1).float())
+    return dy, dgate
+
+
 def phase_moe_times(device, d_model, d_ff, n_experts, top_k, n_heads, n_kv,
                     head_dim, clients, rows, seq, slots, experts, iters=5):
     """Kernel / plain / library ms and the bound of K5, K6 and K7 at the MoE
@@ -1452,15 +1596,18 @@ def phase_moe_times(device, d_model, d_ff, n_experts, top_k, n_heads, n_kv,
     from repro_torch.configs.base import MoEConfig
     from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                     grouped_matmul_plain)
+    from repro_torch.kernels.backend import stream_handle
     from repro_torch.kernels.moe_dispatch import (
-        gather_reduce, gather_reduce_plain, gather_rows, gather_rows_plain)
+        combine_vjp, gather_dot, gather_dot_plain, gather_reduce,
+        gather_reduce_plain, gather_rows, gather_rows_plain)
     from repro_torch.models.moe import capacity
     gen = torch.Generator(device=device).manual_seed(5)
     G, E, tokens = clients, n_experts, rows * seq
     cap = capacity(tokens, MoEConfig(E, top_k, d_ff))
     ga = list(experts)
     dec = [E, max(1, E // 4)][:slots] + [E // 2] * (slots - 2)
-    out = {"grouped_matmul": [], "gather_rows": [], "gather_reduce": []}
+    out = {"grouped_matmul": [], "gather_rows": [], "gather_dot": [],
+           "gather_reduce": []}
     for label, g, M, K, N, layout, pre in (
             ("train up/gate fwd", G, cap, d_model, d_ff, "layer", ga),
             ("train down fwd", G, cap, d_ff, d_model, "layer", ga),
@@ -1495,58 +1642,108 @@ def phase_moe_times(device, d_model, d_ff, n_experts, top_k, n_heads, n_kv,
             row["library_device_ms"] = device_ms(lib, device)
         out["grouped_matmul"].append(row)
         del x, w, lib
+    host = {}
     for label, g, T, cp, pre in (("train", G, tokens, cap, ga),
                                  ("decode", slots, 1, 8, dec)):
         t = moe_tables(device, g, T, E, top_k, cp, pre, d_model, gen)
         d, R, T_all = d_model, t["src"].shape[0], g * T
         n_valid = int(t["valid"].sum())
+        # the bound reads each input once: a token row that fills several
+        # slots is read once
+        n_src = int(torch.unique(t["src"][t["valid"] != 0]).numel())
         valid_f = t["valid"].float()[:, None]
         src_c = t["src"].long().clamp(max=T_all - 1)
-        row = dict(shape=f"{label} dispatch R={R} from {T_all} tokens, "
-                         f"d={d}, {n_valid} valid",
-                   ms=cuda_ms(lambda: gather_rows(t["xt"], t["src"],
-                                                  t["valid"]), device, iters),
-                   plain_ms=cuda_ms(lambda: gather_rows_plain(
-                       t["xt"], t["src"], t["valid"]), device, iters),
-                   library_ms=cuda_ms(lambda: torch.index_select(
-                       t["xt"], 0, src_c) * valid_f, device, iters))
-        row["bound_ms"], row["bound_by"] = bound(
-            4.0 * d * (n_valid + R) + 8.0 * R, 0.0)
-        if label == "decode":      # short: device time beside back to back
-            row["device_ms"] = device_ms(lambda: gather_rows(
-                t["xt"], t["src"], t["valid"]), device)
-            row["library_device_ms"] = device_ms(lambda: torch.index_select(
-                t["xt"], 0, src_c) * valid_f, device)
-        out["gather_rows"].append(row)
+        short = label == "decode"      # device time beside back to back
+        xt, src, valid, y = t["xt"], t["src"], t["valid"], t["y"]
+        out["gather_rows"].append(design_row(
+            device, f"{label} dispatch R={R} from {T_all} tokens, d={d}, "
+            f"{n_valid} valid, {n_src} tokens read",
+            {"unrolled": lambda: gather_rows(xt, src, valid),
+             "first": lambda: gather_rows(xt, src, valid, variant="first")},
+            iters, lambda: gather_rows_plain(xt, src, valid),
+            lambda: torch.index_select(xt, 0, src_c) * valid_f,
+            4.0 * d * (n_src + R) + 8.0 * R, 0.0, short))
         dest = t["dest"].reshape(T_all, top_k)
-        nnz = int((t["gate_eff"] != 0).sum())
-        dest_c = t["dest"].long().clamp(max=t["y"].shape[0] - 1)
-        row = dict(shape=f"{label} combine T={T_all} k={top_k} from "
-                         f"{t['y'].shape[0]} slots, d={d}, {nnz} gathered",
-                   ms=cuda_ms(lambda: gather_reduce(t["y"], dest,
-                                                    t["gate_eff"]),
-                              device, iters),
-                   plain_ms=cuda_ms(lambda: gather_reduce_plain(
-                       t["y"], dest, t["gate_eff"]), device, iters),
-                   library_ms=cuda_ms(lambda: torch.einsum(
-                       "tj,tjd->td", t["gate_eff"], torch.index_select(
-                           t["y"], 0, dest_c).view(T_all, top_k, d)),
-                       device, iters))
-        row["bound_ms"], row["bound_by"] = bound(
-            4.0 * d * (nnz + T_all) + 8.0 * T_all * top_k, 2.0 * nnz * d)
-        if label == "decode":
-            row["device_ms"] = device_ms(lambda: gather_reduce(
-                t["y"], dest, t["gate_eff"]), device)
-            row["library_device_ms"] = device_ms(lambda: torch.einsum(
-                "tj,tjd->td", t["gate_eff"], torch.index_select(
-                    t["y"], 0, dest_c).view(T_all, top_k, d)), device)
-        out["gather_reduce"].append(row)
-        del t
+        gates = t["gate_eff"]
+        nnz = int((gates != 0).sum())
+        dest_c = t["dest"].long().clamp(max=y.shape[0] - 1)
+        out["gather_reduce"].append(design_row(
+            device, f"{label} combine T={T_all} k={top_k} from {y.shape[0]} "
+            f"slots, d={d}, {nnz} gathered",
+            {"split": lambda: gather_reduce(y, dest, gates),
+             "first": lambda: gather_reduce(y, dest, gates, variant="first")},
+            iters, lambda: gather_reduce_plain(y, dest, gates),
+            lambda: torch.einsum("tj,tjd->td", gates, torch.index_select(
+                y, 0, dest_c).view(T_all, top_k, d)),
+            4.0 * d * (nnz + T_all) + 8.0 * T_all * top_k, 2.0 * nnz * d,
+            short))
+        live = (gates.reshape(-1) != 0).to(torch.int32)
+        if short:                 # host cost of one call of each wrapper
+            z = torch.randn((T_all, d), generator=gen, device=device)
+            host = {"gather_rows": host_us(
+                        lambda: gather_rows(xt, src, valid), device),
+                    "gather_reduce": host_us(
+                        lambda: gather_reduce(y, dest, gates), device),
+                    "gather_dot": host_us(
+                        lambda: gather_dot(y, t["dest"], live, z, top_k),
+                        device)}
+            if device.type == "cuda":
+                # the stream lookup each wrapper makes, before and after
+                # they took backend.stream_handle
+                host["torch.cuda.current_stream().cuda_stream"] = host_us(
+                    lambda: torch.cuda.current_stream(xt.device).cuda_stream,
+                    device)
+                host["backend.stream_handle"] = host_us(
+                    lambda: stream_handle(xt.device), device)
+            for name in ("gather_rows", "gather_reduce"):
+                out[name][-1]["host_us"] = host[name]
+            continue
+        # the combine's VJP at the training shape: its two K6 functions,
+        # and the whole VJP against the composition it replaced, in turns
+        dout = torch.randn((T_all, d), generator=gen, device=device)
+        sg = t["slot_gate"]
+        sgv = (sg * t["valid"].float())[:, None]
+        dy_work = (4.0 * d * (n_src + R) + 12.0 * R, 1.0 * n_valid * d)
+        dot_work = (4.0 * d * (nnz + T_all) + 12.0 * T_all * top_k,
+                    2.0 * nnz * d)
+        out["gather_rows"].append(design_row(
+            device, f"train combine vjp dy (scaled) R={R} from {T_all} "
+            f"tokens, d={d}, {n_valid} valid",
+            {"scaled": lambda: gather_rows(dout, src, valid, scale=sg)},
+            iters, lambda: gather_rows_plain(dout, src, valid, sg),
+            lambda: torch.index_select(dout, 0, src_c) * sgv, *dy_work,
+            False))
+        live_f = live.float().view(T_all, top_k)
+        out["gather_dot"].append(design_row(
+            device, f"train combine vjp dgate T={T_all} k={top_k} from "
+            f"{y.shape[0]} slots, d={d}, {nnz} gathered",
+            {"dot": lambda: gather_dot(y, t["dest"], live, dout, top_k)},
+            iters, lambda: gather_dot_plain(y, t["dest"], live, dout, top_k),
+            lambda: torch.einsum("td,tjd->tj", dout, torch.index_select(
+                y, 0, dest_c).view(T_all, top_k, d)) * live_f, *dot_work,
+            False))
+        args = (dout, y, gates, t["dest"], src, valid, sg)
+        out["combine_vjp"] = [design_row(
+            device, f"train _Combine.backward (dy and dgate), T={T_all} "
+            f"k={top_k}, R={R}, d={d}",
+            {"fused": lambda: combine_vjp(*args),
+             "first": lambda: combine_vjp_first(*args)},
+            iters, lambda: (gather_rows_plain(dout, src, valid, sg),
+                            gather_dot_plain(y, t["dest"], live, dout,
+                                             top_k)),
+            None, dy_work[0] + dot_work[0], dy_work[1] + dot_work[1],
+            False)]
+        del dout, sgv, live_f
+    del t
     out.update(flash_times(device, G * rows, seq, n_heads, n_kv, head_dim,
                            gen, iters))
     print_rows(out)
     print("  (library for K7: torch.index_select then torch.einsum, two "
-          "calls; for K6: torch.index_select then the validity mask)")
+          "calls; for K6: torch.index_select then the validity mask, or the "
+          "gates for the scaled gather; for the gather-dot: "
+          "torch.index_select, torch.einsum, then the validity mask)")
+    print("  host us per call: " + ", ".join(f"{n} {v:.1f}"
+                                             for n, v in host.items()))
     return out
 
 
@@ -1602,9 +1799,10 @@ def design_launches(n_layers, steps, rounds, moe=False, ssm=False):
     dense parent K1 3 forward + 7 backward per step (dx and dw of up, gate
     and down, and the gate's pre-activation recomputed) and 3 per eval
     pass; on a MoE parent, per step K5 3 + 6 (dxs and dws of up, gate and
-    down), K6 1 + 2 (the dispatch; the combine's VJP gathers the slot rows'
-    cotangent and re-gathers the rows of its gate cotangent), K7 1 + 1 (the
-    combine; the dispatch's VJP), and per eval pass K5 3, K6 1, K7 1. On an
+    down), K6 1 + 2 (the dispatch; the combine's VJP: the scaled gather of
+    the slot rows' cotangent on ``gather_rows``, the gather-dot of its gate
+    cotangent on ``gather_dot``), K7 1 + 1 (the combine; the dispatch's
+    VJP), and per eval pass K5 3, K6 1, K7 1. On an
     SSM parent, per step K8 2 (the forward, and the backward's rerun for
     the per-chunk states) and K9 1, and per eval pass K8 1."""
     if ssm:
@@ -1613,8 +1811,8 @@ def design_launches(n_layers, steps, rounds, moe=False, ssm=False):
                 for name, (step, ev) in per.items()}
     per = {"flash_attention": (1, 1), "flash_attention_dq": (1, 0),
            "flash_attention_dkv": (1, 0)}
-    per.update({"grouped_matmul": (9, 3), "gather_rows": (3, 1),
-                "gather_reduce": (2, 1)} if moe
+    per.update({"grouped_matmul": (9, 3), "gather_rows": (2, 1),
+                "gather_dot": (1, 0), "gather_reduce": (2, 1)} if moe
                else {"elastic_dense": (10, 3)})
     return {name: rounds * n_layers * (step * steps + ev)
             for name, (step, ev) in per.items()}
@@ -2258,11 +2456,7 @@ def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
         **({} if v is None else {"variant": v}))) for v in variants}
     fns = {**{f"K9 {v}": f for v, f in raw.items()},
            **{f"ssd_scan_bwd {v}": f for v, f in vjp.items()}}
-    times = {n: [] for n in fns}
-    for _ in range(rounds):          # in turns: every variant each round
-        for n, fn in fns.items():
-            times[n].append(cuda_ms(fn, device, iters, 1))
-    turns = {n: _spread(ts) for n, ts in times.items()}
+    turns = turns_ms(device, fns, iters, rounds)
     head = variants[0]
     row = dict(shape=f"{shape} bwd {bplan}",
                ms=turns[f"K9 {head}"]["median"],
@@ -2470,6 +2664,9 @@ def main() -> int:
         "gather_rows": dict(
             source="src/repro_torch/csrc/moe_dispatch.cu",
             replaces="src/repro/kernels/moe_dispatch.py:47"),
+        "gather_dot": dict(       # K6's gather fused with the VJP's einsum
+            source="src/repro_torch/csrc/moe_dispatch.cu",
+            replaces="src/repro/kernels/moe_dispatch.py:47"),
         "gather_reduce": dict(
             source="src/repro_torch/csrc/moe_dispatch.cu",
             replaces="src/repro/kernels/moe_dispatch.py:94"),
@@ -2491,7 +2688,7 @@ def main() -> int:
     for name, err in list(mworst.items()) + list(sworst.items()):
         worst[name] = max(worst.get(name, 0.0), err)
     home = {n: ("moe_training", moe_times) for n in
-            ("grouped_matmul", "gather_rows", "gather_reduce")}
+            ("grouped_matmul", "gather_rows", "gather_dot", "gather_reduce")}
     home.update({n: ("ssm_training", ssm_times)
                  for n in ("ssd_scan", "ssd_scan_bwd")})
     entries = []
@@ -2509,8 +2706,10 @@ def main() -> int:
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             tc_bound_ms=head.get("tc_bound_ms"),
+            first_design_ms=head.get("first_ms"),
             shape=head["shape"],
-            host_us=serving[0].get("host_us") if serving else None,
+            host_us=serving[0].get("host_us") if serving else next(
+                (r["host_us"] for r in rows if "host_us" in r), None),
             library_host_us=(serving[0].get("library_host_us")
                              if serving else None),
             other_shapes=rows[1:] + serving + extra))
@@ -2518,6 +2717,8 @@ def main() -> int:
             entries[-1]["pair"] = {   # the backward pair, timed in turns
                 "training": train_times["flash_attention_bwd"][0],
                 "moe_training": moe_times["flash_attention_bwd"][0]}
+        if name in ("gather_rows", "gather_dot"):  # the combine's VJP
+            entries[-1]["combine_vjp"] = moe_times["combine_vjp"][0]
         if name in variant_counters():   # launches by plan variant
             entries[-1]["launches_by_variant"] = {
                 p: st.get("launches_by_variant", {}).get(name)

@@ -57,6 +57,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.backend import stream_handle
 
 KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_MAX_STATE = 128
@@ -373,7 +374,7 @@ def _kernel_args(name, tensors, P, N):
         raise ValueError(f"{name} kernel supports head_dim in "
                          f"{KERNEL_HEAD_DIMS} and d_state ≤ "
                          f"{KERNEL_MAX_STATE}, got {P} and {N}")
-    return torch.cuda.current_stream(dev).cuda_stream
+    return stream_handle(dev)
 
 
 def _ptr(t):

@@ -286,3 +286,107 @@ def test_cuda_backward_matches_plain_on_card():
             flash_attention_dkv(*on_card, variant=variant, **kw)
         for a, b in zip(got, want):
             assert float((a.cpu() - b).abs().max()) <= chip_smoke.K34_TOL
+
+
+# C3: the flash case that once missed K34_TOL on the card, looped with
+# every SM's shared memory left full of NaN and ±1e30 before each launch
+C3_LOOPS = 2000
+C3_KW = dict(causal=True, window=9, cap=30.0)
+C3_NAMES = ("autograd dq", "autograd dk", "autograd dv", "mma dq", "mma dk",
+            "mma dv")
+
+
+def _dirty(shape, gen, device):
+    """NaN, +1e30 and -1e30 in a seeded pattern."""
+    vals = torch.tensor([float("nan"), 1e30, -1e30], device=device)
+    return vals[torch.randint(0, 3, shape, generator=gen).to(device)]
+
+
+def c3_loop(loops, device, log=None):
+    """The C3 case — S = 37, 8 / 2 heads of 64, window 9, softcap 30, head
+    prefixes 8 / 0 / 4 — on the card ``loops`` times: K2 and the autograd
+    backward (delta, K3, K4), then K3 / K4's mma variant on K2's lse and
+    delta directly. Before each run K1 and K5 (their tensor-core tiles), K2
+    and K3 / K4 (mma, at 24 rows of 128 tokens: blocks on every SM) run on
+    NaN / ±1e30 inputs, so any shared memory or register a kernel reads
+    before it writes holds garbage. Every run is held bit-equal to the
+    first, and the first within K34_TOL of the plain versions on the CPU.
+    Returns {"errors": max|card − plain| per output of the first run,
+    "mismatches": [(run, output, max|Δ|, [(batch row, query row, head,
+    column), ...]), ...]}; ``log`` (a callable) gets a line per mismatch."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    gen = torch.Generator().manual_seed(19)
+    dirt = {n: _dirty(s, gen, device) for n, s in (
+        ("x1", (2, 256, 1024)), ("w1", (2, 1024, 512)),
+        ("x5", (2, 8, 160, 512)), ("w5", (2, 8, 512, 256)),
+        ("q", (24, 128, 8, 64)), ("k", (24, 128, 2, 64)),
+        ("v", (24, 128, 2, 64)), ("lse", (24, 8, 128)))}
+    ga5 = torch.tensor([8, 5], dtype=torch.int32, device=device)
+
+    def smear():
+        elastic_dense(dirt["x1"], dirt["w1"], act="silu")
+        grouped_matmul(dirt["x5"], dirt["w5"], ga5)
+        qd, kd, vd = dirt["q"], dirt["k"], dirt["v"]
+        flash_attention(qd, kd, vd, window=9, cap=30.0)
+        bad = (qd, kd, vd, qd, dirt["lse"], dirt["lse"])
+        flash_attention_dq(*bad, variant="mma", **C3_KW)
+        flash_attention_dkv(*bad, variant="mma", **C3_KW)
+
+    q, k, v, do = (torch.from_numpy(a) for a in _flash_inputs(
+        3, 37, 8, 2, 64, seed=4))
+    ha = _i32([8, 0, 4])
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = flash_attention(*ts, ha, **C3_KW)
+    want = list(torch.autograd.grad(o, ts, do))
+    delta = torch.einsum("bshd,bshd->bhs", do, o.detach())
+    args = (q, k, v, do, lse.detach(), delta, ha)
+    want += [flash_attention_dq(*args, **C3_KW),
+             *flash_attention_dkv(*args, **C3_KW)]
+    ts = [t.to(device).requires_grad_(True) for t in (q, k, v)]
+    ha_d, do_d = ha.to(device), do.to(device)
+    first, mismatches = None, []
+    for run in range(loops):
+        smear()
+        o, lse = flash_attention(*ts, ha_d, **C3_KW)
+        outs = list(torch.autograd.grad(o, ts, do_d))
+        o, lse = o.detach(), lse.detach()
+        delta = (do_d * o).sum(-1).transpose(1, 2).contiguous()
+        direct = (ts[0].detach(), ts[1].detach(), ts[2].detach(), do_d, lse,
+                  delta, ha_d)
+        outs += [flash_attention_dq(*direct, variant="mma", **C3_KW),
+                 *flash_attention_dkv(*direct, variant="mma", **C3_KW)]
+        if first is None:
+            first = outs
+            errors = {n: float((a.cpu() - b).abs().max())
+                      for n, a, b in zip(C3_NAMES, outs, want)}
+            continue
+        for name, a, b in zip(C3_NAMES, outs, first):
+            if torch.equal(a, b):
+                continue
+            diff = (a - b).abs()
+            where = [tuple(int(i) for i in ix)
+                     for ix in diff.nan_to_num(1e30).nonzero()[:6].tolist()]
+            err = float((a.cpu() - want[C3_NAMES.index(name)]).abs().max())
+            mismatches.append((run, name, float(diff.max()), where, err))
+            if log:
+                log(f"run {run}: {name} differs from run 0 by "
+                    f"{float(diff.max()):.3e} at (batch row, row, head, "
+                    f"column) {where}; max|card - plain| {err:.3e}")
+    return {"errors": errors, "mismatches": mismatches,
+            "tol": chip_smoke.K34_TOL}
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_repeats_over_dirty_shared_memory():
+    """C3: K2 → delta → K3 / K4 on the case that once missed K34_TOL,
+    ``C3_LOOPS`` times, each after K1, K5, K2 and K3 / K4 launches on NaN /
+    ±1e30 inputs: every run bit-equal to the first, the first within
+    K34_TOL of the plain versions. Runs only where there is a CUDA
+    device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    report = c3_loop(C3_LOOPS, torch.device("cuda", 0))
+    assert not report["mismatches"], report["mismatches"][:5]
+    assert max(report["errors"].values()) <= report["tol"], report["errors"]

@@ -29,6 +29,7 @@ plain versions; ``-m cuda`` holds the kernels to them on a card.
 import dataclasses
 import os
 import random
+import subprocess
 import sys
 
 import jax
@@ -148,6 +149,29 @@ def test_ssd_scan_plain_versions_match_reference_kernels(G):
             _rel_close(got_r, w)
         assert not grads[0][r, :, ha[r]:].any()        # dead heads: zero
     assert not y[0].any() and not st[0].any()
+
+
+def test_port_import_warms_cpu_math_on_one_thread():
+    """The repair of a first-call difference: in a fresh process under
+    load, the first ``torch.exp`` that torch split over its threads came
+    back with ~1e-4 errors in one thread's part (the decay of the scan
+    above, whose ``y`` then missed its exact match with
+    ``ssd_scan_plain``). Importing the port now calls each transcendental
+    function of its CPU paths once, on one element (fp32, then fp64),
+    before any plain version runs."""
+    code = (
+        "import torch\n"
+        "seen = []\n"
+        "real = torch.exp\n"
+        "torch.exp = lambda x, *a, **k: (seen.append((x.numel(), x.dtype)),"
+        " real(x, *a, **k))[1]\n"
+        "import repro_torch\n"
+        "assert seen == [(1, torch.float32), (1, torch.float64)], seen\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
 
 
 def test_ssd_scan_bwd_plain_is_not_autograd_but_agrees_with_it():
