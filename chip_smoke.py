@@ -119,6 +119,36 @@ printing its own lines; any failed phase exits non-zero:
    of 512 tokens: K8 must launch 64 times per prefill, each through its
    ``mma`` variant with P split, greedy tokens must equal the dense
    path's.
+3d. (run after 3c) the paper CNN's convolutions: K1 against its plain
+   version at the six im2col products of ``PAPER_CNN``'s stages (8
+   clients, batch 32, per-client channel prefixes 8–32 / 16–64 / 32–128)
+   and ``elastic_conv2d`` against ``elastic_conv2d_plain`` (a direct
+   convolution under the same masks): forward, dx, dw and the per-client
+   bias's gradient, prefixes 0 / ragged / full / None, strides 1 and 2,
+   7×7 inputs; each case twice and bit-equal, each product's plan variant
+   printed, and K1 with the per-group bias bit-equal to K1 without one
+   plus the bias.
+14. CNN training slice — ``CFLSession.from_synthetic(PAPER_CNN,
+   kind="synthcifar", n_workers=8, n_samples=4000)``, the paper's parent
+   at full width and depth, 3 sync rounds (random feasible specs, then
+   the genetic search scored by the predictor; batched round, coverage
+   aggregate, predictor update) on the kernels and on the dense masked
+   path, each after an untimed warm-up round of its own session: K1 must
+   launch 21 × (3 · steps + 1) a round (all ``tile``) and ``F.conv2d``
+   only for the stem. The free-running paths drift apart through ReLU
+   decisions that rounding flips (counted, per forward), so the dense
+   path runs a third time on the kernel path's recorded ReLU decisions
+   (``ReluDecisions``) and is held there: round-0 specs identical,
+   round-0 parameters within 1e-3 of the round's movement, test CE within
+   ``TRAIN_LOSS_RTOL``, accuracies within one test sample, later specs
+   identical while the earlier accuracies are. Prints round seconds,
+   train images/s, the search / predictor / LUT host seconds, predictor
+   MAE, fairness, peak memory and one local step's wall, device busy and
+   idle share with K1's device share.
+14a. times, CNN shapes — per conv shape: K1, its plain version and
+   ``torch.matmul`` on the im2col product (forward, dx, dw), the grouped
+   ``F.conv2d`` (cuDNN, TF32 off) of the whole conv and the im2col, beside
+   the fp32 and 3×TF32 bounds and the launches a round.
 
 The last lines are a ``kernels:`` line, the slices' stats, the card line,
 one JSON object with every kernel's launches and times, and the result
@@ -2519,6 +2549,616 @@ def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
 
 
 # ---------------------------------------------------------------------------
+# phases 3d, 14a and 14: the paper's CNN, its stage convolutions on K1
+# ---------------------------------------------------------------------------
+# the CFL slice: the quickstart session on PAPER_CNN at its published width
+# and depth, 8 clients of the synthetic CIFAR-10 stand-in with quality
+# heterogeneity, 3 sync rounds, the CFLConfig defaults otherwise (batch 32,
+# lr 0.05, momentum 0.9, one local epoch)
+CNN_SLICE = dict(kind="synthcifar", n_workers=8, n_samples=4000,
+                 heterogeneity="quality", rounds=3, seed=0)
+CNN_BATCH = 32
+# the phase 3d / 14a cohort's width per client: channel prefixes 8 / 16 /
+# 24 / 32 of stage 0, 16 ... 64 of stage 1, 32 ... 128 of stage 2, ragged
+# and differing per client
+CNN_WIDTHS = (0.25, 0.5, 0.75, 1.0, 1.0, 0.75, 0.5, 0.25)
+CNN_CONVS_PER_FORWARD = 21      # 3 stages x (down + 3 blocks x 2 convs)
+
+
+def cnn_convs(cfg):
+    """The six conv shapes of the CNN's stages: (label, input side, stride,
+    cin, cout, stage, convs of this shape in one forward, the stage whose
+    prefix is the conv's input prefix — None for the stem's output, which
+    every submodel keeps whole)."""
+    out, size, cin = [], cfg.image_size, cfg.stem_channels
+    for si, (c, n) in enumerate(cfg.stages):
+        out.append((f"stage {si} down", size, 2, cin, c, si, 1,
+                    si - 1 if si else None))
+        size = -(-size // 2)
+        out.append((f"stage {si} blocks", size, 1, c, c, si, 2 * n, si))
+        cin = c
+    return out
+
+
+def cnn_cases(cfg, clients, batch):
+    """(label, G, B, side, stride, cin, cout, cin prefixes, cout prefixes)
+    for elastic_conv2d: the six stage shapes at the cohort's ragged
+    prefixes (per client, differing), then the edges — prefix 0, full,
+    None, 7×7 inputs at stride 2 and 1, prefixes that end inside an mma
+    fragment."""
+    from repro_torch.core.submodel import channels_of
+    widths = CNN_WIDTHS[:clients]
+    cases = []
+    for label, side, s, cin, cout, si, _, psi in cnn_convs(cfg):
+        co = [channels_of(cfg, si, w) for w in widths]
+        ci = None if psi is None else [channels_of(cfg, psi, w)
+                                       for w in widths]
+        cases.append((f"{label} ragged", clients, batch, side, s, cin, cout,
+                      ci, co))
+    return cases + [
+        ("prefix 0", 4, 4, 16, 1, 32, 32, [0, 32, 8, 0], [32, 0, 0, 8]),
+        ("full", 2, 4, 16, 2, 32, 64, [32, 32], [64, 64]),
+        ("None", 2, 4, 8, 1, 64, 64, None, None),
+        ("7x7 stride 2", 3, 4, 7, 2, 16, 24, [16, 5, 9], [24, 7, 13]),
+        ("7x7 stride 1", 3, 4, 7, 1, 24, 24, [24, 3, 0], [9, 24, 1]),
+    ]
+
+
+def _conv_inputs(G, B, side, cin, cout, device, gen):
+    import torch
+    x = torch.randn((G, B, side, side, cin), generator=gen, device=device)
+    w = torch.randn((G, 3, 3, cin, cout), generator=gen, device=device) \
+        / math.sqrt(9 * cin)
+    b = torch.randn((G, cout), generator=gen, device=device)
+    return x, w, b
+
+
+def _grads(fn, leaves, dy):
+    """fn's output and its gradients in ``leaves`` (fresh copies that
+    require grad) for the cotangent dy."""
+    import torch
+    ts = [t.detach().clone().requires_grad_(True) for t in leaves]
+    y = fn(*ts)
+    return (y.detach(),) + torch.autograd.grad(y, ts, dy)
+
+
+def _rel_max(got, want):
+    """max |got − want| over max(1, max |want|): K1's fp32 tolerance holds
+    for outputs O(1); a gradient summed over 8192 rows is O(100)."""
+    return float((got - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def phase_cnn_kernels(device, cfg, clients, batch):
+    """K1 against its plain version at the CNN's im2col products, and
+    ``elastic_conv2d`` against ``elastic_conv2d_plain`` (a direct
+    convolution under the same masks): forward, dx, dw and the per-group
+    bias's gradient, each case twice and bit-equal, the plan's variant of
+    each product printed; also K1 with the per-group bias bit-equal to K1
+    without it plus the bias. Returns {"elastic_dense": worst error};
+    raises PhaseError past ``K1_TOL``."""
+    import torch
+    from repro_torch.kernels.elastic_conv import (_im2col,
+                                                  conv_weight_matrix,
+                                                  elastic_conv2d,
+                                                  elastic_conv2d_plain)
+    from repro_torch.kernels.elastic_matmul import (elastic_dense,
+                                                    elastic_dense_plain)
+    gen = torch.Generator(device=device).manual_seed(11)
+    worst, failed = 0.0, []
+    for label, G, B, side, s, cin, cout, ci, co in cnn_cases(cfg, clients,
+                                                             batch):
+        x, w, b = _conv_inputs(G, B, side, cin, cout, device, gen)
+        cat = None if ci is None else _i32(ci, device)
+        cot = None if co is None else _i32(co, device)
+        pat, (_, oh, ow) = _im2col(x, 3, 3, s)
+        wmat = conv_weight_matrix(w)
+        ka = None if cat is None else _i32([9 * c for c in ci], device)
+        dy = torch.randn((G, B, oh, ow, cout), generator=gen, device=device)
+        dy2 = dy.reshape(G, -1, cout)
+        conv = [lambda x, w, b, f=f: f(x, w, b, stride=s, cin_active=cat,
+                                       cout_active=cot)
+                for f in (elastic_conv2d, elastic_conv2d_plain)]
+        prod = [lambda p, m, b, f=f: f(p, m, b, k_active=ka, n_active=cot)
+                for f in (elastic_dense, elastic_dense_plain)]
+        errs, stable, finite = [], True, True
+        for (kern, plain), args, cot_ in ((conv, (x, w, b), dy),
+                                          (prod, (pat, wmat, b), dy2)):
+            got = _grads(kern, args, cot_)
+            again = _grads(kern, args, cot_)
+            want = _grads(plain, args, cot_)
+            sync(device)
+            stable &= all(torch.equal(a, c) for a, c in zip(got, again))
+            finite &= all(bool(torch.isfinite(g).all()) for g in got)
+            errs += [_rel_max(g, r) for g, r in zip(got, want)]
+        # the per-group bias: K1 without a bias, plus the bias, bit for bit
+        raw = elastic_dense(pat, wmat, None, k_active=ka, n_active=cot)
+        with_b = elastic_dense(pat, wmat, b, k_active=ka, n_active=cot)
+        live = torch.arange(cout, device=device)[None, None, :] < (
+            cot[:, None, None] if cot is not None else cout)
+        bias_ok = torch.equal(with_b, torch.where(
+            live, raw + b[:, None, :], torch.zeros((), device=device)))
+        err = max(errs)
+        worst = max(worst, err)
+        ok = err <= K1_TOL and stable and finite and bias_ok
+        plans = [k1_variant(*a) for a in (
+            (pat, wmat), (dy2, wmat.transpose(-1, -2)),
+            (pat.transpose(-1, -2), dy2))]
+        print(f"  elastic_conv2d {label:18s} x({G},{B},{side},{side},{cin}) "
+              f"stride {s} cout {cout} cin_active {ci} cout_active {co}: "
+              f"K1 ({G},{pat.shape[1]},{pat.shape[2]})@(.,.,{cout}) "
+              f"fwd/dx/dw {'/'.join(plans)}; max rel err conv y/dx/dw/db "
+              f"{'/'.join(f'{e:.2e}' for e in errs[:4])}, K1 "
+              f"{'/'.join(f'{e:.2e}' for e in errs[4:])} tol {K1_TOL:g}; "
+              f"twice bit-equal {stable}; bias bit-equal {bias_ok} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"elastic_conv2d {label}")
+    if failed:
+        raise PhaseError(f"CNN convolutions disagree with their plain "
+                         f"versions: {failed}")
+    return {"elastic_dense": worst}
+
+
+def phase_cnn_times(device, cfg, clients, batch, steps, iters=5):
+    """Per CNN conv shape (full prefixes): K1's ms, its plain version's and
+    ``torch.matmul``'s on the same im2col product, for the forward, dx and
+    dw products; for the whole conv also ``models.cnn.conv2d`` (one grouped
+    ``F.conv2d``, cuDNN, TF32 off — the dense path's, never the kernel
+    path's) and the im2col's own ms; the fp32 and 3×TF32 bounds, the
+    launches per round (``steps`` local steps and one eval pass) and the
+    plan's variant. Returns {"elastic_dense": [row, ...]}."""
+    import torch
+    from repro_torch.kernels.elastic_conv import _im2col, conv_weight_matrix
+    from repro_torch.kernels.elastic_matmul import (elastic_dense,
+                                                    elastic_dense_plain)
+    from repro_torch.models.cnn import conv2d
+    gen = torch.Generator(device=device).manual_seed(12)
+    rows = []
+    for label, side, s, cin, cout, _, n_convs, _ in cnn_convs(cfg):
+        x, w, b = _conv_inputs(clients, batch, side, cin, cout, device, gen)
+        pat, _ = _im2col(x, 3, 3, s)
+        wmat = conv_weight_matrix(w)
+        G, M, K = pat.shape
+        N = cout
+        dy = torch.randn((G, M, N), generator=gen, device=device)
+        for kind, a, c, bias, per_round in (
+                ("fwd", pat, wmat, b, n_convs * (steps + 1)),
+                ("dx", dy, wmat.transpose(-1, -2), None, n_convs * steps),
+                ("dw", pat.transpose(-1, -2), dy, None, n_convs * steps)):
+            Mx, Kx = a.shape[1], a.shape[2]
+            Nx = c.shape[-1]
+            row = dict(
+                shape=f"cnn {label} {kind} ({G},{Mx},{Kx})@({G},{Kx},{Nx}) "
+                      f"{k1_variant(a, c)}",
+                ms=cuda_ms(lambda: elastic_dense(a, c, bias), device, iters,
+                           1),
+                plain_ms=cuda_ms(lambda: elastic_dense_plain(a, c, bias),
+                                 device, iters, 1),
+                library_ms=cuda_ms(lambda: torch.matmul(a, c), device,
+                                   iters, 1),
+                launches_per_round=per_round)
+            if kind == "fwd":
+                row["conv_library_ms"] = cuda_ms(
+                    lambda: conv2d(x, w, b, s), device, iters, 1)
+                row["im2col_ms"] = cuda_ms(lambda: _im2col(x, 3, 3, s),
+                                           device, iters, 1)
+            nbytes = 4.0 * G * (Mx * Kx + Kx * Nx + Mx * Nx
+                                + (Nx if bias is not None else 0))
+            ops = 2.0 * G * Mx * Kx * Nx
+            row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+            add_tc_bound(row, nbytes, ops)
+            rows.append(row)
+        del x, w, b, pat, wmat, dy
+    for r in rows:
+        extra = "" if "conv_library_ms" not in r else (
+            f"; whole conv: F.conv2d (cuDNN, TF32 off) "
+            f"{r['conv_library_ms']:.4f} ms, im2col {r['im2col_ms']:.4f} ms")
+        print(f"  elastic_dense {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), 3xTF32 "
+              f"bound {r['tc_bound_ms']:.4f} ms ({r['tc_bound_by']}); "
+              f"{r['tflops']:.2f} TFLOP/s, {r['tb_per_s']:.3f} TB/s; "
+              f"{r['launches_per_round']} launches a round{extra}")
+    return {"elastic_dense": rows}
+
+
+def cnn_specs(genes):
+    """The SubmodelSpecs of a history entry's genes."""
+    from repro_torch.core.submodel import SubmodelSpec
+    return [SubmodelSpec(tuple(g[:len(g) // 2]),
+                         tuple(v / 100 for v in g[len(g) // 2:]))
+            for g in genes]
+
+
+def cnn_eval_losses(fam, specs, test, params, backend, device):
+    """Per-client test CE of one parent, each client through its own
+    submodel's masks, on ``backend``'s path."""
+    import torch
+    from repro_torch.fl.engine import pack_eval
+    from repro_torch.kernels.dispatch import kernel_dispatch
+    from repro_torch.optim.optimizers import tree_map
+    G = len(specs)
+    pack = pack_eval(test)
+    stacked = tree_map(lambda a: a.expand((G,) + a.shape), params)
+    with torch.no_grad():
+        ce = fam.masked_loss(
+            stacked, fam.cohort_masks(specs, device).fwd,
+            torch.as_tensor(pack.x, device=device),
+            torch.as_tensor(pack.y, device=device),
+            torch.as_tensor(pack.valid, device=device),
+            kernels=kernel_dispatch(backend).table("cnn"))
+    return ce.cpu().numpy()
+
+
+def cnn_design_launches(steps):
+    """K1 launches the design gives for rounds of ``steps`` local steps
+    (every client stepping) and one eval pass each: 21 stage convs a
+    forward; a step's backward adds dx and dw of each (the per-group
+    bias's gradient is a column sum, no launch); the eval pass is one
+    forward. The stem is ``F.conv2d``, one call a forward."""
+    return {"elastic_dense": sum(CNN_CONVS_PER_FORWARD * (3 * n + 1)
+                                 for n in steps),
+            "F.conv2d": sum(n + 1 for n in steps)}
+
+
+class ReluDecisions:
+    """The CNN's ReLUs are discontinuous in their derivative: a
+    pre-activation within rounding noise of 0 takes the other side on
+    another path's rounding, and at the CNN slice's size such a flip moves
+    a client's gradient by up to ~1e-2 of its largest entry (a CPU
+    rehearsal against an fp64 forward found flips at |v| ≈ 1e-6 in the
+    reference's fp32 path and the port's alike). As the MoE slices replay
+    routes, the CNN slice replays ReLU decisions: ``record`` keeps every
+    ``F.relu`` call's ``x > 0`` mask in call order; ``count`` lets a path
+    take its own decisions and counts those that differ from the record
+    (while the shapes follow it); ``replay`` makes each call take the
+    recorded decision (``where(mask, x, 0)``: value and gradient), so two
+    paths compute the same function and are held to the fp32
+    tolerances."""
+
+    def __init__(self):
+        import torch.nn.functional as F
+        self._F, self._real = F, F.relu
+        self.masks, self.mode, self.pos = [], None, 0
+        self.calls, self._flips, self.decisions = 0, [], 0
+
+    def __call__(self, mode):
+        self.mode, self.pos = mode, 0
+        return self
+
+    def __enter__(self):
+        self._F.relu = self._relu
+        return self
+
+    def __exit__(self, *exc):
+        self._F.relu = self._real
+        self.mode = None
+
+    def _relu(self, t, inplace=False):
+        import torch
+        self.calls += 1
+        if self.mode == "record":
+            self.masks.append(t.detach() > 0)
+            return self._real(t)
+        if self.pos >= len(self.masks):
+            self.mode = "off"              # past the record: own decisions
+        if self.mode in (None, "off"):
+            return self._real(t)
+        m = self.masks[self.pos]
+        self.pos += 1
+        if m.shape != t.shape:
+            raise PhaseError(f"ReLU call {self.pos}: shape {tuple(t.shape)} "
+                             f"against the record's {tuple(m.shape)}")
+        if self.mode == "count":
+            self._flips.append(((t.detach() > 0) != m).sum())
+            self.decisions += m.numel()
+            return self._real(t)
+        return torch.where(m, t, torch.zeros((), dtype=t.dtype,
+                                             device=t.device))
+
+    def flips(self, per=None):
+        """Decisions the counted path took the other way: in all, or in
+        consecutive groups of ``per`` calls (one forward each)."""
+        counts = [int(f) for f in self._flips]
+        if per is None:
+            return sum(counts)
+        return [sum(counts[i:i + per]) for i in range(0, len(counts), per)]
+
+
+def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
+              seed):
+    """``rounds`` sync CFL rounds of ``CFLSession.from_synthetic(PAPER_CNN,
+    ...)`` on the kernel path (``elastic_kernels=True``) and on the dense
+    masked path, each after an untimed warm-up round of a separate session
+    with the same seeds; then the dense path once more, taking the kernel
+    path's ReLU decisions (``ReluDecisions``). Returns (K1's launches in the
+    kernel run, stats). Raises PhaseError unless K1 launched as the design
+    says, every launch through a tensor-core variant, and no library
+    convolution ran beside the stem's; and, between the kernel path and
+    the dense path on the kernel path's ReLU decisions: the round-0 specs
+    are identical, the round-0 parameters agree within 1e-3 of how far the
+    round moved them, each client's test CE under them within
+    ``TRAIN_LOSS_RTOL`` relative and each accuracy within one test sample,
+    and the specs of a later round are identical wherever every earlier
+    round's accuracies were (elsewhere the client and the difference are
+    printed and the rounds held to finiteness). The free-running dense
+    path is timed, and its round-0 ReLU decisions that differ from the
+    kernel path's are counted, with its differences printed, not held."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.paper_cnn import PAPER_CNN
+    from repro_torch.fl.engine import pack_cohort_data
+    from repro_torch.fl.server import CFLConfig
+    from repro_torch.fl.session import CFLSession
+    from repro_torch.kernels.elastic_matmul import elastic_dense
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    cuda = device.type == "cuda"
+
+    def session(ek):
+        t = time.perf_counter()
+        sess = CFLSession.from_synthetic(
+            PAPER_CNN, kind=kind, n_workers=n_workers, n_samples=n_samples,
+            heterogeneity=heterogeneity, seed=seed, device=device,
+            fl_cfg=CFLConfig(n_workers=n_workers, elastic_kernels=ek,
+                             seed=seed))
+        return sess, time.perf_counter() - t
+
+    real_conv = F.conv2d
+    conv_calls = [0]
+
+    def counting_conv(*a, **k):
+        conv_calls[0] += 1
+        return real_conv(*a, **k)
+
+    relus = ReluDecisions()
+
+    def run(ek, relu_mode=None, warm_up=True):
+        """``rounds`` timed rounds of a fresh session; ``relu_mode``: the
+        ReLU decisions' mode for round 0 (later rounds take their own
+        decisions, except under "replay", which runs through the record)."""
+        if warm_up:
+            warm, _ = session(ek)
+            warm.run(1)
+            del warm
+        sess, build_s = session(ek)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_launches((elastic_dense,))
+        conv_calls[0] = 0
+        F.conv2d = counting_conv
+        out = []
+        try:
+            with relus(relu_mode):
+                for r in range(rounds):
+                    if r == 1 and relu_mode == "count":
+                        relus.mode = "off"
+                    sync(device)
+                    t = time.perf_counter()
+                    rec = sess.server.run_round()
+                    sync(device)
+                    out.append(dict(rec=rec, seconds=time.perf_counter() - t,
+                                    params=tree_map(lambda a: a.clone(),
+                                                    sess.params) if r == 0
+                                    else None))
+        finally:
+            F.conv2d = real_conv
+        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        return sess, out, dict(build_s=build_s, peak=peak,
+                               launches=elastic_dense.launches,
+                               conv_calls=conv_calls[0])
+
+    t0 = time.perf_counter()
+    kern_sess, kern, kinfo = run(True, "record")
+    by_variant = {"elastic_dense": dict(elastic_dense.launches_by_variant)}
+    fam = kern_sess.family
+    recorded = len(relus.masks)
+    dense_sess, dense, dinfo = run(False, "count")
+    flips, decisions = relus.flips(), relus.decisions
+    # one forward calls F.relu once for the stem, once a stage's down
+    # conv and twice a block
+    per_forward = 1 + sum(1 + 2 * n for _, n in PAPER_CNN.stages)
+    flips_by_forward = relus.flips(per_forward)
+    _, replay, _ = run(False, "replay", warm_up=False)
+    replayed = relus.pos
+    relus.masks.clear()
+    phase_s = time.perf_counter() - t0
+    clients = kern_sess.clients
+    n_test = [len(d["y"]) for d in kern_sess.test_data]
+    n_params = sum(t.numel() for t in tree_leaves(kern_sess.params))
+    print(f"  {PAPER_CNN.name}: {n_params / 1e6:.3f} M params fp32, "
+          f"{n_workers} clients ({kind}, {heterogeneity}: qualities "
+          f"{[c.quality for c in clients]}, devices "
+          f"{[c.device for c in clients]}), train / test samples "
+          f"{[c.n_samples for c in clients]} / {n_test}, batch "
+          f"{CNN_BATCH}; session build (population + LUT + init) "
+          f"{kinfo['build_s']:.2f} s, LUT {len(kern_sess.server.latency)} "
+          f"entries built in {kern_sess.server.lut_seconds:.3f} s (host)")
+    problems = []
+    steps = [max(o["rec"]["n_steps"]) for o in kern]
+    want = cnn_design_launches(steps)
+    launches = {"elastic_dense": kinfo["launches"]}
+    print(f"  elastic_dense: {kinfo['launches']} launches (design: "
+          f"{want['elastic_dense']}); F.conv2d calls on the kernel path "
+          f"{kinfo['conv_calls']} (design: {want['F.conv2d']}, the stem's)")
+    if kinfo["launches"] != want["elastic_dense"]:
+        problems.append(f"elastic_dense launched {kinfo['launches']} times, "
+                        f"design {want['elastic_dense']}")
+    if kinfo["conv_calls"] != want["F.conv2d"]:
+        problems.append(f"{kinfo['conv_calls']} library convolutions on "
+                        f"the kernel path, design {want['F.conv2d']} (the "
+                        f"stem's)")
+    print(f"  elastic_dense launches by variant: "
+          f"{by_variant['elastic_dense']}")
+    if sum(by_variant["elastic_dense"][v] for v in ("tile", "skinny")) \
+            != kinfo["launches"]:
+        problems.append(f"elastic_dense launches by variant "
+                        f"{by_variant['elastic_dense']}: not all through the "
+                        f"tensor-core variants")
+    print(f"  ReLU decisions: {recorded} F.relu calls recorded on the kernel "
+          f"path ({rounds} rounds), {replayed} replayed by the dense path; "
+          f"in round 0 the free-running dense path takes {flips} of "
+          f"{decisions} decisions ({flips / max(decisions, 1):.3e}) the "
+          f"other way; by forward (the local steps, then the eval pass) "
+          f"{flips_by_forward}")
+    if replayed != recorded:
+        problems.append(f"the replay took {replayed} of {recorded} recorded "
+                        f"ReLU calls")
+    per_round = []
+    equal_so_far = True
+    for r, (a, b, c) in enumerate(zip(kern, dense, replay)):
+        ra, rb, rc = a["rec"], b["rec"], c["rec"]
+        hs = ra["host_seconds"]
+        images = sum(ra["n_steps"]) * CNN_BATCH
+        same_specs = ra["specs"] == rc["specs"]
+        acc_diff = [x - y for x, y in zip(ra["accs"], rc["accs"])]
+        free_diff = [x - y for x, y in zip(ra["accs"], rb["accs"])]
+        print(f"  round {r}: kernel path {a['seconds']:.3f} s "
+              f"({images / a['seconds']:.0f} train images/s), dense path "
+              f"{b['seconds']:.3f} s ({images / b['seconds']:.0f} images/s);"
+              f" host s (kernel path) "
+              f"{json.dumps({k: round(v, 4) for k, v in hs.items()})}"
+              f"; predictor MAE {ra['predictor_mae']:.4f}; fairness mean / "
+              f"min / std {ra['fairness']['mean']:.4f} / "
+              f"{ra['fairness']['min']:.4f} / {ra['fairness']['std']:.4f} "
+              f"(dense {rb['fairness']['mean']:.4f} / "
+              f"{rb['fairness']['min']:.4f} / {rb['fairness']['std']:.4f}, "
+              f"dense on the kernel path's ReLUs "
+              f"{rc['fairness']['mean']:.4f} / {rc['fairness']['min']:.4f} "
+              f"/ {rc['fairness']['std']:.4f}); specs "
+              f"{'identical' if same_specs else 'DIFFER'} {ra['specs']} "
+              f"(free-running dense: "
+              f"{'identical' if ra['specs'] == rb['specs'] else 'differ'})")
+        if r == 0 or equal_so_far:
+            if not same_specs:
+                problems.append(f"round {r}: the paths' specs differ "
+                                f"({ra['specs']} / {rc['specs']})")
+        else:
+            print(f"  round {r}: specs not held (an earlier round's "
+                  f"accuracies differed), only finiteness")
+        for k, (d, fd, n) in enumerate(zip(acc_diff, free_diff, n_test)):
+            if d != 0.0 or fd != 0.0:
+                print(f"  round {r}: client {k} accuracy kernel - dense "
+                      f"{fd * n:+.1f} test samples (free-running), "
+                      f"{d * n:+.1f} (the kernel path's ReLUs)")
+        if r == 0 and max(abs(d) * n for d, n in zip(acc_diff, n_test)) \
+                > 1.0 + 1e-4:
+            problems.append(f"round 0: an accuracy differs by more than one "
+                            f"test sample: {acc_diff}")
+        for name, rec in (("kernel", ra), ("dense", rb), ("replayed", rc)):
+            if not np.isfinite(rec["accs"]).all():
+                problems.append(f"round {r}: non-finite accuracy ({name})")
+        equal_so_far &= acc_diff == [0.0] * len(acc_diff)
+        per_round.append(dict(
+            seconds=a["seconds"], dense_seconds=b["seconds"],
+            train_images=images, images_per_s=images / a["seconds"],
+            dense_images_per_s=images / b["seconds"],
+            host_seconds=ra["host_seconds"],
+            dense_host_seconds=rb["host_seconds"],
+            predictor_mae=ra["predictor_mae"],
+            dense_predictor_mae=rb["predictor_mae"],
+            fairness=ra["fairness"], dense_fairness=rb["fairness"],
+            accs=ra["accs"], dense_accs=rb["accs"],
+            replayed_accs=rc["accs"], specs=ra["specs"],
+            specs_identical=same_specs,
+            free_specs_identical=ra["specs"] == rb["specs"]))
+    for name, s in (("kernel", kern_sess), ("dense", dense_sess)):
+        if not all(bool(torch.isfinite(t).all())
+                   for t in tree_leaves(s.params)):
+            problems.append(f"non-finite parameters on the {name} path")
+    init = fam.init_params(seed=seed, device=device)
+    moved = max(float((y - z).abs().max()) for y, z in zip(
+        tree_leaves(replay[0]["params"]), tree_leaves(init)))
+    ratios = {}
+    for name, other in (("dense", dense), ("dense, kernel ReLUs", replay)):
+        diff = max(float((x - y).abs().max()) for x, y in zip(
+            tree_leaves(kern[0]["params"]), tree_leaves(other[0]["params"])))
+        ratios[name] = diff / moved
+        held = other is replay
+        print(f"  round-0 parameters: max|kernel - {name}| {diff:.3e}, "
+              f"max|dense - initial| {moved:.3e}, ratio {diff / moved:.3e} "
+              + ("(tol 1e-3)" if held else "(not held: ReLUs differ)"))
+        if held and not diff <= 1e-3 * moved:
+            problems.append(f"round-0 parameters differ by {diff:.3e} > 1e-3"
+                            f" x {moved:.3e}")
+    specs0 = cnn_specs(kern[0]["rec"]["specs"])
+    with relus("record"):
+        ce_k = cnn_eval_losses(fam, specs0, kern_sess.test_data,
+                               kern[0]["params"], "auto", device)
+    loss = {"kernel": ce_k}
+    with relus("replay"):
+        loss["dense, kernel ReLUs"] = cnn_eval_losses(
+            fam, specs0, kern_sess.test_data, replay[0]["params"], None,
+            device)
+    relus.masks.clear()
+    loss["dense"] = cnn_eval_losses(fam, specs0, kern_sess.test_data,
+                                    dense[0]["params"], None, device)
+    worst_loss = {k: float(np.max(np.abs(ce_k - v) / np.abs(v)))
+                  for k, v in loss.items() if k != "kernel"}
+    print(f"  round-0 test CE per client: "
+          + "; ".join(f"{k} {np.round(v, 6).tolist()}"
+                      for k, v in loss.items())
+          + f"; max relative difference {json.dumps(worst_loss)} (tol "
+          f"{TRAIN_LOSS_RTOL:g} on the kernel path's ReLUs)")
+    if not (np.isfinite(ce_k).all() and worst_loss["dense, kernel ReLUs"]
+            <= TRAIN_LOSS_RTOL):
+        problems.append(f"round-0 test CE differs by "
+                        f"{worst_loss['dense, kernel ReLUs']:.3e}")
+    print(f"  peak device memory (kernel-path rounds, the ReLU record "
+          f"included) {kinfo['peak'] / 2**30:.3f} GiB, (dense) "
+          f"{dinfo['peak'] / 2**30:.3f} GiB; phase {phase_s:.1f} s")
+    stats = {"rounds": per_round, "steps_per_round": steps,
+             "launches_design": want,
+             "launches_by_variant": by_variant,
+             "library_conv_calls": kinfo["conv_calls"],
+             "relu_calls": recorded, "relu_flips_round0": flips,
+             "relu_decisions_round0": decisions,
+             "relu_flips_round0_by_forward": flips_by_forward,
+             "round0_param_diff_over_move": ratios,
+             "round0_max_param_move": moved,
+             "round0_test_ce": {k: v.tolist() for k, v in loss.items()},
+             "max_memory_allocated_gib": kinfo["peak"] / 2**30,
+             "dense_max_memory_allocated_gib": dinfo["peak"] / 2**30,
+             "session_build_s": kinfo["build_s"],
+             "lut_build_s": kern_sess.server.lut_seconds,
+             "lut_entries": len(kern_sess.server.latency)}
+    if problems:
+        raise PhaseError("; ".join(problems))
+    if not cuda:
+        return launches, stats
+    # one local step of the last round's cohort, on the kernel path
+    eng = kern_sess.server.engine
+    specs = cnn_specs(kern[-1]["rec"]["specs"])
+    G = len(specs)
+    params, opt_state = eng.local_state(eng.broadcast_params(
+        kern_sess.params, G))
+    masks = fam.cohort_masks(specs, device)
+    xs, ys = pack_cohort_data(kern_sess.client_data)
+    x = torch.as_tensor(xs[:, :CNN_BATCH], device=device)
+    y = torch.as_tensor(ys[:, :CNN_BATCH], device=device).long()
+    sw = torch.ones((G, CNN_BATCH), device=device)
+
+    def step():
+        eng.local_step(params, opt_state, masks, x, sw, None, y)
+    wall = step_wall_ms(step, device)
+    busy, top, by_name = step_device_ms(step, device)
+    k1 = sum(v for k, v in by_name.items()
+             if any(f in k for f in KERNEL_FUNCTIONS["elastic_dense"]))
+    prof = {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": None if busy is None
+            else max(0.0, 1.0 - busy / wall),
+            "elastic_dense_ms": k1,
+            "elastic_dense_share": k1 / busy if busy else None,
+            "top_kernels_ms": top}
+    stats["kernel_local_step"] = prof
+    print(f"  kernel path local step ({G} clients x {CNN_BATCH} images): "
+          f"{json.dumps(prof)}")
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
 def without_arch(settings):
     return {k: v for k, v in settings.items() if k != "arch"}
 
@@ -2539,6 +3179,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
     from repro_torch.configs import get_config
+    from repro_torch.configs.paper_cnn import PAPER_CNN
     from repro_torch.kernels import build
     from repro_torch.kernels.backend import resolve_device
 
@@ -2598,6 +3239,10 @@ def main() -> int:
                                    **mdims)
         print("== 3c. SSD kernels against their plain versions (K8, K9)")
         sworst = phase_ssd_kernels(device, **sdims)
+        print("== 3d. CNN convolutions against their plain versions (K1 "
+              "through elastic_conv2d)")
+        cworst = phase_cnn_kernels(device, PAPER_CNN, CNN_SLICE["n_workers"],
+                                   CNN_BATCH)
         release()
         print("== 4. times: serving shapes")
         times = phase_times(device, **dims)
@@ -2641,6 +3286,16 @@ def main() -> int:
               "fp32")
         ssm_launches, ssm_stats = phase_slice(device, scfg,
                                               **without_arch(SSM_SLICE))
+        release()
+        print(f"== 14. slice: {PAPER_CNN.name} CFL session, full width and "
+              f"depth, {CNN_SLICE['n_workers']} clients, "
+              f"{CNN_SLICE['rounds']} sync rounds, fp32")
+        cnn_launches, cnn_stats = phase_cnn(device, **CNN_SLICE)
+        release()
+        print("== 14a. times: CNN shapes")
+        cnn_times = phase_cnn_times(
+            device, PAPER_CNN, CNN_SLICE["n_workers"], CNN_BATCH,
+            cnn_stats["steps_per_round"][0])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2684,8 +3339,10 @@ def main() -> int:
     # it)
     by_path = {"serving": launches, "training": train_launches,
                "moe_training": moe_train_launches, "moe_serving": moe_launches,
-               "ssm_training": ssm_train_launches, "ssm_serving": ssm_launches}
-    for name, err in list(mworst.items()) + list(sworst.items()):
+               "ssm_training": ssm_train_launches, "ssm_serving": ssm_launches,
+               "cnn_training": cnn_launches}
+    for name, err in (list(mworst.items()) + list(sworst.items())
+                      + list(cworst.items())):
         worst[name] = max(worst.get(name, 0.0), err)
     home = {n: ("moe_training", moe_times) for n in
             ("grouped_matmul", "gather_rows", "gather_dot", "gather_reduce")}
@@ -2697,6 +3354,7 @@ def main() -> int:
         rows = table[name]
         head, serving = rows[0], times.get(name, [])
         extra = moe_times.get(name, []) if path == "training" else []
+        extra = extra + cnn_times.get(name, [])
         entries.append(dict(
             name=name, route="cuda", source=meta[name]["source"],
             replaces=meta[name]["replaces"],
@@ -2726,7 +3384,8 @@ def main() -> int:
                               ("moe_serving", moe_stats),
                               ("moe_training", moe_train_stats),
                               ("ssm_serving", ssm_stats),
-                              ("ssm_training", ssm_train_stats))
+                              ("ssm_training", ssm_train_stats),
+                              ("cnn_training", cnn_stats))
                 if name in st.get("launches_by_variant", {})}
     print("kernels: " + "; ".join(
         f"{p} " + " ".join(f"{n}={c}" for n, c in counts.items())
@@ -2737,6 +3396,7 @@ def main() -> int:
     print(f"moe slice: {json.dumps(moe_stats)}")
     print(f"ssm training: {json.dumps(ssm_train_stats)}")
     print(f"ssm slice: {json.dumps(ssm_stats)}")
+    print(f"cnn training: {json.dumps(cnn_stats)}")
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,17 @@
-"""The transformer elastic family: spec algebra, masks, masked compute.
+"""Elastic families: spec algebra, masks, masked compute.
 
-The port of the reference's ``core/elastic.py::TransformerElasticFamily``
-for GQA parents, dense or MoE, and Mamba2 SSM parents: the spec algebra
+The port of the reference's ``core/elastic.py``, two families:
+
+* ``CNNElasticFamily`` — the paper's parent (§III): per-stage prefix
+  channels and prefix depth, with the masked GroupNorm; the spec-space
+  surface the control plane runs on (``random_spec``, ``mutate``,
+  ``crossover`` for the search, Alg. 1; ``featurize`` for the predictor,
+  Alg. 2; ``flops`` / ``param_bytes`` / ``lut_specs`` for the latency
+  LUT); ``masked_loss`` / ``masked_metric`` over client-stacked
+  parameters, on the dense masked path or through the ``conv`` op of
+  ``kernels.dispatch`` (K1 via ``kernels.elastic_conv``).
+* ``TransformerElasticFamily`` for GQA parents, dense or MoE, and Mamba2
+  SSM parents (its search surface is not ported yet): the spec algebra
 (``full_spec``, ``random_spec``), parent init, the forward masks of a
 spec (``decode_masks``, the serving surface), and the training surface
 the batched round engine runs on —
@@ -18,6 +28,7 @@ full width is as large as the parent itself. ``grad * mask`` and
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Sequence
 
@@ -26,15 +37,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.submodel import (TransformerSubSpec,
-                                       coverage_factors,
-                                       full_transformer_spec,
+from repro_torch.configs.paper_cnn import CNNConfig
+from repro_torch.core.submodel import (SubmodelSpec, TransformerSubSpec,
+                                       channels_of, coverage_factors,
+                                       extract_cnn, full_spec,
+                                       full_transformer_spec, mask_cnn,
+                                       minimal_spec, sub_cnn_config,
                                        transformer_attn_heads,
                                        transformer_experts,
                                        transformer_ff,
                                        transformer_ssm_heads)
+from repro_torch.data.loader import eval_batches
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import cnn
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import groupnorm
 
 
 # ---------------------------------------------------------------------------
@@ -246,11 +263,288 @@ class TransformerElasticFamily:
         return _weighted_mean(_lm_per_sample_acc(logits, x), valid)
 
 
-def family_for(cfg) -> TransformerElasticFamily:
+# ===========================================================================
+# CNN family (the paper's parent)
+# ===========================================================================
+def _weighted_ce(logits, y, sample_weight):
+    """Per-client weighted CE (G,) of logits (G, B, C), labels (G, B)."""
+    lp = F.log_softmax(logits.float(), dim=-1)
+    ce = -torch.gather(lp, -1, y.long()[..., None])[..., 0]
+    return _weighted_mean(ce, sample_weight)
+
+
+def _weighted_acc(logits, y, valid):
+    hit = (torch.argmax(logits, -1) == y.long()).float()
+    return _weighted_mean(hit, valid)
+
+
+def _conv(p, x, stride=1):
+    """The dense SAME conv of client-stacked params (``models.cnn``)."""
+    return cnn.conv2d(x, p["w"].to(x.dtype), p["b"].to(x.dtype), stride)
+
+
+def _masked_groupnorm(x, A, eps=1e-5):
+    """GroupNorm over *active* channels with the submodel's grouping.
+
+    x (G, B, H, W, C) with inactive channels already zeroed; A (G, C, q)
+    the masked one-hot: A[g, c, j] = 1 iff channel c is active in client
+    g's submodel and that submodel puts it in group j. Inactive channels
+    have all-zero rows, which both keeps them out of the statistics and
+    re-zeroes them in the output (their mean and inverse std broadcast back
+    as 0). Equal to ``models.layers.groupnorm`` on the active prefix."""
+    h, w = x.shape[2:4]
+    x32 = x.float()
+    n = h * w * torch.clamp(A.sum(1), min=1.0)            # (G, q)
+    mu_g = torch.einsum("gbhwc,gcq->gbq", x32, A) / n[:, None, :]
+    mu_c = torch.einsum("gcq,gbq->gbc", A, mu_g)
+    d = x32 - mu_c[:, :, None, None, :]
+    var_g = torch.einsum("gbhwc,gcq->gbq", d * d, A) / n[:, None, :]
+    inv_c = torch.einsum("gcq,gbq->gbc", A, torch.rsqrt(var_g + eps))
+    return (d * inv_c[:, :, None, None, :]).to(x.dtype)
+
+
+def masked_forward(params, cfg: CNNConfig, x, ch_masks, gn_assign,
+                   depth_masks, kernels=None):
+    """Parent-shape forward of every client's submodel at once, equal to
+    each extracted submodel's forward.
+
+    ``params`` client-stacked (G, ...); x (G, B, H, W, Cin); per stage s:
+    ch_masks[s] (G, C_s) 0/1 channels, gn_assign[s] (G, C_s, q) the masked
+    one-hot GroupNorm assignment, depth_masks[s] (G, n_blocks_s) 0/1.
+
+    ``kernels``: None (the dense masked path: full-channel convolutions
+    times 0/1) or the ``"cnn"`` op table of ``kernels.dispatch`` — every
+    stage conv then runs as an im2col ``elastic_dense`` product (K1) that
+    skips input channels past the previous stage's prefix and output
+    channels past this stage's, with (G,) int32 prefixes derived from the
+    masks on the device. The stem (its full input and output channels are
+    every submodel's) stays a plain convolution on both paths, as in the
+    reference. A dropped block still runs (its output is multiplied by
+    its depth gate 0), so the launches do not depend on the specs."""
+    conv_op = None if kernels is None else kernels.get("conv")
+    g = cfg.groupnorm_groups
+    x = F.relu(groupnorm(_conv(params["stem"], x), g))
+    cin_active = None            # stem output: every channel active
+    for si, stage in enumerate(params["stages"]):
+        m = ch_masks[si].to(x.dtype)[:, None, None, None, :]
+        A = gn_assign[si]
+        if conv_op is None:
+            c_act = None
+            x = _conv(stage["down"], x, stride=2) * m
+        else:
+            c_act = (ch_masks[si] > 0).sum(-1).to(torch.int32)
+            x = conv_op(stage["down"], x, 2, cin_active, c_act)
+        x = F.relu(_masked_groupnorm(x, A))
+        for bi, bp in enumerate(stage["blocks"]):
+            d = depth_masks[si][:, bi].to(x.dtype)[:, None, None, None, None]
+            if conv_op is None:
+                h = _conv(bp["conv1"], x) * m
+            else:
+                h = conv_op(bp["conv1"], x, 1, c_act, c_act)
+            h = F.relu(_masked_groupnorm(h, A))
+            if conv_op is None:
+                h = _conv(bp["conv2"], h) * m
+            else:
+                h = conv_op(bp["conv2"], h, 1, c_act, c_act)
+            h = _masked_groupnorm(h, A)
+            # depth skip: x >= 0 after the ReLU, so relu(x + 0) == x exactly
+            x = F.relu(x + d * h)
+        cin_active = c_act
+    return cnn.dense(params["head"], torch.mean(x, dim=(-3, -2)))
+
+
+class CNNElasticFamily:
+    """The paper's elastic CNN: per-stage prefix channels + prefix depth."""
+
+    name = "cnn"
+
+    def __init__(self, cfg: CNNConfig):
+        self.cfg = cfg
+        self._spec_cache = SpecLRU(128)
+        self._full_flops = None
+
+    @property
+    def supports_decode(self) -> bool:
+        return False
+
+    # -- spec algebra ------------------------------------------------------
+    def full_spec(self) -> SubmodelSpec:
+        return full_spec(self.cfg)
+
+    def minimal_spec(self) -> SubmodelSpec:
+        return minimal_spec(self.cfg)
+
+    def random_spec(self, rng) -> SubmodelSpec:
+        """A feasible random spec drawn with ``rng`` (``random.Random``) —
+        the same draws, in the same order, as the reference."""
+        depth = tuple(rng.randint(1, b) for _, b in self.cfg.stages)
+        width = tuple(rng.choice(self.cfg.elastic_widths)
+                      for _ in self.cfg.stages)
+        return SubmodelSpec(depth=depth, width=width)
+
+    def genes(self, spec: SubmodelSpec):
+        return spec.genes()
+
+    # -- spec-space surface: genetic search (Alg. 1) -----------------------
+    def mutate(self, spec: SubmodelSpec, rng, p: float) -> SubmodelSpec:
+        """Independently resample each gene with probability ``p``."""
+        depth = list(spec.depth)
+        width = list(spec.width)
+        for s, (_, bmax) in enumerate(self.cfg.stages):
+            if rng.random() < p:
+                depth[s] = rng.randint(1, bmax)
+            if rng.random() < p:
+                width[s] = rng.choice(self.cfg.elastic_widths)
+        return SubmodelSpec(tuple(depth), tuple(width))
+
+    def crossover(self, a: SubmodelSpec, b: SubmodelSpec,
+                  rng) -> SubmodelSpec:
+        """Uniform per-gene crossover of two specs."""
+        depth = tuple(rng.choice([x, y]) for x, y in zip(a.depth, b.depth))
+        width = tuple(rng.choice([x, y]) for x, y in zip(a.width, b.width))
+        return SubmodelSpec(depth, width)
+
+    # -- spec-space surface: predictor features (Alg. 2) -------------------
+    def featurize(self, spec: SubmodelSpec) -> np.ndarray:
+        """Depth and width fractions per stage, then the FLOPs fraction."""
+        cfg = self.cfg
+        depth_f = [spec.depth[s] / cfg.stages[s][1]
+                   for s in range(len(cfg.stages))]
+        return np.asarray(depth_f + list(spec.width)
+                          + [self.flops_fraction(spec)], np.float32)
+
+    @property
+    def feature_dim(self) -> int:
+        return 2 * len(self.cfg.stages) + 1
+
+    # -- spec-space surface: cost model (latency LUT input) ----------------
+    def flops(self, spec: SubmodelSpec) -> float:
+        return cnn.flops(self.cfg, depth=spec.depth, widths=spec.width)
+
+    def param_bytes(self, spec: SubmodelSpec,
+                    bytes_per_param: int = 4) -> float:
+        cfg = self.cfg
+        total = 9 * cfg.in_channels * cfg.stem_channels
+        cin = cfg.stem_channels
+        for si in range(len(cfg.stages)):
+            c = channels_of(cfg, si, spec.width[si])
+            total += 9 * cin * c
+            total += spec.depth[si] * 2 * 9 * c * c
+            cin = c
+        total += cin * cfg.n_classes
+        return float(total * bytes_per_param)
+
+    def flops_fraction(self, spec: SubmodelSpec) -> float:
+        """spec FLOPs / full-parent FLOPs (cached denominator)."""
+        if self._full_flops is None:
+            self._full_flops = self.flops(self.full_spec())
+        return self.flops(spec) / self._full_flops
+
+    def lut_specs(self, depth_choices=None):
+        """The depth × width grid the latency LUT tabulates offline."""
+        cfg = self.cfg
+        if depth_choices is not None:
+            ranges = [tuple(depth_choices)] * len(cfg.stages)
+        else:
+            ranges = [tuple(range(1, b + 1)) for _, b in cfg.stages]
+        for depth in itertools.product(*ranges):
+            for width in itertools.product(cfg.elastic_widths,
+                                           repeat=len(cfg.stages)):
+                yield SubmodelSpec(depth=depth, width=width)
+
+    # -- parent-model lifecycle --------------------------------------------
+    def init_params(self, seed: int = 0, device=None):
+        """Torch-seeded parent parameters on ``device`` (the card unless
+        the caller asks for the CPU)."""
+        return cnn.init_params(self.cfg, seed=seed, device=device)
+
+    def extract(self, params, spec):
+        """(sub_params, sub_cfg): the submodel's slices of the parent."""
+        return (extract_cnn(params, self.cfg, spec),
+                sub_cnn_config(self.cfg, spec))
+
+    def sub_metric(self, sub_params, sub_cfg, x, y, valid):
+        """Accuracy of an extracted (unstacked) submodel on x (B, H, W, C)
+        over the ``valid`` (B,) samples."""
+        logits, _ = cnn.forward(sub_params, sub_cfg, x)
+        return _weighted_acc(logits, y, valid)
+
+    def evaluate(self, params, data: Dict, batch_size: int = 128) -> float:
+        """Full-parent accuracy on one dataset (the server's global
+        metric), in batches."""
+        dev = params["stem"]["w"].device
+        num = den = 0.0
+        with torch.no_grad():
+            for b in eval_batches(data, batch_size):
+                n = len(b["y"])
+                acc = float(self.sub_metric(
+                    params, self.cfg, torch.as_tensor(b["x"], device=dev),
+                    torch.as_tensor(b["y"], device=dev),
+                    torch.ones((n,), device=dev)))
+                num += acc * n
+                den += n
+        return num / max(den, 1.0)
+
+    # -- masks (spec table, LRU by genes) ----------------------------------
+    def spec_masks(self, spec: SubmodelSpec) -> SpecMasks:
+        """``mask_cnn`` coverage and the forward masks of ``spec`` (host
+        numpy), built once per distinct ``genes()``."""
+        return self._spec_cache.get_or_build(
+            self.genes(spec), lambda: self._build_spec_masks(spec))
+
+    def _build_spec_masks(self, spec: SubmodelSpec) -> SpecMasks:
+        cfg = self.cfg
+        g = cfg.groupnorm_groups
+        ch, gn, de = [], [], []
+        for si, (cmax, n_blocks) in enumerate(cfg.stages):
+            c = channels_of(cfg, si, spec.width[si])
+            cm = np.zeros((cmax,), np.float32)
+            cm[:c] = 1.0
+            A = np.zeros((cmax, g), np.float32)
+            A[np.arange(c), np.arange(c) // (c // g)] = 1.0  # submodel groups
+            dm = np.zeros((n_blocks,), np.float32)
+            dm[:spec.depth[si]] = 1.0
+            ch.append(cm)
+            gn.append(A)
+            de.append(dm)
+        return SpecMasks(mask_cnn(cfg, spec),
+                         {"ch": ch, "gn": gn, "depth": de})
+
+    def cohort_masks(self, specs: Sequence[SubmodelSpec],
+                     device=None) -> CohortMasks:
+        """Stack per-spec masks along a leading client axis on ``device``
+        (the card unless the caller asks for the CPU)."""
+        dev = resolve_device(device)
+        per = [self.spec_masks(s) for s in specs]
+        return CohortMasks(_stack([p.param_mask for p in per], dev),
+                           _stack([p.fwd for p in per], dev))
+
+    # -- parent-space masked compute over client-stacked params ------------
+    def masked_logits(self, params, fwd, x, kernels=None):
+        return masked_forward(params, self.cfg, x, fwd["ch"], fwd["gn"],
+                              fwd["depth"], kernels=kernels)
+
+    def masked_loss(self, params, fwd, x, y, sample_weight, kernels=None):
+        """Per-client training CE (G,) of each client's masked submodel:
+        ``params`` and ``fwd`` client-stacked, x (G, B, H, W, C) images,
+        y (G, B) labels, ``sample_weight`` (G, B) 0/1. ``kernels``: the
+        ``"cnn"`` op table or None for the dense masked path."""
+        return _weighted_ce(self.masked_logits(params, fwd, x, kernels), y,
+                            sample_weight)
+
+    def masked_metric(self, params, fwd, x, y, valid, kernels=None):
+        """Per-client accuracy (G,) over the ``valid`` (G, B) samples; same
+        contract as :meth:`masked_loss`."""
+        return _weighted_acc(self.masked_logits(params, fwd, x, kernels), y,
+                             valid)
+
+
+def family_for(cfg):
     """Resolve a model config (or a family) to its elastic family."""
-    if isinstance(cfg, TransformerElasticFamily):
+    if isinstance(cfg, (TransformerElasticFamily, CNNElasticFamily)):
         return cfg
+    if isinstance(cfg, CNNConfig):
+        return CNNElasticFamily(cfg)
     if isinstance(cfg, ModelConfig):
         return TransformerElasticFamily(cfg)
-    raise TypeError(f"no elastic family for {type(cfg).__name__} (the CNN "
-                    "family comes with ROADMAP A4)")
+    raise TypeError(f"no elastic family for {type(cfg).__name__}")

@@ -1,15 +1,23 @@
-"""Transformer submodel specs: which layers and which width prefixes a
-client's submodel keeps, and which parent entries it covers (the port of
-the transformer half of the reference's ``core/submodel.py``).
+"""Submodel specs: which part of a parent a client's submodel keeps,
+and which parent entries it covers — the port of the reference's
+``core/submodel.py``.
 
-Coverage is the reference's extract → pad round trip on an all-ones
-parent: 1 on every parent entry the submodel trains, 0 elsewhere. The port
-builds it per leaf from the prefixes, as factors — one 0/1 vector per
-masked axis (kept layers, kept d_ff columns, kept routed experts, kept
-attention heads, kept SSD heads), size-1 axes elsewhere — whose
-broadcast product is the reference's mask, so no parent-sized template
-is ever made. Extract and pad themselves (the sequential reference
-path) are not ported yet (ROADMAP A8).
+Two parent families:
+
+* the paper's elastic CNN (per-stage prefix depth + prefix width):
+  ``SubmodelSpec``, ``channels_of``, ``extract_cnn`` / ``pad_cnn`` (the
+  sequential extract → train → pad path's slicing and its zero-pad
+  alignment, Alg. 3), ``coverage_cnn`` (that round trip on all-ones) and
+  ``mask_cnn`` (the same coverage built directly, host numpy);
+* the transformer / SSM zoo: ``TransformerSubSpec``. Coverage is the
+  reference's extract → pad round trip on an all-ones parent: 1 on every
+  parent entry the submodel trains, 0 elsewhere. The port builds it per
+  leaf from the prefixes, as factors — one 0/1 vector per masked axis
+  (kept layers, kept d_ff columns, kept routed experts, kept attention
+  heads, kept SSD heads), size-1 axes elsewhere — whose broadcast product
+  is the reference's mask, so no parent-sized template is ever made.
+  Extract and pad themselves (the sequential reference path) are not
+  ported yet for this family (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -17,8 +25,177 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.paper_cnn import CNNConfig
+from repro_torch.optim.optimizers import tree_map
+
+
+# ===========================================================================
+# CNN parent (the paper's)
+# ===========================================================================
+@dataclasses.dataclass(frozen=True)
+class SubmodelSpec:
+    """depth[s] = blocks kept in stage s; width[s] = channel fraction."""
+    depth: Tuple[int, ...]
+    width: Tuple[float, ...]
+
+    def genes(self) -> Tuple[int, ...]:
+        return self.depth + tuple(int(w * 100) for w in self.width)
+
+
+def full_spec(cfg: CNNConfig) -> SubmodelSpec:
+    return SubmodelSpec(depth=tuple(b for _, b in cfg.stages),
+                        width=tuple(1.0 for _ in cfg.stages))
+
+
+def minimal_spec(cfg: CNNConfig) -> SubmodelSpec:
+    """The smallest expressible submodel — the deterministic fallback when
+    a latency bound admits nothing else."""
+    return SubmodelSpec(depth=tuple(1 for _ in cfg.stages),
+                        width=tuple(min(cfg.elastic_widths)
+                                    for _ in cfg.stages))
+
+
+def channels_of(cfg: CNNConfig, stage: int, frac: float) -> int:
+    c = cfg.stages[stage][0]
+    g = cfg.groupnorm_groups
+    return max(g, int(round(c * frac / g)) * g)
+
+
+def extract_cnn(params: Dict, cfg: CNNConfig, spec: SubmodelSpec) -> Dict:
+    """Slice parent params down to the submodel (prefix channels, prefix
+    blocks); the leaves are views of the parent's."""
+    out = {"stem": params["stem"], "head": None, "stages": []}
+    cin_prev = cfg.stem_channels
+    for si, stage in enumerate(params["stages"]):
+        c = channels_of(cfg, si, spec.width[si])
+        sub = {"down": {"w": stage["down"]["w"][:, :, :cin_prev, :c],
+                        "b": stage["down"]["b"][:c]},
+               "blocks": []}
+        for bi in range(spec.depth[si]):
+            bp = stage["blocks"][bi]
+            sub["blocks"].append({
+                "conv1": {"w": bp["conv1"]["w"][:, :, :c, :c],
+                          "b": bp["conv1"]["b"][:c]},
+                "conv2": {"w": bp["conv2"]["w"][:, :, :c, :c],
+                          "b": bp["conv2"]["b"][:c]},
+                "gate": {"fc1": {"w": bp["gate"]["fc1"]["w"][:c, :],
+                                 "b": bp["gate"]["fc1"]["b"]},
+                         "fc2": bp["gate"]["fc2"]},
+            })
+        out["stages"].append(sub)
+        cin_prev = c
+    out["head"] = {"w": params["head"]["w"][:cin_prev, :],
+                   "b": params["head"]["b"]}
+    return out
+
+
+def sub_cnn_config(cfg: CNNConfig, spec: SubmodelSpec) -> CNNConfig:
+    stages = tuple((channels_of(cfg, si, spec.width[si]), spec.depth[si])
+                   for si in range(len(cfg.stages)))
+    return dataclasses.replace(cfg, stages=stages)
+
+
+def _pad_to(sub_tree, parent_tree):
+    """Zero-pad every leaf of sub_tree up to the parent leaf's shape
+    (a prefix in every axis)."""
+    def pad_leaf(s, p):
+        out = torch.zeros(p.shape, dtype=p.dtype, device=p.device)
+        out[tuple(slice(0, n) for n in s.shape)] = s.to(p.dtype)
+        return out
+    return tree_map(pad_leaf, sub_tree, parent_tree)
+
+
+def pad_cnn(delta: Dict, parent_template: Dict, cfg: CNNConfig,
+            spec: SubmodelSpec) -> Dict:
+    """Zero-pad a submodel update to parent shape (Alg. 3 alignment): the
+    kept channels in place, zeros elsewhere, and all-zero blocks past the
+    kept depth (Fig. 2 depth expansion)."""
+    out = {"stem": delta["stem"], "head": None, "stages": []}
+    for si, (pstage, dstage) in enumerate(zip(parent_template["stages"],
+                                              delta["stages"])):
+        sub = {"down": _pad_to(dstage["down"], pstage["down"]),
+               "blocks": []}
+        for bi, pblock in enumerate(pstage["blocks"]):
+            if bi < spec.depth[si]:
+                sub["blocks"].append(_pad_to(dstage["blocks"][bi], pblock))
+            else:
+                sub["blocks"].append(tree_map(torch.zeros_like, pblock))
+        out["stages"].append(sub)
+    out["head"] = _pad_to(delta["head"], parent_template["head"])
+    return out
+
+
+def coverage_cnn(parent_template: Dict, cfg: CNNConfig,
+                 spec: SubmodelSpec) -> Dict:
+    """1/0 tensors of which parent entries this submodel covers (the
+    extract → pad round trip on all-ones)."""
+    ones = tree_map(torch.ones_like, parent_template)
+    sub = extract_cnn(ones, cfg, spec)
+    return pad_cnn(tree_map(torch.ones_like, sub), parent_template, cfg,
+                   spec)
+
+
+def mask_cnn(cfg: CNNConfig, spec: SubmodelSpec) -> Dict:
+    """Parent-shaped 0/1 param mask (host numpy) with the semantics of
+    ``coverage_cnn`` — prefix channels, prefix depth — built directly,
+    with no extract / pad round trip, so the batched round engine can stack
+    one mask per client without touching parent params."""
+    def ones(*shape):
+        return np.ones(shape, np.float32)
+
+    def zeros(*shape):
+        return np.zeros(shape, np.float32)
+
+    def ch_mask(n_active, n_total):
+        return (np.arange(n_total) < n_active).astype(np.float32)
+
+    out: Dict = {"stem": {"w": ones(3, 3, cfg.in_channels,
+                                    cfg.stem_channels),
+                          "b": ones(cfg.stem_channels)},
+                 "stages": [], "head": None}
+    cin_prev = cfg.stem_channels
+    m_prev = ch_mask(cin_prev, cin_prev)
+    for si, (cmax, n_blocks) in enumerate(cfg.stages):
+        c = channels_of(cfg, si, spec.width[si])
+        m = ch_mask(c, cmax)
+        stage = {"down": {"w": m_prev[None, None, :, None] *
+                          m[None, None, None, :] * ones(3, 3, cin_prev, cmax),
+                          "b": m},
+                 "blocks": []}
+        cc = m[None, None, :, None] * m[None, None, None, :]
+        for bi in range(n_blocks):
+            if bi < spec.depth[si]:
+                stage["blocks"].append({
+                    "conv1": {"w": cc * ones(3, 3, cmax, cmax), "b": m},
+                    "conv2": {"w": cc * ones(3, 3, cmax, cmax), "b": m},
+                    "gate": {"fc1": {"w": m[:, None] *
+                                     ones(cmax, cfg.gate_hidden),
+                                     "b": ones(cfg.gate_hidden)},
+                             "fc2": {"w": ones(cfg.gate_hidden, 1),
+                                     "b": ones(1)}},
+                })
+            else:   # depth expansion: block entirely uncovered (Fig. 2)
+                stage["blocks"].append({
+                    "conv1": {"w": zeros(3, 3, cmax, cmax), "b": zeros(cmax)},
+                    "conv2": {"w": zeros(3, 3, cmax, cmax), "b": zeros(cmax)},
+                    "gate": {"fc1": {"w": zeros(cmax, cfg.gate_hidden),
+                                     "b": zeros(cfg.gate_hidden)},
+                             "fc2": {"w": zeros(cfg.gate_hidden, 1),
+                                     "b": zeros(1)}},
+                })
+        out["stages"].append(stage)
+        cin_prev, m_prev = cmax, m
+    out["head"] = {"w": m_prev[:, None] * ones(cin_prev, cfg.n_classes),
+                   "b": ones(cfg.n_classes)}
+    return out
+
+
+# ===========================================================================
+# Transformer parent
+# ===========================================================================
 
 
 @dataclasses.dataclass(frozen=True)

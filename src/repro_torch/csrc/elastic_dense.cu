@@ -12,8 +12,11 @@
 // tensors, so a change of submodel changes tensor values and never the
 // launch. w is (K, N), shared by all groups (serving), or (G, K, N), one
 // per group (training: every client its own weights, the reference's
-// `vmap`). bias (N,) is shared. act is 0 none, 1 silu, 2 gelu (tanh
-// approximation), 3 relu. Shapes that are not tile multiples are masked
+// `vmap`). bias is (N,), shared by all groups, or one (N,) row per group
+// at the group stride b_gstride (training: the client-stacked (G, N) bias
+// of a conv lowered onto this kernel, kernels/elastic_conv.py); a shared
+// bias is b_gstride 0, the same loads and bits. act is 0 none, 1 silu,
+// 2 gelu (tanh approximation), 3 relu. Shapes that are not tile multiples are masked
 // inside the kernel; nothing is padded on the host.
 //
 // Layout flags: x may be stored transposed per group ((G, K, M), the xᵀ
@@ -129,11 +132,12 @@ __device__ __forceinline__ int row_kend(int r, int r_end, int M, int K, int N,
 
 __device__ __forceinline__ float epilogue(float acc, int r, int c, int M,
                                           int N, const float* bias,
+                                          long long b_gstride,
                                           const int* na, const int* ma,
                                           int act) {
   int g = r / M, m = r - g * M;
   if (m >= prefix(ma, g, M) || c >= prefix(na, g, N)) return 0.0f;
-  if (bias != nullptr) acc += bias[c];
+  if (bias != nullptr) acc += bias[(size_t)g * b_gstride + c];
   return apply_act(acc, act);
 }
 
@@ -141,10 +145,12 @@ __device__ __forceinline__ float epilogue(float acc, int r, int c, int M,
 // when the contraction is not split, else raw into its chunk's partials.
 __device__ __forceinline__ void store(float acc, int r, int c, int M, int N,
                                       int R, const float* bias,
-                                      const int* na, const int* ma, int act,
-                                      float* y, float* partial) {
+                                      long long b_gstride, const int* na,
+                                      const int* ma, int act, float* y,
+                                      float* partial) {
   if (partial == nullptr)
-    y[(size_t)r * N + c] = epilogue(acc, r, c, M, N, bias, na, ma, act);
+    y[(size_t)r * N + c] =
+        epilogue(acc, r, c, M, N, bias, b_gstride, na, ma, act);
   else
     partial[((size_t)blockIdx.z * R + r) * N + c] = acc;
 }
@@ -186,7 +192,7 @@ edense_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   float* __restrict__ partial, const int* __restrict__ ka,
                   const int* __restrict__ na, const int* __restrict__ ma,
                   int G, int M, int K, int N, int kchunk, int act, int flags,
-                  long long w_gstride) {
+                  long long w_gstride, long long b_gstride) {
   constexpr bool PERM = Permuted<XT, WT>::value;
   using SA = Stage<BM, !XT, PERM>;  // x: K-contiguous unless transposed
   using SB = Stage<BN, WT, PERM>;   // w: K-contiguous only when transposed
@@ -312,16 +318,18 @@ edense_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
       if (r >= r_end) continue;
       const int grp = r / M, m = r - grp * M;
       const int nlim = m < prefix(ma, grp, M) ? prefix(na, grp, N) : 0;
+      const float* brow =
+          bias != nullptr ? bias + (size_t)grp * b_gstride : nullptr;
       float* row_out = out + (size_t)r * N;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int c = c0 + wn + j * 8 + 2 * t;
         float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
         if (partial == nullptr) {
-          v0 = c < nlim ? apply_act(v0 + (bias ? bias[c] : 0.0f), act)
+          v0 = c < nlim ? apply_act(v0 + (brow ? brow[c] : 0.0f), act)
                         : 0.0f;
           v1 = c + 1 < nlim
-                   ? apply_act(v1 + (bias ? bias[c + 1] : 0.0f), act)
+                   ? apply_act(v1 + (brow ? brow[c + 1] : 0.0f), act)
                    : 0.0f;
         }
         if (pairs && c + 1 < N) {
@@ -347,7 +355,7 @@ edense_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     float* __restrict__ partial, const int* __restrict__ ka,
                     const int* __restrict__ na, const int* __restrict__ ma,
                     int G, int M, int K, int N, int kchunk, int act,
-                    int flags, long long w_gstride) {
+                    int flags, long long w_gstride, long long b_gstride) {
   __shared__ float xs[kSBK][kSBM + 1];  // transposed x tile, padded
   __shared__ float ws[kSBK][kSBN + 1];
   __shared__ size_t xoff_row[kSBM];     // where row i's x values start
@@ -427,8 +435,8 @@ edense_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       int cc = c0 + tx + j * (kSBN / kTN);
-      if (cc < N) store(acc[i][j], r, cc, M, N, R, bias, na, ma, act, y,
-                        partial);
+      if (cc < N) store(acc[i][j], r, cc, M, N, R, bias, b_gstride, na, ma,
+                        act, y, partial);
     }
   }
 }
@@ -439,6 +447,7 @@ edense_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
 __global__ void edense_reduce_kernel(const float* __restrict__ partial,
                                      int splits,
                                      const float* __restrict__ bias,
+                                     long long b_gstride,
                                      float* __restrict__ y,
                                      const int* __restrict__ na,
                                      const int* __restrict__ ma, int R, int M,
@@ -449,7 +458,7 @@ __global__ void edense_reduce_kernel(const float* __restrict__ partial,
   float s = 0.0f;
   for (int z = 0; z < splits; ++z) s += partial[(size_t)z * total + i];
   const int r = static_cast<int>(i / N), c = static_cast<int>(i % N);
-  y[i] = epilogue(s, r, c, M, N, bias, na, ma, act);
+  y[i] = epilogue(s, r, c, M, N, bias, b_gstride, na, ma, act);
 }
 
 struct Args {
@@ -462,7 +471,7 @@ struct Args {
   const int* na;
   const int* ma;
   int G, M, K, N, kchunk, act, flags;
-  long long w_gstride;
+  long long w_gstride, b_gstride;
 };
 
 int row_tiles(int G, int M, int flags, int bm) {
@@ -485,7 +494,7 @@ void launch_mma(const Args& a, int splits, cudaStream_t s) {
   dim3 grid((a.N + BN - 1) / BN, row_tiles(a.G, a.M, a.flags, BM), splits);
   kernel<<<grid, WARPS_M * WARPS_N * 32, kSmem, s>>>(
       a.x, a.w, a.bias, a.y, a.partial, a.ka, a.na, a.ma, a.G, a.M, a.K,
-      a.N, a.kchunk, a.act, a.flags, a.w_gstride);
+      a.N, a.kchunk, a.act, a.flags, a.w_gstride, a.b_gstride);
 }
 
 template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES,
@@ -520,13 +529,16 @@ void launch_layout(const Args& a, int splits, cudaStream_t s) {
 // (kXTrans, kWTrans, kWPerGroup). w_gstride: the elements between two
 // groups' weights (a layer of a client-stacked parameter is a strided
 // view); x is contiguous or a transposed view of a contiguous tensor.
-// Returns cudaGetLastError() after the launches (0 = launched).
+// b_gstride: the elements between two groups' bias rows (0: one (N,) bias
+// shared by every group). Returns cudaGetLastError() after the launches
+// (0 = launched).
 extern "C" int edense_forward(const float* x, const float* w,
                               const float* bias, float* y, float* partial,
                               const int* ka, const int* na, const int* ma,
                               int G, int M, int K, int N, int variant, int bm,
                               int splits, int kchunk, int act, int flags,
-                              long long w_gstride, void* stream) {
+                              long long w_gstride, long long b_gstride,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = G * M;
   if (R <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
@@ -534,7 +546,7 @@ extern "C" int edense_forward(const float* x, const float* w,
       kchunk % (variant == kSimt ? kSBK : kBK) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x, w, bias, y, splits > 1 ? partial : nullptr, ka, na, ma,
-               G, M, K, N, kchunk, act, flags, w_gstride};
+               G, M, K, N, kchunk, act, flags, w_gstride, b_gstride};
   if (variant == kTile && bm == 128) {
     launch_layout<128, 128, 2, 4, 3, 2>(a, splits, s);
   } else if (variant == kSkinny && bm == 16) {
@@ -547,7 +559,7 @@ extern "C" int edense_forward(const float* x, const float* w,
     dim3 grid((N + kSBN - 1) / kSBN, row_tiles(G, M, flags, kSBM), splits);
     edense_tiled_kernel<<<grid, kSimtThreads, 0, s>>>(
         x, w, bias, y, a.partial, ka, na, ma, G, M, K, N, kchunk, act, flags,
-        w_gstride);
+        w_gstride, b_gstride);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -556,8 +568,8 @@ extern "C" int edense_forward(const float* x, const float* w,
     const int threads = 256;
     const unsigned blocks = static_cast<unsigned>((total + threads - 1) /
                                                   threads);
-    edense_reduce_kernel<<<blocks, threads, 0, s>>>(a.partial, splits, bias,
-                                                    y, na, ma, R, M, N, act);
+    edense_reduce_kernel<<<blocks, threads, 0, s>>>(
+        a.partial, splits, bias, b_gstride, y, na, ma, R, M, N, act);
   }
   return static_cast<int>(cudaGetLastError());
 }

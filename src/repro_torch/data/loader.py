@@ -1,9 +1,9 @@
-"""Epoch-shuffled batch indices (host-side, numpy) — the port of the
-reference's ``data/loader.py::index_batches``, unchanged: the same seeds
-give the same index streams."""
+"""Epoch-shuffled batch iterators (host-side, numpy) — the port of the
+reference's ``data/loader.py`` (``index_batches``, ``batches``,
+``eval_batches``), unchanged: the same seeds give the same streams."""
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -25,3 +25,17 @@ def index_batches(n: int, batch_size: int, *, seed: int = 0,
             yield perm[i:i + batch_size]
         epoch += 1
 
+
+def batches(data: Dict[str, np.ndarray], batch_size: int, *,
+            seed: int = 0, epochs: int = None,
+            drop_remainder: bool = True) -> Iterator[Dict]:
+    for idx in index_batches(len(data["y"]), batch_size, seed=seed,
+                             epochs=epochs, drop_remainder=drop_remainder):
+        yield {k: v[idx] for k, v in data.items()}
+
+
+def eval_batches(data: Dict[str, np.ndarray],
+                 batch_size: int) -> Iterator[Dict]:
+    n = len(data["y"])
+    for i in range(0, n, batch_size):
+        yield {k: v[i:i + batch_size] for k, v in data.items()}

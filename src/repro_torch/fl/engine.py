@@ -1,8 +1,10 @@
-"""Batched parent-space FL round engine for the transformer family.
+"""Batched parent-space FL round engine, for the CNN and transformer
+families.
 
 The port of the reference's ``fl/engine.py``. Every client of a CFL cohort
-trains in *parent coordinates* under its own 0/1 masks
-(``core.elastic.TransformerElasticFamily``): the reference's ``vmap`` over
+trains in *parent coordinates* under its own 0/1 masks (``core.elastic``:
+``CNNElasticFamily``, ``TransformerElasticFamily``): the reference's
+``vmap`` over
 clients is a leading client axis G written out on every parameter, mask,
 activation and optimizer buffer, and its ``lax.scan`` over local steps is
 a Python loop. One cohort call trains every client's local epochs whatever
@@ -16,13 +18,19 @@ flags (an invalid step leaves the client's parameters and momentum
 untouched), partial batches carry sample weights — the same index streams
 as the per-client loader.
 
-The kernel path (``backend="auto"``) runs the MLP (or, on a MoE parent,
-the expert dispatch, grouped expert matmul and combine) and attention
+Each step's batch carries its labels ``y`` to the family's loss, as the
+reference's ``_client_train`` does: the CNN's cross-entropy needs them,
+the LM families (whose targets are their own tokens) ignore them. Images
+stay float32; token rows become int64.
+
+The kernel path (``backend="auto"``) runs the CNN's stage convolutions
+(K1 through ``kernels.elastic_conv``), or the MLP (or, on a MoE parent,
+the expert dispatch, grouped expert matmul and combine) and attention,
 through the hand-written kernels, forward and backward
 (``kernels.dispatch``); ``backend=None`` is the dense masked path of plain
-tensor ops, the A/B baseline. Per-client prefixes (d_ff, experts, heads)
-reach the kernels as (G,) or (G·B,) int32 device tensors derived from the
-masks; the engine itself has no MoE logic.
+tensor ops, the A/B baseline. Per-client prefixes (channels, d_ff,
+experts, heads) reach the kernels as (G,) or (G·B,) int32 device tensors
+derived from the masks; the engine itself has no family logic.
 
 Not ported yet, and raising NotImplementedError: partial participation
 (``participation=``, ROADMAP A12), the double-buffered prefetch ring
@@ -132,6 +140,10 @@ class CohortResult:
     accs: Optional[np.ndarray] = None   # local-eval accuracies
 
 
+def _or_zeros(grad, like):
+    return torch.zeros_like(like) if grad is None else grad
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
@@ -140,7 +152,8 @@ class BatchedRoundEngine:
     """One cohort call trains every client's local epochs, whatever the
     spec mix (see the module docstring).
 
-    ``cfg``: a transformer ModelConfig or a ``TransformerElasticFamily``.
+    ``cfg``: a ``CNNConfig``, a transformer ModelConfig, or their
+    family.
     ``backend``: "auto" / "cuda" (the hand-written kernels) or None (the
     dense masked path). ``device``: the card unless the caller asks for
     the CPU (where the kernels' plain versions run); raises without a card.
@@ -182,21 +195,26 @@ class BatchedRoundEngine:
         return params, self._opt.init(params)
 
     def local_step(self, params, opt_state, masks: CohortMasks, x,
-                   sample_weight, valid=None):
+                   sample_weight, valid=None, y=None):
         """One local SGD step of every client at once — the body of the
         reference's ``lax.scan``: the masked loss, gradients masked to each
         client's coverage, the per-client global-norm clip, momentum SGD.
 
         ``params`` (client-stacked leaves that require grad) and
-        ``opt_state`` are updated in place. x (G, B, S) tokens,
-        ``sample_weight`` (G, B); ``valid``: None (every client steps) or
-        a (G,) bool tensor — a client with False keeps its parameters and
-        momentum. Returns the per-client losses (G,)."""
-        loss = self.family.masked_loss(params, masks.fwd, x, None,
+        ``opt_state`` are updated in place. x (G, B, ...) the batch (token
+        rows or images), ``sample_weight`` (G, B); ``valid``: None (every
+        client steps) or a (G,) bool tensor — a client with False keeps
+        its parameters and momentum; y (G, B) the batch's labels (None for
+        the LM families). Returns the per-client losses (G,)."""
+        loss = self.family.masked_loss(params, masks.fwd, x, y,
                                        sample_weight, kernels=self._kernels)
-        raw = iter(torch.autograd.grad(loss.sum(), tree_leaves(params)))
-        grads = tree_map(lambda _, m: next(raw) * m, params,
-                         masks.param_mask)
+        # a leaf the loss never reads (the CNN's RL gates, whose sampled
+        # modes are not ported) gets a zero gradient, as jax.grad gives it
+        raw = iter(torch.autograd.grad(loss.sum(), tree_leaves(params),
+                                       allow_unused=True))
+        grads = tree_map(
+            lambda p, m: _or_zeros(next(raw), p) * m, params,
+            masks.param_mask)
         del raw
         grads, _ = clip_by_global_norm(grads, self._grad_clip)
         mus = tree_leaves(opt_state["mu"]) or None
@@ -237,7 +255,7 @@ class BatchedRoundEngine:
             raise _not_ported("the double-buffered prefetch ring", "A14")
         dev = self.device
         masks = self.family.cohort_masks(specs, self.device)
-        x, _ = self._cohort_data(datasets)
+        x, y = self._cohort_data(datasets)
         idx, sv, stv, n_steps = _pack_streams(
             [len(d["y"]) for d in datasets], batch_size, epochs=epochs,
             seeds=seeds)
@@ -251,7 +269,7 @@ class BatchedRoundEngine:
             valid = None if stv[:, t].all() else torch.as_tensor(
                 stv[:, t], device=dev)
             self.local_step(params, opt_state, masks, x[rows, idx[:, t]],
-                            sv[:, t], valid)
+                            sv[:, t], valid, y[rows, idx[:, t]])
         del opt_state
         trained = tree_map(lambda t: t.detach(), params)
         deltas = tree_map(lambda a, b, m: (a - b) * m, theta0_stacked,
@@ -298,17 +316,23 @@ class BatchedRoundEngine:
     def _eval_pack(self, datasets: Sequence[Dict]):
         def build(d):
             p = pack_eval(d)
-            return (torch.as_tensor(p.x, device=self.device).long(),
-                    torch.as_tensor(p.y, device=self.device),
+            return (self._samples(p.x),
+                    torch.as_tensor(p.y, device=self.device).long(),
                     torch.as_tensor(p.valid, device=self.device))
         return self._cached(self._eval_cache, datasets, build)
 
     def _cohort_data(self, datasets: Sequence[Dict]):
         def build(d):
             x, y = pack_cohort_data(d)
-            return (torch.as_tensor(x, device=self.device).long(),
-                    torch.as_tensor(y, device=self.device))
+            return (self._samples(x),
+                    torch.as_tensor(y, device=self.device).long())
         return self._cached(self._data_cache, datasets, build)
+
+    def _samples(self, x: np.ndarray):
+        """Packed samples on the device: token rows as int64 (embedding
+        and gather indices), images as they are (float32)."""
+        t = torch.as_tensor(x, device=self.device)
+        return t.long() if np.issubdtype(x.dtype, np.integer) else t
 
     @staticmethod
     def _cached(cache: OrderedDict, datasets, build, bound: int = 4):

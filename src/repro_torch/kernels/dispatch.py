@@ -1,9 +1,11 @@
 """Backend-aware kernel dispatch — the op table the model forwards consume.
 
-The port of the reference's ``kernels/dispatch.py`` for the transformer
-family. ``kernel_dispatch(backend).table("transformer")`` returns the
-per-op callables ``models.transformer`` takes as ``kernels=``, or None for
-the dense masked path (see ``kernels/backend.py``).
+The port of the reference's ``kernels/dispatch.py``.
+``kernel_dispatch(backend).table("transformer")`` returns the per-op
+callables ``models.transformer`` takes as ``kernels=``, and
+``table("cnn")`` the ``conv`` op the CNN family's masked forward
+(``core.elastic.masked_forward``) takes; either is None for the dense
+masked path (see ``kernels/backend.py``).
 
 Every op derives its runtime prefixes from the 0/1 prefix masks the spec
 table ships, as (B,) int32 *tensors* (``(mask > 0).sum(-1)``), never as
@@ -44,6 +46,14 @@ op             contract
                differentiable, the backward rerunning K8 for the per-chunk
                initial states (no O(S·P) activations kept) and then the
                transposed scan ``ssd_scan_bwd`` (K9) under the same prefix.
+``conv``       (the ``"cnn"`` table) ``op(params, x, stride, cin_active,
+               cout_active)``: a SAME conv of client-stacked x (G, B, H, W,
+               Cin) with ``params`` {"w": (G, 3, 3, Cin, Cout), "b":
+               (G, Cout)}, lowered by ``kernels.elastic_conv`` onto one
+               ``elastic_dense`` launch (K1) that skips input channels past
+               ``cin_active`` and output channels past ``cout_active``
+               ((G,) int32 tensors or None), bias fused. Differentiable,
+               with two more launches in the backward (dx, dw).
 =============  ==============================================================
 """
 from __future__ import annotations
@@ -54,6 +64,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels.backend import resolve_backend
+from repro_torch.kernels.elastic_conv import elastic_conv2d
 from repro_torch.kernels.elastic_matmul import elastic_dense
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.grouped_matmul import grouped_matmul
@@ -129,6 +140,12 @@ def ssd_op(xh, dt, A, Bm, Cm, chunk, head_mask=None):
     return ssd_scan(*args[:6], h_active=ha), None
 
 
+def conv_op(params, x, stride, cin_active, cout_active):
+    return elastic_conv2d(x, params["w"].to(x.dtype),
+                          params["b"].to(x.dtype), stride=stride,
+                          cin_active=cin_active, cout_active=cout_active)
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelDispatch:
     """Resolved backend; ``table(family)`` returns the op dict a family's
@@ -139,9 +156,10 @@ class KernelDispatch:
     def table(self, family: str = "transformer") -> Optional[Dict]:
         if self.backend == "dense":
             return None
+        if family == "cnn":
+            return {"conv": conv_op}
         if family != "transformer":
-            raise NotImplementedError(
-                f"no {family!r} op table yet (ROADMAP A3)")
+            raise ValueError(f"no op table for family {family!r}")
         return {"mlp": mlp_op, "attention": attention_op, "moe": moe_op,
                 "ssd": ssd_op}
 

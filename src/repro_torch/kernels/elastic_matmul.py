@@ -3,16 +3,17 @@
 The port of the reference's ``kernels/elastic_matmul.py``, forward and
 closed VJP. For an input x of shape (G, M, K), a weight w of shape (K, N)
 shared by every group or (G, K, N) one per group, and an optional bias
-(N,),
+(N,) shared by every group or (G, N) one per group,
 
-    y[g] = R_m · C_n · act((x[g] ⊙ [k < k_active[g]]) @ w[g] + b)
+    y[g] = R_m · C_n · act((x[g] ⊙ [k < k_active[g]]) @ w[g] + b[g])
 
 with per-group runtime prefixes read from (G,) int32 tensors (None means
 the full extent). The explicit group axis is the axis the reference gets
 from ``vmap``: decode passes G = slots and M = 1 — every slot a different
 submodel in one launch — prefill G = 1, M = prompt length, and training
-G = clients with one weight per client. ``act`` is one of None, "silu",
-"gelu" (tanh approximation), "relu".
+G = clients with one weight (and, for a conv lowered onto it by
+``kernels.elastic_conv``, one bias) per client. ``act`` is one of None,
+"silu", "gelu" (tanh approximation), "relu".
 
 ``elastic_dense`` is differentiable, and its backward is closed under the
 same kernel, as the reference's ``_make_edense``:
@@ -20,7 +21,8 @@ same kernel, as the reference's ``_make_edense``:
     dpre = dy · act'(pre)   (pre recomputed by the kernel, no activation)
     dx   = edense(dpre, wᵀ, k_active=n, n_active=k, m_active=m)
     dw   = edense(xᵀ, dpre, k_active=m, n_active=n, m_active=k)
-    db   = Σ_rows (dpre masked to the m and n prefixes)
+    db   = Σ_rows (dpre masked to the m and n prefixes), per group for a
+           per-group bias
 
 ``wᵀ`` and ``xᵀ`` are transposed views; the kernel reads them in place.
 
@@ -55,7 +57,7 @@ X_TRANS, W_TRANS, W_PER_GROUP = 1, 2, 4
 def _library() -> ctypes.CDLL:
     lib = build.library("elastic_dense")
     lib.edense_forward.argtypes = [ctypes.c_void_p] * 8 + \
-        [ctypes.c_int] * 10 + [ctypes.c_longlong, ctypes.c_void_p]
+        [ctypes.c_int] * 10 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
     lib.edense_forward.restype = ctypes.c_int
     return lib
 
@@ -208,7 +210,8 @@ def elastic_dense_plain(x, w, bias=None, *, k_active=None, n_active=None,
         x = x * keep[:, None, :].to(x.dtype)
     y = torch.matmul(x, w.to(x.dtype))
     if bias is not None:
-        y = y + bias.to(y.dtype)
+        b = bias if bias.dim() == 1 else bias[:, None, :]
+        y = y + b.to(y.dtype)
     if act is not None:
         y = ACTIVATIONS[act](y)
     live = torch.ones((G, M, N), dtype=torch.bool, device=dev)
@@ -260,8 +263,9 @@ def _edense(x, w, bias, ka, na, ma, act):
                               or t.dtype != torch.float32):
             raise ValueError("elastic_dense kernel takes fp32 tensors on one "
                              "device")
-    if bias is not None and not bias.is_contiguous():
-        raise ValueError("elastic_dense kernel takes a contiguous bias")
+    if bias is not None and bias.stride(-1) != 1:
+        raise ValueError("elastic_dense kernel takes a bias whose rows are "
+                         "contiguous")
     G, M, K = x.shape
     N = w.shape[-1]
     flags, plan = launch_plan(x, w)
@@ -277,7 +281,9 @@ def _edense(x, w, bias, ka, na, ma, act):
           for t in (ka, na, ma)],
         G, M, K, N, VARIANTS.index(plan.variant), plan.bm, plan.splits,
         plan.kchunk, ACT_CODES[act], flags,
-        w.stride(0) if w.dim() == 3 else 0, stream)
+        w.stride(0) if w.dim() == 3 else 0,
+        bias.stride(0) if bias is not None and bias.dim() == 2 else 0,
+        stream)
     if err != 0:
         raise RuntimeError(f"elastic_dense kernel launch failed: CUDA error "
                            f"{err}")
@@ -332,7 +338,8 @@ class _EDense(torch.autograd.Function):
                                < ma[:, None, None])
             db = torch.where(live, dpre, torch.zeros((), dtype=dpre.dtype,
                                                      device=dpre.device))
-            db = db.sum((0, 1)).to(bias.dtype)
+            db = db.sum(1) if bias.dim() == 2 else db.sum((0, 1))
+            db = db.to(bias.dtype)
         return dx, dw, db, None, None, None, None
 
 
@@ -344,9 +351,10 @@ def elastic_dense(x, w, bias=None, *, k_active=None, n_active=None,
     ``.transpose(-1, -2)`` view of a contiguous tensor (read in place; a
     per-group w may also sit at any group stride, as one layer of a
     client-stacked parameter does);
-    bias: (N,) or None; k_active / n_active / m_active: (G,) int32 tensors
-    or None. Returns (G, M, N) in x's dtype; differentiable in x, w and
-    bias.
+    bias: (N,), (G, N) (one row per group, at any group stride; a
+    broadcast (G, N) view of one row is read in place) or None;
+    k_active / n_active / m_active: (G,) int32 tensors or None. Returns
+    (G, M, N) in x's dtype; differentiable in x, w and bias.
     """
     if act not in ACT_CODES:
         raise ValueError(f"act must be one of {list(ACT_CODES)}, got {act!r}")
@@ -356,8 +364,9 @@ def elastic_dense(x, w, bias=None, *, k_active=None, n_active=None,
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     G = x.shape[0]
     N = w.shape[-1]
-    if bias is not None and bias.shape != (N,):
-        raise ValueError(f"bias must be ({N},), got {tuple(bias.shape)}")
+    if bias is not None and bias.shape not in ((N,), (G, N)):
+        raise ValueError(f"bias must be ({N},) or ({G}, {N}), got "
+                         f"{tuple(bias.shape)}")
     for name, t in (("k_active", k_active), ("n_active", n_active),
                     ("m_active", m_active)):
         _check_prefix(name, t, G, x.device)

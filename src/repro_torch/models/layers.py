@@ -45,6 +45,20 @@ def layernorm(params, x, eps=1e-6):
         _feature(params["bias"], x).to(x.dtype)
 
 
+def groupnorm(x, groups, eps=1e-5):
+    """Channel-last group norm of the CNN parent (no learned affine: the
+    affine lives in the conv that follows). x (..., H, W, C): statistics
+    per leading index and group, over H, W and the group's C / groups
+    channels, in fp32."""
+    *lead, h, w, c = x.shape
+    xg = x.reshape(*lead, h, w, groups, c // groups).float()
+    dims = (-4, -3, -1)                      # H, W, channels of a group
+    mu = torch.mean(xg, dim=dims, keepdim=True)
+    var = torch.mean((xg - mu).square(), dim=dims, keepdim=True)
+    xg = (xg - mu) * torch.rsqrt(var + eps)
+    return xg.reshape(x.shape).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # activations / caps
 # ---------------------------------------------------------------------------

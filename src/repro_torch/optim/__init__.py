@@ -1,5 +1,6 @@
-"""Optimizers over client-stacked parameter trees."""
-from repro_torch.optim.optimizers import (Optimizer, apply_updates,
+"""Optimizers over parameter trees (client-stacked in the engine)."""
+from repro_torch.optim.optimizers import (Optimizer, adamw, apply_updates,
                                           clip_by_global_norm, sgd)
 
-__all__ = ["Optimizer", "apply_updates", "clip_by_global_norm", "sgd"]
+__all__ = ["Optimizer", "adamw", "apply_updates", "clip_by_global_norm",
+           "sgd"]

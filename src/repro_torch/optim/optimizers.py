@@ -1,9 +1,10 @@
 """Minimal optimizers over client-stacked parameter trees.
 
 The port of the reference's ``optim/optimizers.py`` (``sgd``,
-``clip_by_global_norm``, ``apply_updates``) for the batched engine, where
-every leaf carries a leading client axis (G, ...) — the axis the reference
-gets from ``vmap``. The API mirrors the reference's (and optax's):
+``adamw``, ``clip_by_global_norm``, ``apply_updates``). In the batched
+engine every leaf carries a leading client axis (G, ...) — the axis the
+reference gets from ``vmap``; ``adamw`` (the accuracy predictor's) is
+elementwise and takes any tree. The API mirrors the reference's (and optax's):
 ``opt.init(params) -> state``, ``opt.update(grads, state, params) ->
 (updates, state)``; updates are *subtracted* by ``apply_updates``. The
 global norm of ``clip_by_global_norm`` is taken per client.
@@ -67,6 +68,41 @@ def sgd(lr: float, momentum: float = 0.0):
             upd = grads
         upd = tree_map(lambda u: lr * u, upd)
         return upd, {"step": state["step"] + 1, "mu": mu}
+
+    return Optimizer(init, update)
+
+
+def adamw(lr: float, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
+    """Adam with decoupled weight decay; moments kept in fp32, the bias
+    corrections ``1 - b^step`` computed in fp32, as the reference's."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    def init(params):
+        return {"step": 0, "m": tree_map(zeros, params),
+                "v": tree_map(zeros, params)}
+
+    def update(grads, state, params=None):
+        step = state["step"] + 1
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
+                     state["m"], grads)
+        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g.float().square(),
+                     state["v"], grads)
+        bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** step
+        bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** step
+
+        def upd_leaf(m_, v_, p):
+            bc1_, bc2_ = bc1.to(m_.device), bc2.to(m_.device)
+            u = (m_ / bc1_) / (torch.sqrt(v_ / bc2_) + eps)
+            if weight_decay and p is not None:
+                u = u + weight_decay * p.float()
+            return (lr * u).to(p.dtype if p is not None else u.dtype)
+
+        if params is None:
+            upd = tree_map(lambda m_, v_: upd_leaf(m_, v_, None), m, v)
+        else:
+            upd = tree_map(upd_leaf, m, v, params)
+        return upd, {"step": step, "m": m, "v": v}
 
     return Optimizer(init, update)
 

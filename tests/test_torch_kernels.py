@@ -206,9 +206,11 @@ def test_dispatch_table_and_unported_ops():
                            4, head_mask=torch.tensor([1.0, 1.0, 0.0, 0.0]))
     assert none is None and y.shape == xh.shape
     assert y[:, :, :2].abs().sum() > 0 and not y[:, :, 2:].any()
-    # op tables of the families still to come name their ROADMAP item
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        dispatch.kernel_dispatch("auto").table("cnn")
+    # the CNN family's table: the stage convolutions lowered onto K1
+    assert set(dispatch.kernel_dispatch("auto").table("cnn")) == {"conv"}
+    assert dispatch.kernel_dispatch(None).table("cnn") is None
+    with pytest.raises(ValueError, match="no op table"):
+        dispatch.kernel_dispatch("auto").table("gnn")
     with pytest.raises(ValueError):
         dispatch.kernel_dispatch("tpu")
     # per-row prefixes from (B, n) masks, broadcast from (n,) masks

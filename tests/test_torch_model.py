@@ -271,11 +271,21 @@ def test_fused_prefill_matches_stepwise_decode(window):
 
 
 def test_cnn_family_raises_naming_its_roadmap_item():
-    """The CNN family is not ported yet: ``family_for`` sends a CNN config
-    to ROADMAP A4 (the CNN half of ``core/elastic.py``)."""
-    from repro.configs.paper_cnn import CNNConfig
-    with pytest.raises(TypeError, match="ROADMAP A4"):
-        family_for(CNNConfig())
+    """The CNN family is ported (ROADMAP A4 landed): ``family_for`` builds
+    it from the port's ``CNNConfig`` and refuses the reference's config
+    object; what of it is still to come — the RL gates' sampled modes —
+    raises naming ROADMAP A19."""
+    from repro.configs.paper_cnn import CNNConfig as RefCNNConfig
+    from repro_torch.configs.paper_cnn import PAPER_CNN
+    from repro_torch.core.elastic import CNNElasticFamily
+    from repro_torch.models import cnn
+    assert isinstance(family_for(PAPER_CNN), CNNElasticFamily)
+    with pytest.raises(TypeError, match="no elastic family"):
+        family_for(RefCNNConfig())
+    params = cnn.init_params(PAPER_CNN, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
+        cnn.forward(params, PAPER_CNN, torch.zeros((1, 32, 32, 3)),
+                    gate_mode="sample")
 
 
 def test_unported_configs_raise_naming_roadmap():

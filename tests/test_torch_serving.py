@@ -154,6 +154,8 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.serving, repro_torch.launch.serve\n"
             "import repro_torch.fl.engine, repro_torch.data.synth\n"
             "import repro_torch.checkpoint.io, repro_torch.checkpoint.bridge\n"
+            "import repro_torch.fl.session, repro_torch.fl.rounds\n"
+            "import repro_torch.kernels.elastic_conv, repro_torch.models.cnn\n"
             "import chip_smoke\n"
             "print('ok')\n")
     env = dict(os.environ)

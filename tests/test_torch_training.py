@@ -41,6 +41,7 @@ from repro_torch.fl import engine
 from repro_torch.kernels.dispatch import kernel_dispatch
 from repro_torch.models import transformer as PT
 from repro_torch.optim import clip_by_global_norm, sgd
+from repro_torch.optim.optimizers import tree_leaves
 
 torch.set_num_threads(2)
 TOL = 1e-5
@@ -337,3 +338,57 @@ def test_engine_raises_on_unported_paths():
     with pytest.raises(NotImplementedError, match="ROADMAP A17"):
         engine.BatchedRoundEngine(cfg, lr=0.5, momentum=0.9,
                                   cohort_shards=2, device="cpu")
+
+
+def _loop_without_labels(eng, theta0, specs, datasets, *, batch_size,
+                         epochs, seeds):
+    """The local loop of ``train_cohort`` as it was before each batch's
+    labels reached the family's loss: every ``local_step`` got y=None."""
+    masks = eng.family.cohort_masks(specs, eng.device)
+    x = torch.as_tensor(engine.pack_cohort_data(datasets)[0]).long()
+    idx, sv, stv, _ = engine._pack_streams(
+        [len(d["y"]) for d in datasets], batch_size, epochs=epochs,
+        seeds=seeds)
+    idx, sv = torch.as_tensor(idx).long(), torch.as_tensor(sv)
+    rows = torch.arange(len(specs))[:, None]
+    params, opt_state = eng.local_state(theta0)
+    for t in range(stv.shape[1]):
+        valid = None if stv[:, t].all() else torch.as_tensor(stv[:, t])
+        eng.local_step(params, opt_state, masks, x[rows, idx[:, t]],
+                       sv[:, t], valid)
+    return [p.detach() for p in tree_leaves(params)]
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "granite-moe-1b-a400m",
+                                  "mamba2-2.7b"])
+def test_labels_leave_lm_rounds_bit_equal(arch):
+    """``train_cohort`` passes each batch's labels to the family's loss
+    (the CNN needs them); the LM families' losses ignore them, so their
+    rounds give the same bits as the loop that passed none, whatever the
+    label column holds."""
+    if arch == "granite-3-8b":
+        _, cfg = _configs()
+        specs = SPECS
+    else:
+        cfg = reduced(ARCHS[arch], n_layers=2, d_model=64)
+        n = cfg.segments[0].n_layers
+        specs = [TransformerSubSpec((tuple(range(n)),)),
+                 TransformerSubSpec(((1,),), ff_frac=0.5, expert_frac=0.5,
+                                    ssm_head_frac=0.5)]
+    fam = family_for(cfg)
+    params = fam.init_params(seed=1, device="cpu")
+    train = [synth.make_lm_dataset(n, 16, 6, seed=k, chain_seed=100 + k)
+             for k, n in enumerate((6, 9, 3, 8)[:len(specs)])]
+    rng = np.random.default_rng(0)
+    noisy = [dict(d, y=rng.integers(0, 6, len(d["y"])).astype(np.int32))
+             for d in train]
+    kw = dict(batch_size=4, epochs=2, seeds=list(range(len(specs))))
+    eng = engine.BatchedRoundEngine(cfg, lr=0.5, momentum=0.9,
+                                    device="cpu")
+    theta0 = eng.broadcast_params(params, len(specs))
+    want = _loop_without_labels(eng, theta0, specs, train, **kw)
+    for data in (train, noisy):
+        got = tree_leaves(eng.train_cohort(theta0, specs, data,
+                                           **kw).trained)
+        assert len(got) == len(want)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
