@@ -128,23 +128,42 @@ printing its own lines; any failed phase exits non-zero:
    7×7 inputs; each case twice and bit-equal, each product's plan variant
    printed, and K1 with the per-group bias bit-equal to K1 without one
    plus the bias.
-14. CNN training slice — ``CFLSession.from_synthetic(PAPER_CNN,
-   kind="synthcifar", n_workers=8, n_samples=4000)``, the paper's parent
-   at full width and depth, 3 sync rounds (random feasible specs, then
-   the genetic search scored by the predictor; batched round, coverage
-   aggregate, predictor update) on the kernels and on the dense masked
-   path, each after an untimed warm-up round of its own session: K1 must
-   launch 21 × (3 · steps + 1) a round (all ``tile``) and ``F.conv2d``
-   only for the stem. The free-running paths drift apart through ReLU
-   decisions that rounding flips (counted, per forward), so the dense
-   path runs a third time on the kernel path's recorded ReLU decisions
-   (``ReluDecisions``) and is held there: round-0 specs identical,
-   round-0 parameters within 1e-3 of the round's movement, test CE within
-   ``TRAIN_LOSS_RTOL``, accuracies within one test sample, later specs
-   identical while the earlier accuracies are. Prints round seconds,
-   train images/s, the search / predictor / LUT host seconds, predictor
-   MAE, fairness, peak memory and one local step's wall, device busy and
-   idle share with K1's device share.
+14. CNN training slice — the paper's three algorithms on
+   ``CFLSession.from_synthetic(PAPER_CNN, kind="synthcifar", n_workers=8,
+   n_samples=4000, algorithm=...)``, the paper's parent at full width and
+   depth: CFL (random feasible specs, then the genetic search scored by
+   the predictor; batched round, aggregate, predictor update) and FedAvg
+   (every client the full spec) 3 timed sync rounds each on the kernels
+   and on the dense masked path, each after an untimed warm-up round of
+   its own session; IL (the same local budget, no aggregation) one timed
+   call on each path; CFL on the sequential trainer
+   (``batched_rounds=False``) one timed round. Every timed run is
+   free-running (no ReLU record or count), and its launches are counted
+   from 0: K1 21 × (3 · steps + 1) a round of CFL and FedAvg and
+   21 × 3 · steps · rounds + 21 an IL call, all ``tile`` / ``skinny``,
+   ``F.conv2d`` only for the stem; none on the sequential trainer, whose
+   plain forward calls ``F.conv2d`` once a conv. The free-running paths
+   drift apart through ReLU decisions that rounding flips (counted, per
+   forward), so the held comparisons run in separate untimed sessions
+   with the same seeds: the dense path replays the kernel path's recorded
+   ReLU decisions (``tests/relu_replay.py``) — CFL: round-0 specs
+   identical, round-0 parameters within 1e-3 of the round's movement, test
+   CE within ``TRAIN_LOSS_RTOL``, accuracies within one test sample, later
+   specs identical while the earlier accuracies are; FedAvg: the same
+   parameter, CE and accuracy checks; IL: accuracies within one test
+   sample after one round's budget (after three, printed: the replayed
+   paths drift, as CFL's later rounds do). The sequential trainer is held
+   to the batched dense engine on each client's first local step in fp64
+   (1e-3 of the movement, accuracies within one sample; fp32 printed).
+   The timed kernel runs
+   repeat the record runs' round-0 parameters to the bit (CFL, FedAvg).
+   Prints round seconds, train images/s, the host seconds, predictor
+   MAE, fairness, peak memory, Table II (CFL / FedAvg / IL: round s,
+   images/s, accuracy mean / min / std / Jain, simulated round s), one
+   local step's wall, device busy and idle share with K1's device share,
+   and that step with cuDNN's deterministic algorithms off and on (twice
+   each from one state: bit-equal or the first leaf that differs; wall
+   and device ms).
 14a. times, CNN shapes — per conv shape: K1, its plain version and
    ``torch.matmul`` on the im2col product (forward, dx, dw), the grouped
    ``F.conv2d`` (cuDNN, TF32 off) of the whole conv and the im2col, beside
@@ -193,6 +212,10 @@ K9_RTOL = 1e-4                 # each output relative to its max: three
 SLICE_LOGIT_RTOL = 1e-3        # 40 fp32 layers summed in another order
 TRAIN_LOSS_RTOL = 1e-4         # eval CE after a round: 2 fp32 layers and 2
                                # SGD steps summed in another order
+IL_PARAM_TOL = 1e-3            # IL's trained clients (33 steps) against
+                               # the fp64 dense path on the kernel path's
+                               # ReLU decisions, over their movement: 4.7e-4
+                               # on an H100 (the fp32 dense path: 3.5e-3)
 SLICE = dict(arch="granite-3-8b", slots=2, n_requests=4, prompt_len=32,
              gen=8, seed=0)
 # the training slice: granite-3-8b at its published width, depth cut to 2
@@ -2791,184 +2814,337 @@ def cnn_eval_losses(fam, specs, test, params, backend, device):
     return ce.cpu().numpy()
 
 
-def cnn_design_launches(steps):
+def cnn_design_launches(steps, per_forward=CNN_CONVS_PER_FORWARD):
     """K1 launches the design gives for rounds of ``steps`` local steps
-    (every client stepping) and one eval pass each: 21 stage convs a
-    forward; a step's backward adds dx and dw of each (the per-group
-    bias's gradient is a column sum, no launch); the eval pass is one
-    forward. The stem is ``F.conv2d``, one call a forward."""
-    return {"elastic_dense": sum(CNN_CONVS_PER_FORWARD * (3 * n + 1)
-                                 for n in steps),
+    (every client stepping) and one eval pass each: ``per_forward`` (21)
+    stage convs a forward; a step's backward adds dx and dw of each (the
+    per-group bias's gradient is a column sum, no launch); the eval pass
+    is one forward. The stem is ``F.conv2d``, one call a forward."""
+    return {"elastic_dense": sum(per_forward * (3 * n + 1) for n in steps),
             "F.conv2d": sum(n + 1 for n in steps)}
 
 
-class ReluDecisions:
-    """The CNN's ReLUs are discontinuous in their derivative: a
-    pre-activation within rounding noise of 0 takes the other side on
-    another path's rounding, and at the CNN slice's size such a flip moves
-    a client's gradient by up to ~1e-2 of its largest entry (a CPU
-    rehearsal against an fp64 forward found flips at |v| ≈ 1e-6 in the
-    reference's fp32 path and the port's alike). As the MoE slices replay
-    routes, the CNN slice replays ReLU decisions: ``record`` keeps every
-    ``F.relu`` call's ``x > 0`` mask in call order; ``count`` lets a path
-    take its own decisions and counts those that differ from the record
-    (while the shapes follow it); ``replay`` makes each call take the
-    recorded decision (``where(mask, x, 0)``: value and gradient), so two
-    paths compute the same function and are held to the fp32
-    tolerances."""
+def relu_decisions():
+    """The CNN's ReLU record / count / replay (``ReluDecisions`` of
+    ``tests/relu_replay.py``, the test support the CPU session tests use
+    too); a record that does not fit raises PhaseError."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from relu_replay import ReluDecisions
+    return ReluDecisions(error=PhaseError)
+
+
+def named_leaves(tree, prefix=""):
+    """(path, tensor) of every leaf of a parameter tree, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}.{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{prefix}[{i}]")
+    elif tree is not None:
+        yield prefix, tree
+
+
+def first_difference(a, b):
+    """None where two parameter trees are equal to the bit, else (the
+    first leaf that differs, its max |a − b|, the number of leaves that
+    differ)."""
+    import torch
+    diff = [(n, float((x - y).abs().max())) for (n, x), (_, y) in
+            zip(named_leaves(a), named_leaves(b)) if not torch.equal(x, y)]
+    return (diff[0][0], diff[0][1], len(diff)) if diff else None
+
+
+def move_ratio(got, want, init):
+    """(max |got − want| over max |want − init|, the two maxima)."""
+    moved = max(float((w - i).abs().max()) for w, i in zip(_leaves(want),
+                                                          _leaves(init)))
+    diff = max(float((g - w).abs().max()) for g, w in zip(_leaves(got),
+                                                         _leaves(want)))
+    return diff / moved, diff, moved
+
+
+class CnnCounters:
+    """K1's launches (by plan variant) and the library convolutions
+    (``F.conv2d`` calls) of one path's run: every count set to 0 on entry
+    and read on exit."""
 
     def __init__(self):
         import torch.nn.functional as F
-        self._F, self._real = F, F.relu
-        self.masks, self.mode, self.pos = [], None, 0
-        self.calls, self._flips, self.decisions = 0, [], 0
-
-    def __call__(self, mode):
-        self.mode, self.pos = mode, 0
-        return self
+        from repro_torch.kernels.elastic_matmul import elastic_dense
+        self._F, self._k1, self._real = F, elastic_dense, F.conv2d
 
     def __enter__(self):
-        self._F.relu = self._relu
+        reset_launches((self._k1,))
+        self.conv_calls = 0
+
+        def counting(*a, **k):
+            self.conv_calls += 1
+            return self._real(*a, **k)
+        self._F.conv2d = counting
         return self
 
     def __exit__(self, *exc):
-        self._F.relu = self._real
-        self.mode = None
+        self._F.conv2d = self._real
+        self.launches = self._k1.launches
+        self.by_variant = dict(self._k1.launches_by_variant)
 
-    def _relu(self, t, inplace=False):
-        import torch
-        self.calls += 1
-        if self.mode == "record":
-            self.masks.append(t.detach() > 0)
-            return self._real(t)
-        if self.pos >= len(self.masks):
-            self.mode = "off"              # past the record: own decisions
-        if self.mode in (None, "off"):
-            return self._real(t)
-        m = self.masks[self.pos]
-        self.pos += 1
-        if m.shape != t.shape:
-            raise PhaseError(f"ReLU call {self.pos}: shape {tuple(t.shape)} "
-                             f"against the record's {tuple(m.shape)}")
-        if self.mode == "count":
-            self._flips.append(((t.detach() > 0) != m).sum())
-            self.decisions += m.numel()
-            return self._real(t)
-        return torch.where(m, t, torch.zeros((), dtype=t.dtype,
-                                             device=t.device))
 
-    def flips(self, per=None):
-        """Decisions the counted path took the other way: in all, or in
-        consecutive groups of ``per`` calls (one forward each)."""
-        counts = [int(f) for f in self._flips]
-        if per is None:
-            return sum(counts)
-        return [sum(counts[i:i + per]) for i in range(0, len(counts), per)]
+class KeptTrained:
+    """While entered, keeps a copy of the client-stacked parameters every
+    ``BatchedRoundEngine.eval_cohort`` call is given: IL's trained
+    clients (``independent_learning`` evaluates them once, at the end)."""
+
+    def __init__(self):
+        from repro_torch.fl.engine import BatchedRoundEngine
+        self._cls, self._real = BatchedRoundEngine, \
+            BatchedRoundEngine.eval_cohort
+        self.trees = []
+
+    def __enter__(self):
+        from repro_torch.optim.optimizers import tree_map
+        real, trees = self._real, self.trees
+
+        def keep(engine, params_stacked, *a, **k):
+            trees.append(tree_map(lambda t: t.detach().clone(),
+                                  params_stacked))
+            return real(engine, params_stacked, *a, **k)
+        self._cls.eval_cohort = keep
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.eval_cohort = self._real
+
+
+def cnn_seq_conv_calls(cfg, specs, n_steps):
+    """``F.conv2d`` calls of a sequential round: each client's submodel
+    forward (the stem, each stage's down conv and two a kept block) once
+    a local step and once in its eval pass; the backward calls none."""
+    return sum((n + 1) * (1 + sum(1 + 2 * d for d in s.depth))
+               for s, n in zip(specs, n_steps))
 
 
 def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
-              seed):
-    """``rounds`` sync CFL rounds of ``CFLSession.from_synthetic(PAPER_CNN,
-    ...)`` on the kernel path (``elastic_kernels=True``) and on the dense
-    masked path, each after an untimed warm-up round of a separate session
-    with the same seeds; then the dense path once more, taking the kernel
-    path's ReLU decisions (``ReluDecisions``). Returns (K1's launches in the
-    kernel run, stats). Raises PhaseError unless K1 launched as the design
-    says, every launch through a tensor-core variant, and no library
-    convolution ran beside the stem's; and, between the kernel path and
-    the dense path on the kernel path's ReLU decisions: the round-0 specs
-    are identical, the round-0 parameters agree within 1e-3 of how far the
-    round moved them, each client's test CE under them within
-    ``TRAIN_LOSS_RTOL`` relative and each accuracy within one test sample,
-    and the specs of a later round are identical wherever every earlier
-    round's accuracies were (elsewhere the client and the difference are
-    printed and the rounds held to finiteness). The free-running dense
-    path is timed, and its round-0 ReLU decisions that differ from the
-    kernel path's are counted, with its differences printed, not held."""
+              seed, cfg=None):
+    """The paper's three algorithms on ``cfg`` (``PAPER_CNN``): sessions of
+    ``CFLSession.from_synthetic(cfg, ...)`` with ``algorithm`` "cfl",
+    "fedavg" and "il", each on the kernel path (``elastic_kernels=True``)
+    and on the dense masked path, and the CFL session on the sequential
+    trainer (``batched_rounds=False``).
+
+    Timing (each run free-running, with neither a ReLU record nor a
+    count): cfl and fedavg ``rounds`` timed rounds of a fresh session after
+    an untimed warm-up round of another; il one timed call of ``rounds``
+    rounds' budget; the sequential path one timed round after a warm-up
+    round. The counts of K1's launches and of the library convolutions are
+    set to 0 just before each timed run and read just after it: K1 must
+    launch 21 × (3 · steps + 1) a round on cfl / fedavg, 21 × 3 · steps ·
+    rounds + 21 on il, every launch through a tensor-core variant, and
+    ``F.conv2d`` only for the stem; the sequential path launches no K1 and
+    calls ``F.conv2d`` once a conv of each submodel forward.
+
+    The held comparisons run in separate, untimed sessions with the same
+    seeds: the kernel path records its ReLU decisions
+    (``relu_replay.ReluDecisions``), the dense path replays them. cfl (3
+    rounds): round-0 specs identical, round-0 parameters within 1e-3 of
+    the round's movement, each client's test CE within ``TRAIN_LOSS_RTOL``,
+    accuracies within one test sample, later specs identical while the
+    earlier accuracies are; fedavg (1 round): the same parameter, CE and
+    accuracy checks; il (the timed budget): the dense path replays the
+    decisions in fp32 and in fp64, the witness of what they give without
+    fp32 rounding; the kernel path's trained clients within
+    ``IL_PARAM_TOL`` of their movement of the witness's and its
+    accuracies within one test sample of the witness's (the fp32 dense
+    path's drift from the witness printed). The sequential
+    trainer is held to the batched dense engine on each client's first
+    local step (a one-batch, one-epoch ``run_fl_round`` on both, the
+    round-0 specs, seeds and parameters) in fp64, within 1e-3 of the
+    step's movement and accuracies within one test sample (in fp32 a ReLU
+    flip on rounding noise can move a step by more: printed, not held).
+    Repeatability: the timed kernel runs' round-0 parameters of cfl and
+    fedavg equal the record runs' to the bit. Printed, not held: the
+    free-running dense path against the kernel path (ReLU decisions that
+    differ per forward, the parameter ratio), the sequential round against
+    the batched dense round, and Table II (CFL / FedAvg / IL). Returns
+    ({path: K1 launches}, stats)."""
+    import contextlib
+    import dataclasses
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs.paper_cnn import PAPER_CNN
-    from repro_torch.fl.engine import pack_cohort_data
+    from repro_torch.core.fairness import accuracy_fairness
+    from repro_torch.fl.baselines import independent_learning
+    from repro_torch.fl.engine import (BatchedRoundEngine,
+                                       SequentialFamilyTrainer,
+                                       n_stream_steps)
     from repro_torch.fl.server import CFLConfig
     from repro_torch.fl.session import CFLSession
-    from repro_torch.kernels.elastic_matmul import elastic_dense
     from repro_torch.optim.optimizers import tree_leaves, tree_map
 
+    cfg = PAPER_CNN if cfg is None else cfg
     cuda = device.type == "cuda"
+    relus = relu_decisions()
+    convs = 1 + sum(1 + 2 * n for _, n in cfg.stages)
+    k1_per_forward = convs - 1           # the stage convs; the stem is F's
+    per_forward = convs                  # one F.relu after each conv's norm
 
-    def session(ek):
+    def snapshot(params):
+        return tree_map(lambda a: a.clone(), params)
+
+    def make(algorithm, ek, batched=True):
         t = time.perf_counter()
         sess = CFLSession.from_synthetic(
-            PAPER_CNN, kind=kind, n_workers=n_workers, n_samples=n_samples,
+            cfg, kind=kind, n_workers=n_workers, n_samples=n_samples,
             heterogeneity=heterogeneity, seed=seed, device=device,
+            algorithm=algorithm,
             fl_cfg=CFLConfig(n_workers=n_workers, elastic_kernels=ek,
-                             seed=seed))
+                             batched_rounds=batched, seed=seed))
         return sess, time.perf_counter() - t
 
-    real_conv = F.conv2d
-    conv_calls = [0]
-
-    def counting_conv(*a, **k):
-        conv_calls[0] += 1
-        return real_conv(*a, **k)
-
-    relus = ReluDecisions()
-
-    def run(ek, relu_mode=None, warm_up=True):
-        """``rounds`` timed rounds of a fresh session; ``relu_mode``: the
-        ReLU decisions' mode for round 0 (later rounds take their own
-        decisions, except under "replay", which runs through the record)."""
-        if warm_up:
-            warm, _ = session(ek)
-            warm.run(1)
-            del warm
-        sess, build_s = session(ek)
+    def timed(algorithm, ek, n, batched=True):
+        """An untimed warm-up round of its own session, then ``n`` timed
+        free-running rounds of a fresh one, counted."""
+        warm, _ = make(algorithm, ek, batched)
+        warm.run(1)
+        del warm
+        sess, build_s = make(algorithm, ek, batched)
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
-        reset_launches((elastic_dense,))
-        conv_calls[0] = 0
-        F.conv2d = counting_conv
         out = []
-        try:
-            with relus(relu_mode):
-                for r in range(rounds):
-                    if r == 1 and relu_mode == "count":
-                        relus.mode = "off"
-                    sync(device)
-                    t = time.perf_counter()
-                    rec = sess.server.run_round()
-                    sync(device)
-                    out.append(dict(rec=rec, seconds=time.perf_counter() - t,
-                                    params=tree_map(lambda a: a.clone(),
-                                                    sess.params) if r == 0
-                                    else None))
-        finally:
-            F.conv2d = real_conv
+        with CnnCounters() as count:
+            for r in range(n):
+                sync(device)
+                t = time.perf_counter()
+                rec = sess.server.run_round()
+                sync(device)
+                out.append(dict(rec=rec, seconds=time.perf_counter() - t,
+                                params=snapshot(sess.params) if r == 0
+                                else None))
         peak = torch.cuda.max_memory_allocated(device) if cuda else 0
         return sess, out, dict(build_s=build_s, peak=peak,
-                               launches=elastic_dense.launches,
-                               conv_calls=conv_calls[0])
+                               launches=count.launches,
+                               by_variant=count.by_variant,
+                               conv_calls=count.conv_calls)
+
+    def held(algorithm, ek, n, mode):
+        """``n`` untimed rounds of a fresh session under the ReLU record's
+        ``mode`` (a count covers round 0 only)."""
+        sess, _ = make(algorithm, ek)
+        out = []
+        with relus(mode):
+            for r in range(n):
+                if r == 1 and mode == "count":
+                    relus.mode = "off"
+                rec = sess.server.run_round()
+                out.append(dict(rec=rec, params=snapshot(sess.params)
+                                if r == 0 else None))
+        return sess, out
+
+    def il_call(ek, mode=None, kept=None):
+        """One IL call of ``rounds`` rounds' local budget on a fresh
+        session: timed and counted when free-running; ``kept`` keeps its
+        trained clients."""
+        sess, _ = make("il", ek)
+        with CnnCounters() as count, (relus(mode) if mode
+                                      else contextlib.nullcontext()), \
+                (kept or contextlib.nullcontext()):
+            sync(device)
+            t = time.perf_counter()
+            sess.run(rounds)
+            sync(device)
+        return sess, time.perf_counter() - t, count
+
+    def replayed_il():
+        """IL at the timed budget on one set of ReLU decisions: the kernel
+        path records them, the dense path replays them in fp32 and in fp64
+        (the witness: what those decisions give with fp32 rounding taken
+        out). Returns ({pair: ratio of the trained clients' difference to
+        their movement}, {pair: accuracy differences in test samples})."""
+        kept = KeptTrained()
+        il_r, _, _ = il_call(True, "record", kept)
+        il_p, _, _ = il_call(False, "replay", kept)
+        replayed = [relus.pos]
+
+        def wide(ds):
+            return [dict(d, x=d["x"].astype(np.float64)) for d in ds]
+        with relus("replay"), kept:
+            accs64 = independent_learning(
+                il_r.family, tree_map(lambda a: a.double(),
+                                      il_r._init_params),
+                il_r.clients, wide(il_r.client_data), wide(il_r.test_data),
+                rounds=rounds, fl_cfg=dataclasses.replace(
+                    il_r.fl, elastic_kernels=False), device=device)
+        replayed.append(relus.pos)
+        if replayed != [len(relus.masks)] * 2:
+            problems.append(f"il: the replays took {replayed} of "
+                            f"{len(relus.masks)} recorded ReLU calls")
+        relus.masks.clear()
+        paths = dict(zip(("kernel", "dense", "dense fp64"), kept.trees))
+        accs = {"kernel": il_r.il_accs, "dense": il_p.il_accs,
+                "dense fp64": accs64}
+        pairs = (("kernel", "dense"), ("kernel", "dense fp64"),
+                 ("dense", "dense fp64"))
+        ratios = {f"{a} - {b}": move_ratio(paths[a], paths[b],
+                                            il_r._init_params)[0]
+                  for a, b in pairs}
+        acc_diff = {f"{a} - {b}": [round((x - y) * n, 1) for x, y, n in
+                                   zip(accs[a], accs[b], n_test)]
+                    for a, b in pairs}
+        return ratios, acc_diff
+
+    problems = []
+
+    def check_launches(label, info, want_k1, want_conv):
+        tc = sum(info["by_variant"].get(v, 0) for v in ("tile", "skinny"))
+        print(f"  {label}: elastic_dense {info['launches']} launches "
+              f"(design {want_k1}), by variant {info['by_variant']}; "
+              f"F.conv2d {info['conv_calls']} calls (design {want_conv})")
+        if info["launches"] != want_k1:
+            problems.append(f"{label}: elastic_dense launched "
+                            f"{info['launches']} times, design {want_k1}")
+        if tc != info["launches"]:
+            problems.append(f"{label}: elastic_dense launches by variant "
+                            f"{info['by_variant']}: not all through the "
+                            f"tensor-core variants")
+        if info["conv_calls"] != want_conv:
+            problems.append(f"{label}: {info['conv_calls']} library "
+                            f"convolutions, design {want_conv}")
+
+    def repeat_check(label, a, b):
+        d = first_difference(a, b)
+        print(f"  {label}: round-0 parameters of the timed run and the "
+              f"record run " + ("equal to the bit" if d is None else
+                                f"DIFFER: first at {d[0]} by {d[1]:.3e} "
+                                f"({d[2]} leaves differ)"))
+        if d is not None:
+            problems.append(f"{label}: the kernel path does not repeat to "
+                            f"the bit (first at {d[0]})")
+        return d is None
+
+    def ce(sess, specs, params, backend, mode=None):
+        with relus(mode) if mode else contextlib.nullcontext():
+            return cnn_eval_losses(sess.family, specs, sess.test_data,
+                                   params, backend, device)
 
     t0 = time.perf_counter()
-    kern_sess, kern, kinfo = run(True, "record")
-    by_variant = {"elastic_dense": dict(elastic_dense.launches_by_variant)}
-    fam = kern_sess.family
+    # ---- CFL: timed free-running, then record / count / replay -----------
+    kern_sess, kern, kinfo = timed("cfl", True, rounds)
+    dense_sess, dense, dinfo = timed("cfl", False, rounds)
+    rec_sess, record = held("cfl", True, rounds, "record")
     recorded = len(relus.masks)
-    dense_sess, dense, dinfo = run(False, "count")
+    _, counted = held("cfl", False, 1, "count")
     flips, decisions = relus.flips(), relus.decisions
-    # one forward calls F.relu once for the stem, once a stage's down
-    # conv and twice a block
-    per_forward = 1 + sum(1 + 2 * n for _, n in PAPER_CNN.stages)
     flips_by_forward = relus.flips(per_forward)
-    _, replay, _ = run(False, "replay", warm_up=False)
+    _, replay = held("cfl", False, rounds, "replay")
     replayed = relus.pos
     relus.masks.clear()
-    phase_s = time.perf_counter() - t0
+    fam = kern_sess.family
     clients = kern_sess.clients
     n_test = [len(d["y"]) for d in kern_sess.test_data]
     n_params = sum(t.numel() for t in tree_leaves(kern_sess.params))
-    print(f"  {PAPER_CNN.name}: {n_params / 1e6:.3f} M params fp32, "
+    print(f"  {cfg.name}: {n_params / 1e6:.3f} M params fp32, "
           f"{n_workers} clients ({kind}, {heterogeneity}: qualities "
           f"{[c.quality for c in clients]}, devices "
           f"{[c.device for c in clients]}), train / test samples "
@@ -2976,27 +3152,12 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
           f"{CNN_BATCH}; session build (population + LUT + init) "
           f"{kinfo['build_s']:.2f} s, LUT {len(kern_sess.server.latency)} "
           f"entries built in {kern_sess.server.lut_seconds:.3f} s (host)")
-    problems = []
     steps = [max(o["rec"]["n_steps"]) for o in kern]
-    want = cnn_design_launches(steps)
-    launches = {"elastic_dense": kinfo["launches"]}
-    print(f"  elastic_dense: {kinfo['launches']} launches (design: "
-          f"{want['elastic_dense']}); F.conv2d calls on the kernel path "
-          f"{kinfo['conv_calls']} (design: {want['F.conv2d']}, the stem's)")
-    if kinfo["launches"] != want["elastic_dense"]:
-        problems.append(f"elastic_dense launched {kinfo['launches']} times, "
-                        f"design {want['elastic_dense']}")
-    if kinfo["conv_calls"] != want["F.conv2d"]:
-        problems.append(f"{kinfo['conv_calls']} library convolutions on "
-                        f"the kernel path, design {want['F.conv2d']} (the "
-                        f"stem's)")
-    print(f"  elastic_dense launches by variant: "
-          f"{by_variant['elastic_dense']}")
-    if sum(by_variant["elastic_dense"][v] for v in ("tile", "skinny")) \
-            != kinfo["launches"]:
-        problems.append(f"elastic_dense launches by variant "
-                        f"{by_variant['elastic_dense']}: not all through the "
-                        f"tensor-core variants")
+    want = cnn_design_launches(steps, k1_per_forward)
+    check_launches("cfl, kernel path", kinfo, want["elastic_dense"],
+                   want["F.conv2d"])
+    cfl_repeat = repeat_check("cfl, kernel path", kern[0]["params"],
+                              record[0]["params"])
     print(f"  ReLU decisions: {recorded} F.relu calls recorded on the kernel "
           f"path ({rounds} rounds), {replayed} replayed by the dense path; "
           f"in round 0 the free-running dense path takes {flips} of "
@@ -3008,48 +3169,48 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
                         f"ReLU calls")
     per_round = []
     equal_so_far = True
-    for r, (a, b, c) in enumerate(zip(kern, dense, replay)):
-        ra, rb, rc = a["rec"], b["rec"], c["rec"]
+    for r, (a, b, c, d) in enumerate(zip(kern, dense, record, replay)):
+        ra, rb, rc, rd = a["rec"], b["rec"], c["rec"], d["rec"]
         hs = ra["host_seconds"]
         images = sum(ra["n_steps"]) * CNN_BATCH
-        same_specs = ra["specs"] == rc["specs"]
-        acc_diff = [x - y for x, y in zip(ra["accs"], rc["accs"])]
+        same_specs = rc["specs"] == rd["specs"]
+        acc_diff = [x - y for x, y in zip(rc["accs"], rd["accs"])]
         free_diff = [x - y for x, y in zip(ra["accs"], rb["accs"])]
-        print(f"  round {r}: kernel path {a['seconds']:.3f} s "
+        print(f"  cfl round {r}: kernel path {a['seconds']:.3f} s "
               f"({images / a['seconds']:.0f} train images/s), dense path "
-              f"{b['seconds']:.3f} s ({images / b['seconds']:.0f} images/s);"
-              f" host s (kernel path) "
+              f"{b['seconds']:.3f} s ({images / b['seconds']:.0f} images/s)"
+              f", both free-running; host s (kernel path) "
               f"{json.dumps({k: round(v, 4) for k, v in hs.items()})}"
               f"; predictor MAE {ra['predictor_mae']:.4f}; fairness mean / "
               f"min / std {ra['fairness']['mean']:.4f} / "
               f"{ra['fairness']['min']:.4f} / {ra['fairness']['std']:.4f} "
               f"(dense {rb['fairness']['mean']:.4f} / "
-              f"{rb['fairness']['min']:.4f} / {rb['fairness']['std']:.4f}, "
-              f"dense on the kernel path's ReLUs "
-              f"{rc['fairness']['mean']:.4f} / {rc['fairness']['min']:.4f} "
-              f"/ {rc['fairness']['std']:.4f}); specs "
-              f"{'identical' if same_specs else 'DIFFER'} {ra['specs']} "
-              f"(free-running dense: "
+              f"{rb['fairness']['min']:.4f} / {rb['fairness']['std']:.4f}); "
+              f"record / replay specs "
+              f"{'identical' if same_specs else 'DIFFER'} {rc['specs']} "
+              f"(free-running: "
               f"{'identical' if ra['specs'] == rb['specs'] else 'differ'})")
         if r == 0 or equal_so_far:
             if not same_specs:
-                problems.append(f"round {r}: the paths' specs differ "
-                                f"({ra['specs']} / {rc['specs']})")
+                problems.append(f"cfl round {r}: the paths' specs differ "
+                                f"({rc['specs']} / {rd['specs']})")
         else:
-            print(f"  round {r}: specs not held (an earlier round's "
+            print(f"  cfl round {r}: specs not held (an earlier round's "
                   f"accuracies differed), only finiteness")
-        for k, (d, fd, n) in enumerate(zip(acc_diff, free_diff, n_test)):
-            if d != 0.0 or fd != 0.0:
-                print(f"  round {r}: client {k} accuracy kernel - dense "
+        for k, (dd, fd, n) in enumerate(zip(acc_diff, free_diff, n_test)):
+            if dd != 0.0 or fd != 0.0:
+                print(f"  cfl round {r}: client {k} accuracy kernel - dense "
                       f"{fd * n:+.1f} test samples (free-running), "
-                      f"{d * n:+.1f} (the kernel path's ReLUs)")
-        if r == 0 and max(abs(d) * n for d, n in zip(acc_diff, n_test)) \
+                      f"{dd * n:+.1f} (the kernel path's ReLUs)")
+        if r == 0 and max(abs(x) * n for x, n in zip(acc_diff, n_test)) \
                 > 1.0 + 1e-4:
-            problems.append(f"round 0: an accuracy differs by more than one "
-                            f"test sample: {acc_diff}")
-        for name, rec in (("kernel", ra), ("dense", rb), ("replayed", rc)):
+            problems.append(f"cfl round 0: an accuracy differs by more than "
+                            f"one test sample: {acc_diff}")
+        for name, rec in (("kernel", ra), ("dense", rb), ("record", rc),
+                          ("replay", rd)):
             if not np.isfinite(rec["accs"]).all():
-                problems.append(f"round {r}: non-finite accuracy ({name})")
+                problems.append(f"cfl round {r}: non-finite accuracy "
+                                f"({name})")
         equal_so_far &= acc_diff == [0.0] * len(acc_diff)
         per_round.append(dict(
             seconds=a["seconds"], dense_seconds=b["seconds"],
@@ -3061,89 +3222,374 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
             dense_predictor_mae=rb["predictor_mae"],
             fairness=ra["fairness"], dense_fairness=rb["fairness"],
             accs=ra["accs"], dense_accs=rb["accs"],
-            replayed_accs=rc["accs"], specs=ra["specs"],
-            specs_identical=same_specs,
+            record_accs=rc["accs"], replayed_accs=rd["accs"],
+            specs=ra["specs"], specs_identical=same_specs,
             free_specs_identical=ra["specs"] == rb["specs"]))
     for name, s in (("kernel", kern_sess), ("dense", dense_sess)):
         if not all(bool(torch.isfinite(t).all())
                    for t in tree_leaves(s.params)):
-            problems.append(f"non-finite parameters on the {name} path")
+            problems.append(f"cfl: non-finite parameters on the {name} "
+                            f"path")
     init = fam.init_params(seed=seed, device=device)
-    moved = max(float((y - z).abs().max()) for y, z in zip(
-        tree_leaves(replay[0]["params"]), tree_leaves(init)))
     ratios = {}
-    for name, other in (("dense", dense), ("dense, kernel ReLUs", replay)):
-        diff = max(float((x - y).abs().max()) for x, y in zip(
-            tree_leaves(kern[0]["params"]), tree_leaves(other[0]["params"])))
-        ratios[name] = diff / moved
-        held = other is replay
-        print(f"  round-0 parameters: max|kernel - {name}| {diff:.3e}, "
-              f"max|dense - initial| {moved:.3e}, ratio {diff / moved:.3e} "
-              + ("(tol 1e-3)" if held else "(not held: ReLUs differ)"))
-        if held and not diff <= 1e-3 * moved:
-            problems.append(f"round-0 parameters differ by {diff:.3e} > 1e-3"
-                            f" x {moved:.3e}")
-    specs0 = cnn_specs(kern[0]["rec"]["specs"])
-    with relus("record"):
-        ce_k = cnn_eval_losses(fam, specs0, kern_sess.test_data,
-                               kern[0]["params"], "auto", device)
-    loss = {"kernel": ce_k}
-    with relus("replay"):
-        loss["dense, kernel ReLUs"] = cnn_eval_losses(
-            fam, specs0, kern_sess.test_data, replay[0]["params"], None,
-            device)
+    for name, got, ref, is_held in (
+            ("dense (free-running)", dense[0]["params"], kern[0]["params"],
+             False),
+            ("dense on the kernel path's ReLUs", replay[0]["params"],
+             record[0]["params"], True)):
+        ratio, diff, moved = move_ratio(got, ref, init)
+        ratios[name] = ratio
+        print(f"  cfl round-0 parameters: max|kernel - {name}| {diff:.3e}, "
+              f"max|kernel - initial| {moved:.3e}, ratio {ratio:.3e} "
+              + ("(tol 1e-3)" if is_held else "(not held: ReLUs differ)"))
+        if is_held and not ratio <= 1e-3:
+            problems.append(f"cfl round-0 parameters differ by {ratio:.3e} "
+                            f"of the movement > 1e-3")
+    specs0 = cnn_specs(record[0]["rec"]["specs"])
+    ce_k = ce(rec_sess, specs0, record[0]["params"], "auto", "record")
+    loss = {"kernel": ce_k,
+            "dense, kernel ReLUs": ce(rec_sess, specs0, replay[0]["params"],
+                                      None, "replay")}
     relus.masks.clear()
-    loss["dense"] = cnn_eval_losses(fam, specs0, kern_sess.test_data,
-                                    dense[0]["params"], None, device)
+    loss["dense"] = ce(rec_sess, specs0, dense[0]["params"], None)
     worst_loss = {k: float(np.max(np.abs(ce_k - v) / np.abs(v)))
                   for k, v in loss.items() if k != "kernel"}
-    print(f"  round-0 test CE per client: "
+    print(f"  cfl round-0 test CE per client: "
           + "; ".join(f"{k} {np.round(v, 6).tolist()}"
                       for k, v in loss.items())
           + f"; max relative difference {json.dumps(worst_loss)} (tol "
           f"{TRAIN_LOSS_RTOL:g} on the kernel path's ReLUs)")
     if not (np.isfinite(ce_k).all() and worst_loss["dense, kernel ReLUs"]
             <= TRAIN_LOSS_RTOL):
-        problems.append(f"round-0 test CE differs by "
+        problems.append(f"cfl round-0 test CE differs by "
                         f"{worst_loss['dense, kernel ReLUs']:.3e}")
-    print(f"  peak device memory (kernel-path rounds, the ReLU record "
-          f"included) {kinfo['peak'] / 2**30:.3f} GiB, (dense) "
-          f"{dinfo['peak'] / 2**30:.3f} GiB; phase {phase_s:.1f} s")
+    print(f"  peak device memory (cfl timed rounds) kernel path "
+          f"{kinfo['peak'] / 2**30:.3f} GiB, dense "
+          f"{dinfo['peak'] / 2**30:.3f} GiB")
+    cfl_s = time.perf_counter() - t0
+
+    # ---- FedAvg ----------------------------------------------------------
+    t1 = time.perf_counter()
+    fk_sess, fkern, fkinfo = timed("fedavg", True, rounds)
+    fd_sess, fdense, fdinfo = timed("fedavg", False, rounds)
+    frec_sess, frecord = held("fedavg", True, 1, "record")
+    _, freplay = held("fedavg", False, 1, "replay")
+    freplayed, frecorded = relus.pos, len(relus.masks)
+    relus.masks.clear()
+    fsteps = [max(o["rec"]["n_steps"]) for o in fkern]
+    fwant = cnn_design_launches(fsteps, k1_per_forward)
+    check_launches("fedavg, kernel path", fkinfo, fwant["elastic_dense"],
+                   fwant["F.conv2d"])
+    fed_repeat = repeat_check("fedavg, kernel path", fkern[0]["params"],
+                              frecord[0]["params"])
+    if freplayed != frecorded:
+        problems.append(f"fedavg: the replay took {freplayed} of "
+                        f"{frecorded} recorded ReLU calls")
+    fratio, fdiff, fmoved = move_ratio(freplay[0]["params"],
+                                       frecord[0]["params"], init)
+    ffree, _, _ = move_ratio(fdense[0]["params"], fkern[0]["params"], init)
+    full = [fam.full_spec()] * n_workers
+    fce_k = ce(frec_sess, full, frecord[0]["params"], "auto", "record")
+    fce_d = ce(frec_sess, full, freplay[0]["params"], None, "replay")
+    relus.masks.clear()
+    fce = float(np.max(np.abs(fce_k - fce_d) / np.abs(fce_d)))
+    facc = [x - y for x, y in zip(frecord[0]["rec"]["accs"],
+                                  freplay[0]["rec"]["accs"])]
+    for r, (a, b) in enumerate(zip(fkern, fdense)):
+        images = sum(a["rec"]["n_steps"]) * CNN_BATCH
+        print(f"  fedavg round {r}: kernel path {a['seconds']:.3f} s "
+              f"({images / a['seconds']:.0f} train images/s), dense path "
+              f"{b['seconds']:.3f} s ({images / b['seconds']:.0f} images/s)"
+              f"; accuracy mean / min {a['rec']['fairness']['mean']:.4f} / "
+              f"{a['rec']['fairness']['min']:.4f} (dense "
+              f"{b['rec']['fairness']['mean']:.4f} / "
+              f"{b['rec']['fairness']['min']:.4f}); simulated round "
+              f"{a['rec']['timing']['round_time']:.3f} s")
+    print(f"  fedavg round-0 parameters: max|kernel - dense on the kernel "
+          f"path's ReLUs| {fdiff:.3e}, movement {fmoved:.3e}, ratio "
+          f"{fratio:.3e} (tol 1e-3); free-running ratio {ffree:.3e} (not "
+          f"held); test CE kernel {np.round(fce_k, 6).tolist()}, max "
+          f"relative difference {fce:.3e} (tol {TRAIN_LOSS_RTOL:g}); "
+          f"accuracy differences "
+          f"{[round(x * n, 1) for x, n in zip(facc, n_test)]} test "
+          f"samples")
+    if not fratio <= 1e-3:
+        problems.append(f"fedavg round-0 parameters differ by {fratio:.3e} "
+                        f"of the movement > 1e-3")
+    if not (np.isfinite(fce_k).all() and fce <= TRAIN_LOSS_RTOL):
+        problems.append(f"fedavg round-0 test CE differs by {fce:.3e}")
+    if max(abs(x) * n for x, n in zip(facc, n_test)) > 1.0 + 1e-4:
+        problems.append(f"fedavg round 0: an accuracy differs by more than "
+                        f"one test sample: {facc}")
+    fed_s = time.perf_counter() - t1
+
+    # ---- IL --------------------------------------------------------------
+    t1 = time.perf_counter()
+    il_k, il_k_s, il_count = il_call(True)
+    il_d, il_d_s, _ = il_call(False)
+    il_ratios, il_acc = replayed_il()
+    il_steps = max(n_stream_steps(c.n_samples, CNN_BATCH, 1)
+                   for c in clients)
+    il_want = k1_per_forward * (3 * il_steps * rounds + 1)
+    check_launches("il, kernel path", dict(
+        launches=il_count.launches, by_variant=il_count.by_variant,
+        conv_calls=il_count.conv_calls), il_want, il_steps * rounds + 1)
+    il_images = sum(n_stream_steps(c.n_samples, CNN_BATCH, 1)
+                    for c in clients) * CNN_BATCH * rounds
+    print(f"  il ({rounds} rounds' budget, {il_steps * rounds} local "
+          f"steps): kernel path {il_k_s:.3f} s ({il_images / il_k_s:.0f} "
+          f"train images/s), dense path {il_d_s:.3f} s "
+          f"({il_images / il_d_s:.0f} images/s), both free-running; "
+          f"accuracies kernel {np.round(il_k.il_accs, 4).tolist()}, dense "
+          f"{np.round(il_d.il_accs, 4).tolist()}")
+    print(f"  il on the kernel path's ReLU decisions, trained clients: max "
+          f"difference over movement "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in il_ratios.items()})
+          + f" (kernel - dense fp64 tol {IL_PARAM_TOL:g}); accuracy "
+          f"differences in test samples {json.dumps(il_acc)} (kernel - "
+          f"dense fp64 tol 1)")
+    if not il_ratios["kernel - dense fp64"] <= IL_PARAM_TOL:
+        problems.append(f"il: on the kernel path's ReLUs the trained "
+                        f"clients differ from the fp64 dense path's by "
+                        f"{il_ratios['kernel - dense fp64']:.3e} of their "
+                        f"movement > {IL_PARAM_TOL:g}")
+    if max(abs(x) for x in il_acc["kernel - dense fp64"]) > 1.0 + 1e-4:
+        problems.append(f"il: on the kernel path's ReLUs an accuracy "
+                        f"differs from the fp64 dense path's by more than "
+                        f"one test sample: {il_acc['kernel - dense fp64']}")
+    if not (np.isfinite(il_k.il_accs).all()
+            and np.isfinite(il_d.il_accs).all()):
+        problems.append("il: non-finite accuracy")
+    il_s = time.perf_counter() - t1
+
+    # ---- the sequential trainer --------------------------------------------
+    t1 = time.perf_counter()
+    seq_sess, seq, sinfo = timed("cfl", False, 1, batched=False)
+    srec = seq[0]["rec"]
+    sspecs = cnn_specs(srec["specs"])
+    check_launches("cfl, sequential trainer", sinfo, 0, cnn_seq_conv_calls(
+        cfg, sspecs, srec["n_steps"]))
+    sfree, _, _ = move_ratio(seq[0]["params"], dense[0]["params"], init)
+    same0 = srec["specs"] == dense[0]["rec"]["specs"]
+    simages = sum(srec["n_steps"]) * CNN_BATCH
+    print(f"  cfl on the sequential trainer: round 0 {seq[0]['seconds']:.3f}"
+          f" s ({simages / seq[0]['seconds']:.0f} train images/s), "
+          f"free-running; specs "
+          f"{'identical' if same0 else 'DIFFER'} to the batched round's; "
+          f"round-0 parameters against the batched "
+          f"dense round's: ratio {sfree:.3e} of the movement (not held: "
+          f"ReLU decisions); accuracies "
+          f"{np.round(srec['accs'], 4).tolist()} (batched dense "
+          f"{np.round(dense[0]['rec']['accs'], 4).tolist()})")
+    if not same0:
+        problems.append("sequential: round-0 specs differ from the batched "
+                        "round's")
+    first_steps = {}
+    for dtype in (torch.float64, torch.float32):
+        wide = np.float64 if dtype == torch.float64 else np.float32
+        one = [dict(d, x=d["x"][:CNN_BATCH].astype(wide),
+                    y=d["y"][:CNN_BATCH]) for d in seq_sess.client_data]
+        tests = [dict(d, x=d["x"].astype(wide)) for d in seq_sess.test_data]
+        p0 = tree_map(lambda a: a.to(dtype), init)
+        kw = dict(batch_size=CNN_BATCH, epochs=1,
+                  seeds=[seq_sess.server._client_seed(k)
+                         for k in range(n_workers)])
+        sizes = [CNN_BATCH] * n_workers
+        with CnnCounters():
+            got, accs_s, _ = SequentialFamilyTrainer(
+                cfg, lr=seq_sess.fl.lr, momentum=seq_sess.fl.momentum
+            ).run_fl_round(p0, sspecs, one, tests, sizes, **kw)
+            want_p, accs_b, _ = BatchedRoundEngine(
+                cfg, lr=seq_sess.fl.lr, momentum=seq_sess.fl.momentum,
+                backend=None, device=device).run_fl_round(
+                    p0, sspecs, one, tests, sizes, **kw)
+        ratio, diff, moved = move_ratio(got, want_p, p0)
+        worst = max(abs(x - y) * n for x, y, n in zip(accs_s, accs_b,
+                                                       n_test))
+        first_steps[str(dtype)] = dict(ratio=ratio, diff=diff, moved=moved,
+                                       acc_diff_samples=worst)
+        is_held = dtype == torch.float64
+        print(f"  sequential vs batched dense, each client's first local "
+              f"step ({dtype}): max diff {diff:.3e}, movement {moved:.3e}, "
+              f"ratio {ratio:.3e} "
+              + ("(tol 1e-3)" if is_held else "(not held: a ReLU on "
+                 "rounding noise can flip)")
+              + f"; accuracies differ by up to {worst:.1f} test samples"
+              + (" (tol 1)" if is_held else ""))
+        if is_held and not (ratio <= 1e-3 and worst <= 1.0 + 1e-4):
+            problems.append(f"sequential: first local steps differ from the "
+                            f"batched engine's by {ratio:.3e} of the "
+                            f"movement, accuracies by {worst:.1f} samples")
+    seq_s = time.perf_counter() - t1
+
+    # ---- Table II ----------------------------------------------------------
+    def med(xs):
+        return float(np.median(xs))
+
+    def summary(accs):
+        f = accuracy_fairness(accs)
+        return {k: f[k] for k in ("mean", "min", "std", "jain_index")}
+
+    table = {}
+    for name, k_runs, d_runs in (("CFL", kern, dense),
+                                 ("FedAvg", fkern, fdense)):
+        images = [sum(o["rec"]["n_steps"]) * CNN_BATCH for o in k_runs]
+        table[name] = dict(
+            round_s=med([o["seconds"] for o in k_runs]),
+            dense_round_s=med([o["seconds"] for o in d_runs]),
+            images_per_s=sum(images) / sum(o["seconds"] for o in k_runs),
+            dense_images_per_s=sum(images) / sum(o["seconds"]
+                                                 for o in d_runs),
+            accs=summary(k_runs[-1]["rec"]["accs"]),
+            dense_accs=summary(d_runs[-1]["rec"]["accs"]),
+            simulated_round_s=med([o["rec"]["timing"]["round_time"]
+                                   for o in k_runs]))
+    table["IL"] = dict(
+        round_s=il_k_s / rounds, dense_round_s=il_d_s / rounds,
+        images_per_s=il_images / il_k_s,
+        dense_images_per_s=il_images / il_d_s,
+        accs=summary(il_k.il_accs), dense_accs=summary(il_d.il_accs),
+        simulated_round_s=None)
+    print(f"  Table II ({rounds} rounds, {n_workers} clients; "
+          f"round s: median of the timed rounds, IL: its call / rounds; "
+          f"accuracies after the last round; dense path in brackets):")
+    print("  algorithm | round s | train images/s | accuracy mean / min / "
+          "std / Jain | simulated round s")
+    def accs(a):
+        return (f"{a['mean']:.4f} / {a['min']:.4f} / {a['std']:.4f} / "
+                f"{a['jain_index']:.4f}")
+    for name, row in table.items():
+        sim = "—" if row["simulated_round_s"] is None \
+            else f"{row['simulated_round_s']:.3f}"
+        print(f"  {name} | {row['round_s']:.3f} [{row['dense_round_s']:.3f}]"
+              f" | {row['images_per_s']:.0f} "
+              f"[{row['dense_images_per_s']:.0f}] | {accs(row['accs'])} "
+              f"[{accs(row['dense_accs'])}] | {sim}")
+    phase_s = time.perf_counter() - t0
+    print(f"  phase {phase_s:.1f} s (cfl {cfl_s:.1f}, fedavg {fed_s:.1f}, "
+          f"il {il_s:.1f}, sequential {seq_s:.1f})")
+    launches = {"cnn_training": {"elastic_dense": kinfo["launches"]},
+                "cnn_fedavg": {"elastic_dense": fkinfo["launches"]},
+                "cnn_il": {"elastic_dense": il_count.launches},
+                "cnn_sequential": {"elastic_dense": sinfo["launches"]}}
     stats = {"rounds": per_round, "steps_per_round": steps,
              "launches_design": want,
-             "launches_by_variant": by_variant,
+             "launches_by_variant": {"elastic_dense": kinfo["by_variant"]},
              "library_conv_calls": kinfo["conv_calls"],
              "relu_calls": recorded, "relu_flips_round0": flips,
              "relu_decisions_round0": decisions,
              "relu_flips_round0_by_forward": flips_by_forward,
              "round0_param_diff_over_move": ratios,
-             "round0_max_param_move": moved,
              "round0_test_ce": {k: v.tolist() for k, v in loss.items()},
+             "repeat_bit_equal": {"cfl": cfl_repeat, "fedavg": fed_repeat},
+             "fedavg": dict(
+                 launches=fkinfo["launches"], launches_design=fwant,
+                 by_variant=fkinfo["by_variant"],
+                 conv_calls=fkinfo["conv_calls"],
+                 seconds=[o["seconds"] for o in fkern],
+                 dense_seconds=[o["seconds"] for o in fdense],
+                 round0_ratio=fratio, round0_free_ratio=ffree,
+                 round0_test_ce_rel=fce),
+             "il": dict(launches=il_count.launches, launches_design=il_want,
+                        by_variant=il_count.by_variant,
+                        seconds=il_k_s, dense_seconds=il_d_s,
+                        accs=il_k.il_accs, dense_accs=il_d.il_accs,
+                        replayed_param_ratios=il_ratios,
+                        replayed_acc_diff_samples=il_acc),
+             "sequential": dict(seconds=seq[0]["seconds"],
+                                conv_calls=sinfo["conv_calls"],
+                                round0_free_ratio=sfree,
+                                first_steps=first_steps),
+             "table_ii": table,
              "max_memory_allocated_gib": kinfo["peak"] / 2**30,
              "dense_max_memory_allocated_gib": dinfo["peak"] / 2**30,
              "session_build_s": kinfo["build_s"],
              "lut_build_s": kern_sess.server.lut_seconds,
-             "lut_entries": len(kern_sess.server.latency)}
+             "lut_entries": len(kern_sess.server.latency),
+             "phase_s": phase_s}
     if problems:
         raise PhaseError("; ".join(problems))
     if not cuda:
         return launches, stats
-    # one local step of the last round's cohort, on the kernel path
-    eng = kern_sess.server.engine
-    specs = cnn_specs(kern[-1]["rec"]["specs"])
+    stats["kernel_local_step"] = cnn_local_step(
+        device, kern_sess, cnn_specs(kern[-1]["rec"]["specs"]), fk_sess)
+    return launches, stats
+
+
+def cnn_local_step(device, sess, specs, fed_sess, turns=5):
+    """One local step of the kernel path's cohort (``specs``, the session's
+    parameters): wall ms and ``torch.profiler``'s device ms and idle share
+    with K1's share. Then what cuDNN's deterministic algorithms cost
+    (``resolve_device`` turns them on): with them off and on in turn,
+    ``turns`` times each, the step's wall ms, a round of ``fed_sess`` (a
+    FedAvg kernel-path session: every round the same work) in seconds,
+    and last the step's device ms (a finished profiler session slows the
+    launches after it); medians, and each setting's step run twice from
+    one state, bit-equal or the first leaf that differs."""
+    import numpy as np
+    import torch
+    from repro_torch.fl.engine import pack_cohort_data
+    from repro_torch.optim.optimizers import tree_map
+    eng, fam = sess.server.engine, sess.family
     G = len(specs)
-    params, opt_state = eng.local_state(eng.broadcast_params(
-        kern_sess.params, G))
+    theta0 = eng.broadcast_params(sess.params, G)
+    params, opt_state = eng.local_state(theta0)
     masks = fam.cohort_masks(specs, device)
-    xs, ys = pack_cohort_data(kern_sess.client_data)
+    xs, ys = pack_cohort_data(sess.client_data)
     x = torch.as_tensor(xs[:, :CNN_BATCH], device=device)
     y = torch.as_tensor(ys[:, :CNN_BATCH], device=device).long()
     sw = torch.ones((G, CNN_BATCH), device=device)
 
     def step():
         eng.local_step(params, opt_state, masks, x, sw, None, y)
-    wall = step_wall_ms(step, device)
-    busy, top, by_name = step_device_ms(step, device)
+
+    def fresh_step():
+        p, o = eng.local_state(theta0)
+        eng.local_step(p, o, masks, x, sw, None, y)
+        return tree_map(lambda t: t.detach(), p)
+
+    def fed_round():
+        sync(device)
+        t = time.perf_counter()
+        fed_sess.server.run_round()
+        sync(device)
+        return time.perf_counter() - t
+
+    def in_turns(runs, key, measure):
+        for _ in range(turns):
+            for flag in (False, True):
+                torch.backends.cudnn.deterministic = flag
+                runs[flag][key].append(measure())
+
+    runs = {flag: {"wall_ms": [], "fedavg_round_s": [], "device_busy_ms": []}
+            for flag in (False, True)}
+    try:
+        in_turns(runs, "wall_ms", lambda: step_wall_ms(step, device))
+        in_turns(runs, "fedavg_round_s", fed_round)
+        torch.backends.cudnn.deterministic = True
+        wall = step_wall_ms(step, device)
+        busy, top, by_name = step_device_ms(step, device)
+        in_turns(runs, "device_busy_ms",
+                 lambda: step_device_ms(step, device)[0])
+        det = {}
+        for flag in (False, True):
+            torch.backends.cudnn.deterministic = flag
+            d = first_difference(fresh_step(), fresh_step())
+            med = {k: float(np.median(v)) for k, v in runs[flag].items()}
+            det[str(flag)] = dict(
+                bit_equal=d is None,
+                first_difference=None if d is None else list(d),
+                median=med, turns=runs[flag])
+            print(f"  cudnn.deterministic={flag}: the step twice from one "
+                  f"state " + ("bit-equal" if d is None else
+                               f"DIFFERS: first at {d[0]} by {d[1]:.3e} "
+                               f"({d[2]} leaves)")
+                  + f"; medians of {turns} turns (off and on alternating) "
+                  f"{json.dumps(med)}; turns "
+                  + json.dumps({k: [round(x, 4) for x in v]
+                                for k, v in runs[flag].items()}))
+    finally:
+        torch.backends.cudnn.deterministic = True
     k1 = sum(v for k, v in by_name.items()
              if any(f in k for f in KERNEL_FUNCTIONS["elastic_dense"]))
     prof = {"wall_ms": wall, "device_busy_ms": busy,
@@ -3151,11 +3597,12 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
             else max(0.0, 1.0 - busy / wall),
             "elastic_dense_ms": k1,
             "elastic_dense_share": k1 / busy if busy else None,
-            "top_kernels_ms": top}
-    stats["kernel_local_step"] = prof
-    print(f"  kernel path local step ({G} clients x {CNN_BATCH} images): "
-          f"{json.dumps(prof)}")
-    return launches, stats
+            "top_kernels_ms": top, "cudnn_deterministic": det}
+    print(f"  kernel path local step ({G} clients x {CNN_BATCH} images, "
+          f"cuDNN deterministic): "
+          + json.dumps({k: v for k, v in prof.items()
+                        if k != "cudnn_deterministic"}))
+    return prof
 
 
 # ---------------------------------------------------------------------------
@@ -3287,7 +3734,8 @@ def main() -> int:
         ssm_launches, ssm_stats = phase_slice(device, scfg,
                                               **without_arch(SSM_SLICE))
         release()
-        print(f"== 14. slice: {PAPER_CNN.name} CFL session, full width and "
+        print(f"== 14. slice: {PAPER_CNN.name} sessions of CFL, FedAvg and "
+              f"IL (and CFL on the sequential trainer), full width and "
               f"depth, {CNN_SLICE['n_workers']} clients, "
               f"{CNN_SLICE['rounds']} sync rounds, fp32")
         cnn_launches, cnn_stats = phase_cnn(device, **CNN_SLICE)
@@ -3340,7 +3788,7 @@ def main() -> int:
     by_path = {"serving": launches, "training": train_launches,
                "moe_training": moe_train_launches, "moe_serving": moe_launches,
                "ssm_training": ssm_train_launches, "ssm_serving": ssm_launches,
-               "cnn_training": cnn_launches}
+               **cnn_launches}
     for name, err in (list(mworst.items()) + list(sworst.items())
                       + list(cworst.items())):
         worst[name] = max(worst.get(name, 0.0), err)

@@ -9,7 +9,10 @@ The port of the reference's ``core/elastic.py``, two families:
   Alg. 2; ``flops`` / ``param_bytes`` / ``lut_specs`` for the latency
   LUT); ``masked_loss`` / ``masked_metric`` over client-stacked
   parameters, on the dense masked path or through the ``conv`` op of
-  ``kernels.dispatch`` (K1 via ``kernels.elastic_conv``).
+  ``kernels.dispatch`` (K1 via ``kernels.elastic_conv``); and the
+  sequential path's submodel surface (``extract``, ``sub_ctx``,
+  ``sub_init_params``, ``sub_logits``, ``sub_loss``, ``sub_metric``,
+  ``pad_delta``).
 * ``TransformerElasticFamily`` for GQA parents, dense or MoE, and Mamba2
   SSM parents (its search surface is not ported yet): the spec algebra
 (``full_spec``, ``random_spec``), parent init, the forward masks of a
@@ -18,6 +21,8 @@ the batched round engine runs on —
 ``spec_masks`` (coverage + forward masks, LRU-cached by genes),
 ``cohort_masks`` (stacked over clients, on the device) and
 ``masked_loss`` / ``masked_metric`` over client-stacked parameters.
+Its sequential surface raises, naming ROADMAP A8 (the transformer
+extract / pad).
 
 Coverage is built per leaf from the spec's prefixes as broadcast factors
 (``core.submodel.coverage_factors``): the reference builds it by the
@@ -42,7 +47,8 @@ from repro_torch.core.submodel import (SubmodelSpec, TransformerSubSpec,
                                        channels_of, coverage_factors,
                                        extract_cnn, full_spec,
                                        full_transformer_spec, mask_cnn,
-                                       minimal_spec, sub_cnn_config,
+                                       minimal_spec, pad_cnn,
+                                       sub_cnn_config,
                                        transformer_attn_heads,
                                        transformer_experts,
                                        transformer_ff,
@@ -51,7 +57,7 @@ from repro_torch.data.loader import eval_batches
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import cnn
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import groupnorm
+from repro_torch.models.layers import at_least_fp32, groupnorm
 
 
 # ---------------------------------------------------------------------------
@@ -262,13 +268,42 @@ class TransformerElasticFamily:
         logits = T.forward(params, self.cfg, x, masks=fwd, kernels=kernels)
         return _weighted_mean(_lm_per_sample_acc(logits, x), valid)
 
+    # -- the sequential path's surface: needs the transformer extract / pad
+    def sub_ctx(self, spec):
+        raise _needs_extract("sub_ctx")
+
+    def sub_init_params(self, seed, spec, device=None):
+        raise _needs_extract("sub_init_params")
+
+    def sub_logits(self, sub_params, sub_ctx, x):
+        raise _needs_extract("sub_logits")
+
+    def extract(self, params, spec):
+        raise _needs_extract("extract")
+
+    def pad_delta(self, delta, parent_template, spec):
+        raise _needs_extract("pad_delta")
+
+    def sub_loss(self, sub_params, sub_ctx, x, y, sample_weight):
+        raise _needs_extract("sub_loss")
+
+    def sub_metric(self, sub_params, sub_ctx, x, y, valid):
+        raise _needs_extract("sub_metric")
+
+
+def _needs_extract(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"TransformerElasticFamily.{what} (the sequential trainer's "
+        "submodel surface) needs the transformer extract / pad, which is "
+        "not ported yet (ROADMAP A8)")
+
 
 # ===========================================================================
 # CNN family (the paper's parent)
 # ===========================================================================
 def _weighted_ce(logits, y, sample_weight):
     """Per-client weighted CE (G,) of logits (G, B, C), labels (G, B)."""
-    lp = F.log_softmax(logits.float(), dim=-1)
+    lp = F.log_softmax(at_least_fp32(logits), dim=-1)
     ce = -torch.gather(lp, -1, y.long()[..., None])[..., 0]
     return _weighted_mean(ce, sample_weight)
 
@@ -293,7 +328,8 @@ def _masked_groupnorm(x, A, eps=1e-5):
     re-zeroes them in the output (their mean and inverse std broadcast back
     as 0). Equal to ``models.layers.groupnorm`` on the active prefix."""
     h, w = x.shape[2:4]
-    x32 = x.float()
+    x32 = at_least_fp32(x)
+    A = A.to(x32.dtype)
     n = h * w * torch.clamp(A.sum(1), min=1.0)            # (G, q)
     mu_g = torch.einsum("gbhwc,gcq->gbq", x32, A) / n[:, None, :]
     mu_c = torch.einsum("gcq,gbq->gbc", A, mu_g)
@@ -458,16 +494,40 @@ class CNNElasticFamily:
         the caller asks for the CPU)."""
         return cnn.init_params(self.cfg, seed=seed, device=device)
 
+    # -- the sequential path's surface (extract -> train -> pad) -----------
+    def sub_ctx(self, spec) -> CNNConfig:
+        """The submodel's own config: the kept channels and blocks."""
+        return sub_cnn_config(self.cfg, spec)
+
+    def sub_init_params(self, seed: int, spec, device=None):
+        """Torch-seeded parameters of the submodel alone, as
+        ``init_params`` draws the parent's."""
+        return cnn.init_params(self.sub_ctx(spec), seed=seed, device=device)
+
     def extract(self, params, spec):
         """(sub_params, sub_cfg): the submodel's slices of the parent."""
         return (extract_cnn(params, self.cfg, spec),
                 sub_cnn_config(self.cfg, spec))
 
+    def pad_delta(self, delta, parent_template, spec):
+        """A submodel update zero-padded to the parent's shape (Alg. 3)."""
+        return pad_cnn(delta, parent_template, self.cfg, spec)
+
+    def sub_logits(self, sub_params, sub_cfg, x):
+        """Logits of an extracted (unstacked) submodel on x (B, H, W, C)."""
+        logits, _ = cnn.forward(sub_params, sub_cfg, x)
+        return logits
+
+    def sub_loss(self, sub_params, sub_cfg, x, y, sample_weight):
+        """Weighted CE of an extracted submodel over the (B,) batch."""
+        return _weighted_ce(self.sub_logits(sub_params, sub_cfg, x), y,
+                            sample_weight)
+
     def sub_metric(self, sub_params, sub_cfg, x, y, valid):
         """Accuracy of an extracted (unstacked) submodel on x (B, H, W, C)
         over the ``valid`` (B,) samples."""
-        logits, _ = cnn.forward(sub_params, sub_cfg, x)
-        return _weighted_acc(logits, y, valid)
+        return _weighted_acc(self.sub_logits(sub_params, sub_cfg, x), y,
+                             valid)
 
     def evaluate(self, params, data: Dict, batch_size: int = 128) -> float:
         """Full-parent accuracy on one dataset (the server's global

@@ -32,6 +32,11 @@ tensor ops, the A/B baseline. Per-client prefixes (channels, d_ff,
 experts, heads) reach the kernels as (G,) or (G·B,) int32 device tensors
 derived from the masks; the engine itself has no family logic.
 
+``SequentialFamilyTrainer`` is the reference's other engine: the
+per-client extract → train → pad loop on the plain forward (the CNN family
+only: the transformer family's extract / pad is ROADMAP A8), held to the
+same ``run_fl_round`` contract.
+
 Not ported yet, and raising NotImplementedError: partial participation
 (``participation=``, ROADMAP A12), the double-buffered prefetch ring
 (``enable_prefetch`` / ``prefetch_hook``, A14) and cohort sharding over
@@ -46,9 +51,12 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.aggregate import aggregate_apply
+from repro_torch.core.aggregate import (aggregate, aggregate_apply,
+                                       aggregate_coverage,
+                                       apply_server_update)
 from repro_torch.core.elastic import CohortMasks, family_for
 from repro_torch.data.loader import index_batches
+from repro_torch.fl.client import sgd_step
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.dispatch import kernel_dispatch
 from repro_torch.optim.optimizers import (apply_updates,
@@ -345,3 +353,80 @@ class BatchedRoundEngine:
         while len(cache) > bound:
             cache.popitem(last=False)
         return val
+
+
+# ---------------------------------------------------------------------------
+# the sequential reference: extract -> train -> pad, one client at a time
+# ---------------------------------------------------------------------------
+class SequentialFamilyTrainer:
+    """The per-client loop over an elastic family — the A/B reference the
+    batched engine is held to, and the sequential engine of
+    ``CFLConfig(batched_rounds=False)``: each client trains its extracted
+    submodel (``family.extract`` / ``sub_loss``, the plain ``models.cnn``
+    forward) one step at a time (``fl.client.sgd_step``), and its update
+    is padded back to parent coordinates (``pad_delta``). It runs on the
+    device of the parameters it is given."""
+
+    def __init__(self, cfg, *, lr: float, momentum: float,
+                 grad_clip: float = 5.0):
+        self.family = family_for(cfg)
+        self._opt = sgd(lr, momentum=momentum)
+        self._grad_clip = grad_clip
+
+    def client_update(self, params, spec, data, *, batch_size: int,
+                      epochs: int, seed: int):
+        """E local epochs on the extracted submodel; returns (delta,
+        trained_sub, sub_ctx, n_steps) with delta = ω_0 − ω_E in the
+        submodel's coordinates."""
+        sub0, ctx = self.family.extract(params, spec)
+        dev = tree_leaves(params)[0].device
+        p, state = sub0, self._opt.init(sub0)
+        n_steps = 0
+        for b_idx in index_batches(len(data["y"]), batch_size, seed=seed,
+                                   epochs=epochs):
+            x = torch.as_tensor(data["x"][b_idx], device=dev)
+            yb = torch.as_tensor(data["y"][b_idx], device=dev)
+            sw = torch.ones((len(b_idx),), device=dev)
+            p, state = sgd_step(
+                p, self._opt, state,
+                lambda q: self.family.sub_loss(q, ctx, x, yb, sw),
+                self._grad_clip)
+            n_steps += 1
+        delta = tree_map(lambda a, b: a - b, sub0, p)
+        return delta, p, ctx, n_steps
+
+    def run_fl_round(self, params, specs: Sequence,
+                     datasets: Sequence[Dict], test_datasets: Sequence[Dict],
+                     sizes: Sequence[float], *, batch_size: int, epochs: int,
+                     seeds: Sequence[int], coverage_norm: bool = False):
+        """The contract of ``BatchedRoundEngine.run_fl_round``: each
+        client's local epochs and local test pass, then ``aggregate`` (or
+        ``aggregate_coverage``) of the padded updates and
+        ``apply_server_update``. Returns (new_params, accs, n_steps)."""
+        dev = resolve_device(tree_leaves(params)[0].device)
+        deltas, covs, accs, n_steps_all = [], [], [], []
+        for spec, data, tdata, seed in zip(specs, datasets, test_datasets,
+                                           seeds):
+            delta, trained, ctx, n = self.client_update(
+                params, spec, data, batch_size=batch_size, epochs=epochs,
+                seed=seed)
+            n_test = len(tdata["y"])
+            with torch.no_grad():
+                acc = float(self.family.sub_metric(
+                    trained, ctx, torch.as_tensor(tdata["x"], device=dev),
+                    torch.as_tensor(tdata["y"], device=dev),
+                    torch.ones((n_test,), device=dev)))
+            deltas.append(self.family.pad_delta(delta, params, spec))
+            if coverage_norm:
+                covs.append(tree_map(
+                    lambda m: torch.as_tensor(m, device=dev),
+                    self.family.spec_masks(spec).param_mask))
+            accs.append(acc)
+            n_steps_all.append(n)
+        with torch.no_grad():
+            if coverage_norm:
+                delta_t = aggregate_coverage(deltas, covs, list(sizes))
+            else:
+                delta_t = aggregate(deltas, list(sizes))
+            params = apply_server_update(params, delta_t)
+        return params, accs, np.array(n_steps_all)

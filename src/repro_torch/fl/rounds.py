@@ -1,12 +1,12 @@
 """Experiment set-up: the heterogeneous FL population (devices × quality ×
-distribution) — the port of the reference's
-``fl/rounds.py::build_population`` for the image scenario (the paper's
-CIFAR / MNIST stand-ins: quality = blur / sharpen levels, distribution =
-non-IID labels).
+distribution) and the experiment drivers — the port of the reference's
+``fl/rounds.py``: ``build_population`` for the image scenario (the
+paper's CIFAR / MNIST stand-ins: quality = blur / sharpen levels,
+distribution = non-IID labels), and ``run_cfl`` / ``run_fedavg`` /
+``run_il``, thin shims over ``CFLSession``.
 
 The synthetic Markov-LM population of the transformer zoo comes with that
-family's search surface (ROADMAP A6); the ``run_cfl`` / ``run_fedavg`` /
-``run_il`` drivers with the baselines (ROADMAP A20).
+family's search surface (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from repro_torch.data.partition import (iid_partition, noniid_partition,
 from repro_torch.data.quality import apply_quality
 from repro_torch.data.synth import make_dataset, train_test_split
 from repro_torch.fl.client import ClientInfo
+from repro_torch.fl.server import CFLConfig
 
 
 def _image_population(kind: str, n_workers: int, n_samples: int,
@@ -82,3 +83,57 @@ def build_population(cfg, *, kind: Optional[str] = None, n_workers: int,
                                   n_samples=len(cdata[k]["y"]),
                                   latency_bound=bound))
     return clients, cdata, tdata
+
+
+# ---------------------------------------------------------------------------
+# experiment drivers (thin shims over CFLSession)
+# ---------------------------------------------------------------------------
+def _session(cfg, algorithm, *, kind, n_workers, n_samples, heterogeneity,
+             fl_cfg, seed, cohort_shards, device):
+    from repro_torch.fl.session import CFLSession
+    return CFLSession.from_synthetic(
+        cfg, kind=kind, n_workers=n_workers, n_samples=n_samples,
+        heterogeneity=heterogeneity, fl_cfg=fl_cfg, algorithm=algorithm,
+        seed=seed, cohort_shards=cohort_shards, device=device)
+
+
+def run_cfl(cfg, *, kind=None, n_workers=8, n_samples=4000,
+            heterogeneity="quality", rounds=5,
+            fl_cfg: Optional[CFLConfig] = None, seed=0,
+            cohort_shards: int = 1, device=None):
+    """``rounds`` CFL rounds on the synthetic population; returns the
+    server (``history``, ``params``)."""
+    sess = _session(cfg, "cfl", kind=kind, n_workers=n_workers,
+                    n_samples=n_samples, heterogeneity=heterogeneity,
+                    fl_cfg=fl_cfg, seed=seed, cohort_shards=cohort_shards,
+                    device=device)
+    sess.run(rounds)
+    return sess.server
+
+
+def run_fedavg(cfg, *, kind=None, n_workers=8, n_samples=4000,
+               heterogeneity="quality", rounds=5,
+               fl_cfg: Optional[CFLConfig] = None, seed=0,
+               cohort_shards: int = 1, device=None):
+    """``rounds`` FedAvg rounds on the synthetic population; returns the
+    server."""
+    sess = _session(cfg, "fedavg", kind=kind, n_workers=n_workers,
+                    n_samples=n_samples, heterogeneity=heterogeneity,
+                    fl_cfg=fl_cfg, seed=seed, cohort_shards=cohort_shards,
+                    device=device)
+    sess.run(rounds)
+    return sess.server
+
+
+def run_il(cfg, *, kind=None, n_workers=8, n_samples=4000,
+           heterogeneity="quality", rounds=5,
+           fl_cfg: Optional[CFLConfig] = None, seed=0,
+           cohort_shards: int = 1, device=None) -> List[float]:
+    """IL with ``rounds`` rounds' local budget on the synthetic
+    population; returns the clients' accuracies."""
+    sess = _session(cfg, "il", kind=kind, n_workers=n_workers,
+                    n_samples=n_samples, heterogeneity=heterogeneity,
+                    fl_cfg=fl_cfg, seed=seed, cohort_shards=cohort_shards,
+                    device=device)
+    sess.run(rounds)
+    return sess.il_accs

@@ -13,9 +13,13 @@ and latency accounting out:
     sess.run(rounds=3)
     sess.fairness()                  # last-round accuracy fairness
 
-It runs on the card unless the caller passes ``device="cpu"``. The
-comparison baselines ``"fedavg"`` and ``"il"`` are not ported yet
-(ROADMAP A20) and raise.
+``algorithm`` selects CFL (the default) or the paper's comparison
+baselines, ``"fedavg"`` and ``"il"`` (``fl.baselines``), under the same
+budget and fleet, so every Table II experiment is the same three lines.
+IL is single-shot: one ``run(rounds)`` trains every client's local budget
+and records one history entry.
+
+It runs on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -23,10 +27,22 @@ import dataclasses
 from typing import Dict, List, Optional
 
 from repro_torch.core.elastic import family_for
+from repro_torch.core.fairness import accuracy_fairness
+from repro_torch.fl.baselines import FedAvgServer, independent_learning
 from repro_torch.fl.client import ClientInfo
+from repro_torch.fl.selection import FullParticipation
 from repro_torch.fl.server import CFLConfig, CFLServer
 
 ALGORITHMS = ("cfl", "fedavg", "il")
+
+
+def _reject_il_selection(selection) -> None:
+    """IL has no rounds or aggregation to subsample."""
+    if not (selection is None or selection == "full"
+            or isinstance(selection, FullParticipation)):
+        raise ValueError(
+            "IL has no rounds/aggregation to subsample — selection only "
+            "applies to cfl/fedavg (use selection='full' for IL)")
 
 
 class CFLSession:
@@ -37,7 +53,8 @@ class CFLSession:
     ``CFLConfig``, initial parent ``params`` (tensors on ``device``) and
     the ``algorithm``. ``run(rounds)`` returns the per-round ``history``;
     ``fairness()`` summarises the last round; ``params`` is the
-    aggregated parent."""
+    aggregated parent (cfl / fedavg; IL keeps per-client models and
+    records ``il_accs``)."""
 
     def __init__(self, cfg, clients: List[ClientInfo],
                  client_data: List[Dict], test_data: List[Dict],
@@ -46,23 +63,28 @@ class CFLSession:
         if algorithm not in ALGORITHMS:
             raise ValueError(f"algorithm must be one of {ALGORITHMS}, "
                              f"got {algorithm!r}")
-        if algorithm != "cfl":
-            raise NotImplementedError(
-                f"algorithm={algorithm!r} (the paper's comparison "
-                "baselines, fl/baselines.py) is not ported yet (ROADMAP "
-                "A20)")
         self.family = family_for(cfg)
         self.fl = fl_cfg if fl_cfg is not None else \
             CFLConfig(n_workers=len(clients))
+        if algorithm == "il":
+            _reject_il_selection(self.fl.selection)
         self.algorithm = algorithm
         self.clients = clients
         self.client_data = client_data
         self.test_data = test_data
+        self.device = device
         if params is None:
             params = self.family.init_params(seed=self.fl.seed,
                                              device=device)
-        self.server = CFLServer(self.family, params, clients, client_data,
-                                test_data, self.fl, device=device)
+        self._init_params = params
+        self._il_history: List[Dict] = []
+        self.il_accs: Optional[List[float]] = None
+        if algorithm == "il":           # no server, no aggregation
+            self.server = None
+        else:
+            server = CFLServer if algorithm == "cfl" else FedAvgServer
+            self.server = server(self.family, params, clients, client_data,
+                                 test_data, self.fl, device=device)
 
     @classmethod
     def from_synthetic(cls, cfg, *, kind: Optional[str] = None,
@@ -95,13 +117,20 @@ class CFLSession:
 
     def run(self, rounds: int, selection=None, mode: Optional[str] = None,
             overlap: Optional[bool] = None) -> List[Dict]:
-        """Run ``rounds`` sync CFL rounds and return the history; each
-        entry carries ``accs`` / ``fairness`` / ``timing`` /
-        ``participants`` / ``specs`` / ``predictor_mae``, the scheduling
-        columns and ``host_seconds``. ``selection`` / ``mode`` /
+        """Run ``rounds`` sync rounds and return the history; each entry
+        carries ``accs`` / ``fairness`` / ``timing`` / ``participants`` /
+        ``n_steps``, the scheduling columns and ``host_seconds`` (cfl also
+        ``specs`` and ``predictor_mae``). ``selection`` / ``mode`` /
         ``overlap`` set the policy, the scheduling and the prefetch ring
         for these and later rounds ('full', 'sync' and off are what the
-        port runs)."""
+        port runs).
+
+        IL runs the same local budget with no aggregation, recorded as one
+        history entry (``round``, ``accs``, ``fairness``); it rejects a
+        non-full selection, a non-sync mode and overlap, and a second
+        ``run``."""
+        if self.algorithm == "il":
+            return self._run_il(rounds, selection, mode, overlap)
         if mode is not None:
             self.server.set_mode(mode)
         if selection is not None:
@@ -112,13 +141,44 @@ class CFLSession:
             self.server.run_round()
         return self.history
 
+    def _run_il(self, rounds: int, selection, mode, overlap) -> List[Dict]:
+        if mode is not None and mode != "sync":
+            raise ValueError("IL has no rounds to schedule — mode only "
+                             "applies to cfl/fedavg")
+        if selection is not None:
+            _reject_il_selection(selection)
+        if overlap is not None:
+            raise ValueError("IL has no round pipeline to overlap — overlap "
+                             "only applies to cfl/fedavg")
+        if self._il_history:
+            # IL trains each client from the initial parent for the whole
+            # budget in one shot: a second run would restart from scratch
+            raise RuntimeError(
+                "an IL session is single-shot: run(rounds) consumes the "
+                "whole local budget; build a new session (or use "
+                "algorithm='cfl'/'fedavg') to train further")
+        accs = independent_learning(
+            self.family, self._init_params, self.clients, self.client_data,
+            self.test_data, rounds=rounds, fl_cfg=self.fl,
+            device=self.device)
+        self.il_accs = accs
+        self._il_history.append({"round": 0, "accs": accs,
+                                 "fairness": accuracy_fairness(accs)})
+        return self.history
+
     @property
     def history(self) -> List[Dict]:
-        return self.server.history
+        return self._il_history if self.server is None \
+            else self.server.history
 
     @property
     def params(self):
-        """The aggregated parent parameters."""
+        """The aggregated parent parameters (cfl / fedavg). IL keeps
+        per-client models and aggregates nothing."""
+        if self.server is None:
+            raise RuntimeError(
+                "IL trains per-client models only — there is no "
+                "aggregated parent; use il_accs / history for its results")
         return self.server.params
 
     def fairness(self) -> Dict[str, float]:

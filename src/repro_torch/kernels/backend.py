@@ -38,9 +38,15 @@ def resolve_device(device=None) -> torch.device:
     ``None`` means ``cuda``; with no CUDA device present that raises — it
     never drops silently to the CPU. Also turns TF32 off for matmuls and
     cuDNN: the port's parity bounds (≤1e-5 per op) hold only in full fp32.
+    And it makes cuDNN pick deterministic algorithms, with no autotuning:
+    a convolution's backward may otherwise sum with atomics in a varying
+    order (the CNN's stem, the dense path's grouped convolutions), and a
+    run would not repeat to the bit.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

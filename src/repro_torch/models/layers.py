@@ -45,13 +45,20 @@ def layernorm(params, x, eps=1e-6):
         _feature(params["bias"], x).to(x.dtype)
 
 
+def at_least_fp32(x):
+    """x in fp32, or in its own dtype where that is wider (fp64): the CNN
+    path's statistics and losses, as the reference's fp32, and exact on an
+    fp64 forward."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def groupnorm(x, groups, eps=1e-5):
     """Channel-last group norm of the CNN parent (no learned affine: the
     affine lives in the conv that follows). x (..., H, W, C): statistics
     per leading index and group, over H, W and the group's C / groups
-    channels, in fp32."""
+    channels, in at least fp32."""
     *lead, h, w, c = x.shape
-    xg = x.reshape(*lead, h, w, groups, c // groups).float()
+    xg = at_least_fp32(x.reshape(*lead, h, w, groups, c // groups))
     dims = (-4, -3, -1)                      # H, W, channels of a group
     mu = torch.mean(xg, dim=dims, keepdim=True)
     var = torch.mean((xg - mu).square(), dim=dims, keepdim=True)

@@ -1,0 +1,108 @@
+"""Shared set-up of the CNN parity tests of the port's sessions and
+trainers (``tests/test_torch_session.py``, ``test_torch_baselines.py``,
+``test_torch_sequential.py``, ``test_torch_client.py``): the quickstart
+CNN and round settings, the reference's session on its own synthetic
+population, the port's session on the reference's data, initial
+parameters and predictor, bridged, and the tree comparisons."""
+import dataclasses
+
+import jax
+import numpy as np
+
+from repro.configs.paper_cnn import CNNConfig as RefCNNConfig
+from repro.data.synth import make_dataset
+from repro.models import cnn as ref_cnn
+from repro.fl import server as ref_server
+from repro.fl import session as ref_session
+from repro_torch.checkpoint.bridge import params_from_numpy, params_to_numpy
+from repro_torch.core.submodel import SubmodelSpec
+from repro_torch.configs.paper_cnn import CNNConfig
+from repro_torch.fl.client import ClientInfo
+from repro_torch.fl.server import CFLConfig
+from repro_torch.fl.session import CFLSession
+
+TOL = 1e-5
+# examples/quickstart.py's CNN and round settings
+QUICK = dict(name="quickstart", in_channels=1, image_size=28,
+             stem_channels=8, stages=((16, 2), (32, 2)), groupnorm_groups=4,
+             elastic_widths=(0.5, 1.0))
+CFG, REF_CFG = CNNConfig(**QUICK), RefCNNConfig(**QUICK)
+FL = dict(n_workers=4, local_epochs=2, batch_size=32, lr=0.08, seed=0)
+
+
+# a full and a ragged submodel of the quickstart CNN
+SPECS = {"full": SubmodelSpec((2, 2), (1.0, 1.0)),
+         "ragged": SubmodelSpec((1, 2), (0.5, 1.0))}
+
+
+def numpy_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def port_tree(tree, dtype=np.float32):
+    """A numpy tree as the port's CPU tensors of ``dtype``."""
+    return params_from_numpy(jax.tree.map(lambda a: a.astype(dtype), tree),
+                             device="cpu")
+
+
+def assert_close(got, want, tol):
+    """Every leaf of the port's ``got`` within ``tol`` of ``want``'s."""
+    for a, b in zip(jax.tree.leaves(params_to_numpy(got)),
+                    jax.tree.leaves(want)):
+        np.testing.assert_allclose(a, np.asarray(b), atol=tol, rtol=0)
+
+
+def params_and_clients():
+    """The reference's initial quickstart parameters (key 1) and four
+    clients' data of 90 synthetic MNIST samples each."""
+    params = numpy_tree(ref_cnn.init_params(jax.random.PRNGKey(1), REF_CFG))
+    data = make_dataset("synthmnist", 360, seed=4)
+    return params, [{k: v[i * 90:(i + 1) * 90] for k, v in data.items()}
+                    for i in range(4)]
+
+
+def reference_session(algorithm="cfl", fl=FL, n_samples=400, seed=0,
+                      rounds=2):
+    """``rounds`` rounds of the reference's session (dense path) on its
+    synthetic quickstart population. Returns (session, initial params,
+    the predictor's initial weights, round-0 params); the last two are
+    None where the algorithm has no predictor or no rounds."""
+    sess = ref_session.CFLSession.from_synthetic(
+        REF_CFG, kind="synthmnist", n_workers=fl["n_workers"],
+        n_samples=n_samples, heterogeneity="quality", seed=seed,
+        algorithm=algorithm, fl_cfg=ref_server.CFLConfig(**fl))
+    init = numpy_tree(sess._init_params)
+    if algorithm == "il":
+        sess.run(rounds)
+        return sess, init, None, None
+    pred0 = numpy_tree(sess.server.predictor.params) \
+        if algorithm == "cfl" else None
+    sess.run(1)
+    after0 = numpy_tree(sess.params)
+    sess.run(rounds - 1)
+    return sess, init, pred0, after0
+
+
+def port_session(ref, init, pred0=None, *, algorithm="cfl", fl=FL,
+                 **fl_kw):
+    """The port's session on the reference session's population, data,
+    initial parameters and (cfl) predictor weights, on the CPU."""
+    clients = [ClientInfo(**dataclasses.asdict(c)) for c in ref.clients]
+    sess = CFLSession(CFG, clients, ref.client_data, ref.test_data,
+                      CFLConfig(**fl, **fl_kw),
+                      params=params_from_numpy(init, device="cpu"),
+                      algorithm=algorithm, device="cpu")
+    if pred0 is not None:
+        sess.server.predictor.load_numpy(pred0)
+    return sess
+
+
+def ratio(got, want, init, min_move=1e-2):
+    """max |got − want| over max |want − init| (how far the round moved
+    the parameters, at least ``min_move``)."""
+    moved = max(float(np.abs(a - b).max()) for a, b in zip(
+        jax.tree.leaves(want), jax.tree.leaves(init)))
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(
+        jax.tree.leaves(got), jax.tree.leaves(want)))
+    assert moved > min_move
+    return diff / moved

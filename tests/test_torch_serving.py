@@ -127,6 +127,8 @@ def _port_files():
             if n.endswith(".py"):
                 yield os.path.join(dirpath, n)
     yield os.path.join(ROOT, "chip_smoke.py")
+    # the test-support module chip_smoke.py imports
+    yield os.path.join(ROOT, "tests", "relu_replay.py")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -156,10 +158,12 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.checkpoint.io, repro_torch.checkpoint.bridge\n"
             "import repro_torch.fl.session, repro_torch.fl.rounds\n"
             "import repro_torch.kernels.elastic_conv, repro_torch.models.cnn\n"
-            "import chip_smoke\n"
+            "import repro_torch.fl, repro_torch.fl.baselines\n"
+            "import chip_smoke, relu_replay\n"
             "print('ok')\n")
     env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep + ROOT
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT, os.path.join(ROOT, "tests")])
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
