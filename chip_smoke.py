@@ -169,6 +169,35 @@ printing its own lines; any failed phase exits non-zero:
    ``F.conv2d`` (cuDNN, TF32 off) of the whole conv and the im2col, beside
    the fp32 and 3×TF32 bounds and the launches a round.
 
+15. zoo sessions — ``CFLSession.from_synthetic(TransformerElasticFamily(
+   cfg, seq_len=...), kind="synthlm", n_workers=4, n_samples=32,
+   heterogeneity="both")`` (8 train / 8 test sequences a client, batch 4,
+   2 local steps) at each parent's published width, with phase 7's / 9's
+   / 12's depth and sequence length: granite-3-8b CFL 3 timed rounds on
+   the kernels (after an untimed warm-up session round), FedAvg 1 round,
+   IL 1 round's budget; granite-moe-1b-a400m and mamba2-2.7b 1 CFL round;
+   each parent 1 round on the sequential trainer (``batched_rounds=
+   False``). Every timed run is free-running, its launches counted from 0:
+   each kernel of the path as ``design_launches`` says, through the
+   expected variants; none on the sequential trainer. Held: the dense
+   path's round 0 from the same state (MoE: on the kernel path's routes,
+   recorded in an untimed kernel run that repeats the timed one to the
+   bit) — the same specs, parameters within 1e-3 of the round's movement
+   beyond ``ULP_FLOOR`` fp32 ulps of their magnitude (``ulp_floored``),
+   test CE within ``TRAIN_LOSS_RTOL``; the sequential round's parameters
+   within ``SEQ_FP32_TOL`` of the dense round's, beyond the same floor
+   (dense, SSM; printed for
+   the MoE parent, whose masked path sizes expert capacity by all experts
+   and the extracted submodel by its own); each client's first local step
+   on the sequential trainer against a one-client batched dense engine in
+   fp64 within ``SEQ_FP64_TOL`` and its fp32 local training within
+   ``SEQ_FP32_TOL`` (a MoE client's engine sizing capacity by the client's
+   experts and replaying the sequential run's routes). Prints round
+   seconds and tokens/s per algorithm, the host seconds of the search,
+   the predictor and the LUT, launches by variant, peak memory, the
+   routing decisions that differ, the global accuracy (``evaluate``) and
+   the card line.
+
 The last lines are a ``kernels:`` line, the slices' stats, the card line,
 one JSON object with every kernel's launches and times, and the result
 line ``{"ok": true, "device": {...}}``.
@@ -1803,15 +1832,21 @@ def phase_moe_times(device, d_model, d_ff, n_experts, top_k, n_heads, n_kv,
 # ---------------------------------------------------------------------------
 # phase 7: the training slice — federated CFL rounds
 # ---------------------------------------------------------------------------
-def train_family(cfg, n_layers):
+def train_family(cfg, n_layers, seq_len=32, capacity_experts=None):
     """The elastic family of ``cfg`` (one segment) with its depth cut to
-    ``n_layers``."""
+    ``n_layers`` and ``seq_len`` tokens a sample (the latency cost model's
+    and the LM population's); a MoE parent may size its capacity by
+    ``capacity_experts``."""
     import dataclasses
-    from repro_torch.core.elastic import family_for
+    from repro_torch.core.elastic import TransformerElasticFamily
     seg, = cfg.segments
-    return family_for(dataclasses.replace(
+    cut = dataclasses.replace(
         cfg, name=f"{cfg.name}-{n_layers}l", n_layers=n_layers,
-        segments=(dataclasses.replace(seg, n_layers=n_layers),)))
+        segments=(dataclasses.replace(seg, n_layers=n_layers),))
+    if capacity_experts is not None:
+        cut = dataclasses.replace(cut, moe=dataclasses.replace(
+            cut.moe, capacity_experts=capacity_experts))
+    return TransformerElasticFamily(cut, seq_len=seq_len)
 
 
 def train_specs(fam):
@@ -1886,11 +1921,11 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
     launched as often as the design says, the two paths' round-1
     parameters agree and every client's accuracy agrees to one eval
     token."""
+    import contextlib
     import numpy as np
     import torch
     from repro_torch.data.synth import make_lm_dataset
     from repro_torch.fl.engine import BatchedRoundEngine
-    from repro_torch.models import moe as moe_mod
     from repro_torch.optim.optimizers import tree_leaves, tree_map
 
     fam = train_family(cfg, n_layers)
@@ -1921,35 +1956,23 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
 
     def run(backend, replay=None, n_rounds=rounds, start=None, log=True):
         """``n_rounds`` rounds on ``backend``'s path from ``start`` (the
-        starting parameters by default). Every MoE layer call's top-k ids
-        and top-k margin (the k-th probability less the next one) are
-        logged in call order under ``routes[backend or replay]`` (with
-        ``log``; a warm-up round logs nothing); with ``replay`` (a list of
-        logged ids), each call takes the logged ids in place of its own
-        top-k and gates them with its own probabilities (renormalised, as
-        ``models.moe.route`` does)."""
+        starting parameters by default). With ``log`` (a warm-up round logs
+        nothing), every MoE layer call's top-k ids and margins are recorded
+        in ``routes[backend]`` (a ``RouteLog``); with ``replay`` (a
+        ``RouteLog``), each call takes its logged ids in place of its own
+        top-k."""
         eng = BatchedRoundEngine(fam, lr=lr, momentum=momentum,
                                  grad_clip=grad_clip, backend=backend,
                                  device=device)
-        log = routes.setdefault("replay" if replay else backend, []) \
-            if log else []
-        real_route = moe_mod.route
-        ids = iter(replay or ())
-
-        def recording(router, xt, moe_cfg, expert_mask=None):
-            out = real_route(router, xt, moe_cfg, expert_mask)
-            top = torch.topk(out[1].detach(), moe_cfg.top_k + 1,
-                             dim=-1).values
-            if replay:
-                idx = next(ids)
-                g = torch.gather(out[1], -1, idx)
-                out = out[:2] + ((g / g.sum(-1, keepdim=True)).to(
-                    xt.dtype), idx)
-            log.append((out[3].detach(), (top[..., -2] - top[..., -1])))
-            return out
-        moe_mod.route = recording
+        if replay is not None:
+            hook = replay("replay")
+        elif log:
+            hook = routes.setdefault(backend, RouteLog(margins=True))(
+                "record")
+        else:
+            hook = contextlib.nullcontext()
         p, out = params0 if start is None else start, []
-        try:
+        with hook:
             for r in range(n_rounds):
                 sync(device)
                 t = time.perf_counter()
@@ -1960,8 +1983,9 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
                 sync(device)
                 out.append(dict(params=p, accs=accs, n_steps=n_steps,
                                 seconds=time.perf_counter() - t))
-        finally:
-            moe_mod.route = real_route
+        if replay is not None and replay.pos != len(replay.ids):
+            raise PhaseError(f"replayed {replay.pos} of {len(replay.ids)} "
+                             "recorded routes")
         return eng, out
 
     def profiled_rounds(backend):
@@ -2036,7 +2060,7 @@ def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
         # discontinuous, so a flip from 1e-7 noise upstream cascades (see
         # routing_stats); with the routes held equal the two paths compute
         # the same function and their parameters must agree
-        _, replayed = run(None, replay=[i for i, _ in routes["auto"]])
+        _, replayed = run(None, replay=routes["auto"])
         routes.clear()
     for name, n in launches.items():
         print(f"  {name}: {n} launches (design: {want[name]})")
@@ -2181,34 +2205,35 @@ def first_round_split(first, warm, top=6):
 
 
 def routing_stats(kern, dense, top_k, n_layers):
-    """Where two paths' MoE routing differs: logs of (top-k ids, top-k
-    margin) per MoE layer call, in call order. Counts the token-layer
-    decisions whose expert *sets* differ, per call, and, at the first call
-    with a difference, the kernel path's margins of the tokens that differ
-    (a flip from noise upstream shows a margin near the noise; later
-    differences cascade from it through attention, capacity and the next
-    layers)."""
+    """Where two paths' MoE routing differs: their ``RouteLog`` records
+    (the kernel path's with margins), per MoE layer call, in call order.
+    Counts the token-layer decisions whose expert *sets* differ, per call,
+    and, at the first call with a difference, the kernel path's margins of
+    the tokens that differ (a flip from noise upstream shows a margin near
+    the noise; later differences cascade from it through attention,
+    capacity and the next layers)."""
     import torch
     per_call = [int((torch.sort(a, -1).values != torch.sort(b, -1).values)
-                    .any(-1).sum()) for (a, _), (b, _) in zip(kern, dense)]
-    decisions = sum(a.shape[0] * a.shape[1] for a, _ in kern)
+                    .any(-1).sum()) for a, b in zip(kern.ids, dense.ids)]
+    decisions = sum(a.shape[0] * a.shape[1] for a in kern.ids)
     first = next((i for i, n in enumerate(per_call) if n), None)
     margins = None
     if first is not None:
-        (a, m), (b, _) = kern[first], dense[first]
+        a, m, b = kern.ids[first], kern.margins[first], dense.ids[first]
         diff = (torch.sort(a, -1).values != torch.sort(b, -1).values).any(-1)
         margins = sorted(float(x) for x in m[diff])[:8]
     stats = {"decisions": decisions, "differ": sum(per_call),
-             "per_call": per_call, "calls": [len(kern), len(dense)],
+             "per_call": per_call, "calls": [len(kern.ids), len(dense.ids)],
              "first_call": first, "first_margins": margins,
-             "min_margin": min(float(m.min()) for _, m in kern)}
+             "min_margin": min(float(m.min()) for m in kern.margins)}
     where = "" if first is None else (
         f"; first at call {first} (pass {first // n_layers}, layer "
         f"{first % n_layers}), kernel-path top-{top_k} margins of its "
         f"differing tokens {margins}")
     print(f"  routing: {stats['differ']} of {decisions} token-layer top-"
           f"{top_k} expert sets differ between the kernel and the dense "
-          f"path ({len(kern)} / {len(dense)} MoE layer calls){where}; "
+          f"path ({len(kern.ids)} / {len(dense.ids)} MoE layer calls)"
+          f"{where}; "
           f"per call {per_call}; smallest margin of any decision "
           f"{stats['min_margin']:.3e}")
     return stats
@@ -2864,6 +2889,34 @@ def move_ratio(got, want, init):
     diff = max(float((g - w).abs().max()) for g, w in zip(_leaves(got),
                                                          _leaves(want)))
     return diff / moved, diff, moved
+
+
+ULP_FLOOR = 2                   # phase 15's parameter holds: fp32 ulps of
+                               # |p| below which two rounds cannot differ
+                               # measurably (each local step rounds the
+                               # parameters to fp32 at their magnitude)
+
+
+def ulp_floored(got, want, ulps=ULP_FLOOR):
+    """(max over elements of |got − want| less ``ulps`` ulps of the larger
+    magnitude, floored at 0; the largest |got − want| and its size in ulps
+    of its element's magnitude). Two runs that round the same parameter at
+    magnitude |p| differ by about an ulp of |p| per rounding, whatever
+    their updates: the first number is the part of the difference above
+    that floor, the one a 1e-3-of-the-movement hold can resolve."""
+    import torch
+    excess, worst = 0.0, (0.0, 0.0)
+    for g, w in zip(_leaves(got), _leaves(want)):
+        a = torch.maximum(g.abs(), w.abs())
+        ulp = torch.nextafter(a, torch.full_like(a, math.inf)) - a
+        d = (g - w).abs()
+        excess = max(excess, float((d - ulps * ulp).clamp_min(0).max()))
+        i = int(torch.argmax(d))
+        if float(d.flatten()[i]) > worst[0]:
+            worst = (float(d.flatten()[i]),
+                     float(d.flatten()[i] / ulp.flatten()[i]))
+        del a, ulp, d
+    return excess, worst[0], worst[1]
 
 
 class CnnCounters:
@@ -3606,6 +3659,444 @@ def cnn_local_step(device, sess, specs, fed_sess, turns=5):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: CFLSession on the transformer zoo
+# ---------------------------------------------------------------------------
+# the zoo sessions: CFLSession.from_synthetic(kind="synthlm") at each
+# parent's published width, with phase 7's / 9's / 12's depth and sequence
+# length; 32 samples over 4 clients give 8 train and 8 test sequences a
+# client, 2 local steps of 4 sequences
+ZOO = dict(n_workers=4, n_samples=32, heterogeneity="both", batch=4,
+           lr=0.05, seed=0)
+# (arch, depth, sequence length, timed CFL rounds, FedAvg / IL and a
+# warm-up session too)
+ZOO_PARENTS = (("granite-3-8b", TRAIN["n_layers"], TRAIN["seq_len"], 3,
+                True),
+               ("granite-moe-1b-a400m", MOE_TRAIN["n_layers"],
+                MOE_TRAIN["seq_len"], 1, False),
+               ("mamba2-2.7b", SSM_TRAIN["n_layers"], SSM_TRAIN["seq_len"],
+                1, False))
+SEQ_FP64_TOL = 1e-5            # a client's first step, sequential against
+                               # batched dense, both in fp64, over its
+                               # movement (the attention, norm statistics
+                               # and router still round to fp32)
+SEQ_FP32_TOL = 1e-3            # a round (MoE: a client's local training),
+                               # both engines in fp32, over its movement
+
+
+class RouteLog:
+    """Top-k routes of ``models.moe.route``, in call order: ``record``
+    logs every call's expert ids (with ``margins``, also each decision's
+    top-k margin: the k-th probability less the next one); ``replay``
+    feeds the logged ids back, to every call or to those ``use(call
+    index)`` selects (each gated with its own probabilities, renormalised,
+    as ``route`` does), and counts the token decisions whose expert sets
+    differ from the call's own."""
+
+    def __init__(self, margins=False):
+        self.ids, self.margins = [], [] if margins else None
+        self.mode = self.use = None
+        self.pos = self.calls = self.differ = self.decisions = 0
+
+    def __call__(self, mode, use=None):
+        self.mode, self.use = mode, use
+        self.pos = self.calls = self.differ = self.decisions = 0
+        if mode == "record":
+            self.ids = []
+            if self.margins is not None:
+                self.margins = []
+        return self
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe as moe_mod
+        self._mod, real = moe_mod, moe_mod.route
+
+        def hooked(router, xt, moe_cfg, expert_mask=None):
+            out = real(router, xt, moe_cfg, expert_mask)
+            c = self.calls
+            self.calls += 1
+            if self.mode == "record":
+                self.ids.append(out[3].detach())
+                if self.margins is not None:
+                    top = torch.topk(out[1].detach(), moe_cfg.top_k + 1,
+                                     dim=-1).values
+                    self.margins.append(top[..., -2] - top[..., -1])
+            elif self.use is None or self.use(c):
+                idx = self.ids[self.pos]
+                self.pos += 1
+                own = torch.sort(out[3], -1).values
+                self.differ += int((own != torch.sort(idx, -1).values)
+                                   .any(-1).sum())
+                self.decisions += own.shape[0] * own.shape[1]
+                g = torch.gather(out[1], -1, idx)
+                out = out[:2] + ((g / g.sum(-1, keepdim=True)).to(
+                    xt.dtype), idx)
+            return out
+        self._real = real
+        moe_mod.route = hooked
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route = self._real
+
+
+def zoo_session(device, fam, algorithm="cfl", ek=True, batched=True,
+                seed=ZOO["seed"]):
+    """``CFLSession.from_synthetic`` of the zoo setting on ``fam``."""
+    from repro_torch.fl.server import CFLConfig
+    from repro_torch.fl.session import CFLSession
+    return CFLSession.from_synthetic(
+        fam, kind="synthlm", n_workers=ZOO["n_workers"],
+        n_samples=ZOO["n_samples"], heterogeneity=ZOO["heterogeneity"],
+        algorithm=algorithm, seed=seed, device=device,
+        fl_cfg=CFLConfig(n_workers=ZOO["n_workers"],
+                         batch_size=ZOO["batch"], local_epochs=1,
+                         lr=ZOO["lr"], elastic_kernels=ek,
+                         batched_rounds=batched, seed=seed))
+
+
+def sequential_holds(device, fam, sess, specs, routes=None):
+    """Each client of ``sess``'s round 0 on the sequential trainer against
+    a one-client batched dense engine (a MoE parent's family sizing its
+    capacity by the client's experts, as the extracted submodel does): the
+    first local step in fp64 (a one-batch dataset through ``client_update``
+    and ``train_cohort``) and the whole local training in fp32 (with
+    ``routes``, a MoE parent's batched run replays the sequential run's
+    routes on the kept layers). Returns ({client: (fp64 ratio, fp32
+    ratio)}, routing decisions that differ)."""
+    import contextlib
+    import torch
+    from repro_torch.core.submodel import transformer_experts
+    from repro_torch.data.loader import index_batches
+    from repro_torch.fl.engine import (BatchedRoundEngine,
+                                       SequentialFamilyTrainer)
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    cfg, L = fam.cfg, fam.cfg.segments[0].n_layers
+    fl = sess.fl
+    out, differ = {}, 0
+    for k, spec in enumerate(specs):
+        fam_k = fam
+        if cfg.moe is not None:
+            fam_k = train_family(cfg, L, fam.seq_len, transformer_experts(
+                cfg, spec.expert_frac))
+        seed = fl.seed * 7 + k                  # round 0's client seed
+        data = sess.client_data[k]
+        idx = next(index_batches(len(data["y"]), fl.batch_size, seed=seed))
+        one = {"x": data["x"][idx], "y": data["y"][idx]}
+        keep = set(spec.layers[0])
+        ratios = []
+        for dtype, d, log in ((torch.float64, one, None),
+                              (torch.float32, data, routes)):
+            p0 = tree_map(lambda a: a.to(dtype), sess._init_params)
+            seq = SequentialFamilyTrainer(fam_k, lr=fl.lr,
+                                          momentum=fl.momentum)
+            eng = BatchedRoundEngine(fam_k, lr=fl.lr, momentum=fl.momentum,
+                                     backend=None, device=device)
+            kw = dict(batch_size=fl.batch_size, epochs=1)
+            with (log("record") if log else contextlib.nullcontext()):
+                delta, _, _, _ = seq.client_update(p0, spec, d, seed=seed,
+                                                   **kw)
+            padded = fam_k.pad_delta(delta, p0, spec)
+            with (log("replay", use=lambda c: c % L in keep) if log
+                  else contextlib.nullcontext()):
+                res = eng.train_cohort(eng.broadcast_params(p0, 1), [spec],
+                                       [d], seeds=[seed], **kw)
+            if log:
+                differ += log.differ
+                if log.pos != len(log.ids):
+                    raise PhaseError(f"client {k}: replayed {log.pos} of "
+                                     f"{len(log.ids)} routes")
+            moved = max(float(t[0].abs().max())
+                        for t in tree_leaves(res.deltas))
+            diff = max(float((a - b[0]).abs().max()) for a, b in zip(
+                tree_leaves(padded), tree_leaves(res.deltas)))
+            ratios.append(diff / moved)
+            del p0, delta, padded, res
+        out[k] = tuple(ratios)
+    return out, differ
+
+
+def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None):
+    """``CFLSession`` on the transformer zoo (the reference's main entry
+    point for it): for each parent of ``parents`` (name, depth, sequence
+    length, timed CFL rounds) at its published width, sessions of
+    ``CFLSession.from_synthetic(fam, kind="synthlm", ...)``:
+
+    * CFL on the kernel path, timed free-running after an untimed warm-up
+      round of another session (the dense parent; the others run warm
+      after phases 9 / 12): the counts of every kernel of the path are set
+      to 0 just before and read just after, and must equal the design
+      (``design_launches``) through the expected variants;
+    * the dense masked path's round 0 from the same state (a fresh session,
+      same seeds): the same specs, round-0 parameters within 1e-3 of the
+      round's movement beyond ``ULP_FLOOR`` ulps of their magnitude
+      (``ulp_floored``; the raw ratio printed beside it), each client's
+      test CE within ``TRAIN_LOSS_RTOL``
+      (MoE: the dense path replaying the routes of an untimed kernel run
+      of round 0, which repeats the timed run's parameters to the bit);
+    * the dense parent also FedAvg (1 round) and IL (1 round's budget) on
+      the kernels, timed and counted;
+    * one timed round on the sequential trainer (``batched_rounds=False``:
+      no kernel launches), its round-0 parameters against the dense
+      path's (held within ``SEQ_FP32_TOL`` beyond the same floor on the
+      dense and SSM parents;
+      printed on the MoE parent, whose masked path sizes capacity by all
+      experts and the extracted submodel by its own), and every client
+      held per ``sequential_holds``: fp64 first step within
+      ``SEQ_FP64_TOL``, fp32 local training within ``SEQ_FP32_TOL``.
+
+    ``cfg_of`` maps an arch name to its config (``get_config`` by default;
+    a ``reduced`` config rehearses the phase on the CPU, where the launch
+    checks fail by design). Returns ({run: launches}, stats)."""
+    import contextlib
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.submodel import TransformerSubSpec
+    from repro_torch.optim.optimizers import tree_map
+
+    cuda = device.type == "cuda"
+    problems, launches_out, stats = [], {}, {}
+    t_phase = time.perf_counter()
+
+    def snapshot(params):
+        return tree_map(lambda a: a.clone(), params)
+
+    def counted(label, cfg, fn, want):
+        """Run ``fn`` with every kernel counter of the path at 0; check the
+        counts against ``want`` (None: no launch at all) and the variants;
+        return (fn's result, seconds, launches, by variant)."""
+        counters = path_counters(cfg)
+        reset_launches(counters)
+        sync(device)
+        t = time.perf_counter()
+        res = fn()
+        sync(device)
+        secs = time.perf_counter() - t
+        got = {c.__name__: c.launches for c in counters}
+        launches_out[label] = got
+        by = {}
+        if want is None:
+            if any(got.values()):
+                problems.append(f"{label}: kernels launched {got}, design "
+                                "none")
+            print(f"  {label}: launches {got} (design: none)")
+        else:
+            print(f"  {label}: launches {got} (design: {want})")
+            for name, n in got.items():
+                if n != want[name]:
+                    problems.append(f"{label}: {name} launched {n} times, "
+                                    f"design {want[name]}")
+            by = check_variants(got, problems, "tile", "mma")
+        return res, secs, got, by
+
+    for name, n_layers, seq_len, rounds, baselines in parents:
+        fam = train_family((cfg_of or get_config)(name), n_layers, seq_len)
+        cfg = fam.cfg
+        moe, ssm = cfg.moe is not None, cfg.ssm is not None
+        st = stats[name] = {}
+        label = name.split("-")[0] if not moe else "granite-moe"
+        t_parent = time.perf_counter()
+        if baselines:                       # untimed warm-up session round
+            warm = zoo_session(device, fam)
+            warm.run(1)
+            del warm
+            gc.collect()
+        sess = zoo_session(device, fam)
+        st["lut_build_s"] = sess.server.lut_seconds
+        per = design_launches(n_layers, 2, 1, moe=moe, ssm=ssm)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        kern, after0 = [], None
+        for r in range(rounds):
+            rec, secs, got, by = counted(
+                f"{label} cfl round {r}", cfg, sess.server.run_round, per)
+            kern.append(dict(rec=rec, seconds=secs, by_variant=by))
+            if r == 0:
+                after0 = snapshot(sess.params)
+        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        specs0 = kern[0]["rec"]["specs"]
+        steps = kern[0]["rec"]["n_steps"]
+        tokens = int(sum(steps)) * ZOO["batch"] * seq_len
+        if any(n != 2 for n in steps):
+            problems.append(f"{label}: steps {steps}, design 2 a client")
+        glob = sess.global_accuracy(sess.test_data[0])
+        for r, k in enumerate(kern):
+            h = k["rec"]["host_seconds"]
+            print(f"  {label} cfl round {r}: {k['seconds']:.3f} s "
+                  f"({tokens / k['seconds']:.0f} train tok/s), host search "
+                  f"{h['search']:.4f} s predictor {h['predictor']:.4f} s; "
+                  f"specs {k['rec']['specs']}; accs "
+                  f"{np.round(k['rec']['accs'], 5).tolist()}")
+        print(f"  {label}: LUT built in {st['lut_build_s']:.4f} s, "
+              f"{len(sess.server.latency)} entries after the rounds; peak "
+              f"device memory {peak / 2**30:.2f} GiB; global accuracy "
+              f"(evaluate, client 0's test set) {glob:.5f}")
+        st.update(cfl_round_s=[k["seconds"] for k in kern],
+                  cfl_tok_per_s=[tokens / k["seconds"] for k in kern],
+                  host_s=[k["rec"]["host_seconds"] for k in kern],
+                  specs=[k["rec"]["specs"] for k in kern],
+                  accs=[k["rec"]["accs"] for k in kern],
+                  fairness=kern[-1]["rec"]["fairness"], peak_gib=peak / 2**30,
+                  global_accuracy=glob, tokens_per_round=tokens,
+                  launches_by_variant=kern[0]["by_variant"])
+        init = sess._init_params
+        specs = [TransformerSubSpec(tuple(tuple(l) for l in g[0]),
+                                    g[1] / 100, g[2] / 100, g[3] / 100,
+                                    g[4] / 100) for g in specs0]
+        test = sess.test_data
+        del sess
+        gc.collect()
+
+        # ---- the dense path's round 0 from the same state --------------
+        routes = RouteLog()
+        if moe:
+            rec_sess = zoo_session(device, fam)
+            with routes("record"):
+                rec_sess.run(1)
+            d = first_difference(after0, rec_sess.params)
+            print(f"  {label}: the routes' record run's round 0 "
+                  + ("equals the timed run's to the bit" if d is None else
+                     f"DIFFERS from the timed run's: first at {d[0]} by "
+                     f"{d[1]:.3e}"))
+            if d is not None:
+                problems.append(f"{label}: the kernel path does not repeat "
+                                f"to the bit (first at {d[0]})")
+            del rec_sess
+        dense = zoo_session(device, fam, ek=False)
+        t = time.perf_counter()
+        with (routes("replay") if moe else contextlib.nullcontext()):
+            rec = dense.server.run_round()
+        dense_s = time.perf_counter() - t
+        round_routes = (routes.differ, routes.decisions)
+        if moe and routes.pos != len(routes.ids):
+            problems.append(f"{label}: replayed {routes.pos} of "
+                            f"{len(routes.ids)} recorded routes")
+        dense0 = snapshot(dense.params)
+        if rec["specs"] != specs0:
+            problems.append(f"{label}: the dense path's round-0 specs "
+                            f"differ")
+        ratio, diff, moved = move_ratio(after0, dense0, init)
+        excess, _, diff_ulps = ulp_floored(after0, dense0)
+        floored = excess / moved
+        # each path's round-0 model scored by its own forward (MoE: the
+        # dense forward on the kernel forward's routes)
+        with (routes("record") if moe else contextlib.nullcontext()):
+            ce_k = eval_losses(fam, specs, test, after0, "auto", device)
+        with (routes("replay") if moe else contextlib.nullcontext()):
+            ce_d = eval_losses(fam, specs, test, dense0, None, device)
+        ce_rel = float(np.max(np.abs(ce_k - ce_d) / np.abs(ce_d)))
+        print(f"  {label} dense path round 0"
+              f"{' (kernel routes)' if moe else ''}: {dense_s:.3f} s; "
+              f"parameters max|kernel - dense| "
+              f"{diff:.3e} ({diff_ulps:.2f} ulp of |p|) over movement "
+              f"{moved:.3e}: {ratio:.3e}; beyond {ULP_FLOOR} ulp of |p| "
+              f"{excess:.3e}: {floored:.3e} (tol 1e-3)"
+              f"; test CE kernel {np.round(ce_k, 6).tolist()} dense "
+              f"{np.round(ce_d, 6).tolist()}: max relative {ce_rel:.3e} "
+              f"(tol {TRAIN_LOSS_RTOL:g})")
+        if moe:
+            print(f"  {label}: token decisions whose expert set the dense "
+                  f"path's own routing would change: round 0 "
+                  f"{round_routes[0]} of {round_routes[1]}, eval "
+                  f"{routes.differ} of {routes.decisions}")
+        if not floored <= 1e-3:
+            problems.append(f"{label}: round-0 parameters kernel vs dense "
+                            f"beyond {ULP_FLOOR} ulp {floored:.3e} > 1e-3 "
+                            "of the movement")
+        if not ce_rel <= TRAIN_LOSS_RTOL:
+            problems.append(f"{label}: round-0 test CE kernel vs dense "
+                            f"{ce_rel:.3e} > {TRAIN_LOSS_RTOL:g}")
+        st.update(dense_round0_s=dense_s, round0_param_ratio=ratio,
+                  round0_param_floored=floored, round0_diff_ulps=diff_ulps,
+                  round0_ce_rel=ce_rel, round0_move=moved,
+                  route_decisions_differ={
+                      "round0": round_routes, "eval": (routes.differ,
+                                                       routes.decisions)}
+                  if moe else None)
+        del dense, after0
+        routes.ids = []
+        gc.collect()
+
+        # ---- FedAvg and IL on the kernels (the dense parent) -----------
+        if baselines:
+            fed = zoo_session(device, fam, "fedavg")
+            rec, secs, _, by = counted(f"{label} fedavg round 0", cfg,
+                                       fed.server.run_round, per)
+            print(f"  {label} fedavg round 0: {secs:.3f} s "
+                  f"({tokens / secs:.0f} train tok/s); accs "
+                  f"{np.round(rec['accs'], 5).tolist()}")
+            st.update(fedavg_round_s=secs, fedavg_accs=rec["accs"],
+                      fedavg_by_variant=by)
+            del fed
+            il = zoo_session(device, fam, "il")
+            _, secs, _, by = counted(f"{label} il (1 round's budget)", cfg,
+                                     lambda: il.run(1), per)
+            print(f"  {label} il: {secs:.3f} s; accs "
+                  f"{np.round(il.il_accs, 5).tolist()}")
+            st.update(il_s=secs, il_accs=il.il_accs, il_by_variant=by)
+            del il
+            gc.collect()
+
+        # ---- the sequential trainer ------------------------------------
+        seq = zoo_session(device, fam, batched=False)
+        rec, secs, _, _ = counted(f"{label} sequential round 0", cfg,
+                                  seq.server.run_round, None)
+        seq0 = seq.params
+        ratio_s, diff_s, moved_s = move_ratio(seq0, dense0, init)
+        excess_s, _, ulps_s = ulp_floored(seq0, dense0)
+        floored_s = excess_s / moved_s
+        held = not moe
+        print(f"  {label} sequential round 0: {secs:.3f} s "
+              f"({tokens / secs:.0f} train tok/s); accs "
+              f"{np.round(rec['accs'], 5).tolist()}; parameters "
+              f"max|sequential - dense| {diff_s:.3e} ({ulps_s:.2f} ulp of "
+              f"|p|), ratio {ratio_s:.3e}; beyond {ULP_FLOOR} ulp of |p| "
+              f"{excess_s:.3e}: {floored_s:.3e} "
+              + (f"(tol {SEQ_FP32_TOL:g})" if held else
+                 "(not held: capacity sized by each submodel's experts)"))
+        if rec["specs"] != specs0:
+            problems.append(f"{label}: the sequential round's specs differ")
+        if held and not floored_s <= SEQ_FP32_TOL:
+            problems.append(f"{label}: sequential round 0 vs dense beyond "
+                            f"{ULP_FLOOR} ulp {floored_s:.3e} > "
+                            f"{SEQ_FP32_TOL:g}")
+        del dense0
+        gc.collect()
+        per_client, differ = sequential_holds(device, fam, seq, specs,
+                                              routes if moe else None)
+        for k, (r64, r32) in per_client.items():
+            print(f"  {label} client {k}: sequential vs batched dense, "
+                  f"first step fp64 {r64:.3e} (tol {SEQ_FP64_TOL:g}), "
+                  f"local training fp32 {r32:.3e} (tol {SEQ_FP32_TOL:g})")
+            if not r64 <= SEQ_FP64_TOL:
+                problems.append(f"{label} client {k}: fp64 first step "
+                                f"{r64:.3e} > {SEQ_FP64_TOL:g}")
+            if not r32 <= SEQ_FP32_TOL:
+                problems.append(f"{label} client {k}: fp32 local training "
+                                f"{r32:.3e} > {SEQ_FP32_TOL:g}")
+        if moe:
+            print(f"  {label}: the batched runs took the sequential runs' "
+                  f"routes; {differ} token decisions differ from their own")
+        st.update(seq_round_s=secs, seq_accs=rec["accs"],
+                  seq_round0_ratio=ratio_s, seq_round0_floored=floored_s,
+                  seq_round0_diff_ulps=ulps_s, seq_clients=per_client,
+                  seq_route_decisions_differ=differ if moe else None)
+        del seq
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        st["seconds"] = time.perf_counter() - t_parent
+        print(f"  {label}: {st['seconds']:.1f} s in all")
+    stats["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 15: {stats['phase_seconds']:.1f} s; "
+          + (card_line() if cuda else "no card"))
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return launches_out, stats
+
+
+# ---------------------------------------------------------------------------
 def without_arch(settings):
     return {k: v for k, v in settings.items() if k != "arch"}
 
@@ -3744,6 +4235,14 @@ def main() -> int:
         cnn_times = phase_cnn_times(
             device, PAPER_CNN, CNN_SLICE["n_workers"], CNN_BATCH,
             cnn_stats["steps_per_round"][0])
+        release()
+        print(f"== 15. CFLSession on the transformer zoo: granite-3-8b "
+              f"(CFL {ZOO_PARENTS[0][3]} rounds, FedAvg, IL, the sequential "
+              f"trainer), granite-moe-1b-a400m and mamba2-2.7b (CFL and the "
+              f"sequential trainer), full width, {ZOO['n_workers']} "
+              f"clients, fp32")
+        zoo_launches, zoo_stats = phase_zoo(device)
+        release()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3788,7 +4287,8 @@ def main() -> int:
     by_path = {"serving": launches, "training": train_launches,
                "moe_training": moe_train_launches, "moe_serving": moe_launches,
                "ssm_training": ssm_train_launches, "ssm_serving": ssm_launches,
-               **cnn_launches}
+               **cnn_launches,
+               **{f"zoo {run}": c for run, c in zoo_launches.items()}}
     for name, err in (list(mworst.items()) + list(sworst.items())
                       + list(cworst.items())):
         worst[name] = max(worst.get(name, 0.0), err)
@@ -3834,6 +4334,8 @@ def main() -> int:
                               ("ssm_serving", ssm_stats),
                               ("ssm_training", ssm_train_stats),
                               ("cnn_training", cnn_stats))
+                + tuple((f"zoo {a} cfl", zoo_stats[a])
+                        for a, *_ in ZOO_PARENTS)
                 if name in st.get("launches_by_variant", {})}
     print("kernels: " + "; ".join(
         f"{p} " + " ".join(f"{n}={c}" for n, c in counts.items())
@@ -3845,6 +4347,7 @@ def main() -> int:
     print(f"ssm training: {json.dumps(ssm_train_stats)}")
     print(f"ssm slice: {json.dumps(ssm_stats)}")
     print(f"cnn training: {json.dumps(cnn_stats)}")
+    print(f"zoo sessions: {json.dumps(zoo_stats)}")
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

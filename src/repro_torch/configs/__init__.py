@@ -1,7 +1,10 @@
 """Config registry: ``get_config(arch_id)`` resolves any zoo arch."""
-from repro_torch.configs.archs import ARCHS
-from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
-                                      Segment, SSMConfig, reduced,
+from repro_torch.configs.archs import (ARCHS, long_context_variant,
+                                       supported_pairs)
+from repro_torch.configs.base import (INPUT_SHAPES, InputShape, MLAConfig,
+                                      ModelConfig, MoEConfig, Segment,
+                                      SSMConfig, config_fingerprint,
+                                      flops_per_token, reduced,
                                       uniform_segments)
 
 
@@ -14,6 +17,8 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 __all__ = [
-    "ARCHS", "MLAConfig", "ModelConfig", "MoEConfig", "Segment",
-    "SSMConfig", "get_config", "reduced", "uniform_segments",
+    "ARCHS", "INPUT_SHAPES", "InputShape", "MLAConfig", "ModelConfig",
+    "MoEConfig", "Segment", "SSMConfig", "config_fingerprint",
+    "flops_per_token", "get_config", "long_context_variant", "reduced",
+    "supported_pairs", "uniform_segments",
 ]

@@ -5,8 +5,11 @@ the reference's (`src/repro/configs/archs.py`).
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
-                                      Segment, SSMConfig, uniform_segments)
+import dataclasses
+
+from repro_torch.configs.base import (INPUT_SHAPES, MLAConfig, ModelConfig,
+                                      MoEConfig, Segment, SSMConfig,
+                                      uniform_segments)
 
 # ---------------------------------------------------------------------------
 # [audio] hubert-xlarge — encoder-only, arXiv:2106.07447
@@ -217,3 +220,37 @@ ARCHS = {
         MAMBA2_2_7B,
     ]
 }
+
+# long_500k support tiers:
+#   native — sub-quadratic by architecture (SSM / hybrid / local-global /
+#            MLA-compressed cache);
+#   sw     — dense full-attention archs served with the sliding-window
+#            variant (ring-buffer caches at window 4096);
+# hubert is encoder-only: no decode shapes at all.
+_LONG_NATIVE = {"mamba2-2.7b", "zamba2-1.2b", "gemma2-9b",
+                "deepseek-v2-lite-16b"}
+LONG_SW_WINDOW = 4096
+_LONG_SW = {"granite-3-8b", "llava-next-mistral-7b", "gemma-7b",
+            "qwen3-4b", "granite-moe-1b-a400m"}
+
+
+def long_context_variant(cfg: ModelConfig) -> ModelConfig:
+    """Serving variant for long_500k on dense full-attention archs: every
+    attention layer becomes sliding-window (ring-buffer KV cache)."""
+    if cfg.name in _LONG_SW and cfg.sliding_window is None:
+        return dataclasses.replace(cfg, sliding_window=LONG_SW_WINDOW)
+    return cfg
+
+
+def supported_pairs():
+    """Every (arch, input shape) pair the zoo runs."""
+    out = []
+    for name, cfg in ARCHS.items():
+        for sname in INPUT_SHAPES:
+            if cfg.encoder_only and INPUT_SHAPES[sname].kind == "decode":
+                continue
+            if sname == "long_500k" and name not in (_LONG_NATIVE |
+                                                     _LONG_SW):
+                continue
+            out.append((name, sname))
+    return out

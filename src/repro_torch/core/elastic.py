@@ -14,15 +14,21 @@ The port of the reference's ``core/elastic.py``, two families:
   ``sub_init_params``, ``sub_logits``, ``sub_loss``, ``sub_metric``,
   ``pad_delta``).
 * ``TransformerElasticFamily`` for GQA parents, dense or MoE, and Mamba2
-  SSM parents (its search surface is not ported yet): the spec algebra
-(``full_spec``, ``random_spec``), parent init, the forward masks of a
-spec (``decode_masks``, the serving surface), and the training surface
-the batched round engine runs on —
-``spec_masks`` (coverage + forward masks, LRU-cached by genes),
-``cohort_masks`` (stacked over clients, on the device) and
-``masked_loss`` / ``masked_metric`` over client-stacked parameters.
-Its sequential surface raises, naming ROADMAP A8 (the transformer
-extract / pad).
+  SSM parents: the spec algebra (``full_spec``, ``minimal_spec``,
+  ``random_spec``), the search surface (``mutate``, ``crossover``;
+  ``featurize`` / ``feature_dim``; ``flops`` / ``param_bytes`` /
+  ``flops_fraction`` / ``lut_specs``, priced on the submodel's analytic
+  config, ``core.submodel.sub_transformer_config``), parent init, the
+  forward masks of a spec (``decode_masks``, the serving surface), the
+  training surface the batched round engine runs on — ``spec_masks``
+  (coverage + forward masks, LRU-cached by genes), ``cohort_masks``
+  (stacked over clients, on the device) and ``masked_loss`` /
+  ``masked_metric`` over client-stacked parameters — and the sequential
+  path's surface (``extract`` / ``pad_delta``, ``sub_ctx``,
+  ``sub_init_params``, ``sub_logits`` / ``sub_loss`` / ``sub_metric``,
+  ``evaluate``). The submodel forward is ``models.transformer.forward``
+  on a one-client stack with no kernel table, as the reference's plain
+  forward.
 
 Coverage is built per leaf from the spec's prefixes as broadcast factors
 (``core.submodel.coverage_factors``): the reference builds it by the
@@ -41,14 +47,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, flops_per_token
 from repro_torch.configs.paper_cnn import CNNConfig
 from repro_torch.core.submodel import (SubmodelSpec, TransformerSubSpec,
                                        channels_of, coverage_factors,
-                                       extract_cnn, full_spec,
-                                       full_transformer_spec, mask_cnn,
-                                       minimal_spec, pad_cnn,
-                                       sub_cnn_config,
+                                       extract_cnn, extract_transformer,
+                                       full_spec, full_transformer_spec,
+                                       mask_cnn, minimal_spec,
+                                       minimal_transformer_spec, pad_cnn,
+                                       pad_transformer, sub_cnn_config,
+                                       sub_transformer_config,
                                        transformer_attn_heads,
                                        transformer_experts,
                                        transformer_ff,
@@ -58,6 +66,7 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import cnn
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import at_least_fp32, groupnorm
+from repro_torch.optim.optimizers import tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +133,7 @@ def _weighted_mean(values, weights):
 def _lm_per_sample_ce(logits, tokens):
     """Mean next-token CE per sequence. logits (..., S, V); tokens
     (..., S) -> (...)."""
-    lp = F.log_softmax(logits.float(), dim=-1)
+    lp = F.log_softmax(at_least_fp32(logits), dim=-1)
     tgt = tokens[..., 1:].long()
     ce = -torch.gather(lp[..., :-1, :], -1, tgt[..., None])[..., 0]
     return torch.mean(ce, dim=-1)
@@ -141,18 +150,23 @@ class TransformerElasticFamily:
     the router masks the suffix, the grouped matmul skips it), SSD-head
     prefix on SSM parents (``ssm_head_frac``: the scan skips the suffix),
     query-head prefix in whole GQA groups (``attn_head_frac``) and
-    per-segment kept layers (depth gates)."""
+    per-segment kept layers (depth gates).
+
+    ``seq_len``: tokens per sample in the latency cost model (and the
+    synthetic LM population's sequence length)."""
 
     name = "transformer"
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, seq_len: int = 32):
         if cfg.frontend is not None or cfg.encoder_only:
             raise ValueError(
-                f"{cfg.name}: frontend/encoder-only archs have no decode "
-                "path")
+                f"{cfg.name}: frontend/encoder-only archs have no token "
+                "cohort packing — the CFL engine supports decoder LMs")
         T.check_supported(cfg)
         self.cfg = cfg
+        self.seq_len = seq_len
         self._spec_cache = SpecLRU(128)
+        self._full_flops = None
 
     @property
     def supports_decode(self) -> bool:
@@ -162,8 +176,14 @@ class TransformerElasticFamily:
     def _attn_elastic(self) -> bool:
         return transformer_attn_heads(self.cfg, 1.0) is not None
 
+    # -- spec algebra ------------------------------------------------------
     def full_spec(self) -> TransformerSubSpec:
         return full_transformer_spec(self.cfg)
+
+    def minimal_spec(self) -> TransformerSubSpec:
+        """One kept layer per segment, the smallest width on every elastic
+        dim — the fallback when a latency bound admits nothing else."""
+        return minimal_transformer_spec(self.cfg)
 
     def random_spec(self, rng) -> TransformerSubSpec:
         """Feasible random spec drawn with ``rng`` (``random.Random``): ≥1
@@ -185,6 +205,84 @@ class TransformerElasticFamily:
 
     def genes(self, spec: TransformerSubSpec):
         return spec.genes()
+
+    # -- spec-space surface: genetic search (Alg. 1) -----------------------
+    def mutate(self, spec: TransformerSubSpec, rng,
+               p: float) -> TransformerSubSpec:
+        """Independently resample each segment's kept layers and each
+        applicable width with probability ``p`` (the reference's draws, in
+        its order)."""
+        cfg = self.cfg
+        layers = list(spec.layers)
+        for i, seg in enumerate(cfg.segments):
+            if rng.random() < p:
+                k = rng.randint(1, seg.n_layers)
+                layers[i] = tuple(sorted(rng.sample(range(seg.n_layers), k)))
+        widths = cfg.elastic_widths
+        ff = rng.choice(widths) if rng.random() < p else spec.ff_frac
+        ex = spec.expert_frac
+        if cfg.moe is not None and rng.random() < p:
+            ex = rng.choice(widths)
+        sh = spec.ssm_head_frac
+        if cfg.ssm is not None and rng.random() < p:
+            sh = rng.choice(widths)
+        ah = spec.attn_head_frac
+        if self._attn_elastic and rng.random() < p:
+            ah = rng.choice(widths)
+        return TransformerSubSpec(tuple(layers), ff, ex, sh, ah)
+
+    def crossover(self, a: TransformerSubSpec, b: TransformerSubSpec,
+                  rng) -> TransformerSubSpec:
+        """Uniform per-gene crossover (a segment's kept layers are one
+        gene)."""
+        layers = tuple(rng.choice([x, y])
+                       for x, y in zip(a.layers, b.layers))
+        return TransformerSubSpec(
+            layers,
+            ff_frac=rng.choice([a.ff_frac, b.ff_frac]),
+            expert_frac=rng.choice([a.expert_frac, b.expert_frac]),
+            ssm_head_frac=rng.choice([a.ssm_head_frac, b.ssm_head_frac]),
+            attn_head_frac=rng.choice([a.attn_head_frac, b.attn_head_frac]))
+
+    # -- spec-space surface: predictor features (Alg. 2) -------------------
+    def featurize(self, spec: TransformerSubSpec) -> np.ndarray:
+        """Kept-layer fraction per segment, the four width fractions, then
+        the FLOPs fraction."""
+        cfg = self.cfg
+        depth_f = [len(keep) / seg.n_layers
+                   for seg, keep in zip(cfg.segments, spec.layers)]
+        width_f = [spec.ff_frac, spec.expert_frac, spec.ssm_head_frac,
+                   spec.attn_head_frac]
+        return np.asarray(depth_f + width_f + [self.flops_fraction(spec)],
+                          np.float32)
+
+    @property
+    def feature_dim(self) -> int:
+        return len(self.cfg.segments) + 5
+
+    # -- spec-space surface: cost model (latency LUT input) ----------------
+    def flops(self, spec: TransformerSubSpec) -> float:
+        """Analytic forward FLOPs of one ``seq_len``-token sample of the
+        spec's submodel."""
+        sub_cfg = sub_transformer_config(self.cfg, spec)
+        return float(flops_per_token(sub_cfg, self.seq_len) * self.seq_len)
+
+    def param_bytes(self, spec: TransformerSubSpec,
+                    bytes_per_param: int = 4) -> float:
+        sub_cfg = sub_transformer_config(self.cfg, spec)
+        return float(sub_cfg.param_count() * bytes_per_param)
+
+    def flops_fraction(self, spec: TransformerSubSpec) -> float:
+        """spec FLOPs / full-parent FLOPs (cached denominator)."""
+        if self._full_flops is None:
+            self._full_flops = self.flops(self.full_spec())
+        return self.flops(spec) / self._full_flops
+
+    def lut_specs(self, depth_choices=None):
+        """Nothing to pre-tabulate: layer subsets are combinatorial, so the
+        latency LUT fills lazily on lookup."""
+        del depth_choices
+        return ()
 
     def decode_masks(self, spec: TransformerSubSpec) -> Dict:
         """Host (numpy) forward masks of ``spec``: ``ff`` (d_ff,),
@@ -268,34 +366,70 @@ class TransformerElasticFamily:
         logits = T.forward(params, self.cfg, x, masks=fwd, kernels=kernels)
         return _weighted_mean(_lm_per_sample_acc(logits, x), valid)
 
-    # -- the sequential path's surface: needs the transformer extract / pad
-    def sub_ctx(self, spec):
-        raise _needs_extract("sub_ctx")
+    # -- the sequential path's surface (extract -> train -> pad) -----------
+    def sub_ctx(self, spec) -> ModelConfig:
+        """The submodel's own config (``sub_transformer_config``)."""
+        return sub_transformer_config(self.cfg, spec)
 
-    def sub_init_params(self, seed, spec, device=None):
-        raise _needs_extract("sub_init_params")
-
-    def sub_logits(self, sub_params, sub_ctx, x):
-        raise _needs_extract("sub_logits")
+    def sub_init_params(self, seed: int, spec, device=None):
+        """Torch-seeded parameters of the submodel alone, as
+        ``init_params`` draws the parent's, on ``device`` (the card unless
+        the caller asks for the CPU)."""
+        return T.init_params(self.sub_ctx(spec), seed=seed,
+                             device=resolve_device(device))
 
     def extract(self, params, spec):
-        raise _needs_extract("extract")
+        """(sub_params, sub_cfg): the submodel's slices of the parent."""
+        return extract_transformer(params, self.cfg, spec)
 
     def pad_delta(self, delta, parent_template, spec):
-        raise _needs_extract("pad_delta")
+        """A submodel update zero-padded to parent coordinates."""
+        return pad_transformer(delta, parent_template, self.cfg, spec)
 
-    def sub_loss(self, sub_params, sub_ctx, x, y, sample_weight):
-        raise _needs_extract("sub_loss")
+    def sub_logits(self, sub_params, sub_cfg, x):
+        """Logits (B, S, V) of an extracted (unstacked) submodel on tokens
+        x (B, S): the cohort forward on a one-client stack, with no kernel
+        table (the plain forward)."""
+        one = tree_map(lambda t: t.unsqueeze(0), sub_params)
+        return T.forward(one, sub_cfg, x.long().unsqueeze(0))[0]
 
-    def sub_metric(self, sub_params, sub_ctx, x, y, valid):
-        raise _needs_extract("sub_metric")
+    def sub_loss(self, sub_params, sub_cfg, x, y, sample_weight):
+        """Weighted next-token CE of an extracted submodel over the (B,)
+        sequences."""
+        del y
+        return _weighted_mean(
+            _lm_per_sample_ce(self.sub_logits(sub_params, sub_cfg, x), x),
+            sample_weight)
+
+    def sub_metric(self, sub_params, sub_cfg, x, y, valid):
+        """Next-token accuracy of an extracted submodel over the ``valid``
+        (B,) sequences."""
+        del y
+        return _weighted_mean(
+            _lm_per_sample_acc(self.sub_logits(sub_params, sub_cfg, x), x),
+            valid)
+
+    def evaluate(self, params, data: Dict, batch_size: int = 128) -> float:
+        """Full-parent next-token accuracy on one dataset (the server's
+        global metric, IL's on the sequential trainer), in batches."""
+        return _evaluate(self, params, params["embed"]["table"].device,
+                         data, batch_size)
 
 
-def _needs_extract(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"TransformerElasticFamily.{what} (the sequential trainer's "
-        "submodel surface) needs the transformer extract / pad, which is "
-        "not ported yet (ROADMAP A8)")
+def _evaluate(fam, params, dev, data: Dict, batch_size: int) -> float:
+    """``fam``'s full-parent ``sub_metric`` over ``data`` in batches of
+    ``batch_size``, weighted by batch size."""
+    num = den = 0.0
+    with torch.no_grad():
+        for b in eval_batches(data, batch_size):
+            n = len(b["y"])
+            acc = float(fam.sub_metric(
+                params, fam.cfg, torch.as_tensor(b["x"], device=dev),
+                torch.as_tensor(b["y"], device=dev),
+                torch.ones((n,), device=dev)))
+            num += acc * n
+            den += n
+    return num / max(den, 1.0)
 
 
 # ===========================================================================
@@ -532,18 +666,8 @@ class CNNElasticFamily:
     def evaluate(self, params, data: Dict, batch_size: int = 128) -> float:
         """Full-parent accuracy on one dataset (the server's global
         metric), in batches."""
-        dev = params["stem"]["w"].device
-        num = den = 0.0
-        with torch.no_grad():
-            for b in eval_batches(data, batch_size):
-                n = len(b["y"])
-                acc = float(self.sub_metric(
-                    params, self.cfg, torch.as_tensor(b["x"], device=dev),
-                    torch.as_tensor(b["y"], device=dev),
-                    torch.ones((n,), device=dev)))
-                num += acc * n
-                den += n
-        return num / max(den, 1.0)
+        return _evaluate(self, params, params["stem"]["w"].device, data,
+                         batch_size)
 
     # -- masks (spec table, LRU by genes) ----------------------------------
     def spec_masks(self, spec: SubmodelSpec) -> SpecMasks:

@@ -3,11 +3,12 @@
 same draws in the same order).
 
 Submodels are generated by a genetic algorithm in the family's spec space
-(the paper CNN's depth × width grid), then filtered through the search
-helper = the online accuracy predictor (Alg. 2) + the offline latency LUT.
-Per worker k it keeps the submodel maximising the predicted accuracy
-subject to ``g(ω, p_k) < l_k``. Mutation, crossover and random sampling
-are the family's spec-space surface.
+(the paper CNN's depth × width grid, the zoo's layer subsets and
+widths), then filtered through the search helper = the online accuracy
+predictor (Alg. 2) + the offline latency LUT. Per worker k it keeps the
+submodel maximising the predicted accuracy subject to
+``g(ω, p_k) < l_k``. Mutation, crossover and random sampling are the
+family's spec-space surface.
 """
 from __future__ import annotations
 

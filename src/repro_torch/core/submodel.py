@@ -9,15 +9,20 @@ Two parent families:
   sequential extract → train → pad path's slicing and its zero-pad
   alignment, Alg. 3), ``coverage_cnn`` (that round trip on all-ones) and
   ``mask_cnn`` (the same coverage built directly, host numpy);
-* the transformer / SSM zoo: ``TransformerSubSpec``. Coverage is the
-  reference's extract → pad round trip on an all-ones parent: 1 on every
-  parent entry the submodel trains, 0 elsewhere. The port builds it per
-  leaf from the prefixes, as factors — one 0/1 vector per masked axis
-  (kept layers, kept d_ff columns, kept routed experts, kept attention
-  heads, kept SSD heads), size-1 axes elsewhere — whose broadcast product
-  is the reference's mask, so no parent-sized template is ever made.
-  Extract and pad themselves (the sequential reference path) are not
-  ported yet for this family (ROADMAP A8).
+* the transformer / SSM zoo: ``TransformerSubSpec``,
+  ``minimal_transformer_spec``, ``sub_transformer_config`` (the
+  submodel's config, analytic), ``extract_transformer`` /
+  ``pad_transformer`` (the sequential path's slicing — kept layers by
+  ``index_select``, d_ff / routed experts / query heads / SSD heads as
+  prefixes by ``narrow`` on axes addressed from the back — and its
+  zero-pad alignment by ``index_copy_`` on the layer axis). Coverage is
+  the extract → pad round trip on an all-ones parent: 1 on every parent
+  entry the submodel trains, 0 elsewhere. The port builds it per leaf
+  from the prefixes, as factors — one 0/1 vector per masked axis (kept
+  layers, kept d_ff columns, kept routed experts, kept attention heads,
+  kept SSD heads), size-1 axes elsewhere — whose broadcast product is the
+  round trip's mask, so no parent-sized template is ever made.
+  ``attn_pair`` segments and the shared hybrid block raise (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -227,6 +232,20 @@ def full_transformer_spec(cfg: ModelConfig) -> TransformerSubSpec:
         layers=tuple(tuple(range(s.n_layers)) for s in cfg.segments))
 
 
+def minimal_transformer_spec(cfg: ModelConfig) -> TransformerSubSpec:
+    """Smallest expressible zoo submodel — one kept layer per segment,
+    minimum width fraction on every applicable elastic dim (the
+    deterministic fallback when a latency bound admits nothing else)."""
+    w = min(cfg.elastic_widths)
+    return TransformerSubSpec(
+        layers=tuple((0,) for _ in cfg.segments),
+        ff_frac=w,
+        expert_frac=w if cfg.moe is not None else 1.0,
+        ssm_head_frac=w if cfg.ssm is not None else 1.0,
+        attn_head_frac=w if transformer_attn_heads(cfg, 1.0) is not None
+        else 1.0)
+
+
 def _round8(x: int) -> int:
     return max(8, (int(x) // 8) * 8)
 
@@ -401,4 +420,191 @@ def coverage_factors(cfg: ModelConfig, spec: TransformerSubSpec,
                                    keep, ff, n_exp, nh_keep, ah_keep)}
         for seg_shapes, seg, keep in zip(shapes["segments"], cfg.segments,
                                          spec.layers)]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the sequential path: extract -> train -> pad
+# ---------------------------------------------------------------------------
+def sub_transformer_config(cfg: ModelConfig,
+                           spec: TransformerSubSpec) -> ModelConfig:
+    """The submodel's config, computed analytically (no params):
+    ``extract_transformer`` produces exactly this config, so the analytic
+    FLOPs and parameter counts the latency model prices
+    (``configs.base.flops_per_token`` / ``param_count``) are those of the
+    submodel the engine trains."""
+    ff, n_exp, nh_keep, ah_keep = _elastic_dims(cfg, spec)
+    segs = tuple(dataclasses.replace(seg, n_layers=len(keep))
+                 for seg, keep in zip(cfg.segments, spec.layers))
+    moe = cfg.moe
+    if moe is not None and n_exp is not None:
+        moe = dataclasses.replace(moe, n_experts=n_exp)
+    ssm = cfg.ssm
+    if ssm is not None and nh_keep is not None:
+        ssm = dataclasses.replace(
+            ssm, d_inner_override=nh_keep * ssm.head_dim)
+    heads = {}
+    if ah_keep is not None:
+        g = cfg.n_heads // max(cfg.n_kv_heads, 1)
+        heads = dict(n_heads=ah_keep, n_kv_heads=ah_keep // g)
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-sub", segments=segs,
+        n_layers=sum(len(k) for k in spec.layers),
+        d_ff=ff or cfg.d_ff, moe=moe, ssm=ssm, **heads)
+
+
+def _check_branches(cfg: ModelConfig, tree: Dict) -> None:
+    """Raise for the branches whose extract / pad is not ported."""
+    what = ("attn_pair segments" if any(seg.kind == "attn_pair"
+                                        for seg in cfg.segments)
+            else "the shared hybrid block" if "shared_attn" in tree
+            else None)
+    if what is not None:
+        raise NotImplementedError(f"{cfg.name}: the extract / pad of {what} "
+                                  "is not ported yet (ROADMAP A11)")
+
+
+def extract_transformer(params: Dict, cfg: ModelConfig,
+                        spec: TransformerSubSpec):
+    """Returns (sub_params, sub_cfg): the kept layers of every stacked
+    per-layer leaf (``index_select`` on the leading axis, with an index
+    tensor on the leaf's device), then its d_ff / routed-expert / query-
+    head / SSD-head prefixes. Embedding, final norm and untied head are
+    the parent's own tensors."""
+    _check_branches(cfg, params)
+    ff, n_exp, nh_keep, ah_keep = _elastic_dims(cfg, spec)
+
+    def slice_block(tree, keep_idx):
+        def take(a):
+            idx = torch.as_tensor(keep_idx, dtype=torch.long,
+                                  device=a.device)
+            return a.index_select(0, idx)
+        return _slice_width(tree_map(take, tree), ff, n_exp, cfg, nh_keep,
+                            ah_keep)
+
+    sub = dict(params)
+    sub["segments"] = [{"blocks": slice_block(seg_p["blocks"], keep)}
+                       for seg_p, keep in zip(params["segments"],
+                                              spec.layers)]
+    return sub, sub_transformer_config(cfg, spec)
+
+
+def _slice_width(block_tree, ff: Optional[int], n_exp: Optional[int],
+                 cfg: ModelConfig, nh_keep: Optional[int] = None,
+                 ah_keep: Optional[int] = None):
+    """Width-slice a (stacked or unstacked) block tree: the mlp's d_ff
+    (``wi`` / ``wg`` last axis, ``wo`` second to last), the MoE's routed
+    experts, the mamba block's SSD heads and the GQA block's query heads."""
+    def walk(d):
+        out = {}
+        for k, v in d.items():
+            if k == "mlp" and ff:
+                out[k] = {kk: _slice_mlp_leaf(kk, vv, ff)
+                          for kk, vv in v.items()}
+            elif k == "moe" and n_exp is not None:
+                out[k] = _slice_moe(v, n_exp)
+            elif k == "mamba" and nh_keep is not None:
+                out[k] = _slice_mamba(v, nh_keep, cfg.ssm.head_dim)
+            elif k == "attn" and ah_keep is not None:
+                out[k] = _slice_attn(
+                    v, ah_keep,
+                    ah_keep // (cfg.n_heads // max(cfg.n_kv_heads, 1)))
+            elif isinstance(v, dict):
+                out[k] = walk(v)
+            else:
+                out[k] = v
+        return out
+    return walk(block_tree)
+
+
+def _slice_mlp_leaf(name, a, ff):
+    if name in ("wi", "wg"):
+        return a.narrow(a.dim() - 1, 0, ff)
+    if name == "wo":
+        return a.narrow(a.dim() - 2, 0, ff)
+    return a
+
+
+def _slice_moe(tree, n_exp):
+    """The first ``n_exp`` routed experts: the router's columns and the
+    expert axis (``ndim-3``, stacked or not) of ``wi`` / ``wg`` / ``wo``;
+    shared experts kept whole."""
+    out = {}
+    for k, v in tree.items():
+        if k == "router":
+            out[k] = v.narrow(v.dim() - 1, 0, n_exp)
+        elif k in ("wi", "wg", "wo"):
+            out[k] = v.narrow(v.dim() - 3, 0, n_exp)
+        else:
+            out[k] = v
+    return out
+
+
+def _slice_attn(tree, ah: int, kv: int):
+    """The first ``ah`` query heads of a GQA block and their ``kv`` KV
+    heads (whole query groups, so the q → kv head mapping is unchanged);
+    the per-head-dim q / k norms stay whole."""
+    out = {}
+    for k, v in tree.items():
+        if k == "wq":                               # (L?, d, H, hd)
+            out[k] = v.narrow(v.dim() - 2, 0, ah)
+        elif k in ("wk", "wv"):                     # (L?, d, KV, hd)
+            out[k] = v.narrow(v.dim() - 2, 0, kv)
+        elif k == "wo":                             # (L?, H, hd, d)
+            out[k] = v.narrow(v.dim() - 3, 0, ah)
+        else:                                       # q_norm, k_norm
+            out[k] = v
+    return out
+
+
+def _slice_mamba(tree, nh: int, head_dim: int):
+    """The first ``nh`` SSD heads of a mamba block: d_inner-sized axes keep
+    ``nh * head_dim`` entries, per-head axes ``nh``; the group-width
+    leaves (``wB`` / ``wC`` / ``conv_B`` / ``conv_C``) stay whole (kept
+    heads are a multiple of n_groups)."""
+    di = nh * head_dim
+    out = {}
+    for k, v in tree.items():
+        if k in ("wz", "wx"):                       # (L?, d, di)
+            out[k] = v.narrow(v.dim() - 1, 0, di)
+        elif k in ("wdt", "A_log", "D", "dt_bias"):  # (L?, [d,] nh)
+            out[k] = v.narrow(v.dim() - 1, 0, nh)
+        elif k == "conv_x":                         # w (L?, w, di), b
+            out[k] = {kk: vv.narrow(vv.dim() - 1, 0, di)
+                      for kk, vv in v.items()}
+        elif k == "norm":                           # scale (L?, di)
+            out[k] = {"scale": v["scale"].narrow(v["scale"].dim() - 1, 0,
+                                                 di)}
+        elif k == "out_proj":                       # (L?, di, d)
+            out[k] = v.narrow(v.dim() - 2, 0, di)
+        else:                                       # wB, wC, conv_B, conv_C
+            out[k] = v
+    return out
+
+
+def pad_transformer(delta: Dict, parent_template: Dict, cfg: ModelConfig,
+                    spec: TransformerSubSpec) -> Dict:
+    """Zero-pad a transformer submodel update to parent coordinates: every
+    stacked leaf is width-padded (its kept prefixes in place, zeros after)
+    and scattered onto its kept layers (``index_copy_``) of a zero parent
+    leaf; embedding, final norm and untied head pass through whole."""
+    _check_branches(cfg, delta)
+
+    def scatter_layers(sub_tree, parent_tree, keep_idx):
+        def leaf(s, p):
+            wide = torch.zeros((s.shape[0],) + tuple(p.shape[1:]),
+                               dtype=p.dtype, device=p.device)
+            wide[tuple(slice(0, n) for n in s.shape)] = s.to(p.dtype)
+            idx = torch.as_tensor(keep_idx, dtype=torch.long,
+                                  device=p.device)
+            return torch.zeros(p.shape, dtype=p.dtype,
+                               device=p.device).index_copy_(0, idx, wide)
+        return tree_map(leaf, sub_tree, parent_tree)
+
+    out = dict(delta)
+    out["segments"] = [
+        {"blocks": scatter_layers(d_seg["blocks"], p_seg["blocks"], keep)}
+        for d_seg, p_seg, keep in zip(delta["segments"],
+                                      parent_template["segments"],
+                                      spec.layers)]
     return out

@@ -4,7 +4,9 @@ the same bits).
 
 Five quality levels: level 0 = unprocessed, levels 1-3 = Gaussian blur
 with increasing variance, level 4 = sharpened (unsharp mask). Applied
-per subset to emulate mixed-quality edge data.
+per subset to emulate mixed-quality edge data. Token data (the zoo's LM
+scenario) has its own levels: a growing fraction of tokens replaced by
+uniform vocab draws (``apply_token_quality``).
 """
 from __future__ import annotations
 
@@ -55,6 +57,24 @@ def apply_quality(x: np.ndarray, level: int) -> np.ndarray:
     if level == 4:
         return sharpen(x)
     raise ValueError(f"quality level {level}")
+
+
+TOKEN_NOISE_FRACS = {0: 0.0, 1: 0.05, 2: 0.10, 3: 0.15, 4: 0.20}
+
+
+def apply_token_quality(tokens: np.ndarray, level: int, vocab: int,
+                        seed: int = 0) -> np.ndarray:
+    """LM analogue of ``apply_quality``: level-l data has a fraction of its
+    tokens replaced with uniform-random vocab draws (corrupted edge text).
+    Level 0 = clean; deterministic given ``seed``."""
+    frac = TOKEN_NOISE_FRACS[int(level)]
+    if frac == 0.0:
+        return tokens
+    rng = np.random.RandomState(seed)
+    out = tokens.copy()
+    mask = rng.random_sample(tokens.shape) < frac
+    out[mask] = rng.randint(0, vocab, size=int(mask.sum()))
+    return out
 
 
 def mixed_quality_dataset(data: Dict[str, np.ndarray],

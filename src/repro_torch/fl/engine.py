@@ -33,9 +33,10 @@ experts, heads) reach the kernels as (G,) or (G·B,) int32 device tensors
 derived from the masks; the engine itself has no family logic.
 
 ``SequentialFamilyTrainer`` is the reference's other engine: the
-per-client extract → train → pad loop on the plain forward (the CNN family
-only: the transformer family's extract / pad is ROADMAP A8), held to the
-same ``run_fl_round`` contract.
+per-client extract → train → pad loop on the plain forward (either
+family: ``models.cnn.forward``, or ``models.transformer.forward`` on a
+one-client stack with no kernel table), held to the same
+``run_fl_round`` contract.
 
 Not ported yet, and raising NotImplementedError: partial participation
 (``participation=``, ROADMAP A12), the double-buffered prefetch ring
@@ -362,8 +363,8 @@ class SequentialFamilyTrainer:
     """The per-client loop over an elastic family — the A/B reference the
     batched engine is held to, and the sequential engine of
     ``CFLConfig(batched_rounds=False)``: each client trains its extracted
-    submodel (``family.extract`` / ``sub_loss``, the plain ``models.cnn``
-    forward) one step at a time (``fl.client.sgd_step``), and its update
+    submodel (``family.extract`` / ``sub_loss``, the plain forward) one
+    step at a time (``fl.client.sgd_step``), and its update
     is padded back to parent coordinates (``pad_delta``). It runs on the
     device of the parameters it is given."""
 

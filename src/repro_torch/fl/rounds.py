@@ -2,11 +2,11 @@
 distribution) and the experiment drivers — the port of the reference's
 ``fl/rounds.py``: ``build_population`` for the image scenario (the
 paper's CIFAR / MNIST stand-ins: quality = blur / sharpen levels,
-distribution = non-IID labels), and ``run_cfl`` / ``run_fedavg`` /
-``run_il``, thin shims over ``CFLSession``.
-
-The synthetic Markov-LM population of the transformer zoo comes with that
-family's search surface (ROADMAP A6).
+distribution = non-IID labels) and the zoo's synthetic Markov-LM scenario
+(quality = token-corruption levels, distribution = one Markov chain per
+client), and ``run_cfl`` / ``run_fedavg`` / ``run_il``, thin shims over
+``CFLSession``. The population's data is numpy, bit-equal to the
+reference's on the same seeds.
 """
 from __future__ import annotations
 
@@ -18,8 +18,9 @@ from repro_torch.core.elastic import family_for
 from repro_torch.core.latency import fleet_for_workers, train_step_latency
 from repro_torch.data.partition import (iid_partition, noniid_partition,
                                         subset)
-from repro_torch.data.quality import apply_quality
-from repro_torch.data.synth import make_dataset, train_test_split
+from repro_torch.data.quality import apply_quality, apply_token_quality
+from repro_torch.data.synth import (make_dataset, make_lm_dataset,
+                                    train_test_split)
 from repro_torch.fl.client import ClientInfo
 from repro_torch.fl.server import CFLConfig
 
@@ -52,23 +53,61 @@ def _image_population(kind: str, n_workers: int, n_samples: int,
     return cdata, tdata, quals
 
 
+def _lm_population(family, n_workers: int, n_samples: int,
+                   heterogeneity: str, seed: int):
+    """Markov-LM heterogeneous population: distribution heterogeneity =
+    one Markov chain per client (vs a shared chain), quality = token
+    corruption levels (``data.quality.apply_token_quality``); sequences
+    of ``family.seq_len`` tokens."""
+    cfg = family.cfg
+    seq_len = getattr(family, "seq_len", 32)
+    vocab = cfg.vocab_size
+    rng = np.random.RandomState(seed)
+    n_tr = max(8, n_samples // n_workers)
+    n_te = max(8, n_tr // 4)
+    cdata, tdata, quals = [], [], []
+    for k in range(n_workers):
+        chain = seed * 31 + (k if heterogeneity in ("distribution", "both")
+                             else 0)
+        ctr = make_lm_dataset(n_tr, seq_len, vocab, seed=seed * 7 + 2 * k,
+                              chain_seed=chain)
+        cte = make_lm_dataset(n_te, seq_len, vocab,
+                              seed=seed * 7 + 2 * k + 1, chain_seed=chain)
+        q = 0
+        if heterogeneity in ("quality", "both"):
+            q = int(rng.randint(0, 5))
+            ctr = dict(ctr, x=apply_token_quality(ctr["x"], q, vocab,
+                                                  seed=seed + k))
+            cte = dict(cte, x=apply_token_quality(cte["x"], q, vocab,
+                                                  seed=seed + 100 + k))
+        cdata.append(ctr)
+        tdata.append(cte)
+        quals.append(q)
+    return cdata, tdata, quals
+
+
 def build_population(cfg, *, kind: Optional[str] = None, n_workers: int,
                      n_samples: int, heterogeneity: str, seed: int = 0,
                      latency_bound_frac: float = 1.05
                      ) -> Tuple[List[ClientInfo], List[Dict], List[Dict]]:
     """heterogeneity: 'quality' | 'distribution' | 'both' | 'none'.
 
-    ``kind``: 'synthmnist' (the default) or 'synthcifar'. Each client's
-    latency budget is ``l_k = frac * min(own, fleet-median)`` full-model
-    step latency: weak devices get tight bounds, and frac > 1 lets devices
-    at or below the median train the full model."""
+    ``cfg``: any family config or a family. ``kind``: an image kind
+    ('synthmnist', 'synthcifar'), 'synthlm', or None for the family's
+    default ('synthlm' for the transformer family, 'synthmnist' for the
+    CNN). Each client's latency budget is ``l_k = frac * min(own,
+    fleet-median)`` full-model step latency: weak devices get tight
+    bounds, and frac > 1 lets devices at or below the median train the
+    full model."""
     family = family_for(cfg)
-    if family.name != "cnn" or kind == "synthlm":
-        raise NotImplementedError(
-            "the Markov-LM population of the transformer zoo is not ported "
-            "yet (ROADMAP A6: the transformer family's search surface)")
-    cdata, tdata, quals = _image_population(
-        kind or "synthmnist", n_workers, n_samples, heterogeneity, seed)
+    if kind is None:
+        kind = "synthlm" if family.name == "transformer" else "synthmnist"
+    if kind == "synthlm":
+        cdata, tdata, quals = _lm_population(
+            family, n_workers, n_samples, heterogeneity, seed)
+    else:
+        cdata, tdata, quals = _image_population(
+            kind, n_workers, n_samples, heterogeneity, seed)
 
     fleet = fleet_for_workers(n_workers)
     full = family.full_spec()

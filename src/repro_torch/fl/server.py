@@ -276,9 +276,10 @@ class SyncServer:
 
 
 class CFLServer(SyncServer):
-    """The CFL control plane for the CNN family (any family with the
-    spec-space surface): each round's specs from the search (Alg. 1), the
-    accuracy predictor's update after it (Alg. 2)."""
+    """The CFL control plane for either family (the paper's CNN or the
+    transformer zoo — any family with the spec-space surface): each
+    round's specs from the search (Alg. 1), the accuracy predictor's
+    update after it (Alg. 2)."""
 
     HOST_PHASES = ("search", "predictor")
 

@@ -48,8 +48,9 @@ def _reject_il_selection(selection) -> None:
 class CFLSession:
     """Family + fleet + data in; history / fairness out.
 
-    ``cfg``: a ``CNNConfig`` or its family; per-client ``ClientInfo`` with
-    matching train / test data dicts (numpy ``x``, ``y``); optionally a
+    ``cfg``: a ``CNNConfig``, a zoo ``ModelConfig`` or their family;
+    per-client ``ClientInfo`` with matching train / test data dicts
+    (numpy ``x``, ``y``); optionally a
     ``CFLConfig``, initial parent ``params`` (tensors on ``device``) and
     the ``algorithm``. ``run(rounds)`` returns the per-round ``history``;
     ``fairness()`` summarises the last round; ``params`` is the

@@ -31,7 +31,7 @@ histories) per layer.
 
 Not ported yet, and raising NotImplementedError when a config needs them:
 MLA attention, ``attn_pair`` segments and the shared hybrid block of
-zamba2 (ROADMAP A11).
+zamba2 (ROADMAP A11); the audio / vision input frontends (A7).
 """
 from __future__ import annotations
 
@@ -45,8 +45,8 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (embed, layernorm, mlp, rmsnorm,
-                                       softcap)
+from repro_torch.models.layers import (at_least_fp32, embed, layernorm,
+                                       mlp, rmsnorm, softcap)
 
 Params = Dict[str, Any]
 
@@ -65,6 +65,9 @@ def check_supported(cfg: ModelConfig) -> None:
             cfg.attn_type != "gqa":
         raise NotImplementedError(f"{cfg.name}: {cfg.attn_type} attention "
                                   "is not ported yet (ROADMAP A11)")
+    if cfg.frontend is not None:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} input "
+                                  "frontend is not ported yet (ROADMAP A7)")
 
 
 def _norm(cfg: ModelConfig, p, x):
@@ -213,13 +216,14 @@ def param_shapes(cfg: ModelConfig) -> Params:
 
 
 def _logits(params, cfg: ModelConfig, x):
-    """x (..., d) -> fp32 softcapped logits; the weights may carry a
-    leading client axis matching x's (x (G, T, d))."""
+    """x (..., d) -> softcapped logits in at least fp32 (fp64 stays fp64);
+    the weights may carry a leading client axis matching x's (x (G, T,
+    d))."""
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["table"].transpose(-1, -2).to(x.dtype)
     else:
         logits = x @ params["lm_head"]["w"].to(x.dtype)
-    return softcap(logits.float(), cfg.final_softcap)
+    return softcap(at_least_fp32(logits), cfg.final_softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -273,10 +277,11 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, masks=None,
     """Full-sequence forward of a cohort: every leaf of ``params`` carries
     a leading client axis G, ``tokens`` is (G, B, S), ``masks`` holds one
     row per client (``ff`` (G, d_ff), ``heads`` (G, H), ``ssm_heads``
-    (G, H_ssm), ``depth`` a (G, n_layers) gate per segment). Returns fp32
-    softcapped logits (G, B, S, V). ``kernels``: the op table of
-    ``kernels.dispatch`` (the tile-skipping path, differentiable through
-    the kernels' closed backward) or None for the dense masked path."""
+    (G, H_ssm), ``depth`` a (G, n_layers) gate per segment). Returns
+    softcapped logits (G, B, S, V) in at least fp32. ``kernels``: the op
+    table of ``kernels.dispatch`` (the tile-skipping path, differentiable
+    through the kernels' closed backward) or None for the dense masked
+    path."""
     check_supported(cfg)
     G, B, S = tokens.shape
     x = embed(params["embed"], tokens, scale=cfg.embed_scale)

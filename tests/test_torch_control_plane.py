@@ -12,7 +12,8 @@
   specs;
 * ``CFLSession.from_synthetic`` runs on the CPU (its parity with the
   reference is ``tests/test_torch_session.py``'s);
-* what is not ported raises, naming its ROADMAP item.
+* the transformer family's sequential surface and its LM population run;
+  what is not ported raises, naming its ROADMAP item.
 """
 import dataclasses
 import importlib
@@ -35,13 +36,14 @@ from repro.fl.client import ClientInfo as RefClientInfo
 from repro.fl import selection as ref_selection
 from repro.optim import adamw as ref_adamw
 from repro_torch.checkpoint.bridge import params_from_numpy
-from repro_torch.configs import ARCHS
+from repro_torch.configs import ARCHS, reduced
 from repro_torch.configs.paper_cnn import PAPER_CNN, CNNConfig
 from repro_torch.core import elastic, fairness, latency, predictor, search
 from repro_torch.core.submodel import SubmodelSpec
 from repro_torch.fl import rounds, selection
 from repro_torch.fl.server import CFLConfig
 from repro_torch.fl.session import CFLSession
+from repro_torch.models import transformer as PT
 from repro_torch.optim import adamw
 
 torch.set_num_threads(2)
@@ -300,18 +302,34 @@ def test_unported_paths_raise():
     fedavg.server.set_selection(Half())
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         fedavg.run(1)
-    # the transformer family's sequential surface needs its extract / pad
-    fam = elastic.family_for(ARCHS["granite-3-8b"])
-    spec = fam.full_spec()
-    for call in (lambda: fam.sub_ctx(spec),
-                 lambda: fam.sub_init_params(0, spec),
-                 lambda: fam.sub_logits(None, None, None),
-                 lambda: fam.extract(None, spec),
-                 lambda: fam.pad_delta(None, None, spec),
-                 lambda: fam.sub_loss(None, None, None, None, None),
-                 lambda: fam.sub_metric(None, None, None, None, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            call()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        rounds.build_population(ARCHS["granite-3-8b"], n_workers=2,
-                                n_samples=8, heterogeneity="none")
+    # the transformer family's sequential surface and its LM population
+    # (once raising, naming ROADMAP A8 / A6) now run; what the zoo still
+    # lacks raises, naming its item
+    fam = elastic.TransformerElasticFamily(reduced(ARCHS["granite-3-8b"],
+                                                   n_layers=2, d_model=64))
+    spec = fam.minimal_spec()
+    params = fam.init_params(device="cpu")
+    sub, ctx = fam.extract(params, spec)
+    assert ctx == fam.sub_ctx(spec) and ctx.n_layers == 1
+    x = torch.zeros((2, 5), dtype=torch.long)
+    assert fam.sub_logits(sub, ctx, x).shape == (2, 5, ctx.padded_vocab)
+    for call in (fam.sub_loss, fam.sub_metric):
+        assert torch.isfinite(call(sub, ctx, x, None, torch.ones(2)))
+    assert fam.pad_delta(sub, params, spec)["segments"][0]["blocks"][
+        "mlp"]["wi"].shape == params["segments"][0]["blocks"]["mlp"][
+        "wi"].shape
+    assert fam.sub_init_params(0, spec, device="cpu")["segments"][0][
+        "blocks"]["mlp"]["wi"].shape == sub["segments"][0]["blocks"][
+        "mlp"]["wi"].shape
+    clients, train, test = rounds.build_population(
+        fam, n_workers=2, n_samples=16, heterogeneity="none")
+    assert [len(d["y"]) for d in train] == [8, 8] and len(test) == 2
+    for name, item in (("gemma2-9b", "A11"), ("zamba2-1.2b", "A11"),
+                       ("deepseek-v2-lite-16b", "A11")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            elastic.family_for(ARCHS[name])
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        PT.init_params(ARCHS["llava-next-mistral-7b"], device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        CFLSession.from_synthetic(fam, n_workers=2, n_samples=16,
+                                  selection="uniform", device="cpu")
