@@ -14,6 +14,13 @@ not time itself. Run from the root of a checkout (the card's build reuses
         (``torch.profiler``), with the gathers' device ms. Run it on two
         trees in turns in one call (parent, change, change, parent) to
         compare them on one card.
+    python3 chip_probe.py cnn-round ROOT LABEL
+        phase 14's sync rounds of the tree at ROOT: a CFL and a FedAvg
+        session of ``PAPER_CNN`` on the kernel path (8 clients of the
+        synthetic CIFAR stand-in), each after an untimed warm-up round of
+        its own session, 4 timed rounds (seconds and the host's search /
+        predictor seconds) and one more round's device-busy ms
+        (``torch.profiler``). Run it on two trees in turns in one call.
 
 Each prints one ``PROBE {json}`` line.
 """
@@ -116,11 +123,54 @@ def moe_step(cs, device, label):
             "gathers_device_ms": gathers}
 
 
+def cnn_round(cs, device, label, rounds=4):
+    """Phase 14's CFL and FedAvg sync rounds of the tree ``cs`` came
+    from, on the kernel path, through ``CFLSession``'s own round."""
+    import time
+    import torch
+    from repro_torch.configs.paper_cnn import PAPER_CNN
+    from repro_torch.fl.server import CFLConfig
+    from repro_torch.fl.session import CFLSession
+    S = cs.CNN_SLICE
+
+    def make(algorithm):
+        return CFLSession.from_synthetic(
+            PAPER_CNN, kind=S["kind"], n_workers=S["n_workers"],
+            n_samples=S["n_samples"], heterogeneity=S["heterogeneity"],
+            seed=S["seed"], device=device, algorithm=algorithm,
+            fl_cfg=CFLConfig(n_workers=S["n_workers"], elastic_kernels=True,
+                             seed=S["seed"]))
+    out = {"tree": label}
+    for algorithm in ("cfl", "fedavg"):
+        warm = make(algorithm)
+        warm.run(1)
+        del warm
+        sess = make(algorithm)
+        secs, host = [], []
+        for _ in range(rounds):
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            rec = sess.server.run_round()
+            torch.cuda.synchronize(device)
+            secs.append(time.perf_counter() - t)
+            host.append({k: v for k, v in rec.get("host_seconds",
+                                                   {}).items()
+                         if k != "round"})
+        busy, top, _ = cs.step_device_ms(sess.server.run_round, device,
+                                         steps=1)
+        out[algorithm] = {"round_s": secs,
+                          "median_s": statistics.median(secs),
+                          "host_s": host, "device_busy_ms": busy,
+                          "top_kernels_ms": top}
+    return out
+
+
 def main() -> int:
-    if len(sys.argv) < 2 or sys.argv[1] not in ("shapes", "moe-step"):
+    commands = ("shapes", "moe-step", "cnn-round")
+    if len(sys.argv) < 2 or sys.argv[1] not in commands:
         print(__doc__, file=sys.stderr)
         return 2
-    root = os.path.abspath(sys.argv[2] if sys.argv[1] == "moe-step"
+    root = os.path.abspath(sys.argv[2] if sys.argv[1] != "shapes"
                            else os.path.dirname(os.path.abspath(__file__)))
     sys.path[:0] = [os.path.join(root, "src"), root]
     import torch
@@ -131,8 +181,12 @@ def main() -> int:
     from repro_torch.kernels import build
     build.build_all()
     device = torch.device("cuda", 0)
-    out = shapes(cs, device) if sys.argv[1] == "shapes" else \
-        moe_step(cs, device, sys.argv[3])
+    if sys.argv[1] == "shapes":
+        out = shapes(cs, device)
+    elif sys.argv[1] == "moe-step":
+        out = moe_step(cs, device, sys.argv[3])
+    else:
+        out = cnn_round(cs, device, sys.argv[3])
     print(cs.card_line())
     print("PROBE " + json.dumps(out))
     return 0

@@ -133,7 +133,7 @@ printing its own lines; any failed phase exits non-zero:
    n_samples=4000, algorithm=...)``, the paper's parent at full width and
    depth: CFL (random feasible specs, then the genetic search scored by
    the predictor; batched round, aggregate, predictor update) and FedAvg
-   (every client the full spec) 3 timed sync rounds each on the kernels
+   (every client the full spec) 2 timed sync rounds each on the kernels
    and on the dense masked path, each after an untimed warm-up round of
    its own session; IL (the same local budget, no aggregation) one timed
    call on each path; CFL on the sequential trainer
@@ -151,7 +151,7 @@ printing its own lines; any failed phase exits non-zero:
    CE within ``TRAIN_LOSS_RTOL``, accuracies within one test sample, later
    specs identical while the earlier accuracies are; FedAvg: the same
    parameter, CE and accuracy checks; IL: accuracies within one test
-   sample after one round's budget (after three, printed: the replayed
+   sample after one round's budget (after the whole budget, printed: the replayed
    paths drift, as CFL's later rounds do). The sequential trainer is held
    to the batched dense engine on each client's first local step in fp64
    (1e-3 of the movement, accuracies within one sample; fp32 printed).
@@ -167,7 +167,9 @@ printing its own lines; any failed phase exits non-zero:
 14a. times, CNN shapes — per conv shape: K1, its plain version and
    ``torch.matmul`` on the im2col product (forward, dx, dw), the grouped
    ``F.conv2d`` (cuDNN, TF32 off) of the whole conv and the im2col, beside
-   the fp32 and 3×TF32 bounds and the launches a round.
+   the fp32 and 3×TF32 bounds and the launches a round; and the whole
+   conv as the kernel path runs it (``elastic_conv2d``: im2col + K1) and
+   its plain version beside the conv's own fp32 bound.
 
 15. zoo sessions — ``CFLSession.from_synthetic(TransformerElasticFamily(
    cfg, seq_len=...), kind="synthlm", n_workers=4, n_samples=32,
@@ -197,6 +199,32 @@ printing its own lines; any failed phase exits non-zero:
    the predictor and the LUT, launches by variant, peak memory, the
    routing decisions that differ, the global accuracy (``evaluate``) and
    the card line.
+16. partial participation, the selection policies and async buffered
+   rounds with fault injection (``phase_selection``), on phase 14's
+   population (one population and initial parameters for every session,
+   as ``from_synthetic`` builds them) and one zoo parent; every timed run
+   free-running after an untimed warm-up round, its launches counted from
+   0. 16a: CFL sync under "uniform", "fairness" and "latency" (4 of 8
+   clients), 2 timed rounds each: K1 21 × (3 · S + 1) a round through
+   ``tile`` / ``skinny``, ``F.conv2d`` only for the stem; held on round 0
+   (the dense path on the kernel path's recorded ReLU decisions; the
+   record round is the warm-up): the same participants, weights and
+   specs, parameters within 1e-3 of the movement beyond ``ULP_FLOOR``
+   ulps, test CE within ``TRAIN_LOSS_RTOL``. 16b: async at the sync
+   operating point (uniform, the buffer the cohort, no staleness
+   discount), 2 aggregates: parameters and history columns bit-equal to
+   16a's uniform run (``aggregate_lag`` within ``LAG_ULPS`` ulps of the
+   clock). 16c: buffered async (``BUFFERED_RUN``: B = 2, discount 0.5,
+   drop / straggle / corrupt 0.1, the quarantine gate), 4 aggregates on
+   the kernels and on the dense path: identical event columns, finite
+   parameters, the last buffered step within ``BUFFER_RTOL`` of its fp64
+   recomputation from the same group deltas. 16d: FedAvg under
+   "fairness", a sync round and an async aggregate at the sync point,
+   bit-equal as 16b. 16e: a granite-3-8b CFL round at phase 15's
+   settings under "uniform" (2 of 4): K1, K2–K4 as ``design_launches``,
+   held as phase 15. Prints round (aggregate) seconds, images/s or
+   tok/s, host seconds of selection / search / predictor and Table II's
+   columns per run, and the phase's seconds by part.
 
 The last lines are a ``kernels:`` line, the slices' stats, the card line,
 one JSON object with every kernel's launches and times, and the result
@@ -2601,10 +2629,11 @@ def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
 # ---------------------------------------------------------------------------
 # the CFL slice: the quickstart session on PAPER_CNN at its published width
 # and depth, 8 clients of the synthetic CIFAR-10 stand-in with quality
-# heterogeneity, 3 sync rounds, the CFLConfig defaults otherwise (batch 32,
-# lr 0.05, momentum 0.9, one local epoch)
+# heterogeneity, 2 sync rounds (3 until phase 16 needed the time), the
+# CFLConfig defaults otherwise (batch 32, lr 0.05, momentum 0.9, one local
+# epoch)
 CNN_SLICE = dict(kind="synthcifar", n_workers=8, n_samples=4000,
-                 heterogeneity="quality", rounds=3, seed=0)
+                 heterogeneity="quality", rounds=2, seed=0)
 CNN_BATCH = 32
 # the phase 3d / 14a cohort's width per client: channel prefixes 8 / 16 /
 # 24 / 32 of stage 0, 16 ... 64 of stage 1, 32 ... 128 of stage 2, ragged
@@ -2753,11 +2782,15 @@ def phase_cnn_times(device, cfg, clients, batch, steps, iters=5):
     ``torch.matmul``'s on the same im2col product, for the forward, dx and
     dw products; for the whole conv also ``models.cnn.conv2d`` (one grouped
     ``F.conv2d``, cuDNN, TF32 off — the dense path's, never the kernel
-    path's) and the im2col's own ms; the fp32 and 3×TF32 bounds, the
-    launches per round (``steps`` local steps and one eval pass) and the
-    plan's variant. Returns {"elastic_dense": [row, ...]}."""
+    path's), the im2col's own ms, ``elastic_conv2d``'s forward (B2: im2col
+    + K1) and its plain version beside the whole conv's fp32 bound; the
+    fp32 and 3×TF32 bounds, the launches per round (``steps`` local steps
+    and one eval pass) and the plan's variant. Returns {"elastic_dense": [row, ...]}."""
     import torch
-    from repro_torch.kernels.elastic_conv import _im2col, conv_weight_matrix
+    from repro_torch.kernels.elastic_conv import (_im2col,
+                                                  conv_weight_matrix,
+                                                  elastic_conv2d,
+                                                  elastic_conv2d_plain)
     from repro_torch.kernels.elastic_matmul import (elastic_dense,
                                                     elastic_dense_plain)
     from repro_torch.models.cnn import conv2d
@@ -2791,6 +2824,20 @@ def phase_cnn_times(device, cfg, clients, batch, steps, iters=5):
                     lambda: conv2d(x, w, b, s), device, iters, 1)
                 row["im2col_ms"] = cuda_ms(lambda: _im2col(x, 3, 3, s),
                                            device, iters, 1)
+                # B2, the whole conv as the kernel path runs it
+                # (``elastic_conv2d``: im2col, then K1) and its plain
+                # version, beside the conv's own bound: x, w and b read
+                # once, y written once, 2·9·cin·cout operations an output
+                row["conv_ms"] = cuda_ms(
+                    lambda: elastic_conv2d(x, w, b, stride=s), device,
+                    iters, 1)
+                row["conv_plain_ms"] = cuda_ms(
+                    lambda: elastic_conv2d_plain(x, w, b, stride=s), device,
+                    iters, 1)
+                conv_bytes = 4.0 * G * (x[0].numel() + w[0].numel()
+                                        + N + Mx * N)
+                row["conv_bound_ms"], row["conv_bound_by"] = bound(
+                    conv_bytes, 2.0 * G * Mx * Kx * N)
             nbytes = 4.0 * G * (Mx * Kx + Kx * Nx + Mx * Nx
                                 + (Nx if bias is not None else 0))
             ops = 2.0 * G * Mx * Kx * Nx
@@ -2801,7 +2848,10 @@ def phase_cnn_times(device, cfg, clients, batch, steps, iters=5):
     for r in rows:
         extra = "" if "conv_library_ms" not in r else (
             f"; whole conv: F.conv2d (cuDNN, TF32 off) "
-            f"{r['conv_library_ms']:.4f} ms, im2col {r['im2col_ms']:.4f} ms")
+            f"{r['conv_library_ms']:.4f} ms, im2col {r['im2col_ms']:.4f} ms,"
+            f" elastic_conv2d (im2col + K1) {r['conv_ms']:.4f} ms, its "
+            f"plain version {r['conv_plain_ms']:.4f} ms, the conv's bound "
+            f"{r['conv_bound_ms']:.4f} ms ({r['conv_bound_by']})")
         print(f"  elastic_dense {r['shape']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} "
               f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), 3xTF32 "
@@ -3569,7 +3619,7 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
     return launches, stats
 
 
-def cnn_local_step(device, sess, specs, fed_sess, turns=5):
+def cnn_local_step(device, sess, specs, fed_sess, turns=3):
     """One local step of the kernel path's cohort (``specs``, the session's
     parameters): wall ms and ``torch.profiler``'s device ms and idle share
     with K1's share. Then what cuDNN's deterministic algorithms cost
@@ -3741,14 +3791,15 @@ class RouteLog:
 
 
 def zoo_session(device, fam, algorithm="cfl", ek=True, batched=True,
-                seed=ZOO["seed"]):
-    """``CFLSession.from_synthetic`` of the zoo setting on ``fam``."""
+                seed=ZOO["seed"], selection=None):
+    """``CFLSession.from_synthetic`` of the zoo setting on ``fam``
+    (``selection``: the policy, full participation by default)."""
     from repro_torch.fl.server import CFLConfig
     from repro_torch.fl.session import CFLSession
     return CFLSession.from_synthetic(
         fam, kind="synthlm", n_workers=ZOO["n_workers"],
         n_samples=ZOO["n_samples"], heterogeneity=ZOO["heterogeneity"],
-        algorithm=algorithm, seed=seed, device=device,
+        algorithm=algorithm, seed=seed, device=device, selection=selection,
         fl_cfg=CFLConfig(n_workers=ZOO["n_workers"],
                          batch_size=ZOO["batch"], local_epochs=1,
                          lr=ZOO["lr"], elastic_kernels=ek,
@@ -4097,6 +4148,529 @@ def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: partial participation, the selection policies, async buffered
+# rounds with fault injection
+# ---------------------------------------------------------------------------
+# 16a: fraction 0.5 of the fleet a round (M = 4 of 8 on the CNN, 2 of 4 on
+# the zoo); 16c's buffered async run: B = 2 deltas, FedBuff's discount,
+# faults drawn from a fixed plan and the quarantine gate
+SELECT_POLICIES = ("uniform", "fairness", "latency")
+SELECT_ROUNDS = 2
+BUFFERED_RUN = dict(selection="uniform", mode="async", async_buffer=2,
+                    staleness_decay=0.5,
+                    faults="drop=0.1,straggle=0.1,corrupt=0.1",
+                    validate_deltas=True)
+BUFFERED_AGGREGATES = 4
+BUFFER_RTOL = 1e-6             # the buffered step against its fp64
+                               # recomputation from the same group deltas:
+                               # sums of ≤ 8 fp32 terms per entry
+EVENT_COLUMNS = ("participants", "staleness", "sim_clock", "dropped",
+                 "retried", "quarantined")
+LAG_ULPS = 4                   # aggregate_lag, async at the sync point
+                               # against sync: the same difference of
+                               # simulated times, rounded on the absolute
+                               # clock (each of its two terms one ulp)
+
+
+class SelectLog:
+    """While entered, keeps every ``Selection`` a server's tracker hands
+    out and the host seconds of each ``select``."""
+
+    def __init__(self, server):
+        self._tracker, self.sels, self.seconds = server.tracker, [], []
+
+    def __enter__(self):
+        real, t = self._tracker.select, self._tracker
+
+        def select(r):
+            t0 = time.perf_counter()
+            sel = real(r)
+            self.seconds.append(time.perf_counter() - t0)
+            self.sels.append(sel)
+            return sel
+        t.select = select
+        return self
+
+    def __exit__(self, *exc):
+        del self._tracker.select            # the class's method again
+
+
+class BufferedSteps:
+    """While entered, records every ``cohort_reduce`` call of the async
+    runtime (its inputs and its fp32 partial sums) and every
+    ``buffer_apply`` (the parameters it was given), grouped per step."""
+
+    def __init__(self):
+        from repro_torch.fl import runtime
+        self._mod = runtime
+        self.steps, self._groups = [], []
+
+    def __enter__(self):
+        mod, real_reduce, real_apply = (self._mod, self._mod.cohort_reduce,
+                                        self._mod.buffer_apply)
+
+        def reduce(deltas, covs, weights, **kw):
+            out = real_reduce(deltas, covs, weights, **kw)
+            self._groups.append(dict(deltas=deltas, covs=covs,
+                                     weights=weights, kw=kw, out=out))
+            return out
+
+        def apply(params, num, den, **kw):
+            self.steps.append(dict(groups=self._groups, params=params,
+                                   num=num, den=den, kw=kw))
+            self._groups = []
+            return real_apply(params, num, den, **kw)
+        self._real = (real_reduce, real_apply)
+        mod.cohort_reduce, mod.buffer_apply = reduce, apply
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.cohort_reduce, self._mod.buffer_apply = self._real
+
+
+def buffered_step_error(step):
+    """The relative error of one recorded buffered step against its fp64
+    recomputation from the same group deltas (each group's weighted sums
+    Σ_k w_k p_k s d_k and Σ_k w_k p_k s c_k — or the mass Σ_k w_k p_k s —
+    written out in fp64, non-finite entries zeroed where the group was
+    sanitised): max |Δ32 − Δ64| / max |Δ64| over the step Δ = num /
+    max(den, eps), and the same for the partial sums num and den."""
+    import torch
+    from repro_torch.core.aggregate import EPS
+    from repro_torch.optim.optimizers import tree_map
+    cov = step["kw"].get("coverage_norm", False)
+
+    def reduce64(g):
+        kw = g["kw"]
+        w = g["weights"].double()
+        if kw.get("participation") is not None:
+            w = w * kw["participation"].double()
+        w = w * float(kw.get("scale", 1.0))
+
+        def wsum(t, clean):
+            t = t.double()
+            if clean:
+                t = torch.where(torch.isfinite(t), t,
+                                torch.zeros((), dtype=t.dtype,
+                                            device=t.device))
+            return (t * w.reshape((-1,) + (1,) * (t.dim() - 1))).sum(0)
+        num = tree_map(lambda d: wsum(d, kw.get("sanitize", False)),
+                       g["deltas"])
+        den = tree_map(lambda c: wsum(c, False), g["covs"]) if cov \
+            else w.sum()
+        return num, den
+    num64 = den64 = None
+    for g in step["groups"]:
+        n, d = reduce64(g)
+        num64 = n if num64 is None else tree_map(torch.add, num64, n)
+        den64 = d if den64 is None else tree_map(torch.add, den64, d)
+
+    def rel(got, want):
+        got = [got] if torch.is_tensor(got) else list(_leaves(got))
+        want = [want] if torch.is_tensor(want) else list(_leaves(want))
+        diff = max(float((a.double() - b).abs().max())
+                   for a, b in zip(got, want))
+        return diff / max(max(float(b.abs().max()) for b in want), 1e-30)
+
+    def step_of(num, den):
+        if cov:
+            return tree_map(lambda n, d: n / torch.clamp(d, min=EPS), num,
+                            den)
+        return tree_map(lambda n: n / torch.clamp(den, min=EPS), num)
+    return {"step": rel(step_of(step["num"], step["den"]),
+                        step_of(num64, den64)),
+            "num": rel(step["num"], num64), "den": rel(step["den"], den64)}
+
+
+def phase_selection(device, cfg=None, zoo=True, cfg_of=None):
+    """Phase 16: partial participation, the selection policies and async
+    buffered rounds with fault injection, through ``CFLSession`` on
+    phase 14's population (``cfg``, ``PAPER_CNN`` by default: 8 clients,
+    ``CFLConfig`` defaults) and, with ``zoo``, one granite-3-8b round at
+    phase 15's settings. Every timed run is free-running after an untimed
+    warm-up round of its own session, its launches counted from 0.
+
+    * 16a: CFL sync under "uniform", "fairness" and "latency" (4 of 8
+      clients a round), ``SELECT_ROUNDS`` timed rounds each on the
+      kernels (the held round below their warm-up): K1 21 × (3·S + 1) a
+      round, S the round's padded step
+      count, all through tensor-core variants, ``F.conv2d`` only for the
+      stem. Held on round 0: the dense path replaying the kernel path's
+      ReLU decisions gives the same participants, weights and specs,
+      parameters within 1e-3 of the round's movement beyond ``ULP_FLOOR``
+      ulps, test CE within ``TRAIN_LOSS_RTOL``.
+    * 16b: CFL async at the sync operating point (uniform, the buffer the
+      cohort, ``staleness_decay=0``), ``SELECT_ROUNDS`` aggregates:
+      parameters and history columns bit-equal to 16a's uniform run
+      (``aggregate_lag`` within ``LAG_ULPS`` ulps of the clock).
+    * 16c: CFL buffered async (``BUFFERED_RUN``), ``BUFFERED_AGGREGATES``
+      aggregates on the kernels and on the dense path: identical event
+      columns (participants, staleness, simulated clock, dropped,
+      retried, quarantined), finite parameters; the kernel run's last
+      buffered step against its fp64 recomputation (``cohort_reduce`` /
+      ``buffer_add`` from the same group deltas) within ``BUFFER_RTOL``.
+    * 16d: FedAvg under "fairness": one sync round and one async aggregate
+      at the sync operating point, bit-equal as 16b.
+    * 16e: a granite-3-8b CFL round (``zoo``) with "uniform" (2 of 4
+      clients): K1 and K2–K4 as ``design_launches`` gives them, held as
+      phase 15 holds (the dense path's round 0 from the same state: the
+      same participants and specs, parameters within 1e-3 beyond
+      ``ULP_FLOOR`` ulps, test CE within ``TRAIN_LOSS_RTOL``).
+
+    Prints each run's round (aggregate) seconds, train images/s or tok/s,
+    host seconds of selection, search and predictor, and Table II's
+    columns (accuracy mean / min / std / Jain, the simulated clock).
+    ``cfg_of`` maps the zoo parent's name to its config (``get_config`` by
+    default; a ``reduced`` config and a small ``cfg`` rehearse the phase
+    on the CPU, where nothing is counted). Returns ({run: launches},
+    stats)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper_cnn import PAPER_CNN
+    from repro_torch.core.elastic import family_for
+    from repro_torch.core.fairness import accuracy_fairness
+    from repro_torch.core.submodel import TransformerSubSpec
+    from repro_torch.fl.rounds import build_population
+    from repro_torch.fl.server import CFLConfig
+    from repro_torch.fl.session import CFLSession
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    cfg = PAPER_CNN if cfg is None else cfg
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    relus = relu_decisions()
+    convs = 1 + sum(1 + 2 * n for _, n in cfg.stages)
+    problems, launches, stats = [], {}, {"runs": {}}
+    pop = {k: CNN_SLICE[k] for k in ("kind", "n_workers", "n_samples",
+                                     "heterogeneity", "seed")}
+
+    def snapshot(params):
+        return tree_map(lambda a: a.clone(), params)
+
+    # one population and one set of initial parameters for every session
+    # (what ``CFLSession.from_synthetic`` builds, built once)
+    family = family_for(cfg)
+    fleet = build_population(
+        family, kind=pop["kind"], n_workers=pop["n_workers"],
+        n_samples=pop["n_samples"], heterogeneity=pop["heterogeneity"],
+        seed=pop["seed"], latency_bound_frac=CFLConfig().latency_bound_frac)
+    params0 = family.init_params(seed=pop["seed"], device=device)
+
+    def make(algorithm="cfl", ek=True, **kw):
+        return CFLSession(
+            family, *fleet, CFLConfig(n_workers=pop["n_workers"],
+                                      elastic_kernels=ek, seed=pop["seed"],
+                                      **kw),
+            params=snapshot(params0), algorithm=algorithm, device=device)
+
+    def summary(accs):
+        f = accuracy_fairness(accs if accs else [float("nan")])
+        return {k: f[k] for k in ("mean", "min", "std", "jain_index")}
+
+    def timed(label, n, algorithm="cfl", warm=True, **kw):
+        """An untimed warm-up round of its own session, then ``n`` timed
+        free-running rounds (aggregates) of a fresh one, counted."""
+        if warm:
+            w = make(algorithm, **kw)
+            w.run(1)
+            del w
+        sess = make(algorithm, **kw)
+        out = []
+        with CnnCounters() as count, SelectLog(sess.server) as log:
+            for _ in range(n):
+                sync(device)
+                t = time.perf_counter()
+                rec = sess.server.run_round()
+                sync(device)
+                out.append(dict(rec=rec, seconds=time.perf_counter() - t))
+        launches[label] = {"elastic_dense": count.launches}
+        steps = [max(o["rec"]["n_steps"], default=0) for o in out]
+        want = cnn_design_launches(steps, convs - 1)
+        tc = sum(count.by_variant.get(v, 0) for v in ("tile", "skinny"))
+        print(f"  {label}: elastic_dense {count.launches} launches (design "
+              f"{want['elastic_dense']}: {convs - 1} x (3 S + 1) a round, S "
+              f"{steps}), by variant {count.by_variant}; F.conv2d "
+              f"{count.conv_calls} calls (design {want['F.conv2d']})")
+        if cuda and (count.launches != want["elastic_dense"]
+                     or tc != count.launches
+                     or count.conv_calls != want["F.conv2d"]):
+            problems.append(f"{label}: K1 launched {count.launches} times "
+                            f"({count.by_variant}), F.conv2d "
+                            f"{count.conv_calls}; design {want}")
+        run = dict(round_s=[], images_per_s=[], host_s=[],
+                   by_variant=count.by_variant, launches=count.launches,
+                   launches_design=want["elastic_dense"])
+        for i, o in enumerate(out):
+            rec, secs = o["rec"], o["seconds"]
+            images = sum(rec["n_steps"]) * CNN_BATCH
+            host = dict(selection=log.seconds[i] if i < len(log.seconds)
+                        else 0.0, **{k: v for k, v in
+                                     rec["host_seconds"].items()
+                                     if k != "round"})
+            acc = summary(rec["accs"])
+            print(f"  {label} {rec['mode']} {i}: {secs:.3f} s "
+                  f"({images / secs:.0f} train images/s); host s "
+                  f"{json.dumps({k: round(v, 4) for k, v in host.items()})}"
+                  f"; participants {rec['participants']}; accuracy mean / "
+                  f"min / std / Jain {acc['mean']:.4f} / {acc['min']:.4f} / "
+                  f"{acc['std']:.4f} / {acc['jain_index']:.4f}; sim_clock "
+                  f"{rec['sim_clock']:.4f} s; staleness {rec['staleness']}"
+                  f", dropped / retried / quarantined {rec['dropped']} / "
+                  f"{rec['retried']} / {rec['quarantined']}")
+            run["round_s"].append(secs)
+            run["images_per_s"].append(images / secs)
+            run["host_s"].append(host)
+            run.setdefault("table_ii", []).append(dict(
+                acc, sim_clock=rec["sim_clock"]))
+        stats["runs"][label] = run
+        return sess, out, log
+
+    def held_round0(label, policy):
+        """Round 0 of ``policy`` on the kernel path recording its ReLU
+        decisions, and on the dense path replaying them."""
+        relus.masks.clear()
+        kern = make(selection=policy)
+        with relus("record"), SelectLog(kern.server) as klog:
+            krec = kern.server.run_round()
+        dense = make(ek=False, selection=policy)
+        with relus("replay"), SelectLog(dense.server) as dlog:
+            drec = dense.server.run_round()
+        replayed, recorded = relus.pos, len(relus.masks)
+        if replayed != recorded:
+            problems.append(f"{label}: the replay took {replayed} of "
+                            f"{recorded} recorded ReLU calls")
+        ks, ds = klog.sels[0], dlog.sels[0]
+        same_sel = all(np.array_equal(getattr(ks, f), getattr(ds, f))
+                       for f in ("idx", "valid", "weights"))
+        same = (same_sel and krec["participants"] == drec["participants"]
+                and krec["specs"] == drec["specs"])
+        init = kern._init_params
+        ratio, diff, moved = move_ratio(dense.params, kern.params, init)
+        excess, _, ulps = ulp_floored(dense.params, kern.params)
+        floored = excess / moved
+        ids = krec["participants"]
+        specs = cnn_specs(krec["specs"])
+        test = [kern.test_data[i] for i in ids]
+        with relus("record"):
+            relus.masks.clear()
+            ce_k = cnn_eval_losses(kern.family, specs, test, kern.params,
+                                   "auto", device)
+        with relus("replay"):
+            ce_d = cnn_eval_losses(kern.family, specs, test, dense.params,
+                                   None, device)
+        relus.masks.clear()
+        ce = float(np.max(np.abs(ce_k - ce_d) / np.abs(ce_d)))
+        print(f"  {label} round 0 held (dense path on the kernel path's "
+              f"ReLUs): participants / weights / specs "
+              f"{'identical' if same else 'DIFFER'} ({ids}, weights "
+              f"{ks.weights.tolist()}, padding {int((ks.valid == 0).sum())}"
+              f"); parameters max diff {diff:.3e} ({ulps:.2f} ulp of |p|) "
+              f"over movement {moved:.3e}: {ratio:.3e}; beyond {ULP_FLOOR} "
+              f"ulp {floored:.3e} (tol 1e-3); test CE max relative {ce:.3e} "
+              f"(tol {TRAIN_LOSS_RTOL:g})")
+        if not same:
+            problems.append(f"{label}: the paths' round-0 selections or "
+                            f"specs differ")
+        if not floored <= 1e-3:
+            problems.append(f"{label}: round-0 parameters beyond "
+                            f"{ULP_FLOOR} ulp {floored:.3e} > 1e-3")
+        if not (np.isfinite(ce_k).all() and ce <= TRAIN_LOSS_RTOL):
+            problems.append(f"{label}: round-0 test CE {ce:.3e}")
+        return dict(ratio=ratio, floored=floored, ulps=ulps, ce_rel=ce,
+                    identical=same)
+
+    def bit_equal(label, a, b):
+        """Parameters and history columns equal to the bit; the one
+        exception, ``aggregate_lag``, within ``LAG_ULPS``: async takes it
+        on the absolute simulated clock, t − (D + t_k) for a dispatch at
+        D, sync as max_j t_j − t_k, as the reference does."""
+        d = first_difference(a.params, b.params)
+        cols = [k for k in a.history[0] if k not in ("mode", "host_seconds",
+                                                     "buffered")]
+        bad = [k for ra, rb in zip(a.history, b.history) for k in cols
+               if ra[k] != rb.get(k) and not (k == "aggregate_lag" and abs(
+                   ra[k] - rb[k]) <= LAG_ULPS * math.ulp(ra["sim_clock"]))]
+        print(f"  {label}: parameters "
+              + ("equal to the bit" if d is None else
+                 f"DIFFER (first at {d[0]} by {d[1]:.3e})")
+              + f"; history columns "
+              + ("equal" if not bad else f"DIFFER: {sorted(set(bad))}"))
+        if d is not None or bad:
+            problems.append(f"{label}: async at the sync operating point "
+                            f"is not the sync run to the bit")
+        return d is None and not bad
+
+    # ---- 16a: the three policies, sync, partial ---------------------------
+    t0 = time.perf_counter()
+    held, sync_runs = {}, {}
+    for policy in SELECT_POLICIES:
+        label = f"cnn cfl {policy}"
+        # the held kernel round (recording ReLUs) is the timed run's
+        # untimed warm-up round
+        held[policy] = held_round0(label, policy)
+        sess, _, _ = timed(label, SELECT_ROUNDS, warm=False,
+                           selection=policy)
+        sync_runs[policy] = sess
+    stats["held_round0"] = held
+    stats["16a_s"] = time.perf_counter() - t0
+
+    # ---- 16b: async at the sync operating point ---------------------------
+    t0 = time.perf_counter()
+    asess, _, _ = timed("cnn cfl uniform async (sync point)", SELECT_ROUNDS,
+                        warm=False, selection="uniform", mode="async",
+                        staleness_decay=0.0)
+    stats["async_sync_point_bit_equal"] = bit_equal(
+        "16b async at the sync point vs 16a uniform", sync_runs["uniform"],
+        asess)
+    del asess, sync_runs
+    stats["16b_s"] = time.perf_counter() - t0
+
+    # ---- 16c: buffered async with faults, both paths ----------------------
+    t0 = time.perf_counter()
+    with BufferedSteps() as steps:
+        bk, _, _ = timed("cnn cfl buffered async", BUFFERED_AGGREGATES,
+                         **BUFFERED_RUN)
+    dense = make(ek=False, **BUFFERED_RUN)
+    dense.run(BUFFERED_AGGREGATES)
+    cols_k = [{c: r[c] for c in EVENT_COLUMNS} for r in bk.history]
+    cols_d = [{c: r[c] for c in EVENT_COLUMNS} for r in dense.history]
+    finite = all(bool(torch.isfinite(t).all()) for s in (bk, dense)
+                 for t in tree_leaves(s.params))
+    events = {c: sum(r[c] for r in bk.history)
+              for c in ("dropped", "retried", "quarantined")}
+    print(f"  16c event columns, kernel vs dense path: "
+          + ("identical" if cols_k == cols_d else "DIFFER")
+          + f"; over {BUFFERED_AGGREGATES} aggregates {json.dumps(events)}, "
+          f"staleness {[r['staleness'] for r in bk.history]}; parameters "
+          + ("finite" if finite else "NOT FINITE"))
+    if cols_k != cols_d:
+        problems.append(f"16c: event columns differ: {cols_k} / {cols_d}")
+    if not finite:
+        problems.append("16c: non-finite parameters")
+    errs = None
+    if not steps.steps:
+        problems.append("16c: no buffered step ran")
+    else:
+        errs = buffered_step_error(steps.steps[-1])
+        print(f"  16c last buffered step ({len(steps.steps[-1]['groups'])} "
+              f"groups) against fp64: relative error step "
+              f"{errs['step']:.3e}, num {errs['num']:.3e}, den "
+              f"{errs['den']:.3e} (tol {BUFFER_RTOL:g}); "
+              f"{len(steps.steps)} buffered steps in "
+              f"{BUFFERED_AGGREGATES} aggregates")
+        if not max(errs.values()) <= BUFFER_RTOL:
+            problems.append(f"16c: the buffered step differs from fp64 by "
+                            f"{errs}")
+    stats["buffered"] = dict(event_columns=cols_k, identical=cols_k == cols_d,
+                             fp64_rel=errs, events=events,
+                             buffered_steps=len(steps.steps))
+    del bk, dense, steps
+    stats["16c_s"] = time.perf_counter() - t0
+
+    # ---- 16d: FedAvg under the fairness policy ----------------------------
+    t0 = time.perf_counter()
+    fs, _, _ = timed("cnn fedavg fairness", 1, "fedavg", selection="fairness")
+    fa, _, _ = timed("cnn fedavg fairness async (sync point)", 1, "fedavg",
+                     warm=False, selection="fairness", mode="async",
+                     staleness_decay=0.0)
+    stats["fedavg_async_bit_equal"] = bit_equal(
+        "16d FedAvg async at the sync point vs sync", fs, fa)
+    del fs, fa
+    stats["16d_s"] = time.perf_counter() - t0
+    gc.collect()
+
+    # ---- 16e: a zoo parent's partial round ---------------------------------
+    if zoo:
+        t0 = time.perf_counter()
+        name, n_layers, seq_len = ZOO_PARENTS[0][:3]
+        fam = train_family((cfg_of or get_config)(name), n_layers, seq_len)
+        zcfg = fam.cfg
+        warm = zoo_session(device, fam, selection="uniform")
+        warm.run(1)
+        del warm
+        sess = zoo_session(device, fam, selection="uniform")
+        counters = path_counters(zcfg)
+        reset_launches(counters)
+        with SelectLog(sess.server) as log:
+            sync(device)
+            t = time.perf_counter()
+            rec = sess.server.run_round()
+            sync(device)
+            secs = time.perf_counter() - t
+        got = {c.__name__: c.launches for c in counters}
+        want = design_launches(n_layers, max(rec["n_steps"]), 1)
+        label = "zoo granite cfl uniform"
+        launches[label] = got
+        by = check_variants(got, problems, "tile", "mma") if cuda else {}
+        print(f"  {label}: launches {got} (design {want}, 2 slots), by "
+              f"variant {by}")
+        if cuda and got != want:
+            problems.append(f"{label}: launches {got}, design {want}")
+        tokens = sum(rec["n_steps"]) * ZOO["batch"] * seq_len
+        acc = summary(rec["accs"])
+        host = dict(selection=log.seconds[0],
+                    **{k: v for k, v in rec["host_seconds"].items()
+                       if k != "round"})
+        print(f"  {label}: {secs:.3f} s ({tokens / secs:.0f} train tok/s);"
+              f" host s {json.dumps({k: round(v, 4) for k, v in host.items()})}"
+              f"; participants {rec['participants']}; accuracy mean / min /"
+              f" std / Jain {acc['mean']:.5f} / {acc['min']:.5f} / "
+              f"{acc['std']:.5f} / {acc['jain_index']:.5f}; sim_clock "
+              f"{rec['sim_clock']:.4f} s")
+        after0, init = snapshot(sess.params), sess._init_params
+        specs = [TransformerSubSpec(tuple(tuple(l) for l in g[0]),
+                                    g[1] / 100, g[2] / 100, g[3] / 100,
+                                    g[4] / 100) for g in rec["specs"]]
+        test = [sess.test_data[i] for i in rec["participants"]]
+        del sess
+        gc.collect()
+        dense = zoo_session(device, fam, ek=False, selection="uniform")
+        drec = dense.server.run_round()
+        same = (drec["participants"] == rec["participants"]
+                and drec["specs"] == rec["specs"])
+        ratio, diff, moved = move_ratio(after0, dense.params, init)
+        excess, _, ulps = ulp_floored(after0, dense.params)
+        floored = excess / moved
+        ce_k = eval_losses(fam, specs, test, after0, "auto", device)
+        ce_d = eval_losses(fam, specs, test, dense.params, None, device)
+        ce = float(np.max(np.abs(ce_k - ce_d) / np.abs(ce_d)))
+        print(f"  {label} dense path round 0: participants / specs "
+              f"{'identical' if same else 'DIFFER'}; parameters max diff "
+              f"{diff:.3e} ({ulps:.2f} ulp of |p|) over movement "
+              f"{moved:.3e}: {ratio:.3e}; beyond {ULP_FLOOR} ulp "
+              f"{floored:.3e} (tol 1e-3); test CE max relative {ce:.3e} "
+              f"(tol {TRAIN_LOSS_RTOL:g})")
+        if not same:
+            problems.append(f"{label}: the dense round's participants or "
+                            f"specs differ")
+        if not floored <= 1e-3:
+            problems.append(f"{label}: round-0 parameters beyond "
+                            f"{ULP_FLOOR} ulp {floored:.3e} > 1e-3")
+        if not ce <= TRAIN_LOSS_RTOL:
+            problems.append(f"{label}: round-0 test CE {ce:.3e}")
+        stats["zoo"] = dict(round_s=secs, tok_per_s=tokens / secs,
+                            host_s=host, launches=got, design=want,
+                            by_variant=by, table_ii=dict(
+                                acc, sim_clock=rec["sim_clock"]),
+                            round0_ratio=ratio, round0_floored=floored,
+                            round0_ce_rel=ce, identical=same)
+        del dense, after0
+        gc.collect()
+        stats["16e_s"] = time.perf_counter() - t0
+    stats["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 16: {stats['phase_seconds']:.1f} s (16a "
+          f"{stats['16a_s']:.1f}, 16b {stats['16b_s']:.1f}, 16c "
+          f"{stats['16c_s']:.1f}, 16d {stats['16d_s']:.1f}"
+          + (f", 16e {stats['16e_s']:.1f}" if zoo else "") + "); "
+          + (card_line() if cuda else "no card"))
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
 def without_arch(settings):
     return {k: v for k, v in settings.items() if k != "arch"}
 
@@ -4121,6 +4695,16 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.backend import resolve_device
 
+    t_start = time.perf_counter()
+    phase_s, mark = {}, [t_start]
+
+    def done(name):
+        """Print and keep the seconds since the last phase ended."""
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+        print(f"  phase {name}: {phase_s[name]:.1f} s")
+
     device = resolve_device("cuda")
     card = card_line()
     print("== 1. device")
@@ -4133,6 +4717,7 @@ def main() -> int:
         return 1
 
     print("== 2. build")
+    done("1")
     t0 = time.perf_counter()
     build.build_all()
     print(f"  built in {time.perf_counter() - t0:.1f} s "
@@ -4140,6 +4725,7 @@ def main() -> int:
     for name in build.SOURCES:
         for line in ptxas_summary(build.build_log(name)):
             print(f"  {name}: {line}")
+    done("2")
 
     cfg = get_config(SLICE["arch"])
     dims = dict(d_model=cfg.d_model, d_ff=cfg.d_ff, n_heads=cfg.n_heads,
@@ -4170,72 +4756,88 @@ def main() -> int:
     try:
         print("== 3. kernels against their plain versions")
         worst = phase_kernels(device, **dims, **tdims, **tpre)
+        done("3")
         print("== 3b. MoE kernels against their plain versions (K5, K6, K7; "
               "K2-K4 at head_dim 64)")
         mworst = phase_moe_kernels(device, tokens=mdims["rows"] *
                                    mdims["seq"], heads=mpre["heads"],
                                    **mdims)
+        done("3b")
         print("== 3c. SSD kernels against their plain versions (K8, K9)")
         sworst = phase_ssd_kernels(device, **sdims)
+        done("3c")
         print("== 3d. CNN convolutions against their plain versions (K1 "
               "through elastic_conv2d)")
         cworst = phase_cnn_kernels(device, PAPER_CNN, CNN_SLICE["n_workers"],
                                    CNN_BATCH)
         release()
+        done("3d")
         print("== 4. times: serving shapes")
         times = phase_times(device, **dims)
+        done("4")
         print("== 5. slice: granite-3-8b serving, full width and depth, "
               "fp32")
         launches, stats = phase_slice(device, cfg, **without_arch(SLICE))
         release()
+        done("5")
         print("== 6. times: training shapes")
         train_times = phase_train_times(
             device, **{k: v for k, v in dims.items()
                        if k not in ("slots", "prompt_len")}, **tdims)
+        done("6")
         print(f"== 7. slice: granite-3-8b training, full width, "
               f"{TRAIN['n_layers']} layers, {TRAIN['clients']} clients, "
               f"{TRAIN['rounds']} CFL rounds, fp32")
         train_launches, train_stats = phase_train(device, cfg, **TRAIN)
         release()
+        done("7")
         print("== 8. times: MoE shapes")
         moe_times = phase_moe_times(device, **mdims)
         release()
+        done("8")
         print(f"== 9. slice: granite-moe-1b-a400m training, full width, "
               f"{MOE_TRAIN['n_layers']} layers, {MOE_TRAIN['clients']} "
               f"clients, {MOE_TRAIN['rounds']} CFL rounds, fp32")
         moe_train_launches, moe_train_stats = phase_train(device, mcfg,
                                                           **MOE_TRAIN)
         release()
+        done("9")
         print("== 10. slice: granite-moe-1b-a400m serving, full width and "
               "depth, fp32")
         moe_launches, moe_stats = phase_slice(device, mcfg,
                                               **without_arch(MOE_SLICE))
         release()
+        done("10")
         print("== 11. times: SSM shapes")
         ssm_times = phase_ssd_times(device, **sdims)
         release()
+        done("11")
         print(f"== 12. slice: mamba2-2.7b training, full width, "
               f"{SSM_TRAIN['n_layers']} layers, {SSM_TRAIN['clients']} "
               f"clients, {SSM_TRAIN['rounds']} CFL rounds, fp32")
         ssm_train_launches, ssm_train_stats = phase_train(device, scfg,
                                                           **SSM_TRAIN)
         release()
+        done("12")
         print("== 13. slice: mamba2-2.7b serving, full width and depth, "
               "fp32")
         ssm_launches, ssm_stats = phase_slice(device, scfg,
                                               **without_arch(SSM_SLICE))
         release()
+        done("13")
         print(f"== 14. slice: {PAPER_CNN.name} sessions of CFL, FedAvg and "
               f"IL (and CFL on the sequential trainer), full width and "
               f"depth, {CNN_SLICE['n_workers']} clients, "
               f"{CNN_SLICE['rounds']} sync rounds, fp32")
         cnn_launches, cnn_stats = phase_cnn(device, **CNN_SLICE)
         release()
+        done("14")
         print("== 14a. times: CNN shapes")
         cnn_times = phase_cnn_times(
             device, PAPER_CNN, CNN_SLICE["n_workers"], CNN_BATCH,
             cnn_stats["steps_per_round"][0])
         release()
+        done("14a")
         print(f"== 15. CFLSession on the transformer zoo: granite-3-8b "
               f"(CFL {ZOO_PARENTS[0][3]} rounds, FedAvg, IL, the sequential "
               f"trainer), granite-moe-1b-a400m and mamba2-2.7b (CFL and the "
@@ -4243,6 +4845,15 @@ def main() -> int:
               f"clients, fp32")
         zoo_launches, zoo_stats = phase_zoo(device)
         release()
+        done("15")
+        print(f"== 16. partial participation, the selection policies and "
+              f"async buffered rounds with faults: {PAPER_CNN.name} CFL "
+              f"({', '.join(SELECT_POLICIES)}; async at the sync point; "
+              f"buffered async), FedAvg (fairness), granite-3-8b CFL "
+              f"(uniform), fp32")
+        sel_launches, sel_stats = phase_selection(device)
+        release()
+        done("16")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4288,7 +4899,8 @@ def main() -> int:
                "moe_training": moe_train_launches, "moe_serving": moe_launches,
                "ssm_training": ssm_train_launches, "ssm_serving": ssm_launches,
                **cnn_launches,
-               **{f"zoo {run}": c for run, c in zoo_launches.items()}}
+               **{f"zoo {run}": c for run, c in zoo_launches.items()},
+               **{f"selection {run}": c for run, c in sel_launches.items()}}
     for name, err in (list(mworst.items()) + list(sworst.items())
                       + list(cworst.items())):
         worst[name] = max(worst.get(name, 0.0), err)
@@ -4336,6 +4948,11 @@ def main() -> int:
                               ("cnn_training", cnn_stats))
                 + tuple((f"zoo {a} cfl", zoo_stats[a])
                         for a, *_ in ZOO_PARENTS)
+                + tuple((f"selection {run}", {"launches_by_variant": {
+                    "elastic_dense": st["by_variant"]}})
+                        for run, st in sel_stats["runs"].items())
+                + (("selection zoo granite cfl uniform", {
+                    "launches_by_variant": sel_stats["zoo"]["by_variant"]}),)
                 if name in st.get("launches_by_variant", {})}
     print("kernels: " + "; ".join(
         f"{p} " + " ".join(f"{n}={c}" for n, c in counts.items())
@@ -4348,6 +4965,9 @@ def main() -> int:
     print(f"ssm slice: {json.dumps(ssm_stats)}")
     print(f"cnn training: {json.dumps(cnn_stats)}")
     print(f"zoo sessions: {json.dumps(zoo_stats)}")
+    print(f"selection: {json.dumps(sel_stats)}")
+    print(f"phase seconds: {json.dumps(phase_s)}; "
+          f"{time.perf_counter() - t_start:.1f} s in all")
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,12 @@ budget, no aggregation).
 Both ride the CFL server's engines: the batched parent-space engine when
 ``fl_cfg.batched_rounds`` (every client's masks are the full spec's, so on
 the kernel path K1 runs at full prefixes), the sequential trainer
-otherwise. Sync, full-participation rounds, as the port's ``CFLServer``;
-async rounds and faults (ROADMAP A13), the prefetch ring (A14) and
-partial participation (A12) raise, naming their item.
+otherwise. FedAvg runs what the port's ``CFLServer`` runs (it shares
+its ``SyncServer``): every selection policy, partial participation, async
+buffered rounds (``fl.runtime``) and fault injection (``fl.faults``);
+the prefetch ring and fleet checkpoints (ROADMAP A14) and cohort sharding
+(A17) raise, naming their item. IL has no rounds to subsample or
+schedule: ``CFLSession`` rejects a non-full selection and async for it.
 """
 from __future__ import annotations
 
@@ -25,8 +28,8 @@ class FedAvgServer(SyncServer):
     record is the CFL server's without the search's columns (``specs``,
     ``predictor_mae``), and its host seconds are the round's."""
 
-    def cohort_specs(self) -> List:
-        return [self.family.full_spec()] * len(self.clients)
+    def cohort_specs(self, participants) -> List:
+        return [self.family.full_spec()] * len(participants)
 
 
 def independent_learning(cfg, init_params, clients: List[ClientInfo],

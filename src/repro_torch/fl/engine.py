@@ -38,10 +38,16 @@ family: ``models.cnn.forward``, or ``models.transformer.forward`` on a
 one-client stack with no kernel table), held to the same
 ``run_fl_round`` contract.
 
-Not ported yet, and raising NotImplementedError: partial participation
-(``participation=``, ROADMAP A12), the double-buffered prefetch ring
-(``enable_prefetch`` / ``prefetch_hook``, A14) and cohort sharding over
-several cards (``cohort_shards > 1``, A17).
+Partial participation (``fl.selection``): with ``participation=`` (a
+``Selection``) a round trains its fixed-size padded cohort — the selected
+clients gathered out of the fleet's cached data pack on the device
+(``index_select``), streams padded to the fleet-wide step count, padding
+slots training zero steps with weight 0 — so the cohort's shapes never
+depend on which clients were picked.
+
+Not ported yet, and raising NotImplementedError: the double-buffered
+prefetch ring (``enable_prefetch`` / ``prefetch_hook``, ROADMAP A14) and
+cohort sharding over several cards (``cohort_shards > 1``, A17).
 """
 from __future__ import annotations
 
@@ -257,17 +263,40 @@ class BatchedRoundEngine:
                      participation=None, prefetch_hook=None
                      ) -> CohortResult:
         """Every client's local epochs (and, with ``eval_datasets``, its
-        local test pass) in one cohort call."""
-        if participation is not None:
-            raise _not_ported("partial participation", "A12")
+        local test pass) in one cohort call.
+
+        With ``participation`` (an ``fl.selection.Selection``) the cohort
+        is the padded subset it names: ``specs`` and ``seeds`` are per
+        slot (M = ``len(participation.idx)``), ``datasets`` /
+        ``eval_datasets`` stay the whole fleet's (their packs are cached;
+        the subset is gathered on the device), streams are padded to the
+        fleet-wide step count and a padding slot (``valid`` 0) trains zero
+        steps and scores no eval sample; it still rides every launch of a
+        step. The results are per slot."""
         if prefetch_hook is not None:
             raise _not_ported("the double-buffered prefetch ring", "A14")
         dev = self.device
         masks = self.family.cohort_masks(specs, self.device)
         x, y = self._cohort_data(datasets)
+        lengths = [len(d["y"]) for d in datasets]
+        steps_pad, gidx = None, None
+        if participation is not None:
+            part = participation
+            if not (len(specs) == len(seeds) == len(part.idx)):
+                raise ValueError(
+                    f"per-slot specs/seeds must match the padded cohort "
+                    f"size {len(part.idx)}, got {len(specs)}/{len(seeds)}")
+            # S is the fleet-wide maximum: it never depends on the subset
+            steps_pad = max(n_stream_steps(n, batch_size, epochs)
+                            for n in lengths)
+            lengths = [lengths[i] if v > 0 else 0
+                       for i, v in zip(part.idx, part.valid)]
+            gidx = torch.as_tensor(np.asarray(part.idx, np.int64),
+                                   device=dev)
+            x, y = x.index_select(0, gidx), y.index_select(0, gidx)
         idx, sv, stv, n_steps = _pack_streams(
-            [len(d["y"]) for d in datasets], batch_size, epochs=epochs,
-            seeds=seeds)
+            lengths, batch_size, epochs=epochs, seeds=seeds,
+            n_steps_pad=steps_pad)
         idx = torch.as_tensor(idx, device=dev).long()
         sv = torch.as_tensor(sv, device=dev)
         rows = torch.arange(len(specs), device=dev)[:, None]
@@ -285,7 +314,12 @@ class BatchedRoundEngine:
                           trained, masks.param_mask)
         accs = None
         if eval_datasets is not None:
-            accs = self.eval_cohort(trained, specs, eval_datasets, masks)
+            ex, ey, ev = self._eval_pack(eval_datasets)
+            if gidx is not None:
+                ex, ey = ex.index_select(0, gidx), ey.index_select(0, gidx)
+                ev = ev.index_select(0, gidx) * torch.as_tensor(
+                    participation.valid, device=dev)[:, None]
+            accs = self._metric(trained, masks, ex, ey, ev)
         return CohortResult(deltas, trained, masks, n_steps, accs)
 
     def run_fl_round(self, params, specs: Sequence,
@@ -293,8 +327,12 @@ class BatchedRoundEngine:
                      sizes: Sequence[float], *, batch_size: int, epochs: int,
                      seeds: Sequence[int], coverage_norm: bool = False,
                      participation=None, prefetch_hook=None):
-        """One full FL round: the cohort's local train + eval, then the
-        fused aggregate + apply. Returns (new_params, accs, n_steps)."""
+        """One FL round: the cohort's local train + eval, then the fused
+        aggregate + apply. Returns (new_params, accs, n_steps). With
+        ``participation`` the round trains its padded cohort (see
+        ``train_cohort``), ``sizes`` gives way to the selection's weights,
+        padding slots drop out of the aggregate, and accs / n_steps are
+        per slot (filter by ``participation.valid``)."""
         theta0 = self.broadcast_params(params, len(specs))
         res = self.train_cohort(theta0, specs, datasets,
                                 batch_size=batch_size, epochs=epochs,
@@ -302,11 +340,16 @@ class BatchedRoundEngine:
                                 participation=participation,
                                 prefetch_hook=prefetch_hook)
         covs = res.masks.param_mask if coverage_norm else None
+        part = None
+        if participation is not None:
+            sizes = participation.weights
+            part = torch.as_tensor(participation.valid, device=self.device)
         weights = torch.as_tensor(np.asarray(sizes, np.float32),
                                   device=self.device)
         with torch.no_grad():
             new_params = aggregate_apply(params, res.deltas, covs, weights,
-                                         coverage_norm=coverage_norm)
+                                         coverage_norm=coverage_norm,
+                                         participation=part)
         return new_params, [float(a) for a in res.accs], res.n_steps
 
     def eval_cohort(self, params_stacked, specs: Sequence,
@@ -316,7 +359,10 @@ class BatchedRoundEngine:
         eval set."""
         if masks is None:
             masks = self.family.cohort_masks(specs, self.device)
-        x, y, valid = self._eval_pack(datasets)
+        return self._metric(params_stacked, masks,
+                            *self._eval_pack(datasets))
+
+    def _metric(self, params_stacked, masks: CohortMasks, x, y, valid):
         with torch.no_grad():
             accs = self.family.masked_metric(params_stacked, masks.fwd, x, y,
                                              valid, kernels=self._kernels)

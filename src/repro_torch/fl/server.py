@@ -1,26 +1,35 @@
-"""CFL server (Alg. 4) — the port of the reference's ``fl/server.py`` for
-sync, full-participation rounds: submodel sampling -> local training ->
-alignment + aggregation -> search-helper update, with per-round latency /
-fairness accounting from the device profiles.
+"""CFL server (Alg. 4) — the port of the reference's ``fl/server.py``:
+client selection -> submodel sampling -> local training -> alignment +
+aggregation -> search-helper update, with per-round latency / fairness
+accounting from the device profiles.
 
-Each round:
+Each sync round:
 
+* the tracker's policy picks the cohort (``fl.selection``: every client
+  under "full", a fixed-size padded subset under "uniform", "fairness"
+  or "latency");
 * round 0 draws, per client, 32 random specs and keeps the first that is
   feasible under its latency bound in the LUT (the predictor is still
   untrained); later rounds run the genetic search (``core.search``),
   scored by the accuracy predictor;
-* ``BatchedRoundEngine.run_fl_round`` trains and evaluates every client
-  in parent coordinates and applies the aggregate
-  (``batched_rounds=True``, the default), or ``SequentialFamilyTrainer``
-  does it one extracted submodel at a time (``batched_rounds=False``);
-* ``post_aggregate`` feeds the clients' accuracies to the predictor
-  (Alg. 2) and the round is recorded with its fairness and simulated
-  timing, and the host seconds of the search and of the round.
+* ``BatchedRoundEngine.run_fl_round`` trains and evaluates the cohort in
+  parent coordinates and applies the aggregate (``batched_rounds=True``,
+  the default), or ``SequentialFamilyTrainer`` does it one extracted
+  submodel at a time on the participants' sub-lists
+  (``batched_rounds=False``);
+* ``post_aggregate`` feeds the participants' accuracies to the predictor
+  (Alg. 2) and the round is recorded with its fairness, its simulated
+  timing and scheduling columns, and the host seconds of the search and
+  of the round.
+
+With ``faults`` a sync round sheds, quarantines and applies a sanitised
+step (``fl.faults.faulty_sync_round``); ``mode="async"`` drives buffered
+rounds through the event-driven runtime (``fl.runtime.FleetRuntime``).
+Both need the batched engine, as in the reference.
 
 ``CFLConfig`` keeps every field of the reference's. What is not ported
-yet raises, naming its ROADMAP item: ``mode="async"``, ``faults`` (A13),
-``overlap``, ``checkpoint_every`` (A14), ``cohort_shards > 1`` (A17) and
-every selection policy but "full" (A12). ``elastic_kernels`` keeps its
+yet raises, naming its ROADMAP item: ``overlap`` and ``checkpoint_every``
+(A14), ``cohort_shards > 1`` (A17). ``elastic_kernels`` keeps its
 meaning: False is the dense masked path; True / "auto" / "cuda" the hand
 kernels (the batched engine's; the sequential trainer runs the plain
 forward).
@@ -100,10 +109,9 @@ def engine_backend(elastic_kernels) -> str:
 
 def check_supported(fl: CFLConfig) -> None:
     """Raise for the ``CFLConfig`` settings the port does not run yet."""
-    if fl.mode != "sync":
-        raise _not_ported(f"mode={fl.mode!r} (async rounds)", "A13")
-    if fl.faults is not None:
-        raise _not_ported("fault injection (faults=)", "A13")
+    if fl.mode not in ("sync", "async"):
+        raise ValueError(f"mode must be 'sync' or 'async', "
+                         f"got {fl.mode!r}")
     if fl.overlap:
         raise _not_ported("the double-buffered prefetch ring (overlap=)",
                           "A14")
@@ -157,24 +165,33 @@ class SyncServer:
         self.tracker = FleetTracker(
             clients, fl_cfg.selection, seed=fl_cfg.seed,
             predicted_times_fn=self._predict_round_times,
-            rng_mode=fl_cfg.selection_rng)
+            rng_mode=fl_cfg.selection_rng, device=self.device)
         self.round_idx = 0
         self.history: List[Dict] = []
         self._sim_clock = 0.0
+        self._runtime = None            # built on the first async round
         self.engine, self._seq = round_engines(self.family, fl_cfg,
                                                self.device)
 
     # ------------------------------------------------------------------
     def set_selection(self, selection) -> None:
-        """Swap the client-selection policy ('full' only, for now)."""
+        """Swap the client-selection policy ('full' | 'uniform' |
+        'fairness' | 'latency' or a SelectionPolicy) for the rounds that
+        follow."""
         self.tracker.set_policy(selection)
 
     def set_mode(self, mode: str) -> None:
+        """Switch round scheduling for the rounds that follow: 'sync'
+        (barrier rounds) | 'async' (buffered rounds, ``fl.runtime``).
+        Switching to sync with deltas in flight drains the runtime first:
+        the remaining completions are aggregated (each a server step,
+        recorded in ``history``)."""
         if mode not in ("sync", "async"):
             raise ValueError(f"mode must be 'sync' or 'async', "
                              f"got {mode!r}")
-        if mode != "sync":
-            raise _not_ported("async rounds", "A13")
+        if mode == "sync" and self._runtime is not None:
+            self._runtime.drain()
+        self.fl.mode = mode
 
     def set_overlap(self, overlap: bool) -> None:
         if overlap:
@@ -182,8 +199,14 @@ class SyncServer:
 
     @property
     def runtime(self):
-        """The reference's event-driven runtime of async rounds."""
-        raise _not_ported("the event-driven runtime (async rounds)", "A13")
+        """The event-driven runtime (``fl.runtime.FleetRuntime``), built
+        on first use; async rounds are driven through it."""
+        if self._runtime is None:
+            from repro_torch.fl.runtime import FleetRuntime
+            self._runtime = FleetRuntime(
+                self, buffer_size=self.fl.async_buffer,
+                staleness_decay=self.fl.staleness_decay)
+        return self._runtime
 
     def _predict_round_times(self) -> List[float]:
         return predict_full_round_times(
@@ -193,17 +216,21 @@ class SyncServer:
     def _client_seed(self, k: int) -> int:
         return self.fl.seed * 7 + self.round_idx * 131 + k
 
-    def _simulated_times(self, specs, n_steps) -> List[float]:
-        """Simulated wall clock per client: compute + update exchange."""
+    def _simulated_times(self, specs, n_steps,
+                         client_ids: Sequence[int]) -> List[float]:
+        """Simulated wall clock per client of a cohort (``client_ids``
+        its fleet indices): compute + update exchange."""
         times = []
-        for client, spec, n in zip(self.clients, specs, n_steps):
+        for i, spec, n in zip(client_ids, specs, n_steps):
+            client = self.clients[int(i)]
             prof = self.latency.fleet[client.device]
             t = n * self.latency.lookup(spec, client.device) + \
                 prof.comm_latency(2 * self.family.param_bytes(spec))
             times.append(float(t))
         return times
 
-    def cohort_specs(self) -> List:
+    def cohort_specs(self, participants: Sequence[int]) -> List:
+        """The specs of a cohort (``participants`` its fleet indices)."""
         raise NotImplementedError
 
     def post_aggregate(self, specs, participants: Sequence[int],
@@ -211,61 +238,95 @@ class SyncServer:
         return {}
 
     def run_round(self) -> Dict:
+        """One sync round, or in ``mode="async"`` one server step of the
+        runtime; returns its history record."""
         t_round = time.perf_counter()
-        if not self.tracker.is_full:
-            raise _not_ported(f"partial participation (selection "
-                              f"{self.tracker.policy.name!r})", "A12")
+        if self.fl.mode == "async":
+            rec = self.runtime.run_until_aggregate()
+            rec["host_seconds"]["round"] = time.perf_counter() - t_round
+            return rec
         sel = self.tracker.select(self.round_idx)
         participants = [int(i) for i in sel.participants]
         t0 = time.perf_counter()
-        specs = self.cohort_specs()
+        specs = self.cohort_specs(participants)
         search_s = time.perf_counter() - t0
-        accs, n_steps = self._train_round(specs)
-        times = self._simulated_times(specs, n_steps)
-        t0 = time.perf_counter()
-        extras = self.post_aggregate(specs, participants, accs)
+        stats = None
+        if self.fl.faults is not None:
+            from repro_torch.fl.faults import faulty_sync_round
+            accs, times, participants, specs_kept, stats, n_steps = \
+                faulty_sync_round(self, specs, sel)
+            t0 = time.perf_counter()
+            extras = self.post_aggregate(specs_kept, participants, accs) \
+                if participants else {}
+        else:
+            accs, n_steps, times = self._train_round(specs, sel)
+            t0 = time.perf_counter()
+            extras = self.post_aggregate(specs, participants, accs)
+            self.tracker.record(participants, accs)
         host = {"search": search_s, "predictor": time.perf_counter() - t0}
-        self.tracker.record(participants, accs)
         rec = {
             "round": self.round_idx,
             "participants": participants,
             "selection": self.tracker.policy.name,
             "accs": accs,
-            "fairness": accuracy_fairness(accs),
-            "timing": round_time_fairness(times),
+            "fairness": accuracy_fairness(accs if accs
+                                          else [float("nan")]),
+            "timing": round_time_fairness(times if times else [0.0]),
             "n_steps": [int(n) for n in n_steps],
         }
         rec.update(extras)
         rec.update(self._sync_clock_columns(times))
+        if stats is not None:
+            rec.update(stats)
         rec["host_seconds"] = {k: host[k] for k in self.HOST_PHASES}
         rec["host_seconds"]["round"] = time.perf_counter() - t_round
         self.history.append(rec)
         self.round_idx += 1
         return rec
 
-    def _train_round(self, specs):
-        """Every client's local train + eval, then the aggregate and the
-        server step: on the batched engine (the whole cohort in parent
-        coordinates) or on the sequential trainer (one extracted submodel
-        at a time, the reference's ``_train_round_sequential``); both keep
-        ``run_fl_round``'s contract and take the same seeds."""
-        runner = self.engine if self.engine is not None else self._seq
-        self.params, accs, n_steps = runner.run_fl_round(
-            self.params, specs, self.client_data, self.test_data,
-            [c.n_samples for c in self.clients],
-            batch_size=self.fl.batch_size, epochs=self.fl.local_epochs,
-            seeds=[self._client_seed(k) for k in range(len(self.clients))],
-            coverage_norm=self.fl.coverage_norm)
-        return accs, n_steps
+    def _train_round(self, specs, sel):
+        """The cohort's local train + eval, then the aggregate and the
+        server step, on the batched engine (the selection's padded slots
+        in parent coordinates; full participation is the identity
+        cohort) or on the sequential trainer (one extracted submodel at a
+        time, on the participants' sub-lists with the selection's
+        weights, the reference's ``_train_round_sequential``). Returns
+        the participants' accuracies, local steps and simulated times."""
+        kw = dict(batch_size=self.fl.batch_size,
+                  epochs=self.fl.local_epochs,
+                  coverage_norm=self.fl.coverage_norm)
+        participants = [int(i) for i in sel.participants]
+        if self.engine is not None:
+            # padding slots repeat slot 0's spec (weight 0, no steps)
+            m = len(sel.idx)
+            specs_pad = list(specs) + [specs[0]] * (m - len(specs))
+            self.params, accs_pad, n_steps_pad = self.engine.run_fl_round(
+                self.params, specs_pad, self.client_data, self.test_data,
+                None, seeds=[self._client_seed(int(i)) for i in sel.idx],
+                participation=sel, **kw)
+            accs = sel.take_valid(accs_pad)
+            n_steps = [int(n) for n in sel.take_valid(n_steps_pad)]
+        else:
+            sizes = [float(w) for w, v in zip(sel.weights, sel.valid)
+                     if v > 0]
+            self.params, accs, n_steps = self._seq.run_fl_round(
+                self.params, specs,
+                [self.client_data[i] for i in participants],
+                [self.test_data[i] for i in participants], sizes,
+                seeds=[self._client_seed(i) for i in participants], **kw)
+        return accs, n_steps, self._simulated_times(specs, n_steps,
+                                                    participants)
 
     def _sync_clock_columns(self, times: Sequence[float]) -> Dict:
         """The scheduling columns of a sync round: staleness 0, the
-        barrier wait per delta, the simulated clock."""
-        barrier = max(times)
+        barrier wait per delta, the simulated clock (failure counts 0;
+        the fault path overrides them)."""
+        barrier = max(times) if times else 0.0
         self._sim_clock += barrier
         return {"staleness": 0.0,
                 "aggregate_lag": float(np.mean([barrier - t
-                                                for t in times])),
+                                                for t in times]))
+                if times else 0.0,
                 "sim_clock": self._sim_clock,
                 "mode": "sync",
                 "dropped": 0, "retried": 0, "quarantined": 0,
@@ -291,8 +352,9 @@ class CFLServer(SyncServer):
         self.predictor = AccuracyPredictor(self.family, seed=fl_cfg.seed,
                                            device=self.device)
 
-    def cohort_specs(self) -> List:
-        return self.sample_submodels()
+    def cohort_specs(self, participants: Sequence[int]) -> List:
+        """CFL's specs: the Alg. 1 search (``sample_submodels``)."""
+        return self.sample_submodels(participants)
 
     def sample_submodels(self, client_ids: Optional[Sequence[int]] = None
                          ) -> List:
@@ -325,7 +387,8 @@ class CFLServer(SyncServer):
 
     def post_aggregate(self, specs, participants: Sequence[int],
                        accs: Sequence[float]) -> Dict:
-        """The search-helper update (Alg. 2) over the round's profiles."""
+        """The search-helper update (Alg. 2) over the deltas just
+        aggregated — participants only: absentees reported nothing."""
         self.predictor.add_profiles(
             [(spec, self.clients[i].quality, acc)
              for spec, i, acc in zip(specs, participants, accs)])

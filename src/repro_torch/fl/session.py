@@ -30,7 +30,7 @@ from repro_torch.core.elastic import family_for
 from repro_torch.core.fairness import accuracy_fairness
 from repro_torch.fl.baselines import FedAvgServer, independent_learning
 from repro_torch.fl.client import ClientInfo
-from repro_torch.fl.selection import FullParticipation
+from repro_torch.fl.selection import FullParticipation, resolve_policy
 from repro_torch.fl.server import CFLConfig, CFLServer
 
 ALGORITHMS = ("cfl", "fedavg", "il")
@@ -38,8 +38,7 @@ ALGORITHMS = ("cfl", "fedavg", "il")
 
 def _reject_il_selection(selection) -> None:
     """IL has no rounds or aggregation to subsample."""
-    if not (selection is None or selection == "full"
-            or isinstance(selection, FullParticipation)):
+    if not isinstance(resolve_policy(selection), FullParticipation):
         raise ValueError(
             "IL has no rounds/aggregation to subsample — selection only "
             "applies to cfl/fedavg (use selection='full' for IL)")
@@ -118,13 +117,17 @@ class CFLSession:
 
     def run(self, rounds: int, selection=None, mode: Optional[str] = None,
             overlap: Optional[bool] = None) -> List[Dict]:
-        """Run ``rounds`` sync rounds and return the history; each entry
-        carries ``accs`` / ``fairness`` / ``timing`` / ``participants`` /
-        ``n_steps``, the scheduling columns and ``host_seconds`` (cfl also
-        ``specs`` and ``predictor_mae``). ``selection`` / ``mode`` /
-        ``overlap`` set the policy, the scheduling and the prefetch ring
-        for these and later rounds ('full', 'sync' and off are what the
-        port runs).
+        """Run ``rounds`` rounds (async: server steps) and return the
+        history; each entry carries ``accs`` / ``fairness`` / ``timing`` /
+        ``participants`` / ``selection`` / ``n_steps``, the scheduling
+        columns (``staleness``, ``aggregate_lag``, ``sim_clock``,
+        ``mode``, ``dropped``, ``retried``, ``quarantined``,
+        ``quorum_waited_ms``; async also ``buffered``) and
+        ``host_seconds`` (cfl also ``specs`` and ``predictor_mae``).
+        ``selection`` ('full' | 'uniform' | 'fairness' | 'latency' or a
+        ``fl.selection.SelectionPolicy``) and ``mode`` ('sync' | 'async')
+        set the policy and the scheduling for these and later rounds;
+        ``overlap`` (the prefetch ring, ROADMAP A14) raises when on.
 
         IL runs the same local budget with no aggregation, recorded as one
         history entry (``round``, ``accs``, ``fairness``); it rejects a

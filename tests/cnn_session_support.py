@@ -1,9 +1,11 @@
 """Shared set-up of the CNN parity tests of the port's sessions and
 trainers (``tests/test_torch_session.py``, ``test_torch_baselines.py``,
-``test_torch_sequential.py``, ``test_torch_client.py``): the quickstart
+``test_torch_sequential.py``, ``test_torch_client.py``,
+``test_torch_partial*.py``, ``test_torch_async*.py``): the quickstart
 CNN and round settings, the reference's session on its own synthetic
 population, the port's session on the reference's data, initial
-parameters and predictor, bridged, and the tree comparisons."""
+parameters and predictor, bridged, the tree comparisons, and the hold of
+a buffered or faulty run against the reference's."""
 import dataclasses
 
 import jax
@@ -106,3 +108,57 @@ def ratio(got, want, init, min_move=1e-2):
         jax.tree.leaves(got), jax.tree.leaves(want)))
     assert moved > min_move
     return diff / moved
+
+
+# the event columns of a history row that no numerics decide
+EVENTS = ("participants", "staleness", "sim_clock", "dropped", "retried",
+          "quarantined", "mode", "selection", "round")
+# buffered async: a buffer of one delta, FedBuff's discount, faults and
+# the gate; at this plan's seed the run drops, retries and quarantines,
+# and applies stale deltas
+BUFFERED = dict(selection="uniform", mode="async", async_buffer=1,
+                staleness_decay=0.5, validate_deltas=True,
+                faults="drop=0.2,straggle=0.2,corrupt=0.3,seed=2")
+FAULTY_SYNC = dict(selection="fairness",
+                   faults="drop=0.1,straggle=0.1,corrupt=0.3")
+
+
+def hold_faulty_run(algorithm, kw, rounds):
+    """``rounds`` rounds (async: aggregates) of the port's session on the
+    kernel path against the reference's, both with the settings ``kw``:
+    identical event columns, accuracies within one test sample, CFL's
+    specs; the first round's parameters within 1e-5 of its movement on
+    CFL (1e-3 on FedAvg, whose round at this seed turns on a ReLU within
+    rounding noise of 0), CFL's last within 1e-3; finite parameters."""
+    import torch
+    from repro_torch.optim.optimizers import tree_leaves
+    fl = dict(FL, **kw)
+    ref, init, pred0, after0 = reference_session(algorithm, fl=fl,
+                                                 rounds=rounds)
+    sess = port_session(ref, init, pred0, algorithm=algorithm, fl=fl,
+                        elastic_kernels=True)
+    sess.run(1)
+    got0 = params_to_numpy(sess.params)
+    sess.run(rounds - 1)
+    assert len(sess.history) == len(ref.history) == rounds
+    n_test = min(len(d["y"]) for d in ref.test_data)
+    for got, want in zip(sess.history, ref.history):
+        for col in EVENTS:
+            assert got[col] == want[col], col
+        np.testing.assert_allclose(got["accs"], want["accs"],
+                                   atol=1.0 / n_test + 1e-6, rtol=0)
+        if algorithm == "cfl" and got["participants"]:
+            assert got["specs"] == want["specs"]
+    events = {c: sum(r[c] for r in ref.history)
+              for c in ("dropped", "retried", "quarantined", "staleness")}
+    if kw is BUFFERED:
+        assert min(events.values()) > 0
+    else:
+        assert events["dropped"] + events["quarantined"] > 0
+    assert ratio(got0, after0, init) <= (TOL if algorithm == "cfl"
+                                         else 1e-3)
+    if algorithm == "cfl":
+        assert ratio(params_to_numpy(sess.params), numpy_tree(ref.params),
+                     init) <= 1e-3
+    assert all(bool(torch.isfinite(t).all())
+               for t in tree_leaves(sess.params))

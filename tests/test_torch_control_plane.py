@@ -13,7 +13,9 @@
 * ``CFLSession.from_synthetic`` runs on the CPU (its parity with the
   reference is ``tests/test_torch_session.py``'s);
 * the transformer family's sequential surface and its LM population run;
-  what is not ported raises, naming its ROADMAP item.
+  what is not ported raises, naming its ROADMAP item; selection, async
+  rounds and faults build (their parity: ``tests/test_torch_partial*.py``,
+  ``test_torch_async*.py``, ``test_torch_selection.py``).
 """
 import dataclasses
 import importlib
@@ -265,42 +267,50 @@ def test_unported_paths_raise():
         with pytest.raises(ValueError, match="'dense', 'cuda'"):
             CFLSession.from_synthetic(
                 CFG, fl_cfg=CFLConfig(n_workers=2, elastic_kernels=ek), **kw)
-    for field, value, item in (("mode", "async", "A13"),
-                               ("faults", "drop=0.2", "A13"),
-                               ("overlap", True, "A14"),
+    for field, value, item in (("overlap", True, "A14"),
                                ("checkpoint_every", 1, "A14"),
-                               ("cohort_shards", 2, "A17"),
-                               ("selection", "uniform", "A12")):
+                               ("cohort_shards", 2, "A17")):
         for algorithm in ("cfl", "fedavg"):
             with pytest.raises(NotImplementedError,
                                match=f"ROADMAP {item}"):
                 CFLSession.from_synthetic(
                     CFG, fl_cfg=CFLConfig(n_workers=2, **{field: value}),
                     algorithm=algorithm, **kw)
+    # selection, async rounds and faults (once raising, naming ROADMAP
+    # A12 / A13) now build; async and faults need the batched engine, as
+    # in the reference
+    for field, value in (("mode", "async"), ("faults", "drop=0.2"),
+                         ("selection", "uniform")):
+        for algorithm in ("cfl", "fedavg"):
+            CFLSession.from_synthetic(
+                CFG, fl_cfg=CFLConfig(n_workers=2, **{field: value}),
+                algorithm=algorithm, **kw)
+    seq = CFLSession.from_synthetic(
+        CFG, fl_cfg=CFLConfig(n_workers=2, batched_rounds=False), **kw)
+    with pytest.raises(ValueError, match="batched engine"):
+        seq.run(1, mode="async")
+    with pytest.raises(ValueError, match="mode must be"):
+        seq.run(1, mode="eventual")
     sess = CFLSession.from_synthetic(CFG, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        sess.run(1, mode="async")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        sess.run(1, selection="fairness")
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         sess.run(1, overlap=True)
+    with pytest.raises(ValueError, match="unknown selection policy"):
+        sess.run(1, selection="fastest")
     with pytest.raises(RuntimeError, match="no rounds"):
         sess.fairness()
-    # FedAvg's async rounds, faults and overlap; its non-full selection
+    # FedAvg's overlap and the runtime's checkpoints
     fedavg = CFLSession.from_synthetic(CFG, algorithm="fedavg", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        fedavg.run(1, mode="async")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        fedavg.server.runtime
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+        fedavg.server.runtime.state_snapshot()
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+        fedavg.server.runtime.load_state({})
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         fedavg.run(1, overlap=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        fedavg.run(1, selection="uniform")
 
     class Half(selection.SelectionPolicy):
         name = "half"
     fedavg.server.set_selection(Half())
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(NotImplementedError):      # a policy with no select
         fedavg.run(1)
     # the transformer family's sequential surface and its LM population
     # (once raising, naming ROADMAP A8 / A6) now run; what the zoo still
@@ -330,6 +340,6 @@ def test_unported_paths_raise():
             elastic.family_for(ARCHS[name])
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         PT.init_params(ARCHS["llava-next-mistral-7b"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        CFLSession.from_synthetic(fam, n_workers=2, n_samples=16,
-                                  selection="uniform", device="cpu")
+    assert CFLSession.from_synthetic(
+        fam, n_workers=2, n_samples=16, selection="uniform",
+        device="cpu").server.tracker.policy.name == "uniform"

@@ -38,6 +38,7 @@ from repro_torch.core.elastic import family_for
 from repro_torch.core.submodel import TransformerSubSpec
 from repro_torch.data import loader, partition, synth
 from repro_torch.fl import engine
+from repro_torch.fl.selection import Selection
 from repro_torch.kernels.dispatch import kernel_dispatch
 from repro_torch.models import transformer as PT
 from repro_torch.optim import clip_by_global_norm, sgd
@@ -327,8 +328,11 @@ def test_engine_raises_on_unported_paths():
     _, cfg, params, sizes, train, test, kw = _round_setup()
     eng = engine.BatchedRoundEngine(cfg, lr=0.5, momentum=0.9, device="cpu")
     p = params_from_numpy(params, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        eng.run_fl_round(p, SPECS, train, test, sizes, participation=object(),
+    # partial participation (once raising, naming ROADMAP A12) runs: a
+    # selection's slots must match the specs
+    sel = Selection([0, 1, 0], [1, 1, 0], [6, 8, 0])
+    with pytest.raises(ValueError, match="padded cohort size 3"):
+        eng.run_fl_round(p, SPECS, train, test, sizes, participation=sel,
                          **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         eng.run_fl_round(p, SPECS, train, test, sizes,
