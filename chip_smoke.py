@@ -115,10 +115,10 @@ printing its own lines; any failed phase exits non-zero:
    launch as the design says, every K8 and K9 launch through its ``mma``
    variant (K9's device ms in the local step printed), every parameter of
    both paths must stay finite.
-13. SSM serving slice — phase 5 for mamba2-2.7b at all 64 layers, prompts
-   of 512 tokens: K8 must launch 64 times per prefill, each through its
-   ``mma`` variant with P split, greedy tokens must equal the dense
-   path's.
+13. SSM serving slice — phase 5 for mamba2-2.7b at 32 of its 64 layers
+   (``SSM_SERVE_LAYERS``), prompts of 512 tokens: K8
+   must launch once a layer per prefill, each through its ``mma`` variant
+   with P split, greedy tokens must equal the dense path's.
 3d. (run after 3c) the paper CNN's convolutions: K1 against its plain
    version at the six im2col products of ``PAPER_CNN``'s stages (8
    clients, batch 32, per-client channel prefixes 8–32 / 16–64 / 32–128)
@@ -226,6 +226,30 @@ printing its own lines; any failed phase exits non-zero:
    tok/s, host seconds of selection / search / predictor and Table II's
    columns per run, and the phase's seconds by part.
 
+3e. (run after 3d) the kernels at the shapes of the zoo's last three
+   decoder parents (``phase_a11_kernels``): K2, K3 and K4 at head_dim 256
+   (gemma2-9b's training attention, 16 / 8 heads, softcap 50, per-row head
+   prefixes, without a window and with a window of 64 that binds;
+   gemma-7b's MHA; a 32-token prefill) against their plain versions, K3 /
+   K4 in both variants, twice each and bit-equal, and on an offset view;
+   times beside SDPA (K3, K4 and SDPA's backward in turns) and the fp32 /
+   3×TF32 bounds. K6 (copy, scaled gather, gather-dot) and K7 at
+   deepseek-v2-lite-16b's top 6 of 64 experts, d 2048, and K8 / K9 at
+   zamba2-1.2b's SSD (d_state 64), each held and timed.
+
+17. the zoo's last three decoder parents end to end: ``EdgeServer`` as
+   phase 5 on gemma2-9b (all 42 layers, 37.0 GB fp32), zamba2-1.2b (all
+   38) and deepseek-v2-lite-16b cut to its dense first layer and 16 of its
+   26 MoE layers (39.5 GB), kernel path against dense path (greedy tokens
+   equal, logits within ``SLICE_LOGIT_RTOL``), every kernel of the path
+   launched; then phase 15's sessions (``phase_zoo``) at published width:
+   gemma2 one (local, global) pair and deepseek its dense and one MoE
+   layer, 2 clients each, zamba2 its first 6-layer segment with the
+   shared block and its last segment, 4 clients, 512-token sequences —
+   CFL 1 timed round, launches as ``design_launches_of`` says, round 0
+   held against the dense path (deepseek on replayed routes), the
+   sequential trainer's holds.
+
 The last lines are a ``kernels:`` line, the slices' stats, the card line,
 one JSON object with every kernel's launches and times, and the result
 line ``{"ok": true, "device": {...}}``.
@@ -297,8 +321,10 @@ MOE_TRAIN_SPECS = ((False, 1.0, 1.0), (False, 0.5, 1.0), (False, 0.75, 0.5),
                    (True, 0.25, 1.0))
 # the SSM slices: mamba2-2.7b at its published width; sequences of 512
 # tokens, two of the published 256-token chunks; training with the depth
-# cut to 8 layers (~450 M parameters a copy), serving at all 64
+# cut to 8 layers (~450 M parameters a copy), serving at 32 of its 64
+# layers (the script's time budget)
 SSM_SLICE = dict(SLICE, arch="mamba2-2.7b", prompt_len=512)
+SSM_SERVE_LAYERS = 32
 SSM_TRAIN = dict(TRAIN, n_layers=8, seq_len=512)
 # (drops the first layer, ssm_head_frac): SSD heads 80 / 40 / 60 / 20
 SSM_TRAIN_SPECS = ((False, 1.0), (False, 0.5), (False, 0.75), (True, 0.25))
@@ -1164,21 +1190,30 @@ def host_us(fn, device, iters=200) -> float:
 # ---------------------------------------------------------------------------
 def path_counters(cfg, serving=False):
     """The kernel wrappers whose launches a path of ``cfg`` must show: K1
-    and the attention kernels on a dense parent, K5–K7 and the attention
-    kernels on a MoE parent (and K6's gather-dot in training), K8 and K9
-    on an SSM parent (serving launches the forward ones only)."""
+    for every MLP block (a dense parent's, deepseek's dense first layer,
+    zamba2's shared block), K2 for every GQA attention block (not MLA's,
+    which runs plain ops as in the reference), K5–K7 for MoE blocks (and
+    K6's gather-dot in training), K8 for SSM blocks; in training also the
+    backward kernels K3 / K4 and K9 (serving launches the forward ones
+    only)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul, moe_dispatch, ssd_scan
     from repro_torch.kernels.elastic_matmul import elastic_dense
+    attn = [s for s in cfg.segments if s.kind != "ssm"]
+    out = ()
+    if cfg.shared_attn_d_ff or any(not s.use_moe for s in attn):
+        out += (elastic_dense,)
+    if any(s.use_moe for s in attn):
+        out += (grouped_matmul.grouped_matmul, moe_dispatch.gather_rows,
+                moe_dispatch.gather_reduce) + (() if serving else (
+                    moe_dispatch.gather_dot,))
+    if cfg.shared_attn_d_ff or (attn and cfg.attn_type == "gqa"):
+        out += (fa.flash_attention,) + (() if serving else (
+            fa.flash_attention_dq, fa.flash_attention_dkv))
     if cfg.ssm is not None:
-        return (ssd_scan.ssd_scan,) + (() if serving
+        out += (ssd_scan.ssd_scan,) + (() if serving
                                        else (ssd_scan.ssd_scan_bwd,))
-    ffn = (grouped_matmul.grouped_matmul, moe_dispatch.gather_rows,
-           moe_dispatch.gather_reduce) + (() if serving else (
-               moe_dispatch.gather_dot,)) if cfg.moe is not None \
-        else (elastic_dense,)
-    return ffn + (fa.flash_attention,) + (() if serving else (
-        fa.flash_attention_dq, fa.flash_attention_dkv))
+    return out
 
 
 def variant_counters():
@@ -1217,13 +1252,15 @@ def check_variants(launches, problems, moe_variant, ssm_variant):
     tensor-core variant (tile or skinny), never the SIMT tile kept for
     unaligned rows; every K3 / K4 launch through the tensor-core ``mma``;
     every K5 launch through ``moe_variant`` (the training path's ``tile``,
-    the serving path's ``stream``); every K6 and K7 launch through the
+    the serving path's ``stream``; a tuple where the plan takes either at
+    the path's shapes); every K6 and K7 launch through the
     redesign (K6's copy or scaled gather, K7's ``split``), never their
     first designs; every K8 launch through ``ssm_variant``; every K9 launch
     through ``mma``. Returns {kernel: counts by variant}."""
     want = {"elastic_dense": ("tile", "skinny"),
             "flash_attention_dq": ("mma",), "flash_attention_dkv": ("mma",),
-            "grouped_matmul": (moe_variant,),
+            "grouped_matmul": moe_variant if isinstance(moe_variant, tuple)
+            else (moe_variant,),
             "gather_rows": ("copy", "scaled"), "gather_reduce": ("split",),
             "ssd_scan": (ssm_variant,), "ssd_scan_bwd": ("mma",)}
     out = {}
@@ -1239,9 +1276,12 @@ def check_variants(launches, problems, moe_variant, ssm_variant):
     return out
 
 
-def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
+def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed,
+                profiled=("kernel", "dense")):
     """Serve elastic requests through the kernels, then through the dense
-    masked path; returns (launch counts of the kernel run, stats)."""
+    masked path; then one batched decode step of each path in
+    ``profiled``, timed and profiled. Returns (launch counts of the kernel
+    run, stats)."""
     import numpy as np
     from repro_torch.core.elastic import family_for
     from repro_torch.serving import EdgeServer, Request
@@ -1326,7 +1366,8 @@ def phase_slice(device, cfg, *, slots, n_requests, prompt_len, gen, seed):
     stats["launches_by_variant"] = by_variant
     if device.type == "cuda":
         fns = {name: decode_step_fn(device, fam, params, specs[:slots], b)
-               for name, b in (("kernel", "auto"), ("dense", None))}
+               for name, b in (("kernel", "auto"), ("dense", None))
+               if name in profiled}
         walls = {name: step_wall_ms(fn, device) for name, fn in fns.items()}
         for name, fn in fns.items():
             busy, top, _ = step_device_ms(fn, device)
@@ -1860,17 +1901,33 @@ def phase_moe_times(device, d_model, d_ff, n_experts, top_k, n_heads, n_kv,
 # ---------------------------------------------------------------------------
 # phase 7: the training slice — federated CFL rounds
 # ---------------------------------------------------------------------------
+def cut_depth(cfg, n_layers):
+    """``cfg`` with its depth cut, its widths kept: ``n_layers`` an int
+    cuts a one-segment parent to that many layers; a tuple of (segment
+    index, layers) keeps those segments, in that order, each cut to its
+    layers (a pair segment's layers are pairs; a kept segment keeps its
+    shared block)."""
+    import dataclasses
+    if isinstance(n_layers, int):
+        seg, = cfg.segments
+        segs = (dataclasses.replace(seg, n_layers=n_layers),)
+    else:
+        segs = tuple(dataclasses.replace(cfg.segments[i], n_layers=n)
+                     for i, n in n_layers)
+    total = sum(s.n_layers * (2 if s.kind == "attn_pair" else 1)
+                for s in segs)
+    return dataclasses.replace(cfg, name=f"{cfg.name}-{total}l",
+                               n_layers=total, segments=segs)
+
+
 def train_family(cfg, n_layers, seq_len=32, capacity_experts=None):
-    """The elastic family of ``cfg`` (one segment) with its depth cut to
-    ``n_layers`` and ``seq_len`` tokens a sample (the latency cost model's
-    and the LM population's); a MoE parent may size its capacity by
+    """The elastic family of ``cfg`` with its depth cut (``cut_depth``) and
+    ``seq_len`` tokens a sample (the latency cost model's and the LM
+    population's); a MoE parent may size its capacity by
     ``capacity_experts``."""
     import dataclasses
     from repro_torch.core.elastic import TransformerElasticFamily
-    seg, = cfg.segments
-    cut = dataclasses.replace(
-        cfg, name=f"{cfg.name}-{n_layers}l", n_layers=n_layers,
-        segments=(dataclasses.replace(seg, n_layers=n_layers),))
+    cut = cut_depth(cfg, n_layers)
     if capacity_experts is not None:
         cut = dataclasses.replace(cut, moe=dataclasses.replace(
             cut.moe, capacity_experts=capacity_experts))
@@ -1932,6 +1989,29 @@ def design_launches(n_layers, steps, rounds, moe=False, ssm=False):
                else {"elastic_dense": (10, 3)})
     return {name: rounds * n_layers * (step * steps + ev)
             for name, (step, ev) in per.items()}
+
+
+def design_launches_of(cfg, steps, rounds):
+    """``design_launches`` summed over the blocks of ``cfg``, whatever its
+    segments: every attention block (a pair's two, the shared block once a
+    site) with GQA attention K2–K4, an MLA one none; every MLP block (the
+    shared block's too) K1's, every MoE block K5–K7's, every SSM block
+    K8 / K9's. A dropped layer still runs (its gate is 0), so the counts do
+    not depend on the specs."""
+    blocks = []                       # (moe, ssm, gqa) per block a forward
+    for seg in cfg.segments:
+        per = 2 if seg.kind == "attn_pair" else 1
+        blocks += [(seg.use_moe, seg.kind == "ssm",
+                    cfg.attn_type == "gqa")] * (per * seg.n_layers)
+        if seg.shared_attn_after:
+            blocks.append((False, False, True))
+    out = {}
+    for moe, ssm, gqa in blocks:
+        for name, n in design_launches(1, steps, rounds, moe=moe,
+                                       ssm=ssm).items():
+            if gqa or ssm or not name.startswith("flash"):
+                out[name] = out.get(name, 0) + n
+    return out
 
 
 def phase_train(device, cfg, *, n_layers, clients, batch, seq_len,
@@ -2317,10 +2397,11 @@ def ssd_cases(d_model, head_dim, d_state, clients, rows, seq, chunk, heads,
     ragged head prefix, and two shapes of K8's simt variant)."""
     H = 2 * d_model // head_dim
     has = [heads[r // rows] for r in range(clients * rows)]
+    pchunk = min(chunk, prompt_len)  # a shorter prompt is one chunk (model)
     return [
         ("train", clients * rows, seq, H, head_dim, 1, d_state, chunk, has,
          (0.01, 0.3)),
-        ("prefill", 1, prompt_len, H, head_dim, 1, d_state, chunk, None,
+        ("prefill", 1, prompt_len, H, head_dim, 1, d_state, pchunk, None,
          (0.01, 0.3)),
         ("prefix 0/ragged/full", 3, 128, 40, 64, 1, 32, 64, [0, 37, 40],
          (0.01, 0.3)),
@@ -2331,7 +2412,7 @@ def ssd_cases(d_model, head_dim, d_state, clients, rows, seq, chunk, heads,
         # the prefill's P split with heads past a ragged prefix; d_state
         # not a multiple of 8 and a chunk above 256 (the simt variant)
         ("prefill heads ragged", 1, prompt_len, H, head_dim, 1, d_state,
-         chunk, [H // 2 + 3], (0.01, 0.3)),
+         pchunk, [H // 2 + 3], (0.01, 0.3)),
         ("d_state 20", 2, 64, 4, 32, 1, 20, 32, [4, 2], (0.01, 0.3)),
         ("chunk 320", 1, 640, 2, 64, 1, 64, 320, None, (0.01, 0.3)),
     ]
@@ -2381,7 +2462,7 @@ def _rel_err(got, want):
 
 
 def phase_ssd_kernels(device, d_model, head_dim, d_state, clients, rows,
-                      seq, chunk, heads, prompt_len):
+                      seq, chunk, heads, prompt_len, edges=True):
     """K8 (y and the per-chunk states) and K9 (its own outputs dx, ddt, du,
     and dB, dC per group, fed by K8's own states; the plain backward takes
     the plain forward's) against their plain versions on ``ssd_cases``,
@@ -2390,7 +2471,9 @@ def phase_ssd_kernels(device, d_model, head_dim, d_state, clients, rows,
     each variant the operands take (mma and simt where the plan is mma),
     twice each, and each run must equal the first bit for bit; heads past
     the prefix must get exact zeros. Returns the worst error of each
-    kernel. Raises PhaseError past a tolerance or on a non-finite value."""
+    kernel. Raises PhaseError past a tolerance or on a non-finite value.
+    ``edges=False`` runs the training and the prefill case alone (another
+    parent's shapes, the edges having run once)."""
     import torch
     from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd_raw,
                                               ssd_scan_bwd_raw_plain,
@@ -2398,9 +2481,9 @@ def phase_ssd_kernels(device, d_model, head_dim, d_state, clients, rows,
     gen = torch.Generator(device=device).manual_seed(6)
     worst = {"ssd_scan": 0.0, "ssd_scan_bwd": 0.0}
     failed = []
-    for label, R, S, H, P, G, N, Q, ha, dtr in ssd_cases(
-            d_model, head_dim, d_state, clients, rows, seq, chunk, heads,
-            prompt_len):
+    cases = ssd_cases(d_model, head_dim, d_state, clients, rows, seq, chunk,
+                      heads, prompt_len)
+    for label, R, S, H, P, G, N, Q, ha, dtr in cases[:None if edges else 2]:
         x, dt, A, Bm, Cm = _ssd_inputs(R, S, H, P, G, N, dtr, device, gen)
         hat = None if ha is None else _i32(ha, device)
         plan = k8_plan(x, Bm, Cm, Q)
@@ -2584,6 +2667,7 @@ def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
     del x, dt, A, Bm, Cm, leaves, y_d, st, dy
     x, dt, A, Bm, Cm = _ssd_inputs(1, prompt_len, H, head_dim, 1, d_state,
                                    (0.01, 0.3), device, gen)
+    chunk = min(chunk, prompt_len)   # a shorter prompt is one chunk
     row = dict(shape=f"prefill xh(1,{prompt_len},{H},{head_dim}) chunk "
                      f"{chunk} {k8_plan(x, Bm, Cm, chunk)}",
                ms=cuda_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk), device,
@@ -3619,7 +3703,7 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
     return launches, stats
 
 
-def cnn_local_step(device, sess, specs, fed_sess, turns=3):
+def cnn_local_step(device, sess, specs, fed_sess, turns=1):
     """One local step of the kernel path's cohort (``specs``, the session's
     parameters): wall ms and ``torch.profiler``'s device ms and idle share
     with K1's share. Then what cuDNN's deterministic algorithms cost
@@ -3791,16 +3875,19 @@ class RouteLog:
 
 
 def zoo_session(device, fam, algorithm="cfl", ek=True, batched=True,
-                seed=ZOO["seed"], selection=None):
+                seed=ZOO["seed"], selection=None,
+                n_workers=ZOO["n_workers"]):
     """``CFLSession.from_synthetic`` of the zoo setting on ``fam``
-    (``selection``: the policy, full participation by default)."""
+    (``selection``: the policy, full participation by default), with
+    ``n_workers`` clients of the same 8 train / 8 test sequences each."""
     from repro_torch.fl.server import CFLConfig
     from repro_torch.fl.session import CFLSession
     return CFLSession.from_synthetic(
-        fam, kind="synthlm", n_workers=ZOO["n_workers"],
-        n_samples=ZOO["n_samples"], heterogeneity=ZOO["heterogeneity"],
+        fam, kind="synthlm", n_workers=n_workers,
+        n_samples=ZOO["n_samples"] * n_workers // ZOO["n_workers"],
+        heterogeneity=ZOO["heterogeneity"],
         algorithm=algorithm, seed=seed, device=device, selection=selection,
-        fl_cfg=CFLConfig(n_workers=ZOO["n_workers"],
+        fl_cfg=CFLConfig(n_workers=n_workers,
                          batch_size=ZOO["batch"], local_epochs=1,
                          lr=ZOO["lr"], elastic_kernels=ek,
                          batched_rounds=batched, seed=seed))
@@ -3816,25 +3903,34 @@ def sequential_holds(device, fam, sess, specs, routes=None):
     routes on the kept layers). Returns ({client: (fp64 ratio, fp32
     ratio)}, routing decisions that differ)."""
     import contextlib
+    import dataclasses
     import torch
+    from repro_torch.core.elastic import TransformerElasticFamily
     from repro_torch.core.submodel import transformer_experts
     from repro_torch.data.loader import index_batches
     from repro_torch.fl.engine import (BatchedRoundEngine,
                                        SequentialFamilyTrainer)
     from repro_torch.optim.optimizers import tree_leaves, tree_map
-    cfg, L = fam.cfg, fam.cfg.segments[0].n_layers
+    cfg = fam.cfg
+    # the MoE layers in the order a forward routes them
+    moe_layers = [(si, l) for si, seg in enumerate(cfg.segments)
+                  if seg.use_moe for l in range(seg.n_layers)]
+    L = max(1, len(moe_layers))
     fl = sess.fl
     out, differ = {}, 0
     for k, spec in enumerate(specs):
         fam_k = fam
         if cfg.moe is not None:
-            fam_k = train_family(cfg, L, fam.seq_len, transformer_experts(
-                cfg, spec.expert_frac))
+            fam_k = TransformerElasticFamily(dataclasses.replace(
+                cfg, moe=dataclasses.replace(
+                    cfg.moe, capacity_experts=transformer_experts(
+                        cfg, spec.expert_frac))), seq_len=fam.seq_len)
         seed = fl.seed * 7 + k                  # round 0's client seed
         data = sess.client_data[k]
         idx = next(index_batches(len(data["y"]), fl.batch_size, seed=seed))
         one = {"x": data["x"][idx], "y": data["y"][idx]}
-        keep = set(spec.layers[0])
+        keep = {i for i, (si, l) in enumerate(moe_layers)
+                if l in spec.layers[si]}
         ratios = []
         for dtype, d, log in ((torch.float64, one, None),
                               (torch.float32, data, routes)):
@@ -3848,10 +3944,22 @@ def sequential_holds(device, fam, sess, specs, routes=None):
                 delta, _, _, _ = seq.client_update(p0, spec, d, seed=seed,
                                                    **kw)
             padded = fam_k.pad_delta(delta, p0, spec)
+            del delta, seq
+            # the batched run holds ~6 parent copies at its peak: where the
+            # card has no room for them beside the padded delta (a gemma2
+            # pair's fp64 copy is 10.5 GB), the delta waits on the host
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(padded))
+            if device.type == "cuda" and \
+                    torch.cuda.mem_get_info(device)[0] < 6 * nbytes:
+                padded = tree_map(lambda t: t.cpu(), padded)
+            theta = eng.broadcast_params(p0, 1)
+            del p0
             with (log("replay", use=lambda c: c % L in keep) if log
                   else contextlib.nullcontext()):
-                res = eng.train_cohort(eng.broadcast_params(p0, 1), [spec],
-                                       [d], seeds=[seed], **kw)
+                res = eng.train_cohort(theta, [spec], [d], seeds=[seed],
+                                       **kw)
+            del theta
             if log:
                 differ += log.differ
                 if log.pos != len(log.ids):
@@ -3859,18 +3967,23 @@ def sequential_holds(device, fam, sess, specs, routes=None):
                                      f"{len(log.ids)} routes")
             moved = max(float(t[0].abs().max())
                         for t in tree_leaves(res.deltas))
-            diff = max(float((a - b[0]).abs().max()) for a, b in zip(
-                tree_leaves(padded), tree_leaves(res.deltas)))
+            diff = max(float((a.to(b.device) - b[0]).abs().max())
+                       for a, b in zip(tree_leaves(padded),
+                                       tree_leaves(res.deltas)))
             ratios.append(diff / moved)
-            del p0, delta, padded, res
+            del padded, res, eng
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
         out[k] = tuple(ratios)
     return out, differ
 
 
-def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None):
+def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None, phase="15"):
     """``CFLSession`` on the transformer zoo (the reference's main entry
-    point for it): for each parent of ``parents`` (name, depth, sequence
-    length, timed CFL rounds) at its published width, sessions of
+    point for it): for each parent of ``parents`` (name, depth — layers,
+    or (segment, layers) pairs for ``cut_depth`` — sequence length, timed
+    CFL rounds, FedAvg / IL / warm-up, and optionally the clients,
+    ``ZOO["n_workers"]`` by default) at its published width, sessions of
     ``CFLSession.from_synthetic(fam, kind="synthlm", ...)``:
 
     * CFL on the kernel path, timed free-running after an untimed warm-up
@@ -3900,9 +4013,12 @@ def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None):
     a ``reduced`` config rehearses the phase on the CPU, where the launch
     checks fail by design). Returns ({run: launches}, stats)."""
     import contextlib
+    import functools
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.models import moe as moe_lib
     from repro_torch.core.submodel import TransformerSubSpec
     from repro_torch.optim.optimizers import tree_map
 
@@ -3913,10 +4029,11 @@ def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None):
     def snapshot(params):
         return tree_map(lambda a: a.clone(), params)
 
-    def counted(label, cfg, fn, want):
+    def counted(label, cfg, fn, want, k5="tile"):
         """Run ``fn`` with every kernel counter of the path at 0; check the
-        counts against ``want`` (None: no launch at all) and the variants;
-        return (fn's result, seconds, launches, by variant)."""
+        counts against ``want`` (None: no launch at all) and the variants
+        (K5's ``k5``); return (fn's result, seconds, launches, by
+        variant)."""
         counters = path_counters(cfg)
         reset_launches(counters)
         sync(device)
@@ -3938,30 +4055,42 @@ def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None):
                 if n != want[name]:
                     problems.append(f"{label}: {name} launched {n} times, "
                                     f"design {want[name]}")
-            by = check_variants(got, problems, "tile", "mma")
+            by = check_variants(got, problems, k5, "mma")
         return res, secs, got, by
 
-    for name, n_layers, seq_len, rounds, baselines in parents:
+    for name, n_layers, seq_len, rounds, baselines, *workers in parents:
+        session = functools.partial(
+            zoo_session, n_workers=workers[0] if workers else
+            ZOO["n_workers"])
         fam = train_family((cfg_of or get_config)(name), n_layers, seq_len)
         cfg = fam.cfg
-        moe, ssm = cfg.moe is not None, cfg.ssm is not None
+        moe = cfg.moe is not None
         st = stats[name] = {}
-        label = name.split("-")[0] if not moe else "granite-moe"
+        label = "granite-moe" if name.startswith("granite-moe") \
+            else name.split("-")[0]
         t_parent = time.perf_counter()
         if baselines:                       # untimed warm-up session round
-            warm = zoo_session(device, fam)
+            warm = session(device, fam)
             warm.run(1)
             del warm
             gc.collect()
-        sess = zoo_session(device, fam)
+        sess = session(device, fam)
         st["lut_build_s"] = sess.server.lut_seconds
-        per = design_launches(n_layers, 2, 1, moe=moe, ssm=ssm)
+        per = design_launches_of(cfg, 2, 1)
+        # K5's plan streams the weights past products of at most
+        # STREAM_ROWS rows: a parent whose expert capacity is that small
+        # (deepseek's top 6 of 64) takes both tensor-core variants
+        k5 = "tile"
+        if moe and moe_lib.capacity(ZOO["batch"] * seq_len, cfg.moe) \
+                <= gmm.STREAM_ROWS:
+            k5 = ("tile", "stream")
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         kern, after0 = [], None
         for r in range(rounds):
             rec, secs, got, by = counted(
-                f"{label} cfl round {r}", cfg, sess.server.run_round, per)
+                f"{label} cfl round {r}", cfg, sess.server.run_round, per,
+                k5)
             kern.append(dict(rec=rec, seconds=secs, by_variant=by))
             if r == 0:
                 after0 = snapshot(sess.params)
@@ -4002,7 +4131,7 @@ def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None):
         # ---- the dense path's round 0 from the same state --------------
         routes = RouteLog()
         if moe:
-            rec_sess = zoo_session(device, fam)
+            rec_sess = session(device, fam)
             with routes("record"):
                 rec_sess.run(1)
             d = first_difference(after0, rec_sess.params)
@@ -4014,7 +4143,7 @@ def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None):
                 problems.append(f"{label}: the kernel path does not repeat "
                                 f"to the bit (first at {d[0]})")
             del rec_sess
-        dense = zoo_session(device, fam, ek=False)
+        dense = session(device, fam, ek=False)
         t = time.perf_counter()
         with (routes("replay") if moe else contextlib.nullcontext()):
             rec = dense.server.run_round()
@@ -4071,7 +4200,7 @@ def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None):
 
         # ---- FedAvg and IL on the kernels (the dense parent) -----------
         if baselines:
-            fed = zoo_session(device, fam, "fedavg")
+            fed = session(device, fam, "fedavg")
             rec, secs, _, by = counted(f"{label} fedavg round 0", cfg,
                                        fed.server.run_round, per)
             print(f"  {label} fedavg round 0: {secs:.3f} s "
@@ -4080,7 +4209,7 @@ def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None):
             st.update(fedavg_round_s=secs, fedavg_accs=rec["accs"],
                       fedavg_by_variant=by)
             del fed
-            il = zoo_session(device, fam, "il")
+            il = session(device, fam, "il")
             _, secs, _, by = counted(f"{label} il (1 round's budget)", cfg,
                                      lambda: il.run(1), per)
             print(f"  {label} il: {secs:.3f} s; accs "
@@ -4090,7 +4219,7 @@ def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None):
             gc.collect()
 
         # ---- the sequential trainer ------------------------------------
-        seq = zoo_session(device, fam, batched=False)
+        seq = session(device, fam, batched=False)
         rec, secs, _, _ = counted(f"{label} sequential round 0", cfg,
                                   seq.server.run_round, None)
         seq0 = seq.params
@@ -4112,8 +4241,10 @@ def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None):
             problems.append(f"{label}: sequential round 0 vs dense beyond "
                             f"{ULP_FLOOR} ulp {floored_s:.3e} > "
                             f"{SEQ_FP32_TOL:g}")
-        del dense0
+        del dense0, seq0, init       # the fp64 holds need the room
         gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
         per_client, differ = sequential_holds(device, fam, seq, specs,
                                               routes if moe else None)
         for k, (r64, r32) in per_client.items():
@@ -4140,7 +4271,7 @@ def phase_zoo(device, parents=ZOO_PARENTS, cfg_of=None):
         st["seconds"] = time.perf_counter() - t_parent
         print(f"  {label}: {st['seconds']:.1f} s in all")
     stats["phase_seconds"] = time.perf_counter() - t_phase
-    print(f"  phase 15: {stats['phase_seconds']:.1f} s; "
+    print(f"  phase {phase}: {stats['phase_seconds']:.1f} s; "
           + (card_line() if cuda else "no card"))
     if problems:
         raise PhaseError("; ".join(problems))
@@ -4671,6 +4802,176 @@ def phase_selection(device, cfg=None, zoo=True, cfg_of=None):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phases 3e and 17: the zoo's last three decoder parents
+# ---------------------------------------------------------------------------
+# phase 17's serving slices: gemma2-9b at all 42 layers (9.24 B parameters,
+# 37.0 GB fp32) and zamba2-1.2b at all 38; deepseek-v2-lite-16b cut to its
+# dense first layer and 16 of its 26 MoE layers (9.86 B parameters, 39.5 GB:
+# all 27 would be 15.7 B, 62.8 GB) — (arch, depth for cut_depth or None)
+A11_SLICES = (("gemma2-9b", None), ("zamba2-1.2b", None),
+              ("deepseek-v2-lite-16b", ((0, 1), (1, 16))))
+# phase 17's CFL sessions at published width, as phase 15's (name, depth,
+# sequence length, timed CFL rounds, FedAvg / IL and a warm-up, clients):
+# gemma2 one (local, global) pair and deepseek its dense layer and one MoE
+# layer, 2 clients each (5.26 / 4.34 GB a copy: every client holds its
+# parameters, momenta and gradients, the fp64 first-step holds twice that);
+# zamba2 its first 6-layer segment with the shared block after it and its
+# last segment, 4 clients, 512-token sequences (two of its 256-token chunks)
+A11_PARENTS = (("gemma2-9b", ((0, 1),), TRAIN["seq_len"], 1, False, 2),
+               ("deepseek-v2-lite-16b", ((0, 1), (1, 1)), TRAIN["seq_len"],
+                1, False, 2),
+               ("zamba2-1.2b", ((0, 6), (6, 2)), SSM_TRAIN["seq_len"], 1,
+                False, 4))
+# phase 3e's attention shapes at head_dim 256: the training rows of 2
+# clients × 8 sequences of 128 tokens, each client its own head prefix
+D256_ROWS, D256_SEQ, D256_HEADS = 16, 128, (16, 8)
+
+
+def d256_cases(g2, g7):
+    """(label, B, S, H, KV, D, h_active, causal, window, cap) of K2–K4 at
+    head_dim 256: gemma2-9b's training attention (16 / 8 heads, softcap
+    50) without a window and with a window of 64 that binds at 128 tokens,
+    gemma-7b's (MHA 16 / 16, no softcap), and a 32-token prefill."""
+    B, S = D256_ROWS, D256_SEQ
+    has = [D256_HEADS[b * len(D256_HEADS) // B] for b in range(B)]
+    H, KV, D, cap = g2.n_heads, g2.n_kv_heads, g2.head_dim, g2.attn_softcap
+    return [("gemma2 train", B, S, H, KV, D, has, True, None, cap),
+            ("gemma2 train window 64", B, S, H, KV, D, has, True, 64, cap),
+            ("gemma-7b train MHA", B, S, g7.n_heads, g7.n_kv_heads,
+             g7.head_dim, None, True, None, None),
+            ("prefill 32", 1, 32, H, KV, D, None, True, None, cap)]
+
+
+def phase_a11_kernels(device, g2, g7, ds, zb, iters=5):
+    """Phase 3e: the kernels at the shapes the last three decoder parents
+    give them, against their plain versions and timed.
+
+    * K2, K3 and K4 at head_dim 256 (``d256_cases``: K3 / K4 in both
+      variants, each twice and bit-equal, and on an offset view), then
+      times at gemma2's and gemma-7b's training attention (``flash_times``:
+      K3, K4 and SDPA's all-grads backward in turns) and of K2 at the
+      prefill;
+    * K6 (its copy, scaled gather and gather-dot) and K7 at deepseek's top
+      6 of 64 experts, d 2048 (``check_gathers`` at a training layer of 2
+      clients × 512 tokens with expert prefixes 64 / 32, and a decode
+      step), then the combine (K7) and the gather-dot timed against their
+      library calls;
+    * K8 and K9 at zamba2's SSD (64 heads of 64, d_state 64, chunk 256:
+      ``phase_ssd_kernels`` at its training and prefill shapes,
+      ``phase_ssd_times``).
+
+    Returns (worst error of each kernel, {kernel: [timing row]})."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_fwd_plain)
+    from repro_torch.kernels.moe_dispatch import (
+        gather_dot, gather_dot_plain, gather_reduce, gather_reduce_plain)
+    from repro_torch.models.moe import capacity
+    gen = torch.Generator(device=device).manual_seed(9)
+    worst = {n: 0.0 for n in ("flash_attention", "flash_attention_dq",
+                              "flash_attention_dkv")}
+    failed = []
+    cases = d256_cases(g2, g7)
+    check_flash(device, cases, gen, worst, failed)
+    times = {}
+    for label, B, S, H, KV, D, *_ in cases[::2][:2]:    # gemma2, gemma-7b
+        for name, rows in flash_times(device, B, S, H, KV, D, gen,
+                                      iters).items():
+            for r in rows:
+                r["shape"] = f"{label}: {r['shape']}"
+            times.setdefault(name, []).extend(rows)
+    _, B, S, H, KV, D, _, _, _, cap = cases[-1]
+    q, k, v, _ = _k2_inputs(B, S, H, KV, D, None, device, gen)
+    kw = dict(causal=True, cap=cap)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (
+        q, k.repeat_interleave(H // KV, 2), v.repeat_interleave(H // KV, 2)))
+    nbytes, ops = 4.0 * (2 * B * S * H * D + 2 * B * S * KV * D
+                         + B * H * S), 4.0 * D * attn_pairs(B, S, H)
+    row = dict(shape=f"prefill q({B},{S},{H},{D}) kv({B},{S},{KV},{D}) "
+                     f"causal cap {cap} (library: no softcap)",
+               ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), device,
+                          20),
+               plain_ms=cuda_ms(lambda: flash_attention_fwd_plain(
+                   q, k, v, **kw), device, 20),
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True), device, 20),
+               device_ms=device_ms(lambda: flash_attention(q, k, v, **kw),
+                                   device),
+               library_device_ms=device_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True), device))
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+    add_tc_bound(row, nbytes, ops)
+    times["flash_attention"].append(row)
+    del q, k, v, qt, kt, vt
+    print_rows(times)
+
+    # K6 / K7 at deepseek's top 6 of 64 experts
+    E, top_k, d = ds.moe.n_experts, ds.moe.top_k, ds.d_model
+    tokens = ZOO["batch"] * TRAIN["seq_len"]
+    cap_t = capacity(tokens, MoEConfig(E, top_k, ds.moe.d_ff_expert))
+    for label, G, T, cp, pre in (("deepseek", 2, tokens, cap_t, [E, E // 2]),
+                                 ("deepseek dec", 2, 1, 8, [E, E // 4])):
+        t = moe_tables(device, G, T, E, top_k, cp, pre, d, gen)
+        for n in ("gather_rows", "gather_dot", "gather_reduce"):
+            worst.setdefault(n, 0.0)
+        failed += check_gathers(device, t, top_k, label, d, worst)
+        if label != "deepseek":
+            continue
+        y, dest = t["y"], t["dest"]
+        T_all, gates = G * T, t["gate_eff"]
+        nnz = int((gates != 0).sum())
+        live = (gates.reshape(-1) != 0).to(torch.int32)
+        dest_c = dest.long().clamp(max=y.shape[0] - 1)
+        dtk = dest.reshape(T_all, top_k)
+        dout = torch.randn((T_all, d), generator=gen, device=device)
+        times["gather_reduce"] = [design_row(
+            device, f"deepseek train combine T={T_all} k={top_k} from "
+            f"{y.shape[0]} slots, d={d}, {nnz} gathered",
+            {"split": lambda: gather_reduce(y, dtk, gates),
+             "first": lambda: gather_reduce(y, dtk, gates, variant="first")},
+            iters, lambda: gather_reduce_plain(y, dtk, gates),
+            lambda: torch.einsum("tj,tjd->td", gates, torch.index_select(
+                y, 0, dest_c).view(T_all, top_k, d)),
+            4.0 * d * (nnz + T_all) + 8.0 * T_all * top_k, 2.0 * nnz * d,
+            False)]
+        live_f = live.float().view(T_all, top_k)
+        times["gather_dot"] = [design_row(
+            device, f"deepseek train combine vjp dgate T={T_all} "
+            f"k={top_k} from {y.shape[0]} slots, d={d}, {nnz} gathered",
+            {"dot": lambda: gather_dot(y, dest, live, dout, top_k)},
+            iters, lambda: gather_dot_plain(y, dest, live, dout, top_k),
+            lambda: torch.einsum("td,tjd->tj", dout, torch.index_select(
+                y, 0, dest_c).view(T_all, top_k, d)) * live_f,
+            4.0 * d * (nnz + T_all) + 12.0 * T_all * top_k, 2.0 * nnz * d,
+            False)]
+        del t, y, dout
+    print_rows({n: times[n] for n in ("gather_reduce", "gather_dot")})
+    print("  (library for K7: torch.index_select then torch.einsum; for the "
+          "gather-dot: torch.index_select, torch.einsum, the validity mask)")
+    if failed:
+        raise PhaseError(f"kernels at the last three parents' shapes "
+                         f"disagree with their plain versions: {failed}")
+
+    # K8 / K9 at zamba2's SSD
+    zdims = dict(d_model=zb.d_model, head_dim=zb.ssm.head_dim,
+                 d_state=zb.ssm.d_state, clients=4, rows=ZOO["batch"],
+                 seq=SSM_TRAIN["seq_len"], chunk=zb.ssm.chunk,
+                 prompt_len=SLICE["prompt_len"])
+    H = zb.ssm.n_heads(zb.d_model)
+    zdims["heads"] = [H, H // 2, 3 * H // 4, H // 4]
+    for n, e in phase_ssd_kernels(device, **zdims, edges=False).items():
+        worst[n] = max(worst.get(n, 0.0), e)
+    for n, rows in phase_ssd_times(device, **zdims).items():
+        for r in rows:
+            r["shape"] = f"zamba2 {r['shape']}"
+        times.setdefault(n, []).extend(rows)
+    return worst, times
+
+
 def without_arch(settings):
     return {k: v for k, v in settings.items() if k != "arch"}
 
@@ -4772,6 +5073,15 @@ def main() -> int:
                                    CNN_BATCH)
         release()
         done("3d")
+        print("== 3e. the last three decoder parents' kernel shapes: K2-K4 "
+              "at head_dim 256 (gemma2-9b, gemma-7b), K6 / K7 at top 6 "
+              "(deepseek-v2-lite-16b), K8 / K9 at d_state 64 (zamba2-1.2b), "
+              "against their plain versions and timed")
+        a11_worst, a11_times = phase_a11_kernels(
+            device, get_config("gemma2-9b"), get_config("gemma-7b"),
+            get_config("deepseek-v2-lite-16b"), get_config("zamba2-1.2b"))
+        release()
+        done("3e")
         print("== 4. times: serving shapes")
         times = phase_times(device, **dims)
         done("4")
@@ -4819,10 +5129,11 @@ def main() -> int:
                                                           **SSM_TRAIN)
         release()
         done("12")
-        print("== 13. slice: mamba2-2.7b serving, full width and depth, "
-              "fp32")
-        ssm_launches, ssm_stats = phase_slice(device, scfg,
-                                              **without_arch(SSM_SLICE))
+        print(f"== 13. slice: mamba2-2.7b serving, full width, "
+              f"{SSM_SERVE_LAYERS} of its 64 layers, fp32")
+        ssm_launches, ssm_stats = phase_slice(
+            device, cut_depth(scfg, SSM_SERVE_LAYERS),
+            **without_arch(SSM_SLICE))
         release()
         done("13")
         print(f"== 14. slice: {PAPER_CNN.name} sessions of CFL, FedAvg and "
@@ -4854,6 +5165,27 @@ def main() -> int:
         sel_launches, sel_stats = phase_selection(device)
         release()
         done("16")
+        print("== 17. the last three decoder parents: EdgeServer on "
+              "gemma2-9b (42 layers), zamba2-1.2b (38) and "
+              "deepseek-v2-lite-16b (its dense layer and 16 MoE layers), "
+              "then CFLSession on each at published width (gemma2 one "
+              "pair, deepseek its dense and one MoE layer, 2 clients; "
+              "zamba2 two segments and the shared block, 4 clients), fp32")
+        a11_launches, a11_stats = {}, {}
+        for name, depth in A11_SLICES:
+            pcfg = get_config(name) if depth is None else \
+                cut_depth(get_config(name), depth)
+            label = name.split("-")[0]
+            print(f"  -- {label} serving: {pcfg.n_layers} layers")
+            a11_launches[f"{label} serving"], a11_stats[f"{label} serving"] \
+                = phase_slice(device, pcfg, **without_arch(SLICE),
+                              profiled=("kernel",))
+            release()
+        zl, zs = phase_zoo(device, A11_PARENTS, phase="17")
+        a11_launches.update({f"{run}": c for run, c in zl.items()})
+        a11_stats["zoo"] = zs
+        release()
+        done("17")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4900,9 +5232,10 @@ def main() -> int:
                "ssm_training": ssm_train_launches, "ssm_serving": ssm_launches,
                **cnn_launches,
                **{f"zoo {run}": c for run, c in zoo_launches.items()},
-               **{f"selection {run}": c for run, c in sel_launches.items()}}
+               **{f"selection {run}": c for run, c in sel_launches.items()},
+               **{f"a11 {run}": c for run, c in a11_launches.items()}}
     for name, err in (list(mworst.items()) + list(sworst.items())
-                      + list(cworst.items())):
+                      + list(cworst.items()) + list(a11_worst.items())):
         worst[name] = max(worst.get(name, 0.0), err)
     home = {n: ("moe_training", moe_times) for n in
             ("grouped_matmul", "gather_rows", "gather_dot", "gather_reduce")}
@@ -4914,7 +5247,7 @@ def main() -> int:
         rows = table[name]
         head, serving = rows[0], times.get(name, [])
         extra = moe_times.get(name, []) if path == "training" else []
-        extra = extra + cnn_times.get(name, [])
+        extra = extra + cnn_times.get(name, []) + a11_times.get(name, [])
         entries.append(dict(
             name=name, route="cuda", source=meta[name]["source"],
             replaces=meta[name]["replaces"],
@@ -4953,6 +5286,10 @@ def main() -> int:
                         for run, st in sel_stats["runs"].items())
                 + (("selection zoo granite cfl uniform", {
                     "launches_by_variant": sel_stats["zoo"]["by_variant"]}),)
+                + tuple((f"a11 {run}", st) for run, st in a11_stats.items()
+                        if run != "zoo")
+                + tuple((f"a11 {a.split('-')[0]} cfl", a11_stats["zoo"][a])
+                        for a, *_ in A11_PARENTS)
                 if name in st.get("launches_by_variant", {})}
     print("kernels: " + "; ".join(
         f"{p} " + " ".join(f"{n}={c}" for n, c in counts.items())
@@ -4966,6 +5303,7 @@ def main() -> int:
     print(f"cnn training: {json.dumps(cnn_stats)}")
     print(f"zoo sessions: {json.dumps(zoo_stats)}")
     print(f"selection: {json.dumps(sel_stats)}")
+    print(f"last three decoder parents: {json.dumps(a11_stats)}")
     print(f"phase seconds: {json.dumps(phase_s)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
     print(card_line())

@@ -13,10 +13,13 @@ The port of the reference's ``core/elastic.py``, two families:
   sequential path's submodel surface (``extract``, ``sub_ctx``,
   ``sub_init_params``, ``sub_logits``, ``sub_loss``, ``sub_metric``,
   ``pad_delta``).
-* ``TransformerElasticFamily`` for GQA parents, dense or MoE, and Mamba2
-  SSM parents: the spec algebra (``full_spec``, ``minimal_spec``,
-  ``random_spec``), the search surface (``mutate``, ``crossover``;
-  ``featurize`` / ``feature_dim``; ``flops`` / ``param_bytes`` /
+* ``TransformerElasticFamily`` for the zoo's decoder parents — GQA or MLA
+  attention, dense or MoE, local / global attention pairs, Mamba2 SSM
+  blocks with or without the shared hybrid block (kept whole by every
+  submodel: no mask reaches it, every client covers it): the spec
+  algebra (``full_spec``, ``minimal_spec``, ``random_spec``), the
+  search surface (``mutate``, ``crossover``; ``featurize`` /
+  ``feature_dim``; ``flops`` / ``param_bytes`` /
   ``flops_fraction`` / ``lut_specs``, priced on the submodel's analytic
   config, ``core.submodel.sub_transformer_config``), parent init, the
   forward masks of a spec (``decode_masks``, the serving surface), the
@@ -145,11 +148,12 @@ def _lm_per_sample_acc(logits, tokens):
 
 
 class TransformerElasticFamily:
-    """Parent-space elastic dims of a GQA or SSM parent: d_ff prefix
+    """Parent-space elastic dims of a decoder parent: d_ff prefix
     (``ff_frac``), routed-expert prefix on MoE parents (``expert_frac``:
     the router masks the suffix, the grouped matmul skips it), SSD-head
     prefix on SSM parents (``ssm_head_frac``: the scan skips the suffix),
-    query-head prefix in whole GQA groups (``attn_head_frac``) and
+    query-head prefix in whole GQA groups on parents with GQA attention
+    segments (``attn_head_frac``) and
     per-segment kept layers (depth gates).
 
     ``seq_len``: tokens per sample in the latency cost model (and the

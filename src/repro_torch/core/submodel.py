@@ -21,8 +21,11 @@ Two parent families:
   from the prefixes, as factors — one 0/1 vector per masked axis (kept
   layers, kept d_ff columns, kept routed experts, kept attention heads,
   kept SSD heads), size-1 axes elsewhere — whose broadcast product is the
-  round trip's mask, so no parent-sized template is ever made.
-  ``attn_pair`` segments and the shared hybrid block raise (ROADMAP A11).
+  round trip's mask, so no parent-sized template is ever made. An
+  ``attn_pair`` segment's ``local`` and ``global`` trees are sliced,
+  padded and covered alike, on the same kept pairs; the shared hybrid
+  block (``shared_attn``) is kept whole by every submodel and covered by
+  every client.
 """
 from __future__ import annotations
 
@@ -395,18 +398,19 @@ def _block_coverage(cfg: ModelConfig, tree: Dict, n_layers: int, keep,
 
 def coverage_factors(cfg: ModelConfig, spec: TransformerSubSpec,
                      shapes: Dict) -> Dict:
-    """The 0/1 coverage of ``spec`` over a parent (dense, MoE or SSM), as
-    per-leaf factors (numpy, each with its leaf's number of axes) whose
-    broadcast equals the reference's extract → pad round trip on all-ones.
+    """The 0/1 coverage of ``spec`` over a parent, as per-leaf factors
+    (numpy, each with its leaf's number of axes) whose broadcast equals
+    the reference's extract → pad round trip on all-ones.
 
     ``shapes``: the parent's tree with each leaf replaced by its shape
-    tuple. Embedding, final norm and untied head are covered whole; a
-    block leaf is covered on its kept layers, within the kept d_ff prefix
-    (mlp ``wi``/``wg`` columns, ``wo`` rows), within the kept routed
-    experts (the router's columns, the experts of ``wi``/``wg``/``wo``;
-    shared experts whole), within the kept SSD heads of a ``mamba`` leaf
-    and, when the spec drops heads, the kept query heads (``wq``/``wo``)
-    and their KV heads (``wk``/``wv``)."""
+    tuple. Embedding, final norm, untied head and the shared hybrid block
+    are covered whole; a block leaf (of ``blocks``, or of a pair's
+    ``local`` and ``global``) is covered on its kept layers, within the
+    kept d_ff prefix (mlp ``wi``/``wg`` columns, ``wo`` rows), within the
+    kept routed experts (the router's columns, the experts of
+    ``wi``/``wg``/``wo``; shared experts whole), within the kept SSD heads
+    of a ``mamba`` leaf and, when the spec drops heads, the kept query
+    heads (``wq``/``wo``) and their KV heads (``wk``/``wv``)."""
     ff, n_exp, nh_keep, ah_keep = _elastic_dims(cfg, spec)
 
     def whole(tree):
@@ -416,8 +420,9 @@ def coverage_factors(cfg: ModelConfig, spec: TransformerSubSpec,
 
     out = {k: whole(v) for k, v in shapes.items() if k != "segments"}
     out["segments"] = [
-        {"blocks": _block_coverage(cfg, seg_shapes["blocks"], seg.n_layers,
-                                   keep, ff, n_exp, nh_keep, ah_keep)}
+        {name: _block_coverage(cfg, tree, seg.n_layers, keep, ff, n_exp,
+                               nh_keep, ah_keep)
+         for name, tree in seg_shapes.items()}
         for seg_shapes, seg, keep in zip(shapes["segments"], cfg.segments,
                                          spec.layers)]
     return out
@@ -453,25 +458,14 @@ def sub_transformer_config(cfg: ModelConfig,
         d_ff=ff or cfg.d_ff, moe=moe, ssm=ssm, **heads)
 
 
-def _check_branches(cfg: ModelConfig, tree: Dict) -> None:
-    """Raise for the branches whose extract / pad is not ported."""
-    what = ("attn_pair segments" if any(seg.kind == "attn_pair"
-                                        for seg in cfg.segments)
-            else "the shared hybrid block" if "shared_attn" in tree
-            else None)
-    if what is not None:
-        raise NotImplementedError(f"{cfg.name}: the extract / pad of {what} "
-                                  "is not ported yet (ROADMAP A11)")
-
-
 def extract_transformer(params: Dict, cfg: ModelConfig,
                         spec: TransformerSubSpec):
     """Returns (sub_params, sub_cfg): the kept layers of every stacked
     per-layer leaf (``index_select`` on the leading axis, with an index
     tensor on the leaf's device), then its d_ff / routed-expert / query-
-    head / SSD-head prefixes. Embedding, final norm and untied head are
-    the parent's own tensors."""
-    _check_branches(cfg, params)
+    head / SSD-head prefixes — a pair segment's ``local`` and ``global``
+    trees alike. Embedding, final norm, untied head and the shared hybrid
+    block are the parent's own tensors."""
     ff, n_exp, nh_keep, ah_keep = _elastic_dims(cfg, spec)
 
     def slice_block(tree, keep_idx):
@@ -483,7 +477,8 @@ def extract_transformer(params: Dict, cfg: ModelConfig,
                             ah_keep)
 
     sub = dict(params)
-    sub["segments"] = [{"blocks": slice_block(seg_p["blocks"], keep)}
+    sub["segments"] = [{name: slice_block(tree, keep)
+                        for name, tree in seg_p.items()}
                        for seg_p, keep in zip(params["segments"],
                                               spec.layers)]
     return sub, sub_transformer_config(cfg, spec)
@@ -587,8 +582,10 @@ def pad_transformer(delta: Dict, parent_template: Dict, cfg: ModelConfig,
     """Zero-pad a transformer submodel update to parent coordinates: every
     stacked leaf is width-padded (its kept prefixes in place, zeros after)
     and scattered onto its kept layers (``index_copy_``) of a zero parent
-    leaf; embedding, final norm and untied head pass through whole."""
-    _check_branches(cfg, delta)
+    leaf (a pair segment's ``local`` and ``global`` trees alike);
+    embedding, final norm, untied head and the shared hybrid block pass
+    through whole (the reference zero-pads the shared block to its own
+    shape: the identity)."""
 
     def scatter_layers(sub_tree, parent_tree, keep_idx):
         def leaf(s, p):
@@ -603,7 +600,8 @@ def pad_transformer(delta: Dict, parent_template: Dict, cfg: ModelConfig,
 
     out = dict(delta)
     out["segments"] = [
-        {"blocks": scatter_layers(d_seg["blocks"], p_seg["blocks"], keep)}
+        {name: scatter_layers(tree, p_seg[name], keep)
+         for name, tree in d_seg.items()}
         for d_seg, p_seg, keep in zip(delta["segments"],
                                       parent_template["segments"],
                                       spec.layers)]

@@ -52,7 +52,7 @@
 //    K / V tiles through L2, and the tiles with the most causal keys start
 //    first. Q, dO, lse and delta of the tile are loaded once; K / V tiles
 //    of 32 keys come in by cp.async, double-buffered at D ≤ 64 and
-//    single-buffered at D = 128 (two blocks an SM). Per key block, the
+//    single-buffered from D = 128 on (two blocks an SM at 128). Per key block, the
 //    pair's S warp takes S = Q Kᵀ and the dP warp dP = dO Vᵀ (over D ≤ 128:
 //    at most 48 tensor-core accumulations, summed in the core by `mma3`);
 //    the S warp hands p · s' · scale to the dP warp through shared memory,
@@ -87,10 +87,19 @@
 //    over through a named barrier of its 64 threads.
 //  * A pair skips the math of a block its 16 rows cannot see (causal or
 //    window), as K2's warps do.
+//  * D = 256 (gemma, gemma2): one block of either kernel takes an SM's
+//    shared memory (K3 209,920 B, K4 206,080 B), so the registers are
+//    sized for one block (`MinBlocks`). S and dP (K3), Sᵀ and dPᵀ (K4)
+//    sum each half of D in its own accumulator, each at most 48
+//    tensor-core accumulations as at D = 128, added in fp32. K4's pair
+//    would hold 128 floats a thread of dK or dV, what spilled at D = 128
+//    in one warp; it takes two passes over its steps instead, each
+//    summing half of D's columns (Sᵀ and dPᵀ recomputed in the second,
+//    every column's sum in the same order).
 //
 // simt — the first design, for rows that are not 16-byte aligned
 // (the cp.async copies need aligned rows): fp32 FMAs, 16 × 16 tiles, 8
-// threads a row. dq: a block per (batch, head, 16 query rows) looping
+// threads a row, its tiles in dynamic shared memory (`SimtTiles`). dq: a block per (batch, head, 16 query rows) looping
 // over 16-key blocks, each thread scoring 2 keys and owning D/8 columns of
 // dq; dk / dv: a block per (batch, KV head, 16 keys) looping over the
 // group's heads and their 16-row query blocks.
@@ -170,6 +179,19 @@ __device__ __forceinline__ float dot_row(const float* a, const float* b) {
 // ---------------------------------------------------------------------------
 // K3, simt: block (query tile, head, batch); loop over key blocks
 // ---------------------------------------------------------------------------
+// The simt kernels' shared tiles live in dynamic shared memory: at
+// D = 256 they take 66,880 B (dq) and 68,096 B (dk / dv), past the 48 KB
+// of static shared memory a kernel may declare.
+template <int D>
+struct SimtTiles {
+  static constexpr int kRow = D + 1;  // a padded row of q, do, k or v
+  static constexpr int kDqBytes =
+      (4 * kBR * kRow + kBR * (kBC + 1)) * static_cast<int>(sizeof(float));
+  static constexpr int kDkvBytes =
+      (4 * kBR * kRow + 2 * kBR * (kBC + 1) + 2 * kBC) *
+      static_cast<int>(sizeof(float));
+};
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -179,11 +201,12 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const int* __restrict__ ha, int Sq, int Sk, int H, int KV,
                 int causal, int window, float cap, float scale) {
   constexpr int DPT = D / kTPR;
-  __shared__ float qs[kBR][D + 1];
-  __shared__ float dos[kBR][D + 1];
-  __shared__ float ks[kBC][D + 1];
-  __shared__ float vs[kBC][D + 1];
-  __shared__ float dss[kBR][kBC + 1];
+  extern __shared__ __align__(16) float smem[];
+  float (*qs)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem);
+  float (*dos)[D + 1] = qs + kBR;
+  float (*ks)[D + 1] = dos + kBR;
+  float (*vs)[D + 1] = ks + kBC;
+  float (*dss)[kBC + 1] = reinterpret_cast<float (*)[kBC + 1]>(vs + kBC);
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, row = tid / kTPR, t = tid % kTPR;
@@ -257,13 +280,16 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int Sk, int H, int KV, int causal, int window, float cap,
                  float scale) {
   constexpr int DPT = D / kTPR;
-  __shared__ float ks[kBR][D + 1];
-  __shared__ float vs[kBR][D + 1];
-  __shared__ float qs[kBC][D + 1];
-  __shared__ float dos[kBC][D + 1];
-  __shared__ float ps[kBR][kBC + 1];   // [key][query]
-  __shared__ float dss[kBR][kBC + 1];
-  __shared__ float lse_s[kBC], delta_s[kBC];
+  extern __shared__ __align__(16) float smem[];
+  float (*ks)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem);
+  float (*vs)[D + 1] = ks + kBR;
+  float (*qs)[D + 1] = vs + kBR;
+  float (*dos)[D + 1] = qs + kBC;
+  float (*ps)[kBC + 1] =               // [key][query]
+      reinterpret_cast<float (*)[kBC + 1]>(dos + kBC);
+  float (*dss)[kBC + 1] = ps + kBR;
+  float* lse_s = reinterpret_cast<float*>(dss + kBR);
+  float* delta_s = lse_s + kBC;
 
   const int kvh = blockIdx.y, b = blockIdx.z, G = H / KV;
   const int tid = threadIdx.x, key = tid / kTPR, t = tid % kTPR;
@@ -438,10 +464,18 @@ __device__ __forceinline__ float prob(float s, bool ok, float lse, float cap,
 constexpr int kPairWarps = 2 * kPairs;
 constexpr int kPairThreads = 32 * kPairWarps;
 
+// Blocks an SM that a kernel's registers are sized for: two, except at
+// D = 256, where one block takes most of an SM's shared memory and its
+// threads may use up to 255 registers.
+template <int D>
+struct MinBlocks {
+  static constexpr int v = D >= 256 ? 1 : 2;
+};
+
 template <int D>
 struct DqTiles {
   static constexpr int kS = Row<D>::kS;
-  static constexpr int kNBuf = D == 128 ? 1 : 2;  // K / V buffers, as K2
+  static constexpr int kNBuf = D >= 128 ? 1 : 2;  // K / V buffers, as K2
   static constexpr int kQ = kDqBQ * kS;           // Q and dO: floats each
   static constexpr int kK = kDqBK * kS;           // K and V: each, a buffer
   // p · s' · scale from the S warps, then dS from the dP warps, [query]
@@ -463,7 +497,7 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kPairThreads, 2)
+__global__ void __launch_bounds__(kPairThreads, MinBlocks<D>::v)
 flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
@@ -474,6 +508,9 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   using L = DqTiles<D>;
   constexpr int kS = L::kS, kKT = kDqBK / 8, kXS = L::kXS;
   constexpr int kHT = D / 16;  // n-tiles of the warp's half of dQ
+  // past D = 128 S's (dP's) two halves of D sum in two accumulators, each
+  // at most 48 tensor-core accumulations as at D = 128, added in fp32
+  constexpr bool kTwoHalves = D > 128;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Os = Qs + L::kQ;  // dO
@@ -560,11 +597,11 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // S = Q Kᵀ (S warp) or dP = dO Vᵀ (dP warp), over D
       const float* at_ = s_warp ? Qs : Os;
       const float* bt = s_warp ? ks : Vs + buf * L::kK;
-      float s[kKT][4];
+      float s[kKT][4], s2[kKT][4];
 #pragma unroll
       for (int j = 0; j < kKT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) s[j][e] = s2[j][e] = 0.0f;
 #pragma unroll
       for (int d0 = 0; d0 < D; d0 += 8) {
         uint32_t ah[4], al[4];
@@ -573,8 +610,15 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < kKT; ++j) {
           uint32_t bh[2], bl[2];
           load_b_along<kS>(bt, j * 8, d0, g, t, bh, bl);
-          tf32x3::mma3(s[j], ah, al, bh, bl);
+          tf32x3::mma3((kTwoHalves && d0 >= D / 2) ? s2[j] : s[j], ah, al,
+                       bh, bl);
         }
+      }
+      if (kTwoHalves) {
+#pragma unroll
+        for (int j = 0; j < kKT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += s2[j][e];
       }
       if (s_warp) {
         // P (rows g, g + 8; keys 2t, 2t + 1) as p · s' · scale for the dP
@@ -679,7 +723,7 @@ struct DkvTiles {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kPairThreads, 2)
+__global__ void __launch_bounds__(kPairThreads, MinBlocks<D>::v)
 flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout,
@@ -691,6 +735,12 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   using L = DkvTiles<D>;
   constexpr int BQ = L::BQ;
   constexpr int kS = L::kS, kNT = D / 8, kQT = BQ / 8, kXS = L::kXS;
+  // at D = 256 the pair's accumulators (16 keys × D, 128 floats a thread)
+  // are taken in two passes over the steps, each summing half of D's
+  // columns (64 floats a thread, as at D = 128): Sᵀ and dPᵀ are recomputed
+  // in the second pass, and every column's sum keeps its order
+  constexpr int kPasses = D > 128 ? 2 : 1, kNP = kNT / kPasses;
+  constexpr bool kTwoHalves = D > 128;  // Sᵀ / dPᵀ in two chains, as K3
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + L::kK;
@@ -746,19 +796,22 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         in ? 4 : 0);
     }
   };
-  if (steps > 0) load_q(0, 0);
-  tf32x3::cp_async_commit();
-
   const int kw0 = k0 + kr0;  // the pair's first key
   const int key_a = kw0 + g, key_b = key_a + 8;
-  float acc[kNT][4];  // dV (P warp) or dK (dS warp), 16 keys × D
-#pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
   // this thread's p · s' · scale words: rows g and g + 8 of the pair,
   // columns 2t, 2t + 1 of each 8-query tile
   float* xw = xp + (kr0 + g) * kXS + 2 * t;
+
+  for (int pass = 0; pass < kPasses; ++pass) {
+  const int n0 = pass * kNP;  // the pass's first n-tile of dK / dV
+  // the ring is free: every warp passed the last step's __syncthreads
+  if (steps > 0) load_q(0, 0);
+  tf32x3::cp_async_commit();
+  float acc[kNP][4];  // dV (P warp) or dK (dS warp), 16 keys × D / kPasses
+#pragma unroll
+  for (int n = 0; n < kNP; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
 
   for (int step = 0; step < steps; ++step) {
     const int buf = step & 1;
@@ -775,11 +828,11 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // Sᵀ = K Qᵀ (P warp) or dPᵀ = V dOᵀ (dS warp), over D
       const float* at = p_warp ? Ks : Vs;
       const float* bt = p_warp ? qs : os;
-      float sp[kQT][4];
+      float sp[kQT][4], sp2[kQT][4];
 #pragma unroll
       for (int j = 0; j < kQT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sp[j][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) sp[j][e] = sp2[j][e] = 0.0f;
 #pragma unroll
       for (int d0 = 0; d0 < D; d0 += 8) {
         uint32_t ah[4], al[4];
@@ -788,8 +841,15 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < kQT; ++j) {
           uint32_t bh[2], bl[2];
           load_b_along<kS>(bt, j * 8, d0, g, t, bh, bl);
-          tf32x3::mma3(sp[j], ah, al, bh, bl);
+          tf32x3::mma3((kTwoHalves && d0 >= D / 2) ? sp2[j] : sp[j], ah,
+                       al, bh, bl);
         }
+      }
+      if (kTwoHalves) {
+#pragma unroll
+        for (int j = 0; j < kQT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sp[j][e] += sp2[j][e];
       }
       if (p_warp) {
         // Pᵀ (keys g, g + 8; queries 2t, 2t + 1), and p · s' · scale for
@@ -819,9 +879,9 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
           uint32_t ah[4], al[4];
           acc_as_a(sp[j], ah, al);
 #pragma unroll
-          for (int n = 0; n < kNT; ++n) {
+          for (int n = 0; n < kNP; ++n) {
             uint32_t bh[2], bl[2];
-            load_b_down<kS>(os, j * 8, n * 8, g, t, bh, bl);
+            load_b_down<kS>(os, j * 8, (n0 + n) * 8, g, t, bh, bl);
             tf32x3::mma3_add(acc[n], ah, al, bh, bl);
           }
         }
@@ -842,9 +902,9 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
           uint32_t ah[4], al[4];
           acc_as_a(sp[j], ah, al);
 #pragma unroll
-          for (int n = 0; n < kNT; ++n) {
+          for (int n = 0; n < kNP; ++n) {
             uint32_t bh[2], bl[2];
-            load_b_down<kS>(qs, j * 8, n * 8, g, t, bh, bl);
+            load_b_down<kS>(qs, j * 8, (n0 + n) * 8, g, t, bh, bl);
             tf32x3::mma3_add(acc[n], ah, al, bh, bl);
           }
         }
@@ -859,12 +919,14 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int kp = r ? key_b : key_a;
     if (kp >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + kp) * KV + kvh) * D + 2 * t;
+    const size_t off =
+        (((size_t)b * Sk + kp) * KV + kvh) * D + n0 * 8 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kNT; ++n)
+    for (int n = 0; n < kNP; ++n)
       *reinterpret_cast<float2*>(out + off + n * 8) =
           make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
   }
+  }  // pass
 }
 
 // Each mma kernel's dynamic shared memory limit is raised once per
@@ -904,6 +966,32 @@ void launch_dkv_mma(dim3 grid, cudaStream_t s, const float* q,
       cap, scale);
 }
 
+template <int D>
+void launch_dq_simt(dim3 grid, cudaStream_t s, const float* q,
+                    const float* k, const float* v, const float* dout,
+                    const float* lse, const float* delta, float* dq,
+                    const int* ha, int Sq, int Sk, int H, int KV, int causal,
+                    int window, float cap, float scale) {
+  static bool configured = false;
+  allow_smem(flash_dq_kernel<D>, SimtTiles<D>::kDqBytes, configured);
+  flash_dq_kernel<D><<<grid, kThreads, SimtTiles<D>::kDqBytes, s>>>(
+      q, k, v, dout, lse, delta, dq, ha, Sq, Sk, H, KV, causal, window, cap,
+      scale);
+}
+
+template <int D>
+void launch_dkv_simt(dim3 grid, cudaStream_t s, const float* q,
+                     const float* k, const float* v, const float* dout,
+                     const float* lse, const float* delta, float* dk,
+                     float* dv, const int* ha, int Sq, int Sk, int H, int KV,
+                     int causal, int window, float cap, float scale) {
+  static bool configured = false;
+  allow_smem(flash_dkv_kernel<D>, SimtTiles<D>::kDkvBytes, configured);
+  flash_dkv_kernel<D><<<grid, kThreads, SimtTiles<D>::kDkvBytes, s>>>(
+      q, k, v, dout, lse, delta, dk, dv, ha, Sq, Sk, H, KV, causal, window,
+      cap, scale);
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes. All pointers are device pointers; the
@@ -930,6 +1018,7 @@ extern "C" int flash_attention_dq(const float* q, const float* k,
       case 32: FLASH_DQ_MMA(32); break;
       case 64: FLASH_DQ_MMA(64); break;
       case 128: FLASH_DQ_MMA(128); break;
+      case 256: FLASH_DQ_MMA(256); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
 #undef FLASH_DQ_MMA
@@ -938,13 +1027,13 @@ extern "C" int flash_attention_dq(const float* q, const float* k,
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((Sq + kBR - 1) / kBR, H, B);
 #define FLASH_DQ(DIM)                                                     \
-  flash_dq_kernel<DIM><<<grid, kThreads, 0, s>>>(                         \
-      q, k, v, dout, lse, delta, dq, ha, Sq, Sk, H, KV, causal, window,   \
-      cap, scale)
+  launch_dq_simt<DIM>(grid, s, q, k, v, dout, lse, delta, dq, ha, Sq, Sk, \
+                      H, KV, causal, window, cap, scale)
   switch (D) {
     case 32: FLASH_DQ(32); break;
     case 64: FLASH_DQ(64); break;
     case 128: FLASH_DQ(128); break;
+    case 256: FLASH_DQ(256); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FLASH_DQ
@@ -969,6 +1058,7 @@ extern "C" int flash_attention_dkv(const float* q, const float* k,
       case 32: FLASH_DKV_MMA(32); break;
       case 64: FLASH_DKV_MMA(64); break;
       case 128: FLASH_DKV_MMA(128); break;
+      case 256: FLASH_DKV_MMA(256); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
 #undef FLASH_DKV_MMA
@@ -977,13 +1067,13 @@ extern "C" int flash_attention_dkv(const float* q, const float* k,
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((Sk + kBR - 1) / kBR, KV, B);
 #define FLASH_DKV(DIM)                                                    \
-  flash_dkv_kernel<DIM><<<grid, kThreads, 0, s>>>(                        \
-      q, k, v, dout, lse, delta, dk, dv, ha, Sq, Sk, H, KV, causal,       \
-      window, cap, scale)
+  launch_dkv_simt<DIM>(grid, s, q, k, v, dout, lse, delta, dk, dv, ha,    \
+                       Sq, Sk, H, KV, causal, window, cap, scale)
   switch (D) {
     case 32: FLASH_DKV(32); break;
     case 64: FLASH_DKV(64); break;
     case 128: FLASH_DKV(128); break;
+    case 256: FLASH_DKV(256); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FLASH_DKV

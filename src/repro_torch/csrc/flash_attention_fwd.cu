@@ -34,13 +34,18 @@
 //    fewer blocks (8 instead of 32 at granite-3-8b) where latency rules.
 //  * K / V tiles of 32 keys come in cp.async 16-byte copies (keys past Sk
 //    zero-filled), double-buffered at D ≤ 64 and single-buffered at
-//    D = 128 (`Config`); the 64 × D query tile is copied once.
+//    D = 128 and 256 (`Config`); the 64 × D query tile is copied once.
+//    At D = 256 a thread holds 128 floats of O (32 n-tiles × 4), against
+//    64 at D = 128, and the block takes a whole SM's shared memory for
+//    itself; the compiler's register report (chip_smoke.py phase 2) says
+//    whether that spills.
 //  * S = Q Kᵀ and O += P V run on mma.sync m16n8k8 in 3×TF32
 //    (csrc/mma_tf32.cuh). O's sum runs over every key of the row, so its
 //    8-deep steps are summed into a fresh tile and added to fp32
-//    accumulators; S's runs over D ≤ 128 only, at most 48 tensor-core
+//    accumulators; S's runs over D ≤ 128, at most 48 tensor-core
 //    accumulations, and stays in the tensor core (chip_smoke.py's phase 3
-//    holds the result to K2's tolerance). The online softmax lives in
+//    holds the result to K2's tolerance); at D = 256 each half of D
+//    sums in its own accumulator, the two added in fp32. The online softmax lives in
 //    registers in the accumulator layout: a thread holds two rows (g and
 //    g + 8) of its warp's 16, the row max and sum are reduced across the
 //    quad of threads sharing a row.
@@ -79,9 +84,11 @@ constexpr int kThreads = 32 * kWarps;
 // blocks per SM instead of two, which ran faster on the card at the
 // training shape than double buffering (the other blocks hide the loads);
 // at D ≤ 64 four or more blocks fit either way and double buffering wins.
+// D = 256 (gemma, gemma2) single-buffers too: 134,656 B, one block per SM
+// (double buffering would need 202 KB for the same one block).
 template <int D>
 struct Config {
-  static constexpr int kBKV = 32, kNBuf = D == 128 ? 1 : 2;
+  static constexpr int kBKV = 32, kNBuf = D >= 128 ? 1 : 2;
 };
 
 // Shared rows, padded so that a warp's fragment loads (rows g < 8 at
@@ -112,6 +119,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   using L = Smem<D>;
   constexpr int kBK = L::kBK, kKVBuf = L::kNBuf;
   constexpr int kNT = D / 8;  // n-tiles of the output row
+  // past D = 128, S's two halves of D go to two accumulators, each at most
+  // 48 tensor-core accumulations as at D = 128, added in fp32
+  constexpr bool kTwoHalves = D > 128;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + L::kQ;
@@ -224,10 +234,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
               ks + (j * 8 + g) * L::kQS + d0 + 2 * t);
           tf32x3::split(kv.x, bh[0], bl[0]);
           tf32x3::split(kv.y, bh[1], bl[1]);
-          tf32x3::mma3((SPLIT_S && (d0 & 8)) ? s2[j] : s[j], ah, al, bh, bl);
+          tf32x3::mma3(kTwoHalves ? (d0 >= D / 2 ? s2[j] : s[j])
+                                  : ((SPLIT_S && (d0 & 8)) ? s2[j] : s[j]),
+                       ah, al, bh, bl);
         }
       }
-      if (SPLIT_S) {
+      if (SPLIT_S || kTwoHalves) {
 #pragma unroll
         for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
@@ -392,6 +404,10 @@ extern "C" int flash_attention_fwd(const float* q, const float* k,
       break;
     case 128:
       launch<128>(grid, s, q, k, v, o, lse, ha, Sq, Sk, H, KV, causal,
+                  window, cap, scale);
+      break;
+    case 256:
+      launch<256>(grid, s, q, k, v, o, lse, ha, Sq, Sk, H, KV, causal,
                   window, cap, scale);
       break;
     default:

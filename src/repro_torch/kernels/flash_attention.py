@@ -47,7 +47,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.backend import stream_handle
 
 NEG_INF = -2.0 ** 30
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+# K2's query rows a block and keys a step (csrc/flash_attention_fwd.cu)
+FWD_TILE = (64, 32)
 # K3 / K4's variants (csrc/flash_attention_bwd.cu), in the order of the C
 # entry points' ``variant`` argument
 FLASH_BWD_VARIANTS = ("simt", "mma")
@@ -72,8 +74,10 @@ def flash_bwd_plan(B: int, Sq: int, Sk: int, H: int, KV: int, D: int,
     head dim of ``KERNEL_HEAD_DIMS`` and any sequence lengths: a dq block
     of 64 queries stepping over 32-key blocks, a dk / dv block of 64 keys
     stepping over 16-query blocks (on an H100, 16 ran at or under 32 at
-    both training shapes). Rows that are not 16-byte aligned (its cp.async
-    copies need them) run the simt variant's 16 × 16 tiles."""
+    both training shapes); at D = 256 one block of either takes an SM
+    (``bwd_shared_bytes``) and K4 sums dK / dV in two passes over half of
+    D each. Rows that are not 16-byte aligned (its cp.async copies need
+    them) run the simt variant's 16 × 16 tiles."""
     if not aligned or D not in KERNEL_HEAD_DIMS:
         return _SIMT_PLAN
     return FlashBwdPlan("mma", (64, 32), (64, 16))
@@ -88,9 +92,18 @@ def bwd_shared_bytes(plan: FlashBwdPlan, D: int) -> Tuple[int, int]:
     D + 4 floats; an exchange row is the step's keys or queries + 8."""
     S = D + BWD_ROW_PAD
     (bq, bk), (kb, qb) = plan.dq_tile, plan.dkv_tile
-    dq_bufs = 1 if D == 128 else 2
+    dq_bufs = 1 if D >= 128 else 2
     return (4 * (2 * bq * S + 2 * dq_bufs * bk * S + bq * (bk + 8)),
             4 * (2 * kb * S + 2 * (2 * qb * S + 2 * qb) + kb * (qb + 8)))
+
+
+def fwd_shared_bytes(D: int) -> int:
+    """Dynamic shared memory of one K2 block (csrc/flash_attention_fwd.cu,
+    ``Smem``): the 64-query Q tile once and one (D ≥ 128) or two K / V
+    buffers of 32 keys; Q and K rows of D + 8 floats, V rows of D + 4."""
+    bq, bk = FWD_TILE
+    bufs = 1 if D >= 128 else 2
+    return 4 * (bq * (D + 8) + bufs * bk * (2 * D + 12))
 
 
 def bwd_launch_plan(q, k, v, do) -> FlashBwdPlan:

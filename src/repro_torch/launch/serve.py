@@ -12,7 +12,10 @@ published width and depth. Runs on the card unless ``--device cpu``.
 request's random spec then also cuts the routed experts), ``--arch
 mamba2-2.7b`` the SSM parent (the spec cuts the SSD heads; prompts split
 into chunks of 256 tokens, or of 16 in a reduced config, so use a
-multiple of the chunk when longer).
+multiple of the chunk when longer). ``--arch deepseek-v2-lite-16b`` (MLA,
+MoE with shared experts), ``gemma2-9b`` (local / global attention pairs)
+and ``zamba2-1.2b`` (Mamba2 with the shared attention block, the SSM
+parent's prompt rule) serve the same way.
 """
 from __future__ import annotations
 

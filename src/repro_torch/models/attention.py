@@ -1,11 +1,17 @@
-"""GQA attention: full-sequence forward (prefill) and cached decode.
+"""GQA and MLA attention: full-sequence forward (prefill) and cached
+decode.
 
-The port of the GQA half of the reference's ``models/attention.py`` (MLA
-waits for ROADMAP A11). Layouts are the reference's:
-``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d),
-activations (B, S, H, D), KV caches (B, C, KV, D) ring buffers. The q/k/v/o
-projections are plain products (the reference left them to XLA outside
-Pallas) and stay ``torch.einsum``.
+The port of the reference's ``models/attention.py``. Layouts are the
+reference's: GQA ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo``
+(H, hd, d), activations (B, S, H, D), KV caches (B, C, KV, D) ring
+buffers; MLA (deepseek-v2) ``wq`` (d, H, nope + rope), ``w_dkv``
+(d, kv_lora + rope), ``kv_norm``, ``w_uk`` (kv_lora, H, nope), ``w_uv``
+(kv_lora, H, v), ``wo`` (H, v, d), and a compressed-latent cache
+(:class:`MLACache`). The projections are plain products (the reference
+left them to XLA outside Pallas) and stay ``torch.einsum``; so does MLA's
+attention, which the reference runs outside any Pallas kernel
+(``dispatch_attention`` → ``chunked_attention``): :func:`dense_attention`
+here.
 
 Elastic masks may carry a leading batch axis: ``head_mask`` (H,) or
 (B, H), so every row of a serving batch can be a different submodel.
@@ -40,6 +46,22 @@ def gqa_param_shapes(d_model, n_heads, n_kv, head_dim, qk_norm=False):
     return shapes
 
 
+def mla_param_shapes(d_model, n_heads, mla):
+    """Parameter shapes of one MLA block (the reference's ``mla_init``)
+    and each weight's fan-in for He-normal initialisation."""
+    qk = mla.qk_nope_dim + mla.qk_rope_dim
+    r = mla.kv_lora_rank
+    return {
+        "wq": ((d_model, n_heads, qk), d_model),
+        "w_dkv": ((d_model, r + mla.qk_rope_dim), d_model),
+        "kv_norm": {"scale": ((r,), None)},
+        "w_uk": ((r, n_heads, mla.qk_nope_dim), r),
+        "w_uv": ((r, n_heads, mla.v_head_dim), r),
+        "wo": ((n_heads, mla.v_head_dim, d_model),
+               n_heads * mla.v_head_dim),
+    }
+
+
 def _head_mask_bshd(head_mask, o):
     """A (H,) or (B, H) head mask shaped to broadcast over (B, S, H, D)."""
     m = head_mask.to(o.dtype)
@@ -51,7 +73,8 @@ def dense_attention(q, k, v, *, causal=True, window=None, cap=None,
     """The dense masked path (no kernel table): full masked softmax over
     KV heads repeated to H, then the head mask multiplied in — the
     counterpart of the reference's ``chunked_attention`` at serving prompt
-    lengths (the whole score matrix fits; no chunking)."""
+    lengths (the whole score matrix fits; no chunking). The scale is
+    ``1/sqrt(D)`` of q's head dim; v's may differ (MLA)."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -220,3 +243,155 @@ def gqa_decode(p, x, cache: KVCache, pos, *, n_heads, n_kv, head_dim,
         o = o * _head_mask_bshd(head_mask, o)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): full forward + absorbed decode on the compressed cache
+# ---------------------------------------------------------------------------
+MLA_ROPE_THETA = 10_000.0      # the reference's, whatever cfg.rope_theta
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor    # (B, C, kv_lora)
+    k_rope: torch.Tensor  # (B, C, qk_rope)
+
+
+def mla_cache_init(batch, max_len, mla, dtype=torch.float32, device=None):
+    """A zeroed compressed-latent cache of ``max_len`` positions on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    return MLACache(
+        torch.zeros((batch, max_len, mla.kv_lora_rank), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, max_len, mla.qk_rope_dim), dtype=dtype,
+                    device=device))
+
+
+def _weight(p, name, spec, lead, dtype):
+    """(einsum spec, weight) of leaf ``name`` of an MLA block whose own
+    axes are ``spec``: a client-stacked weight (one more axis than the
+    reference's) also carries the first of x's leading axes ``lead``."""
+    t = p[name].to(dtype)
+    return ((lead[:1] + spec) if t.dim() > len(spec) else spec), t
+
+
+def _mla_qkv(p, x, positions, mla, norm_eps, lead=""):
+    """(q_nope, q_rope, c_kv, k_rope) of x (lead..., S, d): the query
+    heads split into their position-free and rotary parts, and the
+    normalised latent with its shared rotary key. ``lead``: einsum letters
+    of the leading axes of x (see ``_weight``)."""
+    def w(name, spec):
+        return _weight(p, name, spec, lead, x.dtype)
+    sq, wq = w("wq", "dhk")
+    q = torch.einsum(f"{lead}sd,{sq}->{lead}shk", x, wq)
+    q_nope, q_rope = torch.split(q, [mla.qk_nope_dim, mla.qk_rope_dim], -1)
+    q_rope = apply_rope(q_rope, positions, MLA_ROPE_THETA)
+    sd, wd = w("w_dkv", "dc")
+    dkv = torch.einsum(f"{lead}sd,{sd}->{lead}sc", x, wd)
+    c_kv, k_rope = torch.split(dkv, [mla.kv_lora_rank, mla.qk_rope_dim], -1)
+    c_kv = rmsnorm(p["kv_norm"], c_kv, norm_eps)
+    k_rope = apply_rope(k_rope.unsqueeze(-2), positions,
+                        MLA_ROPE_THETA).squeeze(-2)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(p, x, q_nope, q_rope, c_kv, k_rope, mla, causal, head_mask,
+                lead):
+    """Full-sequence MLA attention from the latents: K / V expanded per
+    head, q · k over nope + rope at scale ``1/sqrt(nope + rope)``
+    (:func:`dense_attention`), then ``wo``. ``lead`` as in
+    :func:`_mla_qkv`; the attention runs over the rows of all leading
+    axes at once."""
+    def w(name, spec):
+        return _weight(p, name, spec, lead, x.dtype)
+    su, wuk = w("w_uk", "chk")
+    k_nope = torch.einsum(f"{lead}sc,{su}->{lead}shk", c_kv, wuk)
+    sv, wuv = w("w_uv", "chk")
+    v = torch.einsum(f"{lead}sc,{sv}->{lead}shk", c_kv, wuv)
+    k = torch.cat([k_nope, k_rope.unsqueeze(-2).expand(
+        k_nope.shape[:-1] + (mla.qk_rope_dim,))], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    S, H = q.shape[-3], q.shape[-2]
+    rows = lambda t: t.reshape((-1, S, H, t.shape[-1]))      # noqa: E731
+    o = dense_attention(rows(q), rows(k), rows(v), causal=causal,
+                        head_mask=head_mask)
+    o = o.reshape(q.shape[:-1] + (mla.v_head_dim,))
+    so, wo = w("wo", "hkd")
+    return torch.einsum(f"{lead}shk,{so}->{lead}sd", o, wo)
+
+
+def mla_forward(p, x, positions, *, n_heads, mla, causal=True,
+                norm_eps=1e-6, head_mask=None, cache_len=None,
+                cache_dtype=None):
+    """Full-sequence MLA over x (B, S, d). ``cache_len``: when set, also
+    return the compressed-latent cache (positions 0..S-1 filled, the rest
+    zeros) — the fused prefill path."""
+    del n_heads
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, positions, mla, norm_eps,
+                                            "b")
+    out = _mla_attend(p, x, q_nope, q_rope, c_kv, k_rope, mla, causal,
+                      head_mask, "b")
+    if cache_len is None:
+        return out
+    dt = cache_dtype or c_kv.dtype
+    B, S = x.shape[0], x.shape[1]
+    cache = mla_cache_init(B, cache_len, mla, dt, x.device)
+    cache.c_kv[:, :S] = c_kv.to(dt)
+    cache.k_rope[:, :S] = k_rope.to(dt)
+    return out, cache
+
+
+def mla_forward_cohort(p, x, seq_len, *, n_heads, mla, causal=True,
+                       norm_eps=1e-6, head_mask=None):
+    """Full-sequence MLA over a cohort (no cache): x (G, T, d) with
+    T = B · seq_len token rows per client, every weight of ``p`` with a
+    leading client axis, ``head_mask`` None or (G, H). Returns (G, T, d).
+    The attention runs over the G·B sequences at once, plain torch ops as
+    in the reference."""
+    del n_heads
+    G, T, d = x.shape
+    B = T // seq_len
+    xs = x.reshape(G, B, seq_len, d)
+    positions = torch.arange(seq_len, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, xs, positions, mla, norm_eps,
+                                            "gb")
+    hm = None if head_mask is None else head_mask.repeat_interleave(B, 0)
+    out = _mla_attend(p, xs, q_nope, q_rope, c_kv, k_rope, mla, causal, hm,
+                      "gb")
+    return out.reshape(G, T, d)
+
+
+def mla_decode(p, x, cache: MLACache, pos, *, n_heads, mla, norm_eps=1e-6,
+               head_mask=None):
+    """Absorbed MLA decode: attention runs in the compressed latent space.
+    x (B, 1, d); pos (B,) per-row positions (or one for every row). Each
+    row writes its latent at its own position and attends to positions
+    0..pos; the write is **in place**. Returns (out (B, 1, d), cache)."""
+    del n_heads
+    B = x.shape[0]
+    dev = x.device
+    posv = torch.as_tensor(pos, device=dev).to(torch.int64).reshape(-1)
+    posv = posv.expand(B) if posv.numel() == 1 else posv
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, posv[:, None], mla,
+                                            norm_eps, "b")
+    rows = torch.arange(B, device=dev)
+    cache.c_kv[rows, posv] = c_kv[:, 0].to(cache.c_kv.dtype)
+    cache.k_rope[rows, posv] = k_rope[:, 0].to(cache.k_rope.dtype)
+    ck, cr = cache.c_kv.float(), cache.k_rope.float()
+    # absorb W_uk into q: (B, H, nope) @ (lora, H, nope) -> (B, H, lora)
+    q_abs = torch.einsum("bhk,chk->bhc", q_nope[:, 0],
+                         p["w_uk"].to(x.dtype))
+    s = torch.einsum("bhc,bsc->bhs", q_abs.float(), ck)
+    s = s + torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(), cr)
+    s = s / math.sqrt(mla.qk_nope_dim + mla.qk_rope_dim)
+    valid = torch.arange(ck.shape[1], device=dev)[None, :] <= posv[:, None]
+    s = torch.where(valid[:, None, :], s, torch.full((), NEG_INF,
+                                                     device=dev))
+    pr = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bhs,bsc->bhc", pr, ck)
+    o = torch.einsum("bhc,chk->bhk", o_c.to(x.dtype), p["w_uv"].to(x.dtype))
+    if head_mask is not None:
+        m = head_mask.to(o.dtype)
+        o = o * (m[:, :, None] if m.dim() == 2 else m[None, :, None])
+    out = torch.einsum("bhk,hkd->bd", o, p["wo"].to(x.dtype))
+    return out[:, None, :], cache

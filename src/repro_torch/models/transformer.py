@@ -1,11 +1,12 @@
-"""GQA transformer (MLP or MoE blocks) and Mamba2 SSM stacks: parameter
-init, the training forward, fused prefill and cached decode.
+"""Transformer (GQA or MLA attention, MLP or MoE blocks, local / global
+attention pairs) and Mamba2 SSM stacks with the shared hybrid block:
+parameter init, the training forward, fused prefill and cached decode.
 
-The port of the reference's ``models/transformer.py`` for ``"attn"`` and
-``"ssm"`` segments. A segment's layer weights are stacked with a leading
-``n_layers`` axis, as in the reference; a Python loop over the layers
-replaces ``lax.scan``. Elastic masks (``masks``: ``ff``, ``heads``,
-``depth``) gate d_ff, query heads and layers in parent coordinates.
+The port of the reference's ``models/transformer.py``. A segment's layer
+weights are stacked with a leading ``n_layers`` axis, as in the
+reference; a Python loop over the layers replaces ``lax.scan``. Elastic
+masks (``masks``: ``ff``, ``heads``, ``depth``) gate d_ff, query heads and
+layers in parent coordinates.
 
 Two batch layouts replace the reference's ``vmap``:
 
@@ -18,20 +19,35 @@ Two batch layouts replace the reference's ``vmap``:
   shapes the activations of a step fit beside the optimizer state (the
   dense SSD path checkpoints each chunk itself, as the reference does).
 
-MoE blocks (``Segment.use_moe``: a ``moe`` leaf in place of ``mlp``) run
-``models.moe.moe_forward`` with the ``experts`` mask and the ``moe`` op:
-one group per client in training, one group per row in decode (the
-server's ``vmap`` over slots), and in prefill one group for the whole
-batch — or one per row when the expert mask carries a batch axis.
+Segment kinds (``configs.base.Segment``):
 
-SSM blocks (``Segment.kind == "ssm"``: ``{"ln", "mamba"}`` per layer) run
-``x + gate · mamba(ln(x))`` (``models.ssm``) with the ``ssm_heads`` mask
-and the ``ssd`` op; their decode cache is an ``SSMCache`` (state and conv
-histories) per layer.
+* ``"attn"``: ``{"blocks": ...}`` of attention blocks. GQA attention runs
+  the ``attention`` op (K2–K4); MLA attention (``cfg.attn_type ==
+  "mla"``, deepseek-v2) runs plain torch ops on its compressed latents,
+  as the reference runs it outside any Pallas kernel, with a
+  compressed-latent decode cache (``MLACache``) and absorbed decode.
+  MoE blocks (``Segment.use_moe``: a ``moe`` leaf in place of ``mlp``)
+  run ``models.moe.moe_forward`` with the ``experts`` mask and the ``moe``
+  op: one group per client in training, one group per row in decode (the
+  server's ``vmap`` over slots), and in prefill one group for the whole
+  batch — or one per row when the expert mask carries a batch axis.
+* ``"attn_pair"`` (gemma2): ``{"local": ..., "global": ...}``, two stacked
+  block trees; pair l runs the local block at ``pair_local_window`` and
+  then the global block, both under pair l's depth gate. Their decode
+  caches are ``{"local": KVCache, "global": KVCache}`` per segment.
+* ``"ssm"``: ``{"blocks": {"ln", "mamba"}}``, ``x + gate · mamba(ln(x))``
+  (``models.ssm``) with the ``ssm_heads`` mask and the ``ssd`` op; an
+  ``SSMCache`` (state and conv histories) per layer.
 
-Not ported yet, and raising NotImplementedError when a config needs them:
-MLA attention, ``attn_pair`` segments and the shared hybrid block of
-zamba2 (ROADMAP A11); the audio / vision input frontends (A7).
+The shared hybrid block (zamba2: ``params["shared_attn"]``, one unstacked
+attention block with ``shared_attn_d_ff``) runs after every segment with
+``shared_attn_after``, at ``cfg.sliding_window``, under the masks with
+``ff`` / ``depth`` / ``heads`` stripped (every submodel keeps it whole),
+through the same op table; ``DecodeCaches.shared`` holds its KV cache per
+site, stacked (n_sites, B, ...).
+
+Not ported yet, and raising NotImplementedError when a config needs
+them: the audio / vision input frontends (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -54,17 +70,6 @@ Params = Dict[str, Any]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming the ROADMAP item for any part of
     ``cfg`` the port does not run."""
-    if any(s.kind not in ("attn", "ssm") for s in cfg.segments):
-        raise NotImplementedError(f"{cfg.name}: attn_pair segments are not "
-                                  "ported yet (ROADMAP A11)")
-    if cfg.shared_attn_d_ff or any(s.shared_attn_after
-                                   for s in cfg.segments):
-        raise NotImplementedError(f"{cfg.name}: the shared hybrid block is "
-                                  "not ported yet (ROADMAP A11)")
-    if any(s.kind == "attn" for s in cfg.segments) and \
-            cfg.attn_type != "gqa":
-        raise NotImplementedError(f"{cfg.name}: {cfg.attn_type} attention "
-                                  "is not ported yet (ROADMAP A11)")
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} input "
                                   "frontend is not ported yet (ROADMAP A7)")
@@ -144,6 +149,36 @@ def _param_tree(cfg: ModelConfig, leaf) -> Params:
             return {k: stacked(lead, v) for k, v in spec.items()}
         return leaf(lead + spec[0], spec[1])
 
+    def attn_block(L, use_moe, d_ff):
+        """An attention block's leaves with leading axes ``L`` (the
+        reference's ``_attn_block_init``)."""
+        if cfg.attn_type == "mla":
+            shapes = attn_lib.mla_param_shapes(d, cfg.n_heads, cfg.mla)
+        else:
+            shapes = attn_lib.gqa_param_shapes(
+                d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm)
+        attn = {}
+        for name, spec in shapes.items():
+            if isinstance(spec, dict):       # q_norm / k_norm / kv_norm
+                attn[name] = {"scale": leaf(L + spec["scale"][0], "zeros")}
+            else:
+                shape, fan_in = spec
+                attn[name] = leaf(L + shape, 1.0 / math.sqrt(fan_in))
+        blocks = {"ln1": norm(L, d), "ln2": norm(L, d), "attn": attn}
+        if use_moe:
+            blocks["moe"] = stacked(L, moe_lib.moe_param_specs(
+                d, cfg.moe, cfg.mlp_gated))
+        else:
+            mlp_p = {"wi": leaf(L + (d, d_ff), 1.0 / math.sqrt(d)),
+                     "wo": leaf(L + (d_ff, d), 1.0 / math.sqrt(d_ff))}
+            if cfg.mlp_gated:
+                mlp_p["wg"] = leaf(L + (d, d_ff), 1.0 / math.sqrt(d))
+            blocks["mlp"] = mlp_p
+        if cfg.post_norms:
+            blocks["post_ln1"] = norm(L, d)
+            blocks["post_ln2"] = norm(L, d)
+        return blocks
+
     segs = []
     for seg in cfg.segments:
         L = (seg.n_layers,)
@@ -151,31 +186,16 @@ def _param_tree(cfg: ModelConfig, leaf) -> Params:
             segs.append({"blocks": {
                 "ln": norm(L, d),
                 "mamba": stacked(L, ssm_lib.mamba_param_shapes(d, cfg.ssm))}})
-            continue
-        attn = {}
-        for name, spec in attn_lib.gqa_param_shapes(
-                d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                cfg.qk_norm).items():
-            if isinstance(spec, dict):       # q_norm / k_norm
-                attn[name] = {"scale": leaf(L + spec["scale"][0], "zeros")}
-            else:
-                shape, fan_in = spec
-                attn[name] = leaf(L + shape, 1.0 / math.sqrt(fan_in))
-        blocks = {"ln1": norm(L, d), "ln2": norm(L, d), "attn": attn}
-        if seg.use_moe:
-            blocks["moe"] = stacked(L, moe_lib.moe_param_specs(
-                d, cfg.moe, cfg.mlp_gated))
+        elif seg.kind == "attn_pair":
+            segs.append({"local": attn_block(L, seg.use_moe, f),
+                         "global": attn_block(L, seg.use_moe, f)})
+        elif seg.kind == "attn":
+            segs.append({"blocks": attn_block(L, seg.use_moe, f)})
         else:
-            mlp_p = {"wi": leaf(L + (d, f), 1.0 / math.sqrt(d)),
-                     "wo": leaf(L + (f, d), 1.0 / math.sqrt(f))}
-            if cfg.mlp_gated:
-                mlp_p["wg"] = leaf(L + (d, f), 1.0 / math.sqrt(d))
-            blocks["mlp"] = mlp_p
-        if cfg.post_norms:
-            blocks["post_ln1"] = norm(L, d)
-            blocks["post_ln2"] = norm(L, d)
-        segs.append({"blocks": blocks})
+            raise ValueError(seg.kind)
     p["segments"] = segs
+    if cfg.shared_attn_d_ff:
+        p["shared_attn"] = attn_block((), False, cfg.shared_attn_d_ff)
     p["final_norm"] = norm((), d)
     if not cfg.tie_embeddings:
         p["lm_head"] = {"w": leaf((d, cfg.padded_vocab),
@@ -229,6 +249,23 @@ def _logits(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 # training forward (client-stacked parameters)
 # ---------------------------------------------------------------------------
+def _shared_masks(masks):
+    """The masks of the shared hybrid block: ``ff`` / ``depth`` /
+    ``heads`` stripped — every submodel keeps the block whole (its d_ff
+    differs from ``cfg.d_ff`` and its weights are shared)."""
+    if masks is None:
+        return None
+    return {k: v for k, v in masks.items()
+            if k not in ("ff", "depth", "heads")} or None
+
+
+def _pairs(seg_p, n: int, dim: int):
+    """The ``n`` (local, global) per-layer block trees of an ``attn_pair``
+    segment whose layer axis is ``dim``."""
+    return list(zip(_unbind_layers(seg_p["local"], n, dim),
+                    _unbind_layers(seg_p["global"], n, dim)))
+
+
 def _cohort_attn_block(bp, x, cfg: ModelConfig, seq_len: int, window,
                        masks, kernels, gate=None):
     """One attention block over a cohort: x (G, T, d) with T = B·S token
@@ -236,12 +273,19 @@ def _cohort_attn_block(bp, x, cfg: ModelConfig, seq_len: int, window,
     ``gate`` (G,) 0/1 multiplies the block's residual contributions (CFL
     depth elasticity: gate 0 is exactly the identity)."""
     h = _norm(cfg, bp["ln1"], x)
-    a = attn_lib.gqa_forward_cohort(
-        bp["attn"], h, seq_len, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, causal=cfg.causal,
-        window=window, cap=cfg.attn_softcap, qk_norm=cfg.qk_norm,
-        norm_eps=cfg.norm_eps, head_mask=_masks_get(masks, "heads"),
-        kernel=_masks_get(kernels, "attention"))
+    if cfg.attn_type == "mla":
+        a = attn_lib.mla_forward_cohort(
+            bp["attn"], h, seq_len, n_heads=cfg.n_heads, mla=cfg.mla,
+            causal=cfg.causal, norm_eps=cfg.norm_eps,
+            head_mask=_masks_get(masks, "heads"))
+    else:
+        a = attn_lib.gqa_forward_cohort(
+            bp["attn"], h, seq_len, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, causal=cfg.causal, window=window,
+            cap=cfg.attn_softcap, qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+            head_mask=_masks_get(masks, "heads"),
+            kernel=_masks_get(kernels, "attention"))
     if cfg.post_norms:
         a = _norm(cfg, bp["post_ln1"], a)
     if gate is not None:
@@ -289,14 +333,27 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, masks=None,
     depth = _masks_get(masks, "depth")
     for si, (seg_p, seg) in enumerate(zip(params["segments"], cfg.segments)):
         window = seg.sliding_window or cfg.sliding_window
-        layers = _unbind_layers(seg_p["blocks"], seg.n_layers, dim=1)
-        for l, bp in enumerate(layers):
-            g = None if depth is None else depth[si][:, l]
-            if seg.kind == "ssm":
-                x = _cohort_ssm_block(bp, x, cfg, B, masks, kernels, gate=g)
-            else:
-                x = _cohort_attn_block(bp, x, cfg, S, window, masks,
-                                       kernels, gate=g)
+        if seg.kind == "attn_pair":
+            for l, (lp, gp) in enumerate(_pairs(seg_p, seg.n_layers, 1)):
+                g = None if depth is None else depth[si][:, l]
+                x = _cohort_attn_block(lp, x, cfg, S, seg.pair_local_window,
+                                       masks, kernels, gate=g)
+                x = _cohort_attn_block(gp, x, cfg, S, None, masks, kernels,
+                                       gate=g)
+        else:
+            layers = _unbind_layers(seg_p["blocks"], seg.n_layers, dim=1)
+            for l, bp in enumerate(layers):
+                g = None if depth is None else depth[si][:, l]
+                if seg.kind == "ssm":
+                    x = _cohort_ssm_block(bp, x, cfg, B, masks, kernels,
+                                          gate=g)
+                else:
+                    x = _cohort_attn_block(bp, x, cfg, S, window, masks,
+                                           kernels, gate=g)
+        if seg.shared_attn_after:
+            x = _cohort_attn_block(params["shared_attn"], x, cfg, S,
+                                   cfg.sliding_window, _shared_masks(masks),
+                                   kernels)
     x = _norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, x).reshape(G, B, S, -1)
 
@@ -309,17 +366,26 @@ def _apply_attn_block(bp, x, positions, cfg: ModelConfig, window, masks,
     """One attention block over a full sequence. ``gate`` ((), or (B,)
     0/1) multiplies the block's residual contributions — with gate 0 the
     block is exactly the identity (CFL depth elasticity). ``cache_len``:
-    also return the block's ring-buffer KV cache (fused prefill)."""
+    also return the block's decode cache (fused prefill): a ring-buffer
+    KV cache, or MLA's compressed latents of ``cache_len`` positions."""
     h = _norm(cfg, bp["ln1"], x)
-    kv_len = None if cache_len is None else (
-        min(cache_len, window) if window else cache_len)
-    res = attn_lib.gqa_forward(
-        bp["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, causal=cfg.causal,
-        window=window, cap=cfg.attn_softcap, qk_norm=cfg.qk_norm,
-        norm_eps=cfg.norm_eps, head_mask=_masks_get(masks, "heads"),
-        kernel=_masks_get(kernels, "attention"), cache_len=kv_len,
-        cache_dtype=cache_dtype)
+    if cfg.attn_type == "mla":
+        res = attn_lib.mla_forward(
+            bp["attn"], h, positions, n_heads=cfg.n_heads, mla=cfg.mla,
+            causal=cfg.causal, norm_eps=cfg.norm_eps,
+            head_mask=_masks_get(masks, "heads"), cache_len=cache_len,
+            cache_dtype=cache_dtype)
+    else:
+        kv_len = None if cache_len is None else (
+            min(cache_len, window) if window else cache_len)
+        res = attn_lib.gqa_forward(
+            bp["attn"], h, positions, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, causal=cfg.causal, window=window,
+            cap=cfg.attn_softcap, qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+            head_mask=_masks_get(masks, "heads"),
+            kernel=_masks_get(kernels, "attention"), cache_len=kv_len,
+            cache_dtype=cache_dtype)
     a, cache = res if cache_len is not None else (res, None)
     if cfg.post_norms:
         a = _norm(cfg, bp["post_ln1"], a)
@@ -360,8 +426,12 @@ def _stack_caches(caches):
 
 
 class DecodeCaches(NamedTuple):
-    segments: Tuple[Any, ...]     # per-segment stacked KVCache / SSMCache
-    shared: Any                   # shared hybrid block caches (None here)
+    """``segments``: one stacked (L, B, ...) cache per segment — a
+    ``KVCache``, ``MLACache`` or ``SSMCache``, or ``{"local", "global"}``
+    ``KVCache``s for a pair segment; ``shared``: the shared block's
+    ``KVCache`` per site, stacked (n_sites, B, ...), or None."""
+    segments: Tuple[Any, ...]
+    shared: Any
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens, max_len: int, *,
@@ -378,61 +448,108 @@ def prefill(params: Params, cfg: ModelConfig, tokens, max_len: int, *,
         raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
     positions = torch.arange(S, device=x.device).expand(B, S)
     depth = _masks_get(masks, "depth")
-    segs = []
+    kw = dict(cache_len=max_len, cache_dtype=cache_dtype)
+    segs, sites = [], []
     for si, (seg_p, seg) in enumerate(zip(params["segments"], cfg.segments)):
         window = seg.sliding_window or cfg.sliding_window
-        caches = []
-        for l in range(seg.n_layers):
-            g = None if depth is None else depth[si][..., l]
-            bp = _layer(seg_p["blocks"], l)
-            if seg.kind == "ssm":
-                x, c = _apply_ssm_block(bp, x, cfg, masks, kernels, gate=g,
-                                        cache_dtype=cache_dtype)
-            else:
-                x, c = _apply_attn_block(bp, x, positions, cfg, window,
-                                         masks, kernels, gate=g,
-                                         cache_len=max_len,
-                                         cache_dtype=cache_dtype)
-            caches.append(c)
-        segs.append(_stack_caches(caches))
+        if seg.kind == "attn_pair":
+            loc, glob = [], []
+            for l in range(seg.n_layers):
+                g = None if depth is None else depth[si][..., l]
+                x, c = _apply_attn_block(_layer(seg_p["local"], l), x,
+                                         positions, cfg,
+                                         seg.pair_local_window, masks,
+                                         kernels, gate=g, **kw)
+                loc.append(c)
+                x, c = _apply_attn_block(_layer(seg_p["global"], l), x,
+                                         positions, cfg, None, masks,
+                                         kernels, gate=g, **kw)
+                glob.append(c)
+            segs.append({"local": _stack_caches(loc),
+                         "global": _stack_caches(glob)})
+        else:
+            caches = []
+            for l in range(seg.n_layers):
+                g = None if depth is None else depth[si][..., l]
+                bp = _layer(seg_p["blocks"], l)
+                if seg.kind == "ssm":
+                    x, c = _apply_ssm_block(bp, x, cfg, masks, kernels,
+                                            gate=g, cache_dtype=cache_dtype)
+                else:
+                    x, c = _apply_attn_block(bp, x, positions, cfg, window,
+                                             masks, kernels, gate=g, **kw)
+                caches.append(c)
+            segs.append(_stack_caches(caches))
+        if seg.shared_attn_after:
+            x, c = _apply_attn_block(params["shared_attn"], x, positions,
+                                     cfg, cfg.sliding_window,
+                                     _shared_masks(masks), kernels, **kw)
+            sites.append(c)
     x = _norm(cfg, params["final_norm"], x)
     logits = _logits(params, cfg, x[:, -1:, :])
-    return logits[:, 0], DecodeCaches(tuple(segs), None)
+    shared = _stack_caches(sites) if sites else None
+    return logits[:, 0], DecodeCaches(tuple(segs), shared)
 
 
 # ---------------------------------------------------------------------------
 # decode (single token, cached)
 # ---------------------------------------------------------------------------
+def _stacked_zeros(single, n: int):
+    return type(single)(*(f.new_zeros((n,) + f.shape) for f in single))
+
+
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        dtype=torch.float32, device=None) -> DecodeCaches:
-    """Zeroed ring-buffer caches of ``batch`` rows on ``device`` (the card
-    unless the caller asks for the CPU)."""
+    """Zeroed decode caches of ``batch`` rows on ``device`` (the card
+    unless the caller asks for the CPU): ring-buffer KV caches
+    (``min(max_len, window)`` slots), MLA latents of ``max_len``
+    positions, SSM states and conv histories, and the shared block's KV
+    cache per site."""
     check_supported(cfg)
     device = resolve_device(device)
+
+    def kv(window):
+        return attn_lib.gqa_cache_init(batch, max_len, cfg.n_kv_heads,
+                                       cfg.head_dim, window, dtype, device)
     segs = []
     for seg in cfg.segments:
         window = seg.sliding_window or cfg.sliding_window
+        n = seg.n_layers
         if seg.kind == "ssm":
-            single = ssm_lib.ssm_cache_init(batch, cfg.d_model, cfg.ssm,
-                                            dtype, device)
+            segs.append(_stacked_zeros(ssm_lib.ssm_cache_init(
+                batch, cfg.d_model, cfg.ssm, dtype, device), n))
+        elif seg.kind == "attn_pair":
+            segs.append({"local": _stacked_zeros(kv(seg.pair_local_window),
+                                                 n),
+                         "global": _stacked_zeros(kv(None), n)})
+        elif cfg.attn_type == "mla":
+            segs.append(_stacked_zeros(attn_lib.mla_cache_init(
+                batch, max_len, cfg.mla, dtype, device), n))
         else:
-            single = attn_lib.gqa_cache_init(batch, max_len, cfg.n_kv_heads,
-                                             cfg.head_dim, window, dtype,
-                                             device)
-        segs.append(type(single)(*(f.new_zeros((seg.n_layers,) + f.shape)
-                                   for f in single)))
-    return DecodeCaches(tuple(segs), None)
+            segs.append(_stacked_zeros(kv(window), n))
+    n_sites = sum(1 for s in cfg.segments if s.shared_attn_after)
+    shared = _stacked_zeros(kv(cfg.sliding_window), n_sites) \
+        if n_sites else None
+    return DecodeCaches(tuple(segs), shared)
 
 
 def _decode_attn_block(bp, x, cache, pos, cfg: ModelConfig, window,
                        masks=None, kernels=None, gate=None):
+    """One attention block over one token; ``cache`` (per-layer views of
+    the stacked caches) is updated in place."""
     h = _norm(cfg, bp["ln1"], x)
-    a, cache = attn_lib.gqa_decode(
-        bp["attn"], h, cache, pos, n_heads=cfg.n_heads,
-        n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-        rope_theta=cfg.rope_theta, window=window, cap=cfg.attn_softcap,
-        qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
-        head_mask=_masks_get(masks, "heads"))
+    if cfg.attn_type == "mla":
+        a, _ = attn_lib.mla_decode(bp["attn"], h, cache, pos,
+                                   n_heads=cfg.n_heads, mla=cfg.mla,
+                                   norm_eps=cfg.norm_eps,
+                                   head_mask=_masks_get(masks, "heads"))
+    else:
+        a, _ = attn_lib.gqa_decode(
+            bp["attn"], h, cache, pos, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, window=window, cap=cfg.attn_softcap,
+            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+            head_mask=_masks_get(masks, "heads"))
     if cfg.post_norms:
         a = _norm(cfg, bp["post_ln1"], a)
     if gate is not None:
@@ -444,7 +561,7 @@ def _decode_attn_block(bp, x, cache, pos, cfg: ModelConfig, window,
         m = _norm(cfg, bp["post_ln2"], m)
     if gate is not None:
         m = m * _gate(gate, m)
-    return x + m, cache
+    return x + m
 
 
 def _decode_ssm_block(bp, x, cache, cfg: ModelConfig, masks=None,
@@ -462,32 +579,50 @@ def _decode_ssm_block(bp, x, cache, cfg: ModelConfig, masks=None,
     return x + y
 
 
+def _at(stacked, i: int):
+    """Entry ``i`` of a NamedTuple of stacked fields (views)."""
+    return type(stacked)(*(f[i] for f in stacked))
+
+
 def decode_step(params: Params, cfg: ModelConfig, caches: DecodeCaches,
                 token, pos, masks=None, kernels=None):
     """token: (B, 1) integer tensor; pos: (B,) integer tensor of per-row
     positions (or one position for every row). -> (logits (B, V) fp32,
     caches).
 
-    Each row writes its own ring slot and reads its own cache validity;
+    Each row writes its own cache entry and reads its own cache validity;
     the caches are updated **in place** and returned. ``masks`` /
     ``kernels`` mirror :func:`prefill`'s elastic surface; a mask with a
     leading batch axis gives every row its own submodel."""
     check_supported(cfg)
     x = embed(params["embed"], token, scale=cfg.embed_scale)
     depth = _masks_get(masks, "depth")
+    site = 0
     for si, (seg_p, seg, seg_c) in enumerate(zip(
             params["segments"], cfg.segments, caches.segments)):
         window = seg.sliding_window or cfg.sliding_window
         for l in range(seg.n_layers):
             g = None if depth is None else depth[si][..., l]
-            bp = _layer(seg_p["blocks"], l)
-            if seg.kind == "ssm":
-                x = _decode_ssm_block(bp, x, type(seg_c)(*(f[l]
-                                                           for f in seg_c)),
-                                      cfg, masks, gate=g)
-                continue
-            x, _ = _decode_attn_block(
-                bp, x, attn_lib.KVCache(seg_c.k[l], seg_c.v[l]), pos, cfg,
-                window, masks, kernels, gate=g)
+            if seg.kind == "attn_pair":
+                x = _decode_attn_block(_layer(seg_p["local"], l), x,
+                                       _at(seg_c["local"], l), pos, cfg,
+                                       seg.pair_local_window, masks,
+                                       kernels, gate=g)
+                x = _decode_attn_block(_layer(seg_p["global"], l), x,
+                                       _at(seg_c["global"], l), pos, cfg,
+                                       None, masks, kernels, gate=g)
+            elif seg.kind == "ssm":
+                x = _decode_ssm_block(_layer(seg_p["blocks"], l), x,
+                                      _at(seg_c, l), cfg, masks, gate=g)
+            else:
+                x = _decode_attn_block(_layer(seg_p["blocks"], l), x,
+                                       _at(seg_c, l), pos, cfg, window,
+                                       masks, kernels, gate=g)
+        if seg.shared_attn_after:
+            x = _decode_attn_block(params["shared_attn"], x,
+                                   _at(caches.shared, site), pos, cfg,
+                                   cfg.sliding_window, _shared_masks(masks),
+                                   kernels)
+            site += 1
     x = _norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, x)[:, 0], caches

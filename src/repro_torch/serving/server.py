@@ -10,7 +10,8 @@ the port writes that axis out as the batch dimension:
   own ring slot and masks its own cache validity;
 * per-slot masks — head masks (slots, H), depth gates (slots, n_layers)
   and d_ff masks (slots, d_ff), expert masks (slots, E) on a MoE parent,
-  SSD-head masks (slots, H_ssm) on an SSM parent; the ``mlp`` / ``moe``
+  SSD-head masks (slots, H_ssm) on an SSM parent (the shared hybrid block
+  of zamba2 runs whole in every slot); the ``mlp`` / ``moe``
   ops turn them into per-slot prefix tensors for ``elastic_dense`` /
   ``grouped_matmul`` (the SSM decode is plain tensor ops, masked per
   slot), so one launch serves every spec (a MoE layer routes each slot
@@ -21,9 +22,11 @@ the port writes that axis out as the batch dimension:
   reference's three-program bound).
 
 Prefill runs one slot at a time (batch 1), as the reference does, and its
-caches are copied into the slot. Greedy sampling is argmax, as the
-reference's; ``temperature > 0`` samples with a ``torch.Generator`` (not
-held bit-equal to ``jax.random``).
+caches — every field of every segment's (a pair's local and global), of
+MLA's latents and of the shared block's sites — are copied into the
+slot. Greedy sampling is argmax, as the reference's; ``temperature >
+0`` samples with a ``torch.Generator`` (not held bit-equal to
+``jax.random``).
 """
 from __future__ import annotations
 
@@ -37,6 +40,17 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.dispatch import kernel_dispatch
 from repro_torch.models import transformer as T
 from repro_torch.serving.batcher import Completion, ContinuousBatcher, Request
+
+
+def _cache_fields(caches):
+    """The tensors of a cache tree, in order: the fields of every
+    NamedTuple (KVCache, MLACache, SSMCache), through a pair segment's
+    ``{"local", "global"}`` dict and the per-site shared caches."""
+    if isinstance(caches, dict):
+        return [t for k in sorted(caches) for t in _cache_fields(caches[k])]
+    if isinstance(caches, (list, tuple)):
+        return [t for c in caches for t in _cache_fields(c)]
+    return [] if caches is None else [caches]
 
 
 def _map_masks(fn, masks):
@@ -121,11 +135,13 @@ class EdgeServer:
         logits, slot_caches = T.prefill(
             self.params, self.cfg, toks, self.max_len, masks=fwd,
             kernels=self._kernels)
-        # every field of a segment's stacked (L, B, ...) cache: k, v of
-        # an attention segment; the state and conv histories of an SSM one
-        for full, new in zip(self._caches.segments, slot_caches.segments):
-            for f, n in zip(full, new):
-                f[:, slot] = n[:, 0]
+        # every field of every stacked (L or n_sites, B, ...) cache: k, v
+        # of an attention segment (both of a pair) and of the shared
+        # block's sites, MLA's latents, an SSM segment's state and conv
+        # histories
+        for f, n in zip(_cache_fields(self._caches),
+                        _cache_fields(slot_caches)):
+            f[:, slot] = n[:, 0]
         for k, v in fwd.items():
             pairs = zip(self._masks[k], v) if isinstance(v, tuple) \
                 else [(self._masks[k], v)]

@@ -334,10 +334,20 @@ def test_unported_paths_raise():
     clients, train, test = rounds.build_population(
         fam, n_workers=2, n_samples=16, heterogeneity="none")
     assert [len(d["y"]) for d in train] == [8, 8] and len(test) == 2
-    for name, item in (("gemma2-9b", "A11"), ("zamba2-1.2b", "A11"),
-                       ("deepseek-v2-lite-16b", "A11")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            elastic.family_for(ARCHS[name])
+    # the zoo's last three decoder parents (once raising, naming ROADMAP
+    # A11) build their families and run the sequential surface
+    for name in ("gemma2-9b", "zamba2-1.2b", "deepseek-v2-lite-16b"):
+        assert elastic.family_for(ARCHS[name]).cfg.name == name
+        other = elastic.TransformerElasticFamily(
+            reduced(ARCHS[name], n_layers=2, d_model=64))
+        spec = other.minimal_spec()
+        oparams = other.init_params(device="cpu")
+        osub, octx = other.extract(oparams, spec)
+        assert torch.isfinite(other.sub_loss(osub, octx, x, None,
+                                             torch.ones(2)))
+        assert [t.shape for t in jax.tree.leaves(other.pad_delta(
+            osub, oparams, spec))] == [t.shape for t in
+                                       jax.tree.leaves(oparams)]
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         PT.init_params(ARCHS["llava-next-mistral-7b"], device="cpu")
     assert CFLSession.from_synthetic(
