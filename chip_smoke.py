@@ -250,6 +250,26 @@ printing its own lines; any failed phase exits non-zero:
    held against the dense path (deepseek on replayed routes), the
    sequential trainer's holds.
 
+18. fleet checkpoints, the overlap ring and the hand-off to serving
+   (``phase_fleet``): 18a, CFL sync on phase 14's population (full
+   participation, 8 clients) for 2 rounds on the kernels — uninterrupted,
+   killed after round 1 (``checkpoint_every=1``) and restored into a fresh
+   session, and with the prefetch ring on (its copies from pinned buffers
+   on a side stream): the resumed and ring-on runs bit-equal to the
+   uninterrupted one (parameters and history), the ring's hits ≥ 1 and
+   misses 0, K1 launched as often ring on as off, all ``tile``; the ring-off
+   and ring-on rounds run in turns and print their walls. 18b: phase 16c's
+   buffered async with faults killed after 2 aggregates with groups in
+   flight, restored, run to 4: bit-equal. 18c: a granite-3-8b CFL round at
+   phase 15's settings, then ``session.serving()`` on the kernels against
+   the dense path (greedy tokens equal, logits within
+   ``SLICE_LOGIT_RTOL``), ``export_submodel`` → ``load_submodel`` of each
+   client's spec bit-equal to ``extract``, ``distill_to_spec`` 5 steps with
+   the kernel teacher against the dense one (KL within ``DISTILL_RTOL``,
+   K1 / K2 a teacher forward a step) and the fused prefill against the
+   stepwise decode within 1e-5 (absolute on the fp64 parent, relative to
+   the largest value on the fp32 one).
+
 The last lines are a ``kernels:`` line, the slices' stats, the card line,
 one JSON object with every kernel's launches and times, and the result
 line ``{"ok": true, "device": {...}}``.
@@ -4972,6 +4992,384 @@ def phase_a11_kernels(device, g2, g7, ds, zb, iters=5):
     return worst, times
 
 
+# ---------------------------------------------------------------------------
+# phase 18: fleet checkpoints, the overlap ring, the hand-off to serving
+# ---------------------------------------------------------------------------
+FLEET_ROUNDS = 2               # 18a: one round, kill, restore, one more
+FLEET_KILL_AT = 2              # 18b: aggregates before the kill
+DISTILL_STEPS = 5
+DISTILL_RTOL = 1e-4            # the KL history, kernel teacher against the
+                               # dense one: 2 layers of d 4096 summed in
+                               # another order, then a softmax over 49155
+PREFILL_TOL = 1e-5             # fused prefill against stepwise decode:
+                               # absolute on the fp64 parent (the
+                               # reference's check); on the fp32 parent
+                               # relative to the largest |value| (at d
+                               # 4096 both fp32 paths sit ~9e-6 from fp64,
+                               # 3–25 ulps: rounding, not a path fault)
+
+
+def history_difference(a, b):
+    """The history columns in which two runs differ (NaN equal to NaN;
+    ``host_seconds`` is wall time and not compared)."""
+    def same(x, y):
+        if isinstance(x, dict):
+            return set(x) == set(y) and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(same(u, v) for u, v in zip(x, y))
+        if isinstance(x, float) and isinstance(y, float):
+            return (math.isnan(x) and math.isnan(y)) or x == y
+        return x == y
+    if len(a) != len(b):
+        return ["length"]
+    return sorted({k for ra, rb in zip(a, b) for k in ra
+                   if k != "host_seconds" and not same(ra[k], rb.get(k))})
+
+
+def phase_fleet(device, cfg=None, zoo=True, cfg_of=None):
+    """Phase 18: fleet checkpoints with bit-exact kill-and-resume, the
+    overlap ring on its side stream, and the session's hand-off to
+    serving, through ``CFLSession`` on phase 14's population (``cfg``,
+    ``PAPER_CNN`` by default, 8 clients) and, with ``zoo``, a granite-3-8b
+    session at phase 15's settings.
+
+    * 18a: CFL sync, full participation, ``FLEET_ROUNDS`` rounds on the
+      kernels three ways: uninterrupted; with ``checkpoint_every=1`` for
+      one round, restored into a fresh session, one more round; and with
+      ``overlap=True``. The resumed and the ring-on runs must equal the
+      uninterrupted one to the bit (parameters and history); the ring
+      counts hits ≥ 1 and no miss, and K1 launches as often as without
+      it, all ``tile``. The ring-off and ring-on rounds run in turns and
+      their walls are printed (a reading, not a claim); a staging behind
+      ~0.1 s of the default stream's spinning must end before it (the
+      side stream does not queue behind the round).
+    * 18b: phase 16c's ``BUFFERED_RUN`` killed after ``FLEET_KILL_AT``
+      aggregates with groups in flight, restored, run to
+      ``BUFFERED_AGGREGATES``: bit-equal to the uninterrupted run.
+    * 18c (``zoo``): one CFL round of granite-3-8b (phase 15's settings),
+      then ``session.serving()`` serves each client's spec on the kernel
+      path against the dense path (greedy tokens equal, logits within
+      ``SLICE_LOGIT_RTOL``, K1 / K2 launched); ``export_submodel`` →
+      ``load_submodel`` of each client's spec equals ``extract`` to the
+      bit; ``distill_to_spec`` ``DISTILL_STEPS`` steps with the kernel
+      teacher against the dense one (KL within ``DISTILL_RTOL``, K1 and
+      K2 as ``design_launches`` gives a forward a step, no K3 / K4);
+      ``check_prefill_parity`` within ``PREFILL_TOL`` on the fp64 parent,
+      and relative to the largest value on the fp32 one.
+
+    ``cfg_of`` maps the zoo parent's name to its config (a ``reduced``
+    config and a small ``cfg`` rehearse the phase on the CPU, where
+    nothing is counted). Returns ({run: launches}, stats)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper_cnn import PAPER_CNN
+    from repro_torch.core.elastic import family_for
+    from repro_torch.core.submodel import TransformerSubSpec
+    from repro_torch.fl.rounds import build_population
+    from repro_torch.fl.server import CFLConfig
+    from repro_torch.fl.session import CFLSession
+    from repro_torch.kernels.dispatch import kernel_dispatch
+    from repro_torch.launch.serve import check_prefill_parity
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.serving import (Request, distill_to_spec,
+                                     export_submodel, load_submodel)
+
+    cfg = PAPER_CNN if cfg is None else cfg
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    convs = 1 + sum(1 + 2 * n for _, n in cfg.stages)
+    problems, launches, stats = [], {}, {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_")
+    pop = {k: CNN_SLICE[k] for k in ("kind", "n_workers", "n_samples",
+                                     "heterogeneity", "seed")}
+    family = family_for(cfg)
+    fleet = build_population(
+        family, kind=pop["kind"], n_workers=pop["n_workers"],
+        n_samples=pop["n_samples"], heterogeneity=pop["heterogeneity"],
+        seed=pop["seed"], latency_bound_frac=CFLConfig().latency_bound_frac)
+    params0 = family.init_params(seed=pop["seed"], device=device)
+
+    def make(**kw):
+        return CFLSession(
+            family, *fleet, CFLConfig(n_workers=pop["n_workers"],
+                                      elastic_kernels=True, seed=pop["seed"],
+                                      **kw),
+            params=tree_map(lambda a: a.clone(), params0), device=device)
+
+    def held(label, want, got):
+        d = first_difference(want.params, got.params)
+        cols = history_difference(want.history, got.history)
+        print(f"  {label}: parameters "
+              + ("equal to the bit" if d is None else
+                 f"DIFFER (first at {d[0]} by {d[1]:.3e})")
+              + "; history " + ("equal" if not cols else f"DIFFERS: {cols}"))
+        if d is not None or cols:
+            problems.append(f"{label}: not the uninterrupted run to the bit")
+        return d is None and not cols
+
+    def round_of(sess):
+        """One counted, timed round (aggregate)."""
+        with CnnCounters() as count:
+            sync(device)
+            t = time.perf_counter()
+            sess.server.run_round()
+            sync(device)
+            secs = time.perf_counter() - t
+        return secs, count
+
+    # ---- 18a: sync CFL — kill and resume; the ring on and off ---------------
+    t0 = time.perf_counter()
+    plain, ring = make(), make(overlap=True)
+    walls = {"off": [], "on": []}
+    k1 = {"off": 0, "on": 0}
+    by_variant = {"off": {}, "on": {}}
+    for _ in range(FLEET_ROUNDS):             # in turns: off, on, off, on
+        for key, sess in (("off", plain), ("on", ring)):
+            secs, count = round_of(sess)
+            walls[key].append(secs)
+            k1[key] += count.launches
+            for v, n in count.by_variant.items():
+                by_variant[key][v] = by_variant[key].get(v, 0) + n
+    ring_stats = ring.server.engine.prefetch_stats()
+    launches["fleet cnn cfl ring off"] = {"elastic_dense": k1["off"]}
+    launches["fleet cnn cfl ring on"] = {"elastic_dense": k1["on"]}
+    print(f"  18a round walls in turns, ring off / on: "
+          f"{[round(w, 4) for w in walls['off']]} / "
+          f"{[round(w, 4) for w in walls['on']]} s; ring {ring_stats}; "
+          f"K1 launches off / on {k1['off']} / {k1['on']}, by variant "
+          f"{by_variant['on']}")
+    if cuda and (k1["on"] != k1["off"] or k1["on"] == 0
+                 or by_variant["on"].get("tile", 0) != k1["on"]):
+        problems.append(f"18a: K1 launches ring off / on {k1}, by variant "
+                        f"{by_variant['on']}: not equal, or not all tile")
+    if ring_stats["hits"] < 1 or ring_stats["misses"] != 0:
+        problems.append(f"18a: the ring counted {ring_stats}")
+    ring_exact = held("18a ring on vs off", plain, ring)
+    lead = None
+    if cuda:
+        # the staging stream must not queue behind the default one: stage
+        # again behind ~0.1 s of the default stream's spinning; the side
+        # stream's copies must end before it does
+        side = ring.server.engine
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        torch.cuda._sleep(int(2e8))
+        start.record()
+        ring.server._stage_next_round()
+        end.record(side._side)
+        sync(device)
+        lead = end.elapsed_time(start)
+        print(f"  18a staged copies behind a busy default stream: done "
+              f"{lead:.3f} ms before it")
+        if not lead > 0:
+            problems.append(f"18a: the staged copies waited for the default "
+                            f"stream (lead {lead:.3f} ms)")
+    del ring
+    killed = make(checkpoint_every=1, checkpoint_dir=tmp.name)
+    killed.run(1)
+    path = os.path.join(tmp.name, "round_000001.ckpt")
+    size = os.path.getsize(path)
+    del killed
+    resumed = make()
+    t = time.perf_counter()
+    info = resumed.restore_checkpoint(path)
+    restore_s = time.perf_counter() - t
+    resumed.run(FLEET_ROUNDS - 1)
+    print(f"  18a checkpoint {size / 1e6:.1f} MB, restored in "
+          f"{restore_s:.3f} s: {info}")
+    if info["resharded"]:
+        problems.append("18a: the restore took the reshard path")
+    resume_exact = held("18a killed after round 1 and resumed", plain,
+                        resumed)
+    stats["sync"] = dict(ring_off_s=walls["off"], ring_on_s=walls["on"],
+                         ring=ring_stats, k1=k1, by_variant=by_variant,
+                         ring_bit_equal=ring_exact, staged_lead_ms=lead,
+                         resume_bit_equal=resume_exact,
+                         checkpoint_mb=size / 1e6, restore_s=restore_s)
+    del plain, resumed
+    stats["18a_s"] = time.perf_counter() - t0
+
+    # ---- 18b: buffered async with faults, killed with groups in flight -----
+    t0 = time.perf_counter()
+    whole = make(**BUFFERED_RUN)
+    whole.run(BUFFERED_AGGREGATES)
+    killed = make(**BUFFERED_RUN)
+    killed.run(FLEET_KILL_AT)
+    groups = {gid: int((g.sel.valid > 0).sum() - g.consumed.sum())
+              for gid, g in killed.server.runtime.groups.items()}
+    path = killed.save_checkpoint(os.path.join(tmp.name, "buffered.ckpt"))
+    del killed
+    resumed = make(**BUFFERED_RUN)
+    info = resumed.restore_checkpoint(path)
+    resumed.run(BUFFERED_AGGREGATES - FLEET_KILL_AT)
+    events = {c: sum(r[c] for r in whole.history)
+              for c in ("dropped", "retried", "quarantined")}
+    print(f"  18b killed after {FLEET_KILL_AT} aggregates with groups in "
+          f"flight {groups} (unconsumed slots by group id); {info}; "
+          f"events over {BUFFERED_AGGREGATES} aggregates {events}")
+    if not groups:
+        problems.append("18b: no group in flight at the kill")
+    buffered_exact = held("18b buffered async resumed", whole, resumed)
+    stats["buffered"] = dict(in_flight=groups, events=events,
+                             bit_equal=buffered_exact)
+    del whole, resumed
+    gc.collect()
+    stats["18b_s"] = time.perf_counter() - t0
+
+    # ---- 18c: the hand-off to serving --------------------------------------
+    if zoo:
+        t0 = time.perf_counter()
+        name, n_layers, seq_len = ZOO_PARENTS[0][:3]
+        fam = train_family((cfg_of or get_config)(name), n_layers, seq_len)
+        zcfg = fam.cfg
+        sess = zoo_session(device, fam)
+        rec = sess.run(1)[-1]
+        specs = [TransformerSubSpec(tuple(tuple(l) for l in g[0]),
+                                    g[1] / 100, g[2] / 100, g[3] / 100,
+                                    g[4] / 100) for g in rec["specs"]]
+        # serving: each client's spec, kernel path against dense path
+        prompts = np.random.default_rng(SLICE["seed"]).integers(
+            0, zcfg.vocab_size, (len(specs), SLICE["prompt_len"]))
+        reqs = [Request(uid=i, spec=s, prompt=prompts[i],
+                        max_new_tokens=SLICE["gen"])
+                for i, s in enumerate(specs)]
+        counters = path_counters(zcfg, serving=True)
+        served = {}
+        for backend in ("auto", None):
+            server = sess.serving(slots=SLICE["slots"],
+                                  prompt_len=SLICE["prompt_len"],
+                                  max_new_tokens=SLICE["gen"],
+                                  backend=backend, trace_logits=True)
+            reset_launches(counters)
+            sync(device)
+            t = time.perf_counter()
+            served[backend] = server.run(reqs)
+            sync(device)
+            secs = time.perf_counter() - t
+            if backend == "auto":
+                got = {c.__name__: c.launches for c in counters}
+                by = check_variants(got, problems, "stream", "mma") \
+                    if cuda else {}
+                serve_s = secs
+            del server
+        launches["fleet zoo granite serving"] = got
+        worst, same = 0.0, True
+        for c, r in zip(served["auto"], served[None]):
+            same = same and c.tokens == r.tokens
+            for a, b in zip(c.logits, r.logits):
+                worst = max(worst, float(np.max(np.abs(a - b)) /
+                                         max(1.0, float(np.max(np.abs(b))))))
+        print(f"  18c session.serving(): {len(reqs)} requests "
+              f"({SLICE['gen']} tokens each) in {serve_s:.3f} s on the "
+              f"kernels, launches {got}; kernel vs dense greedy tokens "
+              f"{'identical' if same else 'DIFFER'}, max relative logit "
+              f"err {worst:.3e} (tol {SLICE_LOGIT_RTOL:g})")
+        if not same or not worst <= SLICE_LOGIT_RTOL:
+            problems.append(f"18c serving: tokens identical {same}, logits "
+                            f"{worst:.3e}")
+        if cuda and not all(n > 0 for n in got.values()):
+            problems.append(f"18c serving: launches {got}")
+        # export -> load of each client's spec against extract
+        t = time.perf_counter()
+        exported = []
+        for i, spec in enumerate(specs):
+            p = os.path.join(tmp.name, f"client{i}.npz")
+            meta = export_submodel(fam, sess.params, spec, p)
+            sub, ctx, _ = load_submodel(fam, p, device=device)
+            want, want_ctx = fam.extract(sess.params, spec)
+            loaded = dict(named_leaves(sub))      # by path: the template
+            d = [n for n, w in named_leaves(want)  # has its own key order
+                 if not torch.equal(loaded[n], w)]
+            exported.append(dict(mb=os.path.getsize(p) / 1e6,
+                                 flops_fraction=meta["flops_fraction"],
+                                 bit_equal=not d and ctx == want_ctx))
+            if not exported[-1]["bit_equal"]:
+                problems.append(f"18c export: client {i}'s submodel is not "
+                                f"extract's ({d})")
+            os.remove(p)
+            os.remove(p + ".meta.json")
+            del sub, want
+        export_s = time.perf_counter() - t
+        print(f"  18c export -> load of {len(specs)} submodels in "
+              f"{export_s:.1f} s: "
+              + "; ".join(f"{e['mb']:.0f} MB flops {e['flops_fraction']:.3f}"
+                          f" {'bit-equal' if e['bit_equal'] else 'DIFFER'}"
+                          for e in exported))
+        # distillation: the kernel teacher against the dense one
+        spec = specs[-1]
+        data = {"x": sess.client_data[0]["x"]}
+        hists = {}
+        dist = path_counters(zcfg)
+        for backend in ("auto", None):
+            reset_launches(dist)
+            sync(device)
+            t = time.perf_counter()
+            _, _, hists[backend] = distill_to_spec(
+                fam, sess.params, spec, data, steps=DISTILL_STEPS,
+                kernels=kernel_dispatch(backend).table(fam.name))
+            sync(device)
+            if backend == "auto":
+                dl = {c.__name__: c.launches for c in dist}
+                distill_s = time.perf_counter() - t
+        want = design_launches(n_layers, 0, DISTILL_STEPS)
+        launches["fleet zoo granite distill"] = dl
+        rel = max(abs(a - b) / abs(b) for a, b in zip(hists["auto"],
+                                                       hists[None]))
+        print(f"  18c distill_to_spec {DISTILL_STEPS} steps in "
+              f"{distill_s:.3f} s: KL kernel teacher "
+              f"{[round(h, 6) for h in hists['auto']]}, dense "
+              f"{[round(h, 6) for h in hists[None]]}, max relative "
+              f"{rel:.3e} (tol {DISTILL_RTOL:g}); launches {dl} (design "
+              f"{want})")
+        if not rel <= DISTILL_RTOL:
+            problems.append(f"18c distill: KL relative {rel:.3e}")
+        if cuda and dl != want:
+            problems.append(f"18c distill: launches {dl}, design {want}")
+        # the fused prefill against the stepwise decode (the dense path):
+        # on the fp64 parent absolute, on the fp32 one relative
+        toks = torch.as_tensor(prompts[:SLICE["slots"]], device=device)
+        max_len = SLICE["prompt_len"] + SLICE["gen"]
+        worst_prefill = check_prefill_parity(sess.params, zcfg, toks,
+                                             max_len, tol=float("inf"))
+        with torch.no_grad():
+            logits, caches = T.prefill(sess.params, zcfg, toks, max_len)
+            scale = max([1.0] + [float(t.abs().max()) for t in
+                                 _leaves((logits, caches))])
+            del logits, caches
+            p64 = tree_map(lambda t: t.double(), sess.params)
+        worst64 = check_prefill_parity(p64, zcfg, toks, max_len,
+                                       tol=float("inf"))
+        del p64
+        rel_prefill = worst_prefill / scale
+        print(f"  18c fused prefill vs stepwise decode: fp64 parent max|Δ| "
+              f"{worst64:.3e} (tol {PREFILL_TOL:g}); fp32 parent max|Δ| "
+              f"{worst_prefill:.3e} over max|value| {scale:.4f}: "
+              f"{rel_prefill:.3e} (tol {PREFILL_TOL:g})")
+        if not (worst64 <= PREFILL_TOL and rel_prefill <= PREFILL_TOL):
+            problems.append(f"18c prefill parity: fp64 {worst64:.3e}, "
+                            f"fp32 relative {rel_prefill:.3e}")
+        stats["handoff"] = dict(
+            serve_s=serve_s, tokens_identical=same, max_rel_logit=worst,
+            serving_by_variant=by, export=exported, export_s=export_s,
+            distill_s=distill_s, distill_rel=rel, distill_kl=hists["auto"],
+            distill_launches=dl, prefill_max_abs=worst_prefill,
+            prefill_rel=rel_prefill, prefill_fp64_max_abs=worst64)
+        del sess
+        gc.collect()
+        stats["18c_s"] = time.perf_counter() - t0
+    tmp.cleanup()
+    stats["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 18: {stats['phase_seconds']:.1f} s (18a "
+          f"{stats['18a_s']:.1f}, 18b {stats['18b_s']:.1f}"
+          + (f", 18c {stats['18c_s']:.1f}" if zoo else "") + "); "
+          + (card_line() if cuda else "no card"))
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return launches, stats
+
+
 def without_arch(settings):
     return {k: v for k, v in settings.items() if k != "arch"}
 
@@ -5186,6 +5584,16 @@ def main() -> int:
         a11_stats["zoo"] = zs
         release()
         done("17")
+        print(f"== 18. fleet checkpoints and the overlap ring: "
+              f"{PAPER_CNN.name} CFL sync killed after round 1 and resumed, "
+              f"and with the prefetch ring on, against {FLEET_ROUNDS} "
+              f"uninterrupted rounds; buffered async with faults killed "
+              f"with groups in flight; then granite-3-8b's hand-off to "
+              f"serving: session.serving(), export / load, distillation "
+              f"and the prefill parity, fp32")
+        fleet_launches, fleet_stats = phase_fleet(device)
+        release()
+        done("18")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5233,7 +5641,8 @@ def main() -> int:
                **cnn_launches,
                **{f"zoo {run}": c for run, c in zoo_launches.items()},
                **{f"selection {run}": c for run, c in sel_launches.items()},
-               **{f"a11 {run}": c for run, c in a11_launches.items()}}
+               **{f"a11 {run}": c for run, c in a11_launches.items()},
+               **fleet_launches}
     for name, err in (list(mworst.items()) + list(sworst.items())
                       + list(cworst.items()) + list(a11_worst.items())):
         worst[name] = max(worst.get(name, 0.0), err)
@@ -5290,6 +5699,10 @@ def main() -> int:
                         if run != "zoo")
                 + tuple((f"a11 {a.split('-')[0]} cfl", a11_stats["zoo"][a])
                         for a, *_ in A11_PARENTS)
+                + (("fleet cnn cfl ring on", {"launches_by_variant": {
+                    "elastic_dense": fleet_stats["sync"]["by_variant"]["on"]}}),
+                   ("fleet zoo granite serving", {"launches_by_variant":
+                    fleet_stats["handoff"]["serving_by_variant"]}))
                 if name in st.get("launches_by_variant", {})}
     print("kernels: " + "; ".join(
         f"{p} " + " ".join(f"{n}={c}" for n, c in counts.items())
@@ -5304,6 +5717,7 @@ def main() -> int:
     print(f"zoo sessions: {json.dumps(zoo_stats)}")
     print(f"selection: {json.dumps(sel_stats)}")
     print(f"last three decoder parents: {json.dumps(a11_stats)}")
+    print(f"fleet: {json.dumps(fleet_stats)}")
     print(f"phase seconds: {json.dumps(phase_s)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
     print(card_line())

@@ -354,20 +354,27 @@ class TransformerElasticFamily:
                            _stack([p.fwd for p in per], dev))
 
     # -- parent-space masked compute over client-stacked params ------------
+    def masked_logits(self, params, fwd, x, kernels=None):
+        """Logits (G, B, S, V) of each client's masked submodel in parent
+        coordinates: the cohort forward on client-stacked ``params`` and
+        ``fwd`` with the caller's kernel table (the distillation teacher
+        runs it on a one-client stack); x (G, B, S) tokens."""
+        return T.forward(params, self.cfg, x, masks=fwd, kernels=kernels)
+
     def masked_loss(self, params, fwd, x, y, sample_weight, kernels=None):
         """Per-client training loss (G,) of each client's masked submodel
         in parent coordinates: ``params`` and ``fwd`` client-stacked, x
         (G, B, S) tokens, ``sample_weight`` (G, B) 0/1. ``kernels``: an op
         table (``kernels.dispatch``) or None for the dense masked path."""
         del y                                   # targets come from tokens
-        logits = T.forward(params, self.cfg, x, masks=fwd, kernels=kernels)
+        logits = self.masked_logits(params, fwd, x, kernels)
         return _weighted_mean(_lm_per_sample_ce(logits, x), sample_weight)
 
     def masked_metric(self, params, fwd, x, y, valid, kernels=None):
         """Per-client next-token accuracy (G,) over the ``valid`` (G, B)
         sequences; same contract as :meth:`masked_loss`."""
         del y
-        logits = T.forward(params, self.cfg, x, masks=fwd, kernels=kernels)
+        logits = self.masked_logits(params, fwd, x, kernels)
         return _weighted_mean(_lm_per_sample_acc(logits, x), valid)
 
     # -- the sequential path's surface (extract -> train -> pad) -----------
@@ -709,6 +716,9 @@ class CNNElasticFamily:
 
     # -- parent-space masked compute over client-stacked params ------------
     def masked_logits(self, params, fwd, x, kernels=None):
+        """Logits (G, B, classes) of each client's masked submodel in
+        parent coordinates (client-stacked ``params`` and ``fwd``; x
+        (G, B, H, W, C))."""
         return masked_forward(params, self.cfg, x, fwd["ch"], fwd["gn"],
                               fwd["depth"], kernels=kernels)
 

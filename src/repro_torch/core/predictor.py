@@ -13,14 +13,17 @@ asks for the CPU), so each ``predict_batch`` — the search scores one
 generation of candidates per call — costs one device round trip. Its
 initial weights are torch-seeded (the reference draws them with
 ``jax.random``); ``load_numpy`` takes the reference's.
+``state_snapshot`` / ``load_state`` carry its whole state through a fleet
+checkpoint (``checkpoint.fleet``).
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import _to_device, _to_host
 from repro_torch.core.elastic import family_for
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.optim.optimizers import adamw, apply_updates
@@ -80,6 +83,28 @@ class AccuracyPredictor:
                                         device=self.device)
                         for k, v in layer.items()} for layer in params]
         self.opt_state = self.opt.init(self.params)
+
+    # -- fleet checkpoints (checkpoint.fleet) ------------------------------
+    def state_snapshot(self) -> Dict:
+        """The predictor's state as host data: the network and optimizer
+        state (numpy, bit for bit), the profile buffer, the convergence
+        latch."""
+        return {"params": _to_host(self.params),
+                "opt_state": _to_host(self.opt_state),
+                "buffer_x": [np.array(x) for x in self.buffer_x],
+                "buffer_y": list(self.buffer_y),
+                "converged": bool(self.converged),
+                "last_mae": float(self.last_mae)}
+
+    def load_state(self, snap: Dict) -> None:
+        """Inverse of :meth:`state_snapshot`; the tensors go back to the
+        predictor's device."""
+        self.params = _to_device(snap["params"], self.device)
+        self.opt_state = _to_device(snap["opt_state"], self.device)
+        self.buffer_x = [np.array(x) for x in snap["buffer_x"]]
+        self.buffer_y = list(snap["buffer_y"])
+        self.converged = bool(snap["converged"])
+        self.last_mae = float(snap["last_mae"])
 
     # -- Alg. 2 ------------------------------------------------------------
     def add_profiles(self, samples: Sequence[Tuple]):

@@ -8,10 +8,12 @@ Both ride the CFL server's engines: the batched parent-space engine when
 the kernel path K1 runs at full prefixes), the sequential trainer
 otherwise. FedAvg runs what the port's ``CFLServer`` runs (it shares
 its ``SyncServer``): every selection policy, partial participation, async
-buffered rounds (``fl.runtime``) and fault injection (``fl.faults``);
-the prefetch ring and fleet checkpoints (ROADMAP A14) and cohort sharding
-(A17) raise, naming their item. IL has no rounds to subsample or
-schedule: ``CFLSession`` rejects a non-full selection and async for it.
+buffered rounds (``fl.runtime``), fault injection (``fl.faults``), the
+prefetch ring (``SyncServer._stage_next_round`` stages FedAvg's next
+cohort as it does CFL's) and fleet checkpoints (``checkpoint.fleet``);
+cohort sharding (ROADMAP A17) raises, naming its item. IL has no rounds to
+subsample, schedule, overlap or checkpoint: ``CFLSession`` rejects a
+non-full selection, async, overlap and checkpoints for it.
 """
 from __future__ import annotations
 

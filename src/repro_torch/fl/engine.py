@@ -45,15 +45,32 @@ clients gathered out of the fleet's cached data pack on the device
 slots training zero steps with weight 0 — so the cohort's shapes never
 depend on which clients were picked.
 
-Not ported yet, and raising NotImplementedError: the double-buffered
-prefetch ring (``enable_prefetch`` / ``prefetch_hook``, ROADMAP A14) and
-cohort sharding over several cards (``cohort_shards > 1``, A17).
+Double-buffered prefetch (``enable_prefetch``): while round r's local
+steps run on the card, the host can already pack round r+1's batch
+streams and stage its gathers and host-to-device copies —
+``stage_cohort`` builds exactly the tensors the next ``train_cohort`` call
+would (the same ``_pack_inputs``, so a hit is bit-identical by
+construction) into a bounded ring of :class:`StagedCohort` entries. On the
+card it packs into pinned host buffers and copies them with
+``non_blocking=True`` on a side ``torch.cuda.Stream``, then records an
+event there; a hit makes the consuming stream wait on that event and
+``record_stream``s every staged tensor. This is the port's form of the
+overlap JAX's async dispatch gives the reference; on the CPU the copies
+are plain. A staged entry is consumed only when the eventual call's
+selection triple, seeds, batch / epoch geometry and resident-data identity
+all match (by value); a mismatch counts a miss, flushes the ring and packs
+eagerly, so the ring can cost a re-pack, never a bit. Callers flush on
+policy / fleet / mode changes, drain, deadline misses, retries and
+checkpoint restore.
+
+Not ported yet, and raising NotImplementedError: cohort sharding over
+several cards (``cohort_shards > 1``, ROADMAP A17).
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -147,6 +164,44 @@ def pack_eval(datasets: Sequence[Dict[str, np.ndarray]]) -> EvalPack:
 # the engine
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
+class CohortInputs:
+    """What a cohort call feeds its local steps and its eval pass beyond
+    parameters and masks (``BatchedRoundEngine._pack_inputs``)."""
+    x: torch.Tensor                  # (G, N, ...) each slot's data
+    y: torch.Tensor                  # (G, N) int64 labels
+    idx: torch.Tensor                # (G, S, B) int64 gather indices
+    sample_valid: torch.Tensor       # (G, S, B) float32
+    step_valid: np.ndarray           # (G, S) bool, host (the step loop)
+    valid: List[Optional[torch.Tensor]]   # per step: None (every slot
+                                     # steps) or (G,) bool
+    n_steps: np.ndarray              # (G,) host ints (timing model)
+    ex: Optional[torch.Tensor] = None     # eval pack, gathered per slot
+    ey: Optional[torch.Tensor] = None
+    ev: Optional[torch.Tensor] = None
+    owned: Tuple[torch.Tensor, ...] = ()  # tensors this packing made
+
+
+@dataclasses.dataclass
+class StagedCohort:
+    """One prefetched cohort: the inputs of a round that has not started
+    yet, keyed by what they are a pure function of (selection triple,
+    seeds, geometry, resident-pack identity). ``event`` (on the card)
+    marks the end of the side stream's copies."""
+    round_idx: int                   # staged-for round (checkpoints)
+    batch_size: int
+    epochs: int
+    seeds: Tuple[int, ...]
+    data_ref: object                 # strong ref: id identity can't recycle
+    eval_ref: object
+    has_eval: bool
+    inputs: CohortInputs
+    sel_idx: Optional[np.ndarray] = None      # None = full-cohort entry
+    sel_valid: Optional[np.ndarray] = None
+    sel_weights: Optional[np.ndarray] = None
+    event: Optional[object] = None
+
+
+@dataclasses.dataclass
 class CohortResult:
     deltas: Dict            # stacked (G, ...) masked updates ω_0 − ω_E
     trained: Dict           # stacked (G, ...) locally-trained parent params
@@ -191,14 +246,173 @@ class BatchedRoundEngine:
             OrderedDict()
         self._data_cache: "OrderedDict[int, Tuple[object, Tuple]]" = \
             OrderedDict()
+        # the prefetch ring (enable_prefetch); depth 0 = disabled
+        self._prefetch_depth = 0
+        self._prefetch_ring: List[StagedCohort] = []
+        self._prefetch_stats = {"staged": 0, "hits": 0, "misses": 0,
+                                "flushes": 0}
+        self._side = None               # the staging stream (on the card)
+        self._packs_ready = None        # event after the last pack build
 
     @property
     def kernel_path(self) -> str:
         """'tile-skipping' | 'dense-masked' — which path this engine runs."""
         return "tile-skipping" if self._kernels else "dense-masked"
 
+    # -- the double-buffered prefetch ring ----------------------------------
+    @property
+    def prefetch_enabled(self) -> bool:
+        return self._prefetch_depth > 0
+
     def enable_prefetch(self, depth: int = 1) -> None:
-        raise _not_ported("the double-buffered prefetch ring", "A14")
+        """Let up to ``depth`` future cohorts be staged at once;
+        ``depth <= 0`` disables the ring and flushes it."""
+        depth = int(depth)
+        if depth <= 0:
+            self.flush_prefetch("disabled")
+            self._prefetch_depth = 0
+            return
+        self._prefetch_depth = depth
+        while len(self._prefetch_ring) > depth:
+            self._prefetch_ring.pop(0)
+
+    def flush_prefetch(self, reason: str = "") -> None:
+        """Drop every staged cohort; the next round packs eagerly. A flush
+        can forfeit overlap, never change a bit."""
+        del reason      # for the reader of a call site; not counted apart
+        if self._prefetch_ring:
+            self._prefetch_stats["flushes"] += 1
+            self._prefetch_ring.clear()
+
+    def prefetch_stats(self) -> Dict[str, int]:
+        """Copy of the ring's counters: staged / hits / misses / flushes."""
+        return dict(self._prefetch_stats)
+
+    def stage_cohort(self, round_idx: int, datasets: Sequence[Dict], *,
+                     batch_size: int, epochs: int, seeds: Sequence[int],
+                     eval_datasets: Optional[Sequence[Dict]] = None,
+                     participation=None) -> None:
+        """Pack and stage a *future* round's cohort while the current
+        round still runs on the card: the tensors the matching
+        ``train_cohort`` call would build (``_pack_inputs``), appended to
+        the ring. On the card the copies run from pinned buffers on a side
+        stream. A no-op unless ``enable_prefetch`` was called."""
+        if not self.prefetch_enabled:
+            return
+        seeds = tuple(int(s) for s in seeds)
+        # the resident packs are built once, on the current stream
+        self._cohort_data(datasets)
+        if eval_datasets is not None:
+            self._eval_pack(eval_datasets)
+        event = None
+        if self.device.type == "cuda":
+            if self._side is None:
+                self._side = torch.cuda.Stream(device=self.device)
+            # wait for the packs' build only, never for the round that is
+            # running on the current stream
+            if self._packs_ready is not None:
+                self._side.wait_event(self._packs_ready)
+            with torch.cuda.stream(self._side):
+                inputs = self._pack_inputs(
+                    datasets, participation, batch_size, epochs, seeds,
+                    eval_datasets, pinned=True)
+                event = torch.cuda.Event()
+                event.record(self._side)
+        else:
+            inputs = self._pack_inputs(datasets, participation, batch_size,
+                                       epochs, seeds, eval_datasets)
+        part = participation
+        self._prefetch_ring.append(StagedCohort(
+            round_idx=int(round_idx), batch_size=int(batch_size),
+            epochs=int(epochs), seeds=seeds, data_ref=datasets,
+            eval_ref=eval_datasets, has_eval=eval_datasets is not None,
+            inputs=inputs, event=event,
+            sel_idx=None if part is None else np.array(part.idx, copy=True),
+            sel_valid=None if part is None
+            else np.array(part.valid, copy=True),
+            sel_weights=None if part is None
+            else np.array(part.weights, copy=True)))
+        self._prefetch_stats["staged"] += 1
+        while len(self._prefetch_ring) > self._prefetch_depth:
+            self._prefetch_ring.pop(0)
+
+    def _take_staged(self, datasets, eval_datasets, participation,
+                     batch_size: int, epochs: int,
+                     seeds) -> Optional[CohortInputs]:
+        """Pop the staged entry matching this exact call, if any, by value
+        (selection triple, seeds, geometry, resident-pack identity). A hit
+        drops it and everything staged before it from the ring; a miss
+        flushes the whole ring (the prediction went wrong)."""
+        if not self.prefetch_enabled or not self._prefetch_ring:
+            return None
+        seeds = tuple(int(s) for s in seeds)
+        for pos, e in enumerate(self._prefetch_ring):
+            if (e.batch_size == int(batch_size)
+                    and e.epochs == int(epochs) and e.seeds == seeds
+                    and e.data_ref is datasets
+                    and e.has_eval == (eval_datasets is not None)
+                    and (not e.has_eval or e.eval_ref is eval_datasets)
+                    and self._sel_match(e, participation)):
+                del self._prefetch_ring[:pos + 1]
+                self._prefetch_stats["hits"] += 1
+                if e.event is not None:
+                    cur = torch.cuda.current_stream(self.device)
+                    cur.wait_event(e.event)
+                    for t in e.inputs.owned:
+                        t.record_stream(cur)
+                return e.inputs
+        self._prefetch_stats["misses"] += 1
+        self.flush_prefetch("stale")
+        return None
+
+    @staticmethod
+    def _sel_match(e: StagedCohort, part) -> bool:
+        if (e.sel_idx is None) != (part is None):
+            return False
+        if part is None:
+            return True
+        return (np.array_equal(e.sel_idx, np.asarray(part.idx))
+                and np.array_equal(e.sel_valid, np.asarray(part.valid))
+                and np.array_equal(e.sel_weights,
+                                   np.asarray(part.weights)))
+
+    def prefetch_snapshot(self) -> Dict:
+        """The ring for ``checkpoint.fleet``: each entry's *derivation*
+        (round, selection triple, seeds, geometry), never its tensors —
+        staging is a pure function of the resident packs, so a restore
+        re-stages it bit for bit."""
+        entries = [{
+            "round_idx": int(e.round_idx),
+            "batch_size": int(e.batch_size),
+            "epochs": int(e.epochs),
+            "seeds": [int(s) for s in e.seeds],
+            "has_eval": bool(e.has_eval),
+            "sel": None if e.sel_idx is None else (
+                np.asarray(e.sel_idx), np.asarray(e.sel_valid),
+                np.asarray(e.sel_weights)),
+        } for e in self._prefetch_ring]
+        return {"depth": int(self._prefetch_depth), "entries": entries,
+                "stats": dict(self._prefetch_stats)}
+
+    def prefetch_restore(self, snap: Dict, datasets,
+                         eval_datasets=None) -> None:
+        """Rebuild the ring from :meth:`prefetch_snapshot` against the
+        (restored) resident packs."""
+        from repro_torch.fl.selection import Selection
+        self.flush_prefetch("restore")
+        self._prefetch_depth = int(snap.get("depth", self._prefetch_depth))
+        for es in snap.get("entries", []):
+            sel = es.get("sel")
+            part = None if sel is None else Selection(
+                np.asarray(sel[0]), np.asarray(sel[1]), np.asarray(sel[2]))
+            self.stage_cohort(
+                es["round_idx"], datasets, batch_size=es["batch_size"],
+                epochs=es["epochs"], seeds=es["seeds"],
+                eval_datasets=eval_datasets if es.get("has_eval") else None,
+                participation=part)
+        if snap.get("stats"):
+            self._prefetch_stats = {k: int(v)
+                                    for k, v in snap["stats"].items()}
 
     # -- one local step of every client ------------------------------------
     def local_state(self, theta0_stacked):
@@ -272,55 +486,99 @@ class BatchedRoundEngine:
         the subset is gathered on the device), streams are padded to the
         fleet-wide step count and a padding slot (``valid`` 0) trains zero
         steps and scores no eval sample; it still rides every launch of a
-        step. The results are per slot."""
-        if prefetch_hook is not None:
-            raise _not_ported("the double-buffered prefetch ring", "A14")
-        dev = self.device
+        step. The results are per slot.
+
+        ``prefetch_hook`` (a no-arg callable) runs once every local step
+        and the eval pass have been issued, before the first host read of
+        the round — the seam where it stages the next cohort
+        (``stage_cohort``) while this one still runs on the card. A
+        matching staged entry in the ring is consumed instead of packing
+        afresh."""
+        if participation is not None and not (
+                len(specs) == len(seeds) == len(participation.idx)):
+            raise ValueError(
+                f"per-slot specs/seeds must match the padded cohort size "
+                f"{len(participation.idx)}, got {len(specs)}/{len(seeds)}")
         masks = self.family.cohort_masks(specs, self.device)
-        x, y = self._cohort_data(datasets)
-        lengths = [len(d["y"]) for d in datasets]
-        steps_pad, gidx = None, None
-        if participation is not None:
-            part = participation
-            if not (len(specs) == len(seeds) == len(part.idx)):
-                raise ValueError(
-                    f"per-slot specs/seeds must match the padded cohort "
-                    f"size {len(part.idx)}, got {len(specs)}/{len(seeds)}")
-            # S is the fleet-wide maximum: it never depends on the subset
-            steps_pad = max(n_stream_steps(n, batch_size, epochs)
-                            for n in lengths)
-            lengths = [lengths[i] if v > 0 else 0
-                       for i, v in zip(part.idx, part.valid)]
-            gidx = torch.as_tensor(np.asarray(part.idx, np.int64),
-                                   device=dev)
-            x, y = x.index_select(0, gidx), y.index_select(0, gidx)
-        idx, sv, stv, n_steps = _pack_streams(
-            lengths, batch_size, epochs=epochs, seeds=seeds,
-            n_steps_pad=steps_pad)
-        idx = torch.as_tensor(idx, device=dev).long()
-        sv = torch.as_tensor(sv, device=dev)
-        rows = torch.arange(len(specs), device=dev)[:, None]
+        inp = self._take_staged(datasets, eval_datasets, participation,
+                                batch_size, epochs, seeds)
+        if inp is None:
+            inp = self._pack_inputs(datasets, participation, batch_size,
+                                    epochs, seeds, eval_datasets)
+        x, y, idx, sv = inp.x, inp.y, inp.idx, inp.sample_valid
+        rows = torch.arange(len(specs), device=self.device)[:, None]
         params, opt_state = self.local_state(theta0_stacked)
-        for t in range(stv.shape[1]):
-            if not stv[:, t].any():          # every client padded: no-op
+        for t in range(inp.step_valid.shape[1]):
+            if not inp.step_valid[:, t].any():   # every client padded
                 continue
-            valid = None if stv[:, t].all() else torch.as_tensor(
-                stv[:, t], device=dev)
             self.local_step(params, opt_state, masks, x[rows, idx[:, t]],
-                            sv[:, t], valid, y[rows, idx[:, t]])
+                            sv[:, t], inp.valid[t], y[rows, idx[:, t]])
         del opt_state
         trained = tree_map(lambda t: t.detach(), params)
         deltas = tree_map(lambda a, b, m: (a - b) * m, theta0_stacked,
                           trained, masks.param_mask)
         accs = None
         if eval_datasets is not None:
-            ex, ey, ev = self._eval_pack(eval_datasets)
+            accs = self._metric_device(trained, masks, inp.ex, inp.ey,
+                                       inp.ev)
+        if prefetch_hook is not None:
+            prefetch_hook()
+        if accs is not None:
+            accs = accs.cpu().numpy()
+        return CohortResult(deltas, trained, masks, inp.n_steps, accs)
+
+    def _pack_inputs(self, datasets, participation, batch_size: int,
+                     epochs: int, seeds, eval_datasets,
+                     pinned: bool = False) -> CohortInputs:
+        """Everything ``train_cohort`` feeds the cohort beyond parameters
+        and masks: the stream pack (host numpy, ``_pack_streams``), a
+        subset's ``index_select`` from the resident packs, the copies of
+        its indices, sample weights and per-step validity columns to the
+        device, and the eval pack's gather. The eager path and
+        ``stage_cohort`` both call it, so a staged hit is bit-identical.
+        ``pinned``: copy from pinned host buffers with
+        ``non_blocking=True`` (the staging side stream's copies)."""
+        dev = self.device
+        owned = []
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            t = t.pin_memory().to(dev, non_blocking=True) if pinned \
+                else t.to(dev)
+            owned.append(t)
+            return t
+
+        x, y = self._cohort_data(datasets)
+        lengths = [len(d["y"]) for d in datasets]
+        steps_pad = gidx = None
+        part = participation
+        if part is not None:
+            # S is the fleet-wide maximum: it never depends on the subset
+            steps_pad = max(n_stream_steps(n, batch_size, epochs)
+                            for n in lengths)
+            lengths = [lengths[i] if v > 0 else 0
+                       for i, v in zip(part.idx, part.valid)]
+            gidx = put(np.asarray(part.idx, np.int64))
+            x, y = x.index_select(0, gidx), y.index_select(0, gidx)
+            owned += [x, y]
+        idx, sv, stv, n_steps = _pack_streams(
+            lengths, batch_size, epochs=epochs, seeds=seeds,
+            n_steps_pad=steps_pad)
+        cols = put(stv.T)                       # (S, G) step validity
+        inp = CohortInputs(
+            x, y, put(idx.astype(np.int64)), put(sv), stv,
+            [None if stv[:, t].all() else cols[t]
+             for t in range(stv.shape[1])], n_steps)
+        if eval_datasets is not None:
+            inp.ex, inp.ey, inp.ev = self._eval_pack(eval_datasets)
             if gidx is not None:
-                ex, ey = ex.index_select(0, gidx), ey.index_select(0, gidx)
-                ev = ev.index_select(0, gidx) * torch.as_tensor(
-                    participation.valid, device=dev)[:, None]
-            accs = self._metric(trained, masks, ex, ey, ev)
-        return CohortResult(deltas, trained, masks, n_steps, accs)
+                inp.ex = inp.ex.index_select(0, gidx)
+                inp.ey = inp.ey.index_select(0, gidx)
+                inp.ev = inp.ev.index_select(0, gidx) * put(
+                    np.asarray(part.valid))[:, None]
+                owned += [inp.ex, inp.ey, inp.ev]
+        inp.owned = tuple(owned)
+        return inp
 
     def run_fl_round(self, params, specs: Sequence,
                      datasets: Sequence[Dict], test_datasets: Sequence[Dict],
@@ -363,10 +621,14 @@ class BatchedRoundEngine:
                             *self._eval_pack(datasets))
 
     def _metric(self, params_stacked, masks: CohortMasks, x, y, valid):
+        return self._metric_device(params_stacked, masks, x, y,
+                                   valid).cpu().numpy()
+
+    def _metric_device(self, params_stacked, masks: CohortMasks, x, y,
+                       valid) -> torch.Tensor:
         with torch.no_grad():
-            accs = self.family.masked_metric(params_stacked, masks.fwd, x, y,
-                                             valid, kernels=self._kernels)
-        return accs.cpu().numpy()
+            return self.family.masked_metric(params_stacked, masks.fwd, x,
+                                             y, valid, kernels=self._kernels)
 
     def _eval_pack(self, datasets: Sequence[Dict]):
         def build(d):
@@ -389,13 +651,15 @@ class BatchedRoundEngine:
         t = torch.as_tensor(x, device=self.device)
         return t.long() if np.issubdtype(x.dtype, np.integer) else t
 
-    @staticmethod
-    def _cached(cache: OrderedDict, datasets, build, bound: int = 4):
+    def _cached(self, cache: OrderedDict, datasets, build, bound: int = 4):
         key = id(datasets)
         hit = cache.get(key)
         if hit is not None and hit[0] is datasets:
             return hit[1]
         val = build(datasets)
+        if self.device.type == "cuda":    # what the staging stream waits on
+            self._packs_ready = torch.cuda.Event()
+            self._packs_ready.record()
         cache[key] = (datasets, val)
         while len(cache) > bound:
             cache.popitem(last=False)

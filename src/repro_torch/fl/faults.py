@@ -177,7 +177,8 @@ def faulty_sync_round(server, specs, sel):
     res = engine.train_cohort(
         theta0, specs_pad, server.client_data, batch_size=fl.batch_size,
         epochs=fl.local_epochs, seeds=seeds,
-        eval_datasets=server.test_data, participation=sel)
+        eval_datasets=server.test_data, participation=sel,
+        prefetch_hook=server._stage_next_round)
     covs = res.masks.param_mask if fl.coverage_norm else None
     deltas = res.deltas
 

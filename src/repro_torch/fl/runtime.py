@@ -43,9 +43,14 @@ async at the sync operating point is the sync round, bit for bit.
 
 Servers stay thin policies over the runtime: they give the cohort specs
 (``cohort_specs``), the seeds (``_client_seed``), the simulated times
-(``_simulated_times``) and the ``post_aggregate`` hook. The runtime's
-checkpoint surface (``state_snapshot`` / ``load_state``) and the prefetch
-ring are not ported yet (ROADMAP A14).
+(``_simulated_times``) and the ``post_aggregate`` hook.
+
+The whole machine is checkpointable: ``state_snapshot()`` /
+``load_state()`` round-trip the event heap, the in-flight groups (deltas
+included, as host numpy) and the retry ladder; ``checkpoint.fleet``
+builds the bit-exact kill-and-resume on them. With the engine's prefetch
+ring on, a dispatch stages the next one (``_stage_next_dispatch``); a
+drain, a deadline miss and a retry flush the ring.
 """
 from __future__ import annotations
 
@@ -57,11 +62,11 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import _to_device, _to_host
 from repro_torch.core.aggregate import (buffer_add, buffer_apply,
                                         cohort_reduce, delta_validity,
                                         staleness_scale)
 from repro_torch.core.fairness import accuracy_fairness, round_time_fairness
-from repro_torch.fl.engine import _not_ported
 from repro_torch.fl.faults import STREAM_ASYNC, inject_deltas, resolve_fault_plan
 from repro_torch.fl.selection import FleetState, Selection, _pad_selection
 
@@ -239,6 +244,8 @@ class FleetRuntime:
         recs: List[Dict] = []
         self._draining = True
         try:
+            # a drain dispatches nothing more: staged cohorts are dead
+            self.engine.flush_prefetch("drain")
             self._flush_backoff()
             for _ in range(max_ticks):
                 if not self.groups:
@@ -258,13 +265,84 @@ class FleetRuntime:
             self._retry_attempts.pop(cid, None)
         self._in_backoff.clear()
 
+    # -- checkpoint surface (checkpoint.fleet) -----------------------------
     def state_snapshot(self) -> Dict:
-        raise _not_ported("the async runtime's checkpoints "
-                          "(state_snapshot)", "A14")
+        """Everything that rebuilds this machine bit for bit in a fresh
+        process: the clock, the event heap, every in-flight group (its
+        deltas pulled to host numpy) and the retry ladder. Host data only:
+        picklable by ``checkpoint.io.save_state``."""
+        groups = {}
+        for gid, g in self.groups.items():
+            groups[int(gid)] = {
+                "version": int(g.version),
+                "dispatch_t": float(g.dispatch_t),
+                "sel": (np.asarray(g.sel.idx), np.asarray(g.sel.valid),
+                        np.asarray(g.sel.weights)),
+                "specs": list(g.specs),
+                "deltas": _to_host(g.deltas),
+                "covs": _to_host(g.covs),
+                "weights": _to_host(g.weights),
+                "accs": np.asarray(g.accs),
+                "n_steps": np.asarray(g.n_steps),
+                "times": np.asarray(g.times),
+                "completed": np.array(g.completed),
+                "consumed": np.array(g.consumed),
+                "complete_t": np.array(g.complete_t),
+                "failed": np.array(g.failed),
+                "deadline_t": float(g.deadline_t),
+            }
+        return {
+            "groups": groups,
+            "clock": float(self.clock),
+            "next_gid": int(self._next_gid),
+            "seq": int(self._seq),
+            "agg_scheduled": bool(self._agg_scheduled),
+            "cohort_slots": self._cohort_slots,
+            "events": [(float(t), int(s), k, tuple(p))
+                       for t, s, k, p in self._events],
+            "retry_attempts": dict(self._retry_attempts),
+            "in_backoff": sorted(self._in_backoff),
+            "dropped_since_agg": int(self._dropped_since_agg),
+            "retried_since_agg": int(self._retried_since_agg),
+        }
 
     def load_state(self, snap: Dict) -> None:
-        raise _not_ported("the async runtime's checkpoints (load_state)",
-                          "A14")
+        """Inverse of :meth:`state_snapshot`: the groups' deltas, masks
+        and weights go back to the engine's device."""
+        dev = self.engine.device
+        self.clock = float(snap["clock"])
+        self._next_gid = int(snap["next_gid"])
+        self._seq = int(snap["seq"])
+        self._agg_scheduled = bool(snap["agg_scheduled"])
+        self._cohort_slots = snap["cohort_slots"]
+        self._events = [(float(t), int(s), k, tuple(p))
+                        for t, s, k, p in snap["events"]]
+        heapq.heapify(self._events)
+        self._retry_attempts = {int(k): int(v)
+                                for k, v in snap["retry_attempts"].items()}
+        self._in_backoff = set(int(c) for c in snap["in_backoff"])
+        self._dropped_since_agg = int(snap["dropped_since_agg"])
+        self._retried_since_agg = int(snap["retried_since_agg"])
+        self.groups = {}
+        for gid, gs in snap.get("groups", {}).items():
+            idx, valid, weights = gs["sel"]
+            self.groups[int(gid)] = InFlightCohort(
+                version=int(gs["version"]),
+                dispatch_t=float(gs["dispatch_t"]),
+                sel=Selection(np.asarray(idx), np.asarray(valid),
+                              np.asarray(weights)),
+                specs=list(gs["specs"]),
+                deltas=_to_device(gs["deltas"], dev),
+                covs=_to_device(gs["covs"], dev),
+                weights=_to_device(gs["weights"], dev),
+                accs=np.asarray(gs["accs"]),
+                n_steps=np.asarray(gs["n_steps"]),
+                times=np.asarray(gs["times"]),
+                completed=np.array(gs["completed"]),
+                consumed=np.array(gs["consumed"]),
+                complete_t=np.array(gs["complete_t"]),
+                failed=np.array(gs["failed"]),
+                deadline_t=float(gs["deadline_t"]))
 
     # -- dispatch ----------------------------------------------------------
     def _select_available(self, round_idx: int,
@@ -290,6 +368,27 @@ class FleetRuntime:
         return _pad_selection([int(avail_ids[i]) for i in local], weights,
                               m_fleet)
 
+    def _stage_next_dispatch(self) -> None:
+        """The prefetch hook of a dispatch: while this dispatch still runs
+        on the card, stage the next one, predicted in the steady state
+        (this cohort consumed by the next aggregate, so round r+1
+        dispatches at full availability with the policy's derivational
+        draw). Under churn — partial availability, deadline misses,
+        retries — the prediction is wrong, the staged entry fails its
+        check by value and the dispatch packs eagerly."""
+        engine = self.engine
+        if not engine.prefetch_enabled or self._draining or \
+                self.tracker.policy.state_dependent:
+            return
+        server = self.server
+        r = server.round_idx + 1
+        sel = self.tracker.select(r)
+        engine.stage_cohort(
+            r, server.client_data, batch_size=server.fl.batch_size,
+            epochs=server.fl.local_epochs,
+            seeds=[server._client_seed(int(i), r) for i in sel.idx],
+            eval_datasets=server.test_data, participation=sel)
+
     def _on_dispatch(self, t: float) -> None:
         if self._draining:
             return              # the post-drain idle guard re-dispatches
@@ -314,7 +413,8 @@ class FleetRuntime:
             theta0, specs_slots, server.client_data,
             batch_size=fl.batch_size, epochs=fl.local_epochs,
             seeds=[server._client_seed(int(i)) for i in sel.idx],
-            eval_datasets=server.test_data, participation=sel)
+            eval_datasets=server.test_data, participation=sel,
+            prefetch_hook=self._stage_next_dispatch)
         covs = res.masks.param_mask if fl.coverage_norm else None
         deltas = res.deltas
         weights = torch.as_tensor(sel.weights, device=dev)
@@ -393,6 +493,9 @@ class FleetRuntime:
         if len(miss) == 0:
             return
         g.failed[miss] = True
+        # misses change availability and fairness debt: a staged cohort
+        # drawn under the old fleet state is stale
+        self.engine.flush_prefetch("deadline")
         for slot in miss:
             self._fail_engagement(int(g.sel.idx[slot]), t)
         self._dropped_since_agg += len(miss)
@@ -427,6 +530,8 @@ class FleetRuntime:
         self._in_backoff.discard(cid)
         self.tracker.clear_pending([cid])
         self._retried_since_agg += 1
+        # a retry restores availability: the staged availability is stale
+        self.engine.flush_prefetch("retry")
 
     # -- aggregate ---------------------------------------------------------
     def _gate(self, g: InFlightCohort, mask: np.ndarray):

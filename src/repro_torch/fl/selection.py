@@ -214,9 +214,14 @@ class SelectionPolicy:
     The device surface: ``scores(arrays, round_idx)`` (K,) unnormalised
     sampling scores as tensor ops over :class:`FleetArrays`, and
     ``select_arrays(arrays, round_idx, generator)`` the cohort drawn by
-    gumbel-top-k (weighted sampling without replacement)."""
+    gumbel-top-k (weighted sampling without replacement).
+
+    ``state_dependent``: whether round r+1's draw depends on what round r
+    records. Only a policy that says False lets the prefetch ring stage
+    the next cohort early (``fl.engine``); an unknown policy says True."""
 
     name = "abstract"
+    state_dependent = True
 
     def __init__(self, fraction: float = 0.5):
         if not (0.0 < fraction <= 1.0):
@@ -266,6 +271,7 @@ class FullParticipation(SelectionPolicy):
     """Every client, every round — the paper's regime and the default."""
 
     name = "full"
+    state_dependent = False     # everyone, every round
 
     def __init__(self, fraction: float = 1.0):
         super().__init__(1.0)
@@ -290,6 +296,7 @@ class UniformSelection(SelectionPolicy):
     """m of K without replacement; weights n_k."""
 
     name = "uniform"
+    state_dependent = False     # a pure function of the round's RNG
 
     def select(self, state: FleetState,
                rng: np.random.RandomState) -> Selection:
@@ -314,6 +321,8 @@ class FairnessSelection(SelectionPolicy):
     mass."""
 
     name = "fairness"
+    # scores read last_accs, debt and misses, which change every round
+    state_dependent = True
     # the device path's one-hot group table is this wide
     N_QUALITY_LEVELS = 8
 
@@ -396,6 +405,9 @@ class LatencySelection(SelectionPolicy):
     when the server gave no predictions."""
 
     name = "latency"
+    # predicted_times is a cached LUT snapshot; it changes only through
+    # invalidate(), which flushes the prefetch ring
+    state_dependent = False
 
     def __init__(self, fraction: float = 0.5, deadline_q: float = 0.75):
         super().__init__(fraction)
@@ -487,8 +499,9 @@ class FleetTracker:
     the device path with it raises). ``device_select``: None picks the
     device path for fleets of at least ``DEVICE_SELECT_THRESHOLD``.
     ``predicted_times_fn`` runs once, lazily, the first time a policy asks
-    for predictions; ``invalidate()`` (called by ``set_policy``) drops
-    that cache."""
+    for predictions; ``invalidate()`` (called by ``set_policy`` and
+    ``set_fleet``) drops that cache and fires the hooks registered with
+    ``add_invalidate_hook`` (the servers' prefetch-ring flush)."""
 
     def __init__(self, clients: List[ClientInfo],
                  selection: Union[None, str, SelectionPolicy] = None, *,
@@ -508,6 +521,11 @@ class FleetTracker:
         self._predicted_times_fn = predicted_times_fn
         self._predicted_times: Optional[np.ndarray] = None
         self.arrays = FleetArrays.from_clients(clients)
+        self._invalidate_hooks: List = []
+
+    def add_invalidate_hook(self, fn) -> None:
+        """Register a no-arg callable that :meth:`invalidate` fires."""
+        self._invalidate_hooks.append(fn)
 
     # -- numpy views (read-only) ----------------------------------------
     @property
@@ -522,10 +540,19 @@ class FleetTracker:
         self.policy = resolve_policy(selection)
         self.invalidate()
 
+    def set_fleet(self, clients: List[ClientInfo]):
+        """Replace the fleet (elastic membership): rebuilds the arrays and
+        drops the stale latency predictions."""
+        self.clients = clients
+        self.arrays = FleetArrays.from_clients(clients)
+        self.invalidate()
+
     def invalidate(self):
-        """Drop the cached round-time predictions (stale after a LUT or
-        policy change)."""
+        """Drop the cached round-time predictions (stale after a LUT,
+        policy or fleet change) and fire the invalidate hooks."""
         self._predicted_times = None
+        for fn in self._invalidate_hooks:
+            fn()
 
     @property
     def is_full(self) -> bool:

@@ -27,12 +27,18 @@ step (``fl.faults.faulty_sync_round``); ``mode="async"`` drives buffered
 rounds through the event-driven runtime (``fl.runtime.FleetRuntime``).
 Both need the batched engine, as in the reference.
 
+``overlap`` turns on the batched engine's prefetch ring: while round r
+runs on the card, ``_stage_next_round`` stages round r+1's cohort, drawn
+from the derivational selection RNG, for the state-independent policies
+("full", "uniform", "latency"); a policy, fleet or mode change flushes
+it. ``checkpoint_every`` is ``CFLSession``'s autosave
+(``checkpoint.fleet``).
+
 ``CFLConfig`` keeps every field of the reference's. What is not ported
-yet raises, naming its ROADMAP item: ``overlap`` and ``checkpoint_every``
-(A14), ``cohort_shards > 1`` (A17). ``elastic_kernels`` keeps its
-meaning: False is the dense masked path; True / "auto" / "cuda" the hand
-kernels (the batched engine's; the sequential trainer runs the plain
-forward).
+yet raises, naming its ROADMAP item: ``cohort_shards > 1`` (A17).
+``elastic_kernels`` keeps its meaning: False is the dense masked path;
+True / "auto" / "cuda" the hand kernels (the batched engine's; the
+sequential trainer runs the plain forward).
 
 ``SyncServer`` holds what this server and the FedAvg baseline
 (``fl.baselines``) share.
@@ -112,11 +118,6 @@ def check_supported(fl: CFLConfig) -> None:
     if fl.mode not in ("sync", "async"):
         raise ValueError(f"mode must be 'sync' or 'async', "
                          f"got {fl.mode!r}")
-    if fl.overlap:
-        raise _not_ported("the double-buffered prefetch ring (overlap=)",
-                          "A14")
-    if fl.checkpoint_every:
-        raise _not_ported("fleet checkpoints (checkpoint_every=)", "A14")
     if int(fl.cohort_shards) != 1:
         raise _not_ported("cohort sharding over several cards", "A17")
     engine_backend(fl.elastic_kernels)
@@ -172,12 +173,20 @@ class SyncServer:
         self._runtime = None            # built on the first async round
         self.engine, self._seq = round_engines(self.family, fl_cfg,
                                                self.device)
+        if self.engine is not None:
+            # a cohort staged under an old policy or fleet must never be
+            # consumed: any tracker invalidation flushes the ring
+            self.tracker.add_invalidate_hook(
+                lambda: self.engine.flush_prefetch("fleet-invalidate"))
+            if fl_cfg.overlap:
+                self.engine.enable_prefetch(fl_cfg.prefetch_depth)
 
     # ------------------------------------------------------------------
     def set_selection(self, selection) -> None:
         """Swap the client-selection policy ('full' | 'uniform' |
         'fairness' | 'latency' or a SelectionPolicy) for the rounds that
-        follow."""
+        follow; the tracker's invalidate hook flushes the prefetch
+        ring."""
         self.tracker.set_policy(selection)
 
     def set_mode(self, mode: str) -> None:
@@ -185,17 +194,29 @@ class SyncServer:
         (barrier rounds) | 'async' (buffered rounds, ``fl.runtime``).
         Switching to sync with deltas in flight drains the runtime first:
         the remaining completions are aggregated (each a server step,
-        recorded in ``history``)."""
+        recorded in ``history``). The prefetch ring is flushed either way:
+        the two modes predict different next cohorts."""
         if mode not in ("sync", "async"):
             raise ValueError(f"mode must be 'sync' or 'async', "
                              f"got {mode!r}")
         if mode == "sync" and self._runtime is not None:
             self._runtime.drain()
+        if self.engine is not None:
+            self.engine.flush_prefetch("set_mode")
         self.fl.mode = mode
 
     def set_overlap(self, overlap: bool) -> None:
-        if overlap:
-            raise _not_ported("the double-buffered prefetch ring", "A14")
+        """Turn the prefetch ring on (``CFLConfig.prefetch_depth`` deep)
+        or off for the rounds that follow; off flushes it. The results
+        are the same either way."""
+        if self.engine is None:
+            if overlap:
+                raise ValueError("overlap requires the batched engine "
+                                 "(batched_rounds=True)")
+            return
+        self.fl.overlap = bool(overlap)
+        self.engine.enable_prefetch(self.fl.prefetch_depth if overlap
+                                    else 0)
 
     @property
     def runtime(self):
@@ -213,8 +234,28 @@ class SyncServer:
             self.family, self.clients, self.latency,
             batch_size=self.fl.batch_size, epochs=self.fl.local_epochs)
 
-    def _client_seed(self, k: int) -> int:
-        return self.fl.seed * 7 + self.round_idx * 131 + k
+    def _client_seed(self, k: int, round_idx: Optional[int] = None) -> int:
+        r = self.round_idx if round_idx is None else int(round_idx)
+        return self.fl.seed * 7 + r * 131 + k
+
+    def _stage_next_round(self) -> None:
+        """The prefetch hook of a sync round: draw round r+1's cohort from
+        the derivational selection RNG (side-effect free for any round)
+        and stage it while round r still runs on the card — the very
+        ``train_cohort`` call ``_train_round`` (or the faulty round) will
+        make. Only for policies that are not ``state_dependent``; the
+        entry is checked by value when consumed either way."""
+        engine = self.engine
+        if engine is None or not engine.prefetch_enabled or \
+                self.tracker.policy.state_dependent:
+            return
+        r = self.round_idx + 1
+        sel = self.tracker.select(r)
+        engine.stage_cohort(
+            r, self.client_data, batch_size=self.fl.batch_size,
+            epochs=self.fl.local_epochs,
+            seeds=[self._client_seed(int(i), r) for i in sel.idx],
+            eval_datasets=self.test_data, participation=sel)
 
     def _simulated_times(self, specs, n_steps,
                          client_ids: Sequence[int]) -> List[float]:
@@ -303,7 +344,8 @@ class SyncServer:
             self.params, accs_pad, n_steps_pad = self.engine.run_fl_round(
                 self.params, specs_pad, self.client_data, self.test_data,
                 None, seeds=[self._client_seed(int(i)) for i in sel.idx],
-                participation=sel, **kw)
+                participation=sel, prefetch_hook=self._stage_next_round,
+                **kw)
             accs = sel.take_valid(accs_pad)
             n_steps = [int(n) for n in sel.take_valid(n_steps_pad)]
         else:

@@ -19,11 +19,19 @@ budget and fleet, so every Table II experiment is the same three lines.
 IL is single-shot: one ``run(rounds)`` trains every client's local budget
 and records one history entry.
 
+Fault tolerance: ``save_checkpoint`` / ``restore_checkpoint`` (and
+``CFLConfig.checkpoint_every``'s autosave into ``checkpoint_dir``) write
+and load a fleet checkpoint (``checkpoint.fleet``) from which a fresh,
+same-config session resumes bit for bit. ``run(overlap=True)`` turns the
+engine's prefetch ring on. ``serving()`` hands the trained parent to the
+elastic serving subsystem (``serving.EdgeServer``).
+
 It runs on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional
 
 from repro_torch.core.elastic import family_for
@@ -127,12 +135,15 @@ class CFLSession:
         ``selection`` ('full' | 'uniform' | 'fairness' | 'latency' or a
         ``fl.selection.SelectionPolicy``) and ``mode`` ('sync' | 'async')
         set the policy and the scheduling for these and later rounds;
-        ``overlap`` (the prefetch ring, ROADMAP A14) raises when on.
+        ``overlap`` turns the engine's prefetch ring on or off (a host
+        pipelining knob: the results are the same either way). With
+        ``CFLConfig.checkpoint_every`` N, every N-th applied server step
+        writes ``checkpoint_dir/round_NNNNNN.ckpt``.
 
         IL runs the same local budget with no aggregation, recorded as one
         history entry (``round``, ``accs``, ``fairness``); it rejects a
-        non-full selection, a non-sync mode and overlap, and a second
-        ``run``."""
+        non-full selection, a non-sync mode, overlap, checkpoints and a
+        second ``run``."""
         if self.algorithm == "il":
             return self._run_il(rounds, selection, mode, overlap)
         if mode is not None:
@@ -141,8 +152,11 @@ class CFLSession:
             self.server.set_selection(selection)
         if overlap is not None:
             self.server.set_overlap(overlap)
+        every = self.fl.checkpoint_every
         for _ in range(rounds):
             self.server.run_round()
+            if every and self.server.round_idx % every == 0:
+                self.save_checkpoint(self._checkpoint_path())
         return self.history
 
     def _run_il(self, rounds: int, selection, mode, overlap) -> List[Dict]:
@@ -154,6 +168,9 @@ class CFLSession:
         if overlap is not None:
             raise ValueError("IL has no round pipeline to overlap — overlap "
                              "only applies to cfl/fedavg")
+        if self.fl.checkpoint_every:
+            raise ValueError("IL is single-shot — there is no round "
+                             "boundary to checkpoint at")
         if self._il_history:
             # IL trains each client from the initial parent for the whole
             # budget in one shot: a second run would restart from scratch
@@ -169,6 +186,35 @@ class CFLSession:
         self._il_history.append({"round": 0, "accs": accs,
                                  "fairness": accuracy_fairness(accs)})
         return self.history
+
+    # -- fault tolerance: round-granular checkpoint / resume --------------
+    def _checkpoint_path(self) -> str:
+        return os.path.join(self.fl.checkpoint_dir,
+                            f"round_{self.server.round_idx:06d}.ckpt")
+
+    def save_checkpoint(self, path: Optional[str] = None) -> str:
+        """Snapshot the fleet's whole state (parameters, round counter,
+        history, fleet columns, predictor, the async runtime's event heap,
+        in-flight groups and retry ladder, the prefetch ring's derivation)
+        so that a killed process resumes bit for bit. Returns the path
+        written (default ``checkpoint_dir/round_NNNNNN.ckpt``)."""
+        if self.server is None:
+            raise RuntimeError("IL keeps no resumable fleet state")
+        from repro_torch.checkpoint.fleet import save_fleet_checkpoint
+        path = path if path is not None else self._checkpoint_path()
+        save_fleet_checkpoint(path, self.server,
+                              metadata={"algorithm": self.algorithm})
+        return path
+
+    def restore_checkpoint(self, path: str) -> Dict:
+        """Load a checkpoint of :meth:`save_checkpoint` into this freshly
+        built, same-config session and continue from its round. Returns
+        the restore's info dict: ``resharded`` True flags the degraded
+        reshard-and-rewind path (in-flight work dropped)."""
+        if self.server is None:
+            raise RuntimeError("IL keeps no resumable fleet state")
+        from repro_torch.checkpoint.fleet import restore_fleet_checkpoint
+        return restore_fleet_checkpoint(path, self.server)
 
     @property
     def history(self) -> List[Dict]:
@@ -193,3 +239,14 @@ class CFLSession:
 
     def global_accuracy(self, data: Dict) -> float:
         return self.family.evaluate(self.params, data)
+
+    def serving(self, **kwargs):
+        """Hand the trained parent to the elastic serving subsystem: a
+        ``serving.EdgeServer`` over this session's family and aggregated
+        parameters, on the session's device unless ``device=`` says
+        otherwise (the other keywords — ``slots``, ``prompt_len``,
+        ``max_new_tokens``, ``backend``, ... — go to it as they are).
+        Token-decode families only."""
+        from repro_torch.serving.server import EdgeServer
+        kwargs.setdefault("device", self.device)
+        return EdgeServer(self.family, self.params, **kwargs)

@@ -3,7 +3,9 @@
 Batches requests through the multi-tenant :class:`EdgeServer` (fused
 one-shot prefill + masked parent-space decode). ``--elastic`` gives each
 request a random submodel spec; ``--full`` serves the architecture at its
-published width and depth. Runs on the card unless ``--device cpu``.
+published width and depth; ``--check-prefill`` asserts that the fused
+prefill matches the token-by-token decode path within 1e-5. Runs on the
+card unless ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
       --batch 4 --prompt-len 32 --gen 8 --full --elastic --backend auto
@@ -29,14 +31,47 @@ import torch
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.core.elastic import family_for
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.serving.batcher import Request
 from repro_torch.serving.server import EdgeServer
+
+
+def check_prefill_parity(params, cfg, tokens, max_len: int,
+                         tol: float = 1e-5) -> float:
+    """Assert that the fused one-shot prefill of ``tokens`` (B, S) leaves
+    the same decode caches (and last-position logits) as stepping the
+    prompt token by token through ``decode_step``, within ``tol``; returns
+    the largest difference. The dense path, on the parameters' device,
+    with fp32 caches (fp64 for an fp64 parent)."""
+    cache_dtype = torch.promote_types(params["embed"]["table"].dtype,
+                                      torch.float32)
+    with torch.no_grad():
+        logits_f, caches_f = T.prefill(params, cfg, tokens, max_len,
+                                       cache_dtype=cache_dtype)
+        caches_s = T.init_decode_caches(cfg, tokens.shape[0], max_len,
+                                        cache_dtype, tokens.device)
+        logits_s = None
+        for i in range(tokens.shape[1]):
+            pos = torch.full((tokens.shape[0],), i, dtype=torch.long,
+                             device=tokens.device)
+            logits_s, caches_s = T.decode_step(params, cfg, caches_s,
+                                               tokens[:, i:i + 1], pos)
+        diffs = [float((a.float() - b.float()).abs().max())
+                 for a, b in zip(tree_leaves(caches_f),
+                                 tree_leaves(caches_s))]
+        diffs.append(float((logits_f - logits_s).abs().max()))
+    worst = max(diffs)
+    if worst > tol:
+        raise AssertionError(
+            f"fused prefill diverges from stepwise decode: {worst:.2e}")
+    return worst
 
 
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
           use_reduced: bool = True, n_layers: int = 4, d_model: int = 256,
           seed: int = 0, temperature: float = 0.0, elastic: bool = False,
-          backend: str = None, device=None):
+          check_prefill: bool = False, backend: str = None, device=None):
     dev = resolve_device(device)
     cfg = get_config(arch)
     if cfg.encoder_only:
@@ -48,6 +83,11 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
     params = family.init_params(seed=seed, device=dev)
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (batch, prompt_len))
+    if check_prefill:
+        worst = check_prefill_parity(
+            params, cfg, torch.as_tensor(prompts, device=dev),
+            prompt_len + gen)
+        print(f"fused-prefill parity: max|Δ| = {worst:.2e} (≤ 1e-5)")
     rng = random.Random(seed)
     specs = [family.random_spec(rng) if elastic else None
              for _ in range(batch)]
@@ -92,6 +132,8 @@ def main():
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--elastic", action="store_true",
                     help="serve a random submodel spec per request")
+    ap.add_argument("--check-prefill", action="store_true",
+                    help="assert fused prefill == stepwise decode (≤1e-5)")
     ap.add_argument("--backend", default=None,
                     help="'auto'/'cuda' for the hand-written kernels; "
                          "omit for the dense masked path")
@@ -101,7 +143,8 @@ def main():
     serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
           gen=args.gen, use_reduced=not args.full, n_layers=args.layers,
           d_model=args.d_model, temperature=args.temperature,
-          elastic=args.elastic, backend=args.backend, device=args.device)
+          elastic=args.elastic, check_prefill=args.check_prefill,
+          backend=args.backend, device=args.device)
 
 
 if __name__ == "__main__":

@@ -95,8 +95,16 @@ def init_params(cfg: CNNConfig, seed: int = 0, device=None) -> Dict:
     """Torch-seeded parent parameters, the reference's tree (``gate``
     leaves included) and scales — N(0, 1/fan_in) weights, zero biases —
     from other random numbers; on ``device`` (the card unless the caller
-    asks for the CPU)."""
+    asks for the CPU). On ``device="meta"`` it makes the tree's shapes
+    and dtypes only (a restore template)."""
     dev = resolve_device(device)
+    if dev.type == "meta":          # the draws' factories make meta tensors
+        with torch.device(dev):
+            return _draw_params(cfg, seed)
+    return tree_map(lambda t: t.to(dev), _draw_params(cfg, seed))
+
+
+def _draw_params(cfg: CNNConfig, seed: int) -> Dict:
     gen = torch.Generator().manual_seed(int(seed))
     p: Dict = {"stem": _conv_init(gen, 3, 3, cfg.in_channels,
                                   cfg.stem_channels)}
@@ -115,7 +123,7 @@ def init_params(cfg: CNNConfig, seed: int = 0, device=None) -> Dict:
         cin = cout
     p["stages"] = stages
     p["head"] = _dense_init(gen, cin, cfg.n_classes)
-    return tree_map(lambda t: t.to(dev), p)
+    return p
 
 
 def _conv(p, x, stride=1):

@@ -211,9 +211,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     scales), drawn from a ``torch.Generator`` on ``device`` (the card
     unless the caller asks for the CPU). Not held bit-equal to
     ``jax.random``; parity tests bridge the reference's own params instead
-    (``checkpoint.bridge``)."""
+    (``checkpoint.bridge``). On ``device="meta"`` it makes the tree's
+    shapes and dtypes only (a restore template)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # a meta tensor takes its (unused) draws from a CPU generator
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(seed)
 
     def leaf(shape, init):
         if init == "zeros":

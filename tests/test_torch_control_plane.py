@@ -267,20 +267,17 @@ def test_unported_paths_raise():
         with pytest.raises(ValueError, match="'dense', 'cuda'"):
             CFLSession.from_synthetic(
                 CFG, fl_cfg=CFLConfig(n_workers=2, elastic_kernels=ek), **kw)
-    for field, value, item in (("overlap", True, "A14"),
-                               ("checkpoint_every", 1, "A14"),
-                               ("cohort_shards", 2, "A17")):
-        for algorithm in ("cfl", "fedavg"):
-            with pytest.raises(NotImplementedError,
-                               match=f"ROADMAP {item}"):
-                CFLSession.from_synthetic(
-                    CFG, fl_cfg=CFLConfig(n_workers=2, **{field: value}),
-                    algorithm=algorithm, **kw)
+    for algorithm in ("cfl", "fedavg"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+            CFLSession.from_synthetic(
+                CFG, fl_cfg=CFLConfig(n_workers=2, cohort_shards=2),
+                algorithm=algorithm, **kw)
     # selection, async rounds and faults (once raising, naming ROADMAP
-    # A12 / A13) now build; async and faults need the batched engine, as
-    # in the reference
+    # A12 / A13), the overlap ring and checkpoints (A14) now build; async
+    # and faults need the batched engine, as in the reference
     for field, value in (("mode", "async"), ("faults", "drop=0.2"),
-                         ("selection", "uniform")):
+                         ("selection", "uniform"), ("overlap", True),
+                         ("checkpoint_every", 1)):
         for algorithm in ("cfl", "fedavg"):
             CFLSession.from_synthetic(
                 CFG, fl_cfg=CFLConfig(n_workers=2, **{field: value}),
@@ -292,20 +289,17 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="mode must be"):
         seq.run(1, mode="eventual")
     sess = CFLSession.from_synthetic(CFG, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        sess.run(1, overlap=True)
+    sess.run(0, overlap=True)              # the ring (once ROADMAP A14)
+    assert sess.server.engine.prefetch_enabled
     with pytest.raises(ValueError, match="unknown selection policy"):
         sess.run(1, selection="fastest")
     with pytest.raises(RuntimeError, match="no rounds"):
         sess.fairness()
-    # FedAvg's overlap and the runtime's checkpoints
+    # FedAvg's overlap and the runtime's checkpoints (once ROADMAP A14)
     fedavg = CFLSession.from_synthetic(CFG, algorithm="fedavg", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        fedavg.server.runtime.state_snapshot()
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        fedavg.server.runtime.load_state({})
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        fedavg.run(1, overlap=True)
+    assert fedavg.server.runtime.state_snapshot()["groups"] == {}
+    fedavg.run(0, overlap=True)
+    assert fedavg.server.engine.prefetch_enabled
 
     class Half(selection.SelectionPolicy):
         name = "half"

@@ -134,6 +134,10 @@ def _port_files():
 def test_port_imports_neither_jax_nor_reference():
     files = list(_port_files())
     assert len(files) > 15
+    names = {os.path.relpath(p, ROOT) for p in files}
+    for new in ("checkpoint/fleet.py", "serving/export.py",
+                "serving/distill.py"):
+        assert os.path.join("src", "repro_torch", new) in names
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -159,6 +163,9 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.fl.session, repro_torch.fl.rounds\n"
             "import repro_torch.kernels.elastic_conv, repro_torch.models.cnn\n"
             "import repro_torch.fl, repro_torch.fl.baselines\n"
+            "import repro_torch.checkpoint, repro_torch.checkpoint.fleet\n"
+            "import repro_torch.serving.export, repro_torch.serving.distill\n"
+            "import repro_torch.fl.runtime, repro_torch.fl.faults\n"
             "import chip_smoke, relu_replay\n"
             "print('ok')\n")
     env = dict(os.environ)

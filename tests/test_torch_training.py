@@ -334,11 +334,14 @@ def test_engine_raises_on_unported_paths():
     with pytest.raises(ValueError, match="padded cohort size 3"):
         eng.run_fl_round(p, SPECS, train, test, sizes, participation=sel,
                          **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        eng.run_fl_round(p, SPECS, train, test, sizes,
-                         prefetch_hook=lambda: None, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        eng.enable_prefetch(1)
+    # the prefetch ring (once raising, naming ROADMAP A14) runs: the hook
+    # is called once a round, and the ring turns on
+    calls = []
+    eng.run_fl_round(p, SPECS, train, test, sizes,
+                     prefetch_hook=lambda: calls.append(1), **kw)
+    assert calls == [1]
+    eng.enable_prefetch(1)
+    assert eng.prefetch_enabled
     with pytest.raises(NotImplementedError, match="ROADMAP A17"):
         engine.BatchedRoundEngine(cfg, lr=0.5, momentum=0.9,
                                   cohort_shards=2, device="cpu")
