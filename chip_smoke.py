@@ -236,6 +236,13 @@ printing its own lines; any failed phase exits non-zero:
    3×TF32 bounds. K6 (copy, scaled gather, gather-dot) and K7 at
    deepseek-v2-lite-16b's top 6 of 64 experts, d 2048, and K8 / K9 at
    zamba2-1.2b's SSD (d_state 64), each held and timed.
+3f. (run after 3e) K2, K3 and K4 at head_dim 80 (hubert-xlarge): its
+   training attention (4 × 512 frames, 16 heads, non-causal) with all
+   heads and head prefixes 16 / 8, rows that are not tile multiples
+   (non-causal; causal GQA; window and softcap), K3 / K4 in both variants
+   twice each and bit-equal, an offset view, each held to K2_TOL /
+   K34_TOL; then timed at the training shape as phase 6 times them (3×TF32
+   and fp32 bounds, plain, SDPA and its all-grads backward, non-causal).
 
 17. the zoo's last three decoder parents end to end: ``EdgeServer`` as
    phase 5 on gemma2-9b (all 42 layers, 37.0 GB fp32), zamba2-1.2b (all
@@ -263,12 +270,31 @@ printing its own lines; any failed phase exits non-zero:
    flight, restored, run to 4: bit-equal. 18c: a granite-3-8b CFL round at
    phase 15's settings, then ``session.serving()`` on the kernels against
    the dense path (greedy tokens equal, logits within
-   ``SLICE_LOGIT_RTOL``), ``export_submodel`` → ``load_submodel`` of each
-   client's spec bit-equal to ``extract``, ``distill_to_spec`` 5 steps with
+   ``SLICE_LOGIT_RTOL``), ``export_submodel`` → ``load_submodel`` of the
+   last client's spec bit-equal to ``extract``, ``distill_to_spec`` 5 steps with
    the kernel teacher against the dense one (KL within ``DISTILL_RTOL``,
    K1 / K2 a teacher forward a step) and the fused prefill against the
    stepwise decode within 1e-5 (absolute on the fp64 parent, relative to
    the largest value on the fp32 one).
+
+19. the CNN's RL gates and the zoo's LM training (``phase_lm``): 19a,
+   ``train_gates`` on ``PAPER_CNN`` at full width and depth as
+   ``benchmarks/fig7_gates.py`` runs the reference's (50 soft steps at
+   quality 3, 80 sampled steps on the mixed-quality set, batch 64, lr
+   2e-3, penalty 0.15), a soft and a sampled step held card against CPU
+   (the CPU replaying the card's ReLU decisions), the hard gates' compute
+   share and gated / ungated accuracy at qualities 3 / 0 / 4 on 256
+   images, ``gate_depth_policy``, the hard decisions identical card vs
+   CPU. 19b: ``make_train_step`` on qwen3-4b and gemma-7b at published
+   width, 2 layers, 3 steps of ``synthetic_lm_batches(cfg, 4, 256)``,
+   adamw 3e-4 with weight decay 0.01, kernel path against dense path in
+   fp32 (losses, step-1 gradients), remat on against off, microbatch 2
+   against 1, a bf16 dense step, K1–K4 launches as
+   ``lm_design_launches`` says. 19c: llava-next-mistral-7b (2 layers, one
+   4096-position sequence of 2880 image embeddings and 1216 tokens) and
+   hubert-xlarge (2 layers, 4 × 512 frames, head_dim 80): ``loss_fn``
+   and its gradients kernel vs dense, one train step, llava's
+   ``make_prefill_step`` logits kernel vs dense.
 
 The last lines are a ``kernels:`` line, the slices' stats, the card line,
 one JSON object with every kernel's launches and times, and the result
@@ -1576,10 +1602,12 @@ def turns_ms(device, fns, iters, rounds=7):
     return {n: _spread(ts) for n, ts in times.items()}
 
 
-def flash_times(device, B, S, H, KV, D, gen, iters=5, rounds=7):
+def flash_times(device, B, S, H, KV, D, gen, iters=5, rounds=7,
+                causal=True):
     """Kernel / plain / library ms and the bound of K2, K3 and K4 at one
-    causal training shape (full head prefixes): {kernel: [row]}, with a
-    ``flash_attention_bwd`` row for the backward pair. K3, K4 and SDPA's
+    training shape, causal unless ``causal`` is False (full head
+    prefixes): {kernel: [row]}, with a ``flash_attention_bwd`` row for the
+    backward pair. K3, K4 and SDPA's
     all-grads backward are timed in turns: ``rounds`` rounds, each timing
     (``iters`` calls, one warm-up) back to back in this order the pair as
     ``_Flash.backward`` runs it (delta, K3, K4), K3 and K4 in the mma
@@ -1596,7 +1624,8 @@ def flash_times(device, B, S, H, KV, D, gen, iters=5, rounds=7):
     rows_out = {}
     q, k, v, _ = _k2_inputs(B, S, H, KV, D, None, device, gen)
     do = torch.randn(q.shape, generator=gen, device=device)
-    o, lse = flash_attention(q, k, v)
+    kw = dict(causal=causal)
+    o, lse = flash_attention(q, k, v, **kw)
     delta = torch.einsum("bshd,bshd->bhs", do, o).contiguous()
     Gq = H // KV
     qt = q.transpose(1, 2).contiguous().requires_grad_(True)
@@ -1605,40 +1634,42 @@ def flash_times(device, B, S, H, KV, D, gen, iters=5, rounds=7):
     vt = v.repeat_interleave(Gq, dim=2).transpose(1, 2).contiguous() \
         .requires_grad_(True)
     dot = do.transpose(1, 2).contiguous()
-    backend = sdpa_backend(qt, kt, vt)
+    backend = sdpa_backend(qt, kt, vt, causal)
     if backend is None:
         ot_pin, backend_name = None, "unknown (default dispatch)"
     else:
         from torch.nn.attention import sdpa_kernel
         with sdpa_kernel([backend]):
             ot_pin = F.scaled_dot_product_attention(qt, kt, vt,
-                                                    is_causal=True)
+                                                    is_causal=causal)
         backend_name = backend.name
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     ot_pin = ot if ot_pin is None else ot_pin
-    shape = f"q({B},{S},{H},{D}) kv({B},{S},{KV},{D}) causal"
-    pairs = attn_pairs(B, S, H)
+    shape = f"q({B},{S},{H},{D}) kv({B},{S},{KV},{D}) " + \
+        ("causal" if causal else "non-causal")
+    pairs = attn_pairs(B, S, H, causal)
     qbytes, kvbytes, rbytes = 4.0 * B * S * H * D, 4.0 * B * S * KV * D, \
         4.0 * B * H * S
     fwd = dict(shape=shape,
-               ms=cuda_ms(lambda: flash_attention(q, k, v), device, iters),
-               plain_ms=cuda_ms(lambda: flash_attention_fwd_plain(q, k, v),
-                                device, iters),
+               ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), device,
+                          iters),
+               plain_ms=cuda_ms(lambda: flash_attention_fwd_plain(
+                   q, k, v, **kw), device, iters),
                library_ms=cuda_ms(
                    lambda: F.scaled_dot_product_attention(
                        qt.detach(), kt.detach(), vt.detach(),
-                       is_causal=True), device, iters))
+                       is_causal=causal), device, iters))
     fwd["bound_ms"], fwd["bound_by"] = bound(
         2 * qbytes + 2 * kvbytes + rbytes, 4.0 * D * pairs)
     add_tc_bound(fwd, 2 * qbytes + 2 * kvbytes + rbytes, 4.0 * D * pairs)
     rows_out["flash_attention"] = [fwd]
     args = (q, k, v, do, lse, delta)
     fns = {
-        "pair": lambda: flash_attention_bwd(q, k, v, o, lse, do),
-        "dq mma": lambda: flash_attention_dq(*args, variant="mma"),
-        "dkv mma": lambda: flash_attention_dkv(*args, variant="mma"),
-        "dq simt": lambda: flash_attention_dq(*args, variant="simt"),
-        "dkv simt": lambda: flash_attention_dkv(*args, variant="simt"),
+        "pair": lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+        "dq mma": lambda: flash_attention_dq(*args, variant="mma", **kw),
+        "dkv mma": lambda: flash_attention_dkv(*args, variant="mma", **kw),
+        "dq simt": lambda: flash_attention_dq(*args, variant="simt", **kw),
+        "dkv simt": lambda: flash_attention_dkv(*args, variant="simt", **kw),
         f"sdpa {backend_name}": lambda: torch.autograd.grad(
             ot_pin, (qt, kt, vt), dot, retain_graph=True),
         "sdpa unpinned": lambda: torch.autograd.grad(
@@ -1662,29 +1693,30 @@ def flash_times(device, B, S, H, KV, D, gen, iters=5, rounds=7):
     rows_out["flash_attention_dq"] = row(
         turns["dq mma"]["median"], 3 * qbytes + 2 * kvbytes + 2 * rbytes,
         6.0 * D * pairs, simt_ms=turns["dq simt"]["median"],
-        plain_ms=cuda_ms(lambda: flash_attention_dq_plain(*args), device,
-                         iters))
+        plain_ms=cuda_ms(lambda: flash_attention_dq_plain(*args, **kw),
+                         device, iters))
     rows_out["flash_attention_dkv"] = row(
         turns["dkv mma"]["median"], 2 * qbytes + 4 * kvbytes + 2 * rbytes,
         8.0 * D * pairs, simt_ms=turns["dkv simt"]["median"],
-        plain_ms=cuda_ms(lambda: flash_attention_dkv_plain(*args), device,
-                         iters))
+        plain_ms=cuda_ms(lambda: flash_attention_dkv_plain(*args, **kw),
+                         device, iters))
     rows_out["flash_attention_bwd"] = row(
         turns["pair"]["median"], 4 * qbytes + 4 * kvbytes + rbytes,
         10.0 * D * pairs, shape=f"{shape} K3 + K4 pair with delta",
-        plain_ms=cuda_ms(lambda: (flash_attention_dq_plain(*args),
-                                  flash_attention_dkv_plain(*args)),
+        plain_ms=cuda_ms(lambda: (flash_attention_dq_plain(*args, **kw),
+                                  flash_attention_dkv_plain(*args, **kw)),
                          device, iters))
     return rows_out
 
 
-def sdpa_backend(q, k, v):
+def sdpa_backend(q, k, v, causal=True):
     """The backend PyTorch's default dispatch picks for SDPA on these
-    inputs (causal), or None where this PyTorch does not say."""
+    inputs, or None where this PyTorch does not say."""
     import torch
     try:
         from torch.nn.attention import SDPBackend
-        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True))
+        return SDPBackend(torch._fused_sdp_choice(q, k, v,
+                                                  is_causal=causal))
     except (AttributeError, ImportError, RuntimeError, ValueError):
         return None
 
@@ -4993,11 +5025,65 @@ def phase_a11_kernels(device, g2, g7, ds, zb, iters=5):
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: K2–K4 at head_dim 80 (hubert-xlarge)
+# ---------------------------------------------------------------------------
+D80_ROWS, D80_SEQ, D80_HEADS = 4, 512, (16, 8)   # 4 × 512 frames (19c)
+
+
+def d80_cases(hb):
+    """(label, B, S, H, KV, D, h_active, causal, window, cap) of K2–K4 at
+    head_dim 80: hubert-xlarge's training attention (MHA 16 / 16, non-
+    causal) with all heads and with head prefixes 16 and 8, then rows that
+    are not tile multiples (non-causal, causal GQA, window and softcap) and
+    a short non-causal sequence."""
+    B, S, H, D = D80_ROWS, D80_SEQ, hb.n_heads, hb.head_dim
+    has = [D80_HEADS[b * len(D80_HEADS) // B] for b in range(B)]
+    return [("hubert train", B, S, H, hb.n_kv_heads, D, None, False, None,
+             None),
+            ("hubert heads 16 / 8", B, S, H, hb.n_kv_heads, D, has, False,
+             None, None),
+            ("S 77 non-causal", 2, 77, H, hb.n_kv_heads, D, [H, 5], False,
+             None, None),
+            ("S 130 causal GQA", 2, 130, 8, 2, D, [8, 3], True, None, None),
+            ("S 65 window + softcap", 2, 65, 4, 2, D, [4, 1], True, 17,
+             30.0),
+            ("S 33 non-causal", 1, 33, H, hb.n_kv_heads, D, [H], False,
+             None, None)]
+
+
+def phase_d80_kernels(device, hb, iters=5):
+    """Phase 3f: K2, K3 and K4 at head_dim 80 (``d80_cases``: K3 / K4 in
+    both variants, each twice and bit-equal, and on an offset view) against
+    their plain versions, then timed at hubert's training attention, non-
+    causal (``flash_times``: K3, K4 and SDPA's all-grads backward in
+    turns). Returns (worst error of each kernel, {kernel: [timing row]})."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(80)
+    worst = {n: 0.0 for n in ("flash_attention", "flash_attention_dq",
+                              "flash_attention_dkv")}
+    failed = []
+    cases = d80_cases(hb)
+    check_flash(device, cases, gen, worst, failed)
+    if failed:
+        raise PhaseError(f"K2-K4 at head_dim 80 disagree with their plain "
+                         f"versions: {failed}")
+    label, B, S, H, KV, D, *_ = cases[0]
+    times = flash_times(device, B, S, H, KV, D, gen, iters, causal=False)
+    for rows in times.values():
+        for r in rows:
+            r["shape"] = f"{label}: {r['shape']}"
+    print_rows(times)
+    return worst, times
+
+
+# ---------------------------------------------------------------------------
 # phase 18: fleet checkpoints, the overlap ring, the hand-off to serving
 # ---------------------------------------------------------------------------
 FLEET_ROUNDS = 2               # 18a: one round, kill, restore, one more
 FLEET_KILL_AT = 2              # 18b: aggregates before the kill
 DISTILL_STEPS = 5
+EXPORT_CLIENTS = 1             # 18c's export -> load round trips: one
+                               # client (each is 1-2 GB of file I/O)
 DISTILL_RTOL = 1e-4            # the KL history, kernel teacher against the
                                # dense one: 2 layers of d 4096 summed in
                                # another order, then a softmax over 49155
@@ -5050,8 +5136,8 @@ def phase_fleet(device, cfg=None, zoo=True, cfg_of=None):
       then ``session.serving()`` serves each client's spec on the kernel
       path against the dense path (greedy tokens equal, logits within
       ``SLICE_LOGIT_RTOL``, K1 / K2 launched); ``export_submodel`` →
-      ``load_submodel`` of each client's spec equals ``extract`` to the
-      bit; ``distill_to_spec`` ``DISTILL_STEPS`` steps with the kernel
+      ``load_submodel`` of the last ``EXPORT_CLIENTS`` clients' specs
+      equals ``extract`` to the bit; ``distill_to_spec`` ``DISTILL_STEPS`` steps with the kernel
       teacher against the dense one (KL within ``DISTILL_RTOL``, K1 and
       K2 as ``design_launches`` gives a forward a step, no K3 / K4);
       ``check_prefill_parity`` within ``PREFILL_TOL`` on the fp64 parent,
@@ -5271,10 +5357,11 @@ def phase_fleet(device, cfg=None, zoo=True, cfg_of=None):
                             f"{worst:.3e}")
         if cuda and not all(n > 0 for n in got.values()):
             problems.append(f"18c serving: launches {got}")
-        # export -> load of each client's spec against extract
+        # export -> load of the last EXPORT_CLIENTS clients' specs against
+        # extract
         t = time.perf_counter()
         exported = []
-        for i, spec in enumerate(specs):
+        for i, spec in list(enumerate(specs))[-EXPORT_CLIENTS:]:
             p = os.path.join(tmp.name, f"client{i}.npz")
             meta = export_submodel(fam, sess.params, spec, p)
             sub, ctx, _ = load_submodel(fam, p, device=device)
@@ -5292,7 +5379,7 @@ def phase_fleet(device, cfg=None, zoo=True, cfg_of=None):
             os.remove(p + ".meta.json")
             del sub, want
         export_s = time.perf_counter() - t
-        print(f"  18c export -> load of {len(specs)} submodels in "
+        print(f"  18c export -> load of {len(exported)} submodel(s) in "
               f"{export_s:.1f} s: "
               + "; ".join(f"{e['mb']:.0f} MB flops {e['flops_fraction']:.3f}"
                           f" {'bit-equal' if e['bit_equal'] else 'DIFFER'}"
@@ -5367,6 +5454,538 @@ def phase_fleet(device, cfg=None, zoo=True, cfg_of=None):
           + (card_line() if cuda else "no card"))
     if problems:
         raise PhaseError("; ".join(problems))
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the CNN's RL gates and the zoo's LM training
+# ---------------------------------------------------------------------------
+# 19a, as benchmarks/fig7_gates.py runs the gates on the paper's CNN: a
+# warm-up of soft steps at the worst quality, then sampled (REINFORCE) steps
+# on the mixed-quality set
+GATES = dict(n_images=4096, batch=64, lr=2e-3, penalty=0.15, warmup=50,
+             rl=80, eval_images=256, qualities=(3, 0, 4), seed=0)
+GATE_STEP_RTOL = 1e-5          # one gate step's update, card against the
+                               # CPU, over its largest entry
+# 19b: the reference's own example (launch/train.py) and gemma-7b, each cut
+# to 2 layers; 3 steps of synthetic_lm_batches(cfg, 4, 256), adamw 3e-4
+LM_MODELS = (("qwen3-4b", 2), ("gemma-7b", 2))
+LM = dict(batch=4, seq=256, steps=3, lr=3e-4, weight_decay=0.01, seed=0)
+LM_LOSS_RTOL = 1e-4            # each step's loss, kernel against dense path
+LM_GRAD_RTOL = 1e-4            # step-1 gradients over each leaf's max |g|
+REMAT_RTOL = 1e-6              # remat on against off, kernel path
+MICRO_RTOL = 1e-5              # microbatch 2 against 1
+BF16_LOSS_TOL = 2e-2           # a bf16 dense step's loss against fp32
+# 19c: the two frontends, each cut to 2 layers: llava with 2880 image
+# embeddings and 1216 tokens in one 4096-position sequence, hubert on 4 ×
+# 512 frames (non-causal, head_dim 80)
+FRONTENDS = (("llava-next-mistral-7b", 2, 1, 4096),
+             ("hubert-xlarge", 2, 4, 512))
+PREFILL_RTOL = 1e-3            # llava's last-position logits, kernel vs dense
+
+
+def lm_design_launches(cfg, *, remat=False, microbatch=1,
+                       forward_only=False):
+    """K1–K4 launches of one ``loss_fn`` forward (and backward) of a dense
+    parent with GQA attention and an MLP per block, as the code gives
+    them: per layer K2 1 forward, K3 and K4 1 each backward; K1 3 forward
+    (2 ungated) and 7 backward (5 ungated: dx and dw of each projection
+    and the activated one's pre-activation recomputed). With ``remat``
+    (``_cohort_stack``) every block's attention and FFN rerun once more in
+    the backward (their inner checkpoint), and each layer group's forward
+    once more — but torch's non-reentrant checkpoint stops a recompute at
+    its last saved tensor, so the group's rerun leaves out the FFN of its
+    last layer (its input is the group's last saved tensor). Times
+    ``microbatch``."""
+    from repro_torch.models.transformer import _remat_group
+    n = sum(s.n_layers for s in cfg.segments)
+    f, b = (3, 7) if cfg.mlp_gated else (2, 5)
+    out = {"elastic_dense": n * f, "flash_attention": n}
+    bwd = 0 if forward_only else n
+    out["elastic_dense"] += b * bwd
+    out.update(flash_attention_dq=bwd, flash_attention_dkv=bwd)
+    if remat:
+        g = _remat_group(n)
+        out["elastic_dense"] += n * f + (n - n // g) * f
+        out["flash_attention"] += 2 * n
+    return {k: v * microbatch for k, v in out.items()}
+
+
+def leaf_rel(got, want):
+    """max over the leaves of max |got − want| / max |want| (a leaf that is
+    0 in both counts 0)."""
+    worst = 0.0
+    for a, b in zip(_leaves(got), _leaves(want)):
+        scale = float(b.abs().max())
+        d = float((a.float() - b.float()).abs().max())
+        worst = max(worst, d / scale if scale else (0.0 if d == 0 else
+                                                    math.inf))
+    return worst
+
+
+def _to(tree, device):
+    from repro_torch.optim.optimizers import tree_map
+    return tree_map(lambda t: t.detach().to(device), tree)
+
+
+def phase_gates(device, cfg=None, settings=GATES):
+    """19a: the paper's RL gates on ``PAPER_CNN`` (``cfg``) at full width
+    and depth, as ``benchmarks/fig7_gates.py`` runs them on the
+    reference. Holds, from the same initial state: one ``soft`` and one
+    ``sample`` step (``make_gate_train_step`` with adamw, the sample step's
+    uniforms given to both) on the card and on the CPU, the CPU replaying
+    the card's ReLU decisions (``relu_decisions``): the step's update —
+    adamw's first moment, 0.1 × the clipped gradient, which is an sgd
+    step's movement over lr — within ``GATE_STEP_RTOL`` of its largest
+    entry. (Adam's first update is ±lr wherever a gradient sits at
+    rounding noise, and a parameter of magnitude ~0.3 rounds by ~1e-4 of
+    this step's movement, so the parameters themselves are not the thing
+    to hold.) Then ``train_gates``: the
+    warm-up of soft steps at quality 3, the sampled steps on
+    ``mixed_quality_dataset``, wall ms a step; with hard gates at each
+    quality of ``qualities``: compute share, gated and ungated accuracy;
+    ``gate_depth_policy``'s depth and rates; the hard gates' decisions on
+    the trained state identical on the card and the CPU. Returns stats."""
+    import torch
+    from repro_torch.configs.paper_cnn import PAPER_CNN
+    from repro_torch.core import (GateTrainConfig, gate_depth_policy,
+                                  make_gate_train_step, train_gates)
+    from repro_torch.data.loader import batches
+    from repro_torch.data.quality import apply_quality, mixed_quality_dataset
+    from repro_torch.data.synth import make_dataset
+    from repro_torch.models import cnn
+    from repro_torch.optim import adamw
+    cfg = cfg or PAPER_CNN
+    s = settings
+    cpu = torch.device("cpu")
+    problems, stats = [], {}
+    data = make_dataset("synthcifar" if cfg.in_channels == 3
+                        else "synthmnist", s["n_images"], seed=s["seed"])
+    worst = dict(data, x=apply_quality(data["x"], 3))
+    mixed = mixed_quality_dataset(data, seed=s["seed"])
+    params0 = cnn.init_params(cfg, seed=s["seed"], device=device)
+
+    # the held steps: card against CPU, from the same state
+    batch = next(batches(worst, s["batch"], seed=s["seed"]))
+    gen = torch.Generator().manual_seed(s["seed"] + 7)
+    uniforms = [torch.rand((s["batch"],), generator=gen)
+                for _ in range(cfg.n_blocks)]
+    holds = {}
+    for mode in ("soft", "sample"):
+        out, flips = {}, 0
+        for dev in dict.fromkeys((device, cpu)):
+            opt = adamw(s["lr"])
+            step = make_gate_train_step(cfg, opt, mode, s["penalty"])
+            p = _to(params0, dev)
+            draws = [u.to(dev) for u in uniforms] if mode == "sample" \
+                else None
+            if dev.type == "cuda":
+                relus = relu_decisions()
+                with relus("record"):
+                    _, st, loss, _ = step(p, opt.init(p), batch, draws)
+                relus.masks = [t.cpu() for t in relus.masks]
+            elif device.type == "cuda":
+                with relus("count"):
+                    step(p, opt.init(p), batch, draws)
+                flips = relus.flips()
+                with relus("replay"):
+                    _, st, loss, _ = step(p, opt.init(p), batch, draws)
+            else:
+                _, st, loss, _ = step(p, opt.init(p), batch, draws)
+            out[dev.type] = (_to(st["m"], cpu), float(loss))
+        got, want = out[device.type][0], out["cpu"][0]
+        moved = max(float(t.abs().max()) for t in _leaves(want))
+        ratio = max(float((a - b).abs().max()) for a, b in
+                    zip(_leaves(got), _leaves(want))) / moved
+        holds[mode] = dict(update_ratio=ratio, flips=flips,
+                           loss=out["cpu"][1],
+                           loss_diff=abs(out[device.type][1]
+                                         - out["cpu"][1]))
+        print(f"  19a {mode} step, card vs CPU (the CPU replaying the "
+              f"card's ReLU decisions; {flips} taken the other way "
+              f"free-running): the update (adamw's first moment, 0.1 x the "
+              f"clipped gradient) {ratio:.3e} of its largest (tol "
+              f"{GATE_STEP_RTOL:g}); loss {out['cpu'][1]:.6f}, "
+              f"{holds[mode]['loss_diff']:.3e} apart")
+        if not ratio <= GATE_STEP_RTOL:
+            problems.append(f"19a {mode} step: {ratio:.3e} of the update")
+    stats["held_steps"] = holds
+
+    # Fig. 7: warm-up, then the hybrid RL phase on the mixed-quality set
+    t = time.perf_counter()
+    params, hist = train_gates(
+        params0, cfg, batches(worst, s["batch"], seed=s["seed"]),
+        GateTrainConfig(warmup_steps=s["warmup"], rl_steps=0, lr=s["lr"],
+                        compute_penalty=s["penalty"]), seed=s["seed"])
+    sync(device)
+    warm_s = time.perf_counter() - t
+    t = time.perf_counter()
+    params, hist2 = train_gates(
+        params, cfg, batches(mixed, s["batch"], seed=s["seed"] + 1),
+        GateTrainConfig(warmup_steps=0, rl_steps=s["rl"], lr=s["lr"],
+                        compute_penalty=s["penalty"]), seed=s["seed"])
+    sync(device)
+    rl_s = time.perf_counter() - t
+    stats.update(warmup_ms_per_step=warm_s * 1e3 / max(s["warmup"], 1),
+                 rl_ms_per_step=rl_s * 1e3 / max(s["rl"], 1),
+                 warmup_final_acc=hist[-1]["acc"],
+                 final_acc=hist2[-1]["acc"],
+                 rl_compute_pct=hist2[-1]["compute_pct"])
+    print(f"  19a train_gates: {s['warmup']} soft steps at quality 3 "
+          f"{stats['warmup_ms_per_step']:.2f} ms a step (acc "
+          f"{hist[-1]['acc']:.3f}), {s['rl']} sampled steps on the mixed "
+          f"set {stats['rl_ms_per_step']:.2f} ms a step (acc "
+          f"{hist2[-1]['acc']:.3f}, compute {hist2[-1]['compute_pct']:.3f})")
+    n = s["eval_images"]
+    per_q = {}
+    with torch.no_grad():
+        for q in s["qualities"]:
+            x = torch.as_tensor(apply_quality(data["x"][:n], q)).to(device)
+            y = torch.as_tensor(data["y"][:n]).to(device).long()
+            logits, info = cnn.forward(params, cfg, x, gate_mode="hard")
+            logits_u, _ = cnn.forward(params, cfg, x, gate_mode="off")
+            per_q[q] = dict(
+                compute_pct=float(info["compute_pct"]),
+                gated_acc=float((logits.argmax(-1) == y).float().mean()),
+                ungated_acc=float((logits_u.argmax(-1) == y).float().mean()))
+            print(f"  19a quality {q}: compute {per_q[q]['compute_pct']:.3f}"
+                  f", gated acc {per_q[q]['gated_acc']:.3f}, ungated acc "
+                  f"{per_q[q]['ungated_acc']:.3f}")
+            if q == 0:          # the hard decisions, card against CPU
+                _, info_c = cnn.forward(_to(params, cpu), cfg, x.cpu(),
+                                        gate_mode="hard")
+                same = torch.equal(info["per_example_compute"].cpu(),
+                                   info_c["per_example_compute"])
+                print(f"  19a hard-gate decisions card vs CPU at quality 0: "
+                      f"{'identical' if same else 'DIFFER'}")
+                stats["hard_decisions_identical"] = same
+                if not same:
+                    problems.append("19a hard-gate decisions differ")
+        depth, rates = gate_depth_policy(params, cfg,
+                                         {"x": mixed["x"][:n]})
+    print(f"  19a gate_depth_policy on {n} mixed images: depth {depth}, "
+          f"rates {[round(r, 3) for r in rates]}")
+    stats.update(per_quality=per_q, depth=list(depth), rates=rates)
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return stats
+
+
+def _lm_batch(cfg, batch, seq, seed, device):
+    """19c's batch of a frontend model: llava's image embeddings over the
+    first ``frontend_tokens`` positions and tokens after them, hubert's
+    frames and labels (loss mask all ones), from a numpy seed."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        return {"frames": torch.from_numpy(rng.standard_normal(
+                    (batch, seq, cfg.d_model)).astype(np.float32)).to(device),
+                "labels": torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (batch, seq)).astype(np.int32))
+                .to(device)}
+    return {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(device),
+            "image_embeds": torch.from_numpy(rng.standard_normal(
+                (batch, cfg.frontend_tokens, cfg.d_model))
+                .astype(np.float32)).to(device)}
+
+
+def _run_counted(fn, counters):
+    """(fn's result, {kernel: launches of that call})."""
+    reset_launches(counters)
+    out = fn()
+    return out, {c.__name__: c.launches for c in counters}
+
+
+def _check_launches(label, got, want, problems):
+    print(f"  {label} launches {got} (design {want})")
+    if got != want:
+        problems.append(f"{label}: launches {got}, design {want}")
+
+
+def _step_timing(step_fn, device, tokens):
+    """(wall ms, device ms) of one call of ``step_fn`` and tokens/s."""
+    cuda = device.type == "cuda"
+    sync(device)
+    t = time.perf_counter()
+    step_fn()
+    sync(device)
+    wall = (time.perf_counter() - t) * 1e3
+    busy = step_device_ms(step_fn, device, steps=1)[0] if cuda else None
+    return dict(wall_ms=wall, device_ms=busy,
+                tokens_per_s=tokens / wall * 1e3)
+
+
+def phase_lm_train(device, models=LM_MODELS, cfg_of=None, settings=LM):
+    """19b: the LM train driver (``launch.train.synthetic_lm_batches``,
+    ``launch.steps.make_train_step``) on each of ``models`` at published
+    width, depth cut (``cut_depth``), fp32, the kernel path and the dense
+    path (``kernels=None``) from the same torch-seeded parameters,
+    ``steps`` steps each. Holds: each step's loss, kernel vs dense, within
+    ``LM_LOSS_RTOL``; the step-1 gradients (adamw's first moments, 0.1 ×
+    g) within ``LM_GRAD_RTOL`` of each leaf's max; remat on against off on
+    the kernel path within ``REMAT_RTOL`` (bit-equal or not, printed) with
+    the peak GiB of each; microbatch 2 against 1 within ``MICRO_RTOL``;
+    one bf16 dense step's loss within ``BF16_LOSS_TOL`` of the fp32 loss.
+    K1–K4 launch as ``lm_design_launches`` says (remat on in the main
+    runs, the reference's default). Prints step wall and device ms,
+    tokens/s and peak GiB. Returns ({run: launches}, stats)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dispatch import kernel_dispatch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import synthetic_lm_batches
+    from repro_torch.models import transformer as T
+    cuda = device.type == "cuda"
+    s = settings
+    problems, launches, stats = [], {}, {}
+    table = kernel_dispatch("auto").table("transformer")
+    for name, n_layers in models:
+        cfg = cfg_of(name) if cfg_of else cut_depth(get_config(name),
+                                                    n_layers)
+        label = name.split("-")[0]
+        counters = path_counters(cfg)
+        p0 = T.init_params(cfg, seed=s["seed"], device=device)
+        data = synthetic_lm_batches(cfg, s["batch"], s["seq"], s["seed"],
+                                    device=device)
+        batches = [next(data) for _ in range(s["steps"])]
+        tokens = s["batch"] * s["seq"]
+        run = {}
+
+        def steps(kernels, remat=True, microbatch=1, dtype=torch.float32,
+                  n=s["steps"]):
+            """(losses, step-1 first moments, peak GiB, launches of the
+            steps) of ``n`` steps from p0."""
+            step, opt = make_train_step(
+                cfg, lr=s["lr"], weight_decay=s["weight_decay"],
+                remat=remat, kernels=kernels, microbatch=microbatch,
+                activation_dtype=dtype)
+            p, st = p0, opt.init(p0)
+            losses, m1 = [], None
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+            reset_launches(counters)
+            for i in range(n):
+                p, st, m = step(p, st, batches[i])
+                losses.append(float(m["loss"]))
+                if i == 0:
+                    m1 = st["m"]
+            got = {c.__name__: c.launches for c in counters}
+            peak = torch.cuda.max_memory_allocated(device) / 2**30 \
+                if cuda else 0.0
+            return losses, m1, peak, got, (step, opt)
+
+        k_loss, k_m1, k_peak, k_launch, (k_step, k_opt) = steps(table)
+        launches[f"lm {label} kernel"] = k_launch
+        _check_launches(f"19b {label} kernel path, {s['steps']} steps "
+                        "(remat)", k_launch, {n: v * s["steps"] for n, v in
+                                              lm_design_launches(
+                                                  cfg, remat=True).items()},
+                        problems)
+        run["kernel"] = dict(losses=k_loss, peak_gib=k_peak,
+                             by_variant=check_variants(k_launch, problems,
+                                                       "tile", "mma"))
+        d_loss, d_m1, d_peak, _, (d_step, d_opt) = steps(None)
+        run["dense"] = dict(losses=d_loss, peak_gib=d_peak)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, d_loss))
+        g_rel = leaf_rel(k_m1, d_m1)
+        del d_m1
+        print(f"  19b {label}: losses kernel {k_loss} dense {d_loss}: max "
+              f"rel {rel:.3e} (tol {LM_LOSS_RTOL:g}); step-1 gradients "
+              f"{g_rel:.3e} of each leaf's max (tol {LM_GRAD_RTOL:g})")
+        if not (rel <= LM_LOSS_RTOL and g_rel <= LM_GRAD_RTOL):
+            problems.append(f"19b {label}: loss {rel:.3e}, grads {g_rel:.3e}")
+        # remat off (kernel path), microbatch 2, one bf16 dense step
+        r_loss, r_m1, r_peak, r_launch, _ = steps(table, remat=False, n=1)
+        launches[f"lm {label} kernel no remat"] = r_launch
+        _check_launches(f"19b {label} kernel path, 1 step, remat off",
+                        r_launch, lm_design_launches(cfg), problems)
+        r_rel = leaf_rel(r_m1, k_m1)
+        bit = all(torch.equal(a, b) for a, b in zip(_leaves(r_m1),
+                                                    _leaves(k_m1)))
+        del r_m1
+        mb_loss, mb_m1, mb_peak, mb_launch, _ = steps(table, microbatch=2,
+                                                      n=1)
+        launches[f"lm {label} kernel microbatch 2"] = mb_launch
+        _check_launches(f"19b {label} kernel path, 1 step, microbatch 2",
+                        mb_launch, lm_design_launches(cfg, remat=True,
+                                                      microbatch=2),
+                        problems)
+        mb_rel = leaf_rel(mb_m1, k_m1)
+        del mb_m1, k_m1
+        bf_loss, _, bf_peak, _, _ = steps(None, dtype=torch.bfloat16, n=1)
+        bf_diff = abs(bf_loss[0] - d_loss[0])
+        print(f"  19b {label}: remat on vs off step-1 gradients {r_rel:.3e} "
+              f"(tol {REMAT_RTOL:g}; {'bit-equal' if bit else 'not bit-equal'}"
+              f"), peak {k_peak:.2f} GiB on / {r_peak:.2f} off; microbatch 2 "
+              f"vs 1 {mb_rel:.3e} (tol {MICRO_RTOL:g}), peak {mb_peak:.2f} "
+              f"GiB; bf16 dense loss {bf_loss[0]:.5f} vs fp32 "
+              f"{d_loss[0]:.5f}: {bf_diff:.3e} (tol {BF16_LOSS_TOL:g})")
+        if not (r_rel <= REMAT_RTOL and mb_rel <= MICRO_RTOL
+                and bf_diff <= BF16_LOSS_TOL):
+            problems.append(f"19b {label}: remat {r_rel:.3e}, microbatch "
+                            f"{mb_rel:.3e}, bf16 {bf_diff:.3e}")
+        run.update(remat_off=dict(rel=r_rel, bit_equal=bit, peak_gib=r_peak),
+                   microbatch2=dict(rel=mb_rel, peak_gib=mb_peak),
+                   bf16=dict(loss=bf_loss[0], diff=bf_diff,
+                             peak_gib=bf_peak))
+        # timings: a kernel-path and a dense-path step (remat on)
+        for path, (step, opt) in (("kernel", (k_step, k_opt)),
+                                  ("dense", (d_step, d_opt))):
+            st = opt.init(p0)
+            t = _step_timing(lambda: step(p0, st, batches[0]), device,
+                             tokens)
+            run[path].update(t)
+            print(f"  19b {label} {path} step: wall {t['wall_ms']:.1f} ms, "
+                  f"device "
+                  + ("-" if t["device_ms"] is None else
+                     f"{t['device_ms']:.1f}") + f" ms, "
+                  f"{t['tokens_per_s']:.0f} tok/s, peak "
+                  f"{run[path]['peak_gib']:.2f} GiB")
+            del st
+        stats[label] = run
+        del p0, batches, k_step, d_step
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return launches, stats
+
+
+def phase_frontends(device, models=FRONTENDS, cfg_of=None):
+    """19c: the input frontends at published width, depth cut: llava's
+    image embeddings spliced over the first ``frontend_tokens`` positions,
+    hubert's frames (encoder-only labels, non-causal, head_dim 80). For
+    each: ``loss_fn`` kernel vs dense path (fp32) within ``LM_LOSS_RTOL``,
+    the gradients within ``LM_GRAD_RTOL`` of each leaf's max, one
+    ``make_train_step`` step on the kernel path; for llava also
+    ``make_prefill_step``'s last-position logits kernel vs dense within
+    ``PREFILL_RTOL`` of the largest. Launches as ``lm_design_launches``
+    says. Returns ({run: launches}, stats)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dispatch import kernel_dispatch
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import value_and_grad
+    cuda = device.type == "cuda"
+    problems, launches, stats = [], {}, {}
+    table = kernel_dispatch("auto").table("transformer")
+    for name, n_layers, B, S in models:
+        cfg = cfg_of(name) if cfg_of else cut_depth(get_config(name),
+                                                    n_layers)
+        label = name.split("-")[0]
+        counters = path_counters(cfg)
+        params = T.init_params(cfg, seed=1, device=device)
+        batch = _lm_batch(cfg, B, S, 2, device)
+        res = {}
+        for path, kernels in (("kernel", table), ("dense", None)):
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+            sync(device)
+            t = time.perf_counter()
+            (loss, _, grads), got = _run_counted(
+                lambda: value_and_grad(lambda p: T.loss_fn(
+                    p, cfg, batch, kernels=kernels), params), counters)
+            sync(device)
+            ms = (time.perf_counter() - t) * 1e3
+            res[path] = dict(loss=float(loss), grads=grads, ms=ms,
+                             peak_gib=(torch.cuda.max_memory_allocated(
+                                 device) / 2**30 if cuda else 0.0))
+            if kernels is not None:
+                launches[f"frontend {label} loss"] = got
+                _check_launches(f"19c {label} loss_fn + grads (kernel path)",
+                                got, lm_design_launches(cfg), problems)
+            del loss, grads
+        rel = abs(res["kernel"]["loss"] - res["dense"]["loss"]) \
+            / abs(res["dense"]["loss"])
+        g_rel = leaf_rel(res["kernel"]["grads"], res["dense"]["grads"])
+        print(f"  19c {label} B={B} S={S}: loss kernel "
+              f"{res['kernel']['loss']:.6f} dense {res['dense']['loss']:.6f}"
+              f" rel {rel:.3e} (tol {LM_LOSS_RTOL:g}); gradients {g_rel:.3e}"
+              f" of each leaf's max (tol {LM_GRAD_RTOL:g}); loss + grads "
+              f"{res['kernel']['ms']:.1f} ms kernel / "
+              f"{res['dense']['ms']:.1f} dense, peak "
+              f"{res['kernel']['peak_gib']:.2f} / "
+              f"{res['dense']['peak_gib']:.2f} GiB")
+        if not (rel <= LM_LOSS_RTOL and g_rel <= LM_GRAD_RTOL):
+            problems.append(f"19c {label}: loss {rel:.3e}, grads "
+                            f"{g_rel:.3e}")
+        for r in res.values():
+            del r["grads"]
+        # one train step on the kernel path (remat on, the default)
+        step, opt = make_train_step(cfg, kernels=table,
+                                    activation_dtype=torch.float32)
+        st = opt.init(params)
+        (p1, st, m), got = _run_counted(lambda: step(params, st, batch),
+                                        counters)
+        launches[f"frontend {label} step"] = got
+        _check_launches(f"19c {label} make_train_step (kernel path, remat)",
+                        got, lm_design_launches(cfg, remat=True), problems)
+        finite = all(bool(torch.isfinite(t).all()) for t in _leaves(p1))
+        res["step"] = dict(loss=float(m["loss"]), finite=finite,
+                           **_step_timing(lambda: step(params, st, batch),
+                                          device, B * S))
+        print(f"  19c {label} train step: loss {res['step']['loss']:.6f}, "
+              f"params finite {finite}, wall {res['step']['wall_ms']:.1f} ms"
+              f", {res['step']['tokens_per_s']:.0f} tok/s")
+        if not finite:
+            problems.append(f"19c {label}: non-finite parameters")
+        del p1, st, step, opt
+        if cfg.frontend == "vision":
+            out = {}
+            for path, kernels in (("kernel", table), ("dense", None)):
+                pre = make_prefill_step(cfg, kernels=kernels,
+                                        activation_dtype=torch.float32)
+                (out[path], got) = _run_counted(lambda: pre(params, batch),
+                                                counters)
+                if kernels is not None:
+                    launches[f"frontend {label} prefill"] = got
+                    _check_launches(f"19c {label} prefill (kernel path)",
+                                    got, lm_design_launches(
+                                        cfg, forward_only=True), problems)
+            p_rel = float((out["kernel"] - out["dense"]).abs().max()
+                          / out["dense"].abs().max())
+            res["prefill_rel"] = p_rel
+            print(f"  19c {label} make_prefill_step last-position logits "
+                  f"kernel vs dense: {p_rel:.3e} of the largest (tol "
+                  f"{PREFILL_RTOL:g})")
+            if not p_rel <= PREFILL_RTOL:
+                problems.append(f"19c {label} prefill: {p_rel:.3e}")
+            del out
+        stats[label] = res
+        del params, batch
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return launches, stats
+
+
+def phase_lm(device, cnn_cfg=None, cfg_of=None, gates=GATES):
+    """Phase 19: 19a ``phase_gates``, 19b ``phase_lm_train``, 19c
+    ``phase_frontends``. Returns ({run: launches}, stats)."""
+    import torch
+    t0 = time.perf_counter()
+    stats = {"gates": phase_gates(device, cnn_cfg, gates)}
+    stats["19a_s"] = time.perf_counter() - t0
+    launches, stats["lm"] = phase_lm_train(device, cfg_of=cfg_of)
+    stats["19b_s"] = time.perf_counter() - t0 - stats["19a_s"]
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    fl, stats["frontends"] = phase_frontends(device, cfg_of=cfg_of)
+    launches.update(fl)
+    stats["phase_seconds"] = time.perf_counter() - t0
+    stats["19c_s"] = stats["phase_seconds"] - stats["19a_s"] \
+        - stats["19b_s"]
+    print(f"  phase 19: {stats['phase_seconds']:.1f} s (19a "
+          f"{stats['19a_s']:.1f}, 19b {stats['19b_s']:.1f}, 19c "
+          f"{stats['19c_s']:.1f}); "
+          + (card_line() if device.type == "cuda" else "no card"))
     return launches, stats
 
 
@@ -5480,6 +6099,13 @@ def main() -> int:
             get_config("deepseek-v2-lite-16b"), get_config("zamba2-1.2b"))
         release()
         done("3e")
+        print("== 3f. K2-K4 at head_dim 80 (hubert-xlarge's training "
+              "attention, non-causal), against their plain versions and "
+              "timed")
+        d80_worst, d80_times = phase_d80_kernels(
+            device, get_config("hubert-xlarge"))
+        release()
+        done("3f")
         print("== 4. times: serving shapes")
         times = phase_times(device, **dims)
         done("4")
@@ -5594,6 +6220,14 @@ def main() -> int:
         fleet_launches, fleet_stats = phase_fleet(device)
         release()
         done("18")
+        print(f"== 19. the CNN's RL gates and the zoo's LM training: "
+              f"train_gates on {PAPER_CNN.name} (Fig. 7); the train driver "
+              f"on {', '.join(n for n, _ in LM_MODELS)} "
+              f"({LM_MODELS[0][1]} layers, kernel and dense paths); the "
+              f"llava and hubert frontends, fp32")
+        lm_launches, lm_stats = phase_lm(device)
+        release()
+        done("19")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5642,9 +6276,10 @@ def main() -> int:
                **{f"zoo {run}": c for run, c in zoo_launches.items()},
                **{f"selection {run}": c for run, c in sel_launches.items()},
                **{f"a11 {run}": c for run, c in a11_launches.items()},
-               **fleet_launches}
+               **fleet_launches, **lm_launches}
     for name, err in (list(mworst.items()) + list(sworst.items())
-                      + list(cworst.items()) + list(a11_worst.items())):
+                      + list(cworst.items()) + list(a11_worst.items())
+                      + list(d80_worst.items())):
         worst[name] = max(worst.get(name, 0.0), err)
     home = {n: ("moe_training", moe_times) for n in
             ("grouped_matmul", "gather_rows", "gather_dot", "gather_reduce")}
@@ -5656,7 +6291,8 @@ def main() -> int:
         rows = table[name]
         head, serving = rows[0], times.get(name, [])
         extra = moe_times.get(name, []) if path == "training" else []
-        extra = extra + cnn_times.get(name, []) + a11_times.get(name, [])
+        extra = extra + cnn_times.get(name, []) + a11_times.get(name, []) \
+            + d80_times.get(name, [])
         entries.append(dict(
             name=name, route="cuda", source=meta[name]["source"],
             replaces=meta[name]["replaces"],
@@ -5676,7 +6312,8 @@ def main() -> int:
         if name in ("flash_attention_dq", "flash_attention_dkv"):
             entries[-1]["pair"] = {   # the backward pair, timed in turns
                 "training": train_times["flash_attention_bwd"][0],
-                "moe_training": moe_times["flash_attention_bwd"][0]}
+                "moe_training": moe_times["flash_attention_bwd"][0],
+                "hubert_d80": d80_times["flash_attention_bwd"][0]}
         if name in ("gather_rows", "gather_dot"):  # the combine's VJP
             entries[-1]["combine_vjp"] = moe_times["combine_vjp"][0]
         if name in variant_counters():   # launches by plan variant
@@ -5703,6 +6340,9 @@ def main() -> int:
                     "elastic_dense": fleet_stats["sync"]["by_variant"]["on"]}}),
                    ("fleet zoo granite serving", {"launches_by_variant":
                     fleet_stats["handoff"]["serving_by_variant"]}))
+                + tuple((f"lm {label} kernel", {"launches_by_variant":
+                                                run["kernel"]["by_variant"]})
+                        for label, run in lm_stats["lm"].items())
                 if name in st.get("launches_by_variant", {})}
     print("kernels: " + "; ".join(
         f"{p} " + " ".join(f"{n}={c}" for n, c in counts.items())
@@ -5718,6 +6358,7 @@ def main() -> int:
     print(f"selection: {json.dumps(sel_stats)}")
     print(f"last three decoder parents: {json.dumps(a11_stats)}")
     print(f"fleet: {json.dumps(fleet_stats)}")
+    print(f"gates and lm training: {json.dumps(lm_stats)}")
     print(f"phase seconds: {json.dumps(phase_s)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
     print(card_line())

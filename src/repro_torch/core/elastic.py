@@ -166,7 +166,6 @@ class TransformerElasticFamily:
             raise ValueError(
                 f"{cfg.name}: frontend/encoder-only archs have no token "
                 "cohort packing — the CFL engine supports decoder LMs")
-        T.check_supported(cfg)
         self.cfg = cfg
         self.seq_len = seq_len
         self._spec_cache = SpecLRU(128)

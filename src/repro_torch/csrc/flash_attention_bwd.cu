@@ -51,7 +51,7 @@
 //    head-fastest, as K2's does, so the heads of a GQA group share their
 //    K / V tiles through L2, and the tiles with the most causal keys start
 //    first. Q, dO, lse and delta of the tile are loaded once; K / V tiles
-//    of 32 keys come in by cp.async, double-buffered at D ≤ 64 and
+//    of 32 keys come in by cp.async, double-buffered at D ≤ 80 and
 //    single-buffered from D = 128 on (two blocks an SM at 128). Per key block, the
 //    pair's S warp takes S = Q Kᵀ and the dP warp dP = dO Vᵀ (over D ≤ 128:
 //    at most 48 tensor-core accumulations, summed in the core by `mma3`);
@@ -79,8 +79,8 @@
 //  * One shared tile, two reads. K3 reads K as the B operand of S (rows of
 //    the tile, along D) and of dQ (down the tile's rows, in the permuted
 //    order); K4 reads Q and dO both ways. Every tile is stored row-major
-//    at a row stride of D + 4 floats (≡ 4 mod 32 words) and read in 32-bit
-//    words: a fragment along the rows hits banks 4g + t, one down the rows
+//    at a row stride of D + 4 floats (≡ 4 mod 32 words at D a multiple of
+//    32; D = 80 below) and read in 32-bit words: a fragment along the rows hits banks 4g + t, one down the rows
 //    banks 8t + g — 32 distinct banks either way; the pairs' exchange
 //    tiles are read and written in 64-bit words at a row stride ≡ 8 mod 32
 //    (tests/test_torch_flash_bwd_mma.py checks every access). A pair hands
@@ -96,6 +96,14 @@
 //    in one warp; it takes two passes over its steps instead, each
 //    summing half of D's columns (Sᵀ and dPᵀ recomputed in the second,
 //    every column's sum in the same order).
+//  * D = 80 (hubert-xlarge): the D ≤ 64 design — two K / V buffers in K3
+//    (96,256 B), K4 70,912 B, two blocks an SM — with S / dP over 10
+//    8-deep steps and each warp of a K3 pair summing 5 of dQ's 10 n-tiles
+//    (D must be a multiple of 16). Its row stride, 84 floats, is ≡ 20 mod
+//    32, not 4; what the fragment reads need is a stride that is an odd
+//    multiple of 4 (banks 20g + t along a tile, 8t + g down it: 32
+//    distinct either way). A row is 20 16-byte chunks, so `copy_rows`
+//    numbers them in slots of 24 and no 8-thread phase straddles two rows.
 //
 // simt — the first design, for rows that are not 16-byte aligned
 // (the cp.async copies need aligned rows): fp32 FMAs, 16 × 16 tiles, 8
@@ -361,8 +369,9 @@ constexpr int kDkvBK = 16 * kPairs;    // keys a dk / dv block: 16 a pair
 constexpr int kDkvBQ = 16;             // queries a dk / dv step
 
 // Every shared tile is row-major at a row stride of D + 4 floats: rows stay
-// 16-byte aligned for cp.async, and the stride is 4 mod 32 words, so both
-// fragment reads below hit 32 distinct banks.
+// 16-byte aligned for cp.async, and the stride is an odd multiple of 4
+// words (4 mod 32 at D a multiple of 32, 20 at D = 80), so both fragment
+// reads below hit 32 distinct banks.
 template <int D>
 struct Row {
   static constexpr int kS = D + 4;
@@ -370,15 +379,21 @@ struct Row {
 
 // Copies rows [r0, r0 + ROWS) of head hh of a (B, S, NH, D) tensor into a
 // shared tile by 16-byte cp.async copies of the block's NT threads; rows
-// past S are zero-filled without a read.
+// past S are zero-filled without a read. A row's chunks are numbered in
+// slots of a multiple of 8 (`kCP`), so that no 8-thread phase of the copy
+// straddles two rows: at D = 80 (20 chunks a row) a phase that did would
+// write rows r and r + 1 on 4 common banks. At D a multiple of 32 the slots
+// are the chunks.
 template <int D, int ROWS, int NT = kThreads>
 __device__ __forceinline__ void copy_rows(float* dst,
                                           const float* __restrict__ src,
                                           int b, int r0, int S, int NH,
                                           int hh) {
-  constexpr int kC = D / 4;  // 16-byte chunks a row
-  for (int c = threadIdx.x; c < ROWS * kC; c += NT) {
-    const int i = c / kC, d = (c - i * kC) * 4, r = r0 + i;
+  constexpr int kC = D / 4;                 // 16-byte chunks a row
+  constexpr int kCP = (kC + 7) / 8 * 8;     // their slots
+  for (int c = threadIdx.x; c < ROWS * kCP; c += NT) {
+    const int i = c / kCP, d = (c - i * kCP) * 4, r = r0 + i;
+    if (kCP != kC && d >= D) continue;
     const float* p = src;
     int bytes = 0;
     if (r < S) {
@@ -508,6 +523,7 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   using L = DqTiles<D>;
   constexpr int kS = L::kS, kKT = kDqBK / 8, kXS = L::kXS;
   constexpr int kHT = D / 16;  // n-tiles of the warp's half of dQ
+  static_assert(D % 16 == 0, "a warp pair splits dQ's n-tiles in halves");
   // past D = 128 S's (dP's) two halves of D sum in two accumulators, each
   // at most 48 tensor-core accumulations as at D = 128, added in fp32
   constexpr bool kTwoHalves = D > 128;
@@ -1017,6 +1033,7 @@ extern "C" int flash_attention_dq(const float* q, const float* k,
     switch (D) {
       case 32: FLASH_DQ_MMA(32); break;
       case 64: FLASH_DQ_MMA(64); break;
+      case 80: FLASH_DQ_MMA(80); break;
       case 128: FLASH_DQ_MMA(128); break;
       case 256: FLASH_DQ_MMA(256); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
@@ -1032,6 +1049,7 @@ extern "C" int flash_attention_dq(const float* q, const float* k,
   switch (D) {
     case 32: FLASH_DQ(32); break;
     case 64: FLASH_DQ(64); break;
+    case 80: FLASH_DQ(80); break;
     case 128: FLASH_DQ(128); break;
     case 256: FLASH_DQ(256); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -1057,6 +1075,7 @@ extern "C" int flash_attention_dkv(const float* q, const float* k,
     switch (D) {
       case 32: FLASH_DKV_MMA(32); break;
       case 64: FLASH_DKV_MMA(64); break;
+      case 80: FLASH_DKV_MMA(80); break;
       case 128: FLASH_DKV_MMA(128); break;
       case 256: FLASH_DKV_MMA(256); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
@@ -1072,6 +1091,7 @@ extern "C" int flash_attention_dkv(const float* q, const float* k,
   switch (D) {
     case 32: FLASH_DKV(32); break;
     case 64: FLASH_DKV(64); break;
+    case 80: FLASH_DKV(80); break;
     case 128: FLASH_DKV(128); break;
     case 256: FLASH_DKV(256); break;
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -33,7 +33,7 @@
 //    output rows a warp or G times the warps, and give the prefill G times
 //    fewer blocks (8 instead of 32 at granite-3-8b) where latency rules.
 //  * K / V tiles of 32 keys come in cp.async 16-byte copies (keys past Sk
-//    zero-filled), double-buffered at D ≤ 64 and single-buffered at
+//    zero-filled), double-buffered at D ≤ 80 and single-buffered at
 //    D = 128 and 256 (`Config`); the 64 × D query tile is copied once.
 //    At D = 256 a thread holds 128 floats of O (32 n-tiles × 4), against
 //    64 at D = 128, and the block takes a whole SM's shared memory for
@@ -61,6 +61,13 @@
 //    (even and odd 8-deep steps) instead of one; with more tiles the extra
 //    registers cost more than the shorter chain saves (SPLIT_S, chosen at
 //    launch from Sq).
+//  * D = 80 (hubert-xlarge; 10 n-tiles of m16n8k8) runs the D ≤ 64 design:
+//    K / V double-buffered, 66,560 B of shared memory, S over 10 8-deep
+//    steps. Its padded rows stay bank-free: Q and K rows of 88 floats
+//    (≡ 24 ≡ −8 mod 32: a half warp's 64-bit words still cover 32 banks),
+//    V rows of 84 (≡ 20 mod 32: banks 8t + g). A row is 20 16-byte chunks,
+//    so the copies number a row's chunks in slots of a multiple of 8 and
+//    no 8-thread phase straddles two rows.
 //  * Whole key blocks that cannot contribute are skipped by the predicate
 //    of the reference's `attn_block_contributes` (causal: the block starts
 //    after the tile's last row; window: it ends before the tile's first
@@ -152,8 +159,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const int kb_hi = causal ? min(nk, (q0 + kBQ - 1) / kBK + 1) : nk;
 
-  for (int c = tid; c < kBQ * D / 4; c += kThreads) {
-    const int i = c / (D / 4), d = (c % (D / 4)) * 4, qp = q0 + i;
+  // a row's 16-byte chunks in slots of a multiple of 8, so that no 8-thread
+  // phase of a copy straddles two rows (at D = 80, 20 chunks a row, one
+  // that did would write both on 4 common banks); at D a multiple of 32 the
+  // slots are the chunks
+  constexpr int kC = D / 4, kCP = (kC + 7) / 8 * 8;
+  for (int c = tid; c < kBQ * kCP; c += kThreads) {
+    const int i = c / kCP, d = (c % kCP) * 4, qp = q0 + i;
+    if (kCP != kC && d >= D) continue;
     const float* src = q;
     int bytes = 0;
     if (qp < Sq) {
@@ -164,8 +177,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   auto load_kv = [&](int buf, int kb) {
     const int k0 = kb * kBK;
-    for (int c = tid; c < kBK * D / 4; c += kThreads) {
-      const int j = c / (D / 4), d = (c % (D / 4)) * 4, kp = k0 + j;
+    for (int c = tid; c < kBK * kCP; c += kThreads) {
+      const int j = c / kCP, d = (c % kCP) * 4, kp = k0 + j;
+      if (kCP != kC && d >= D) continue;
       const float* ks = k;
       const float* vs = v;
       int bytes = 0;
@@ -400,6 +414,10 @@ extern "C" int flash_attention_fwd(const float* q, const float* k,
       break;
     case 64:
       launch<64>(grid, s, q, k, v, o, lse, ha, Sq, Sk, H, KV, causal, window,
+                 cap, scale);
+      break;
+    case 80:
+      launch<80>(grid, s, q, k, v, o, lse, ha, Sq, Sk, H, KV, causal, window,
                  cap, scale);
       break;
     case 128:

@@ -47,7 +47,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.backend import stream_handle
 
 NEG_INF = -2.0 ** 30
-KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+KERNEL_HEAD_DIMS = (32, 64, 80, 128, 256)
 # K2's query rows a block and keys a step (csrc/flash_attention_fwd.cu)
 FWD_TILE = (64, 32)
 # K3 / K4's variants (csrc/flash_attention_bwd.cu), in the order of the C
@@ -77,7 +77,8 @@ def flash_bwd_plan(B: int, Sq: int, Sk: int, H: int, KV: int, D: int,
     both training shapes); at D = 256 one block of either takes an SM
     (``bwd_shared_bytes``) and K4 sums dK / dV in two passes over half of
     D each. Rows that are not 16-byte aligned (its cp.async copies need
-    them) run the simt variant's 16 × 16 tiles."""
+    them) run the simt variant's 16 × 16 tiles. D = 80 (hubert-xlarge)
+    takes the tiles of D ≤ 64, two blocks of each kernel an SM."""
     if not aligned or D not in KERNEL_HEAD_DIMS:
         return _SIMT_PLAN
     return FlashBwdPlan("mma", (64, 32), (64, 16))
@@ -86,7 +87,7 @@ def flash_bwd_plan(B: int, Sq: int, Sk: int, H: int, KV: int, D: int,
 def bwd_shared_bytes(plan: FlashBwdPlan, D: int) -> Tuple[int, int]:
     """Dynamic shared memory of one K3 and one K4 block of an mma plan
     (csrc/flash_attention_bwd.cu, ``DqTiles`` / ``DkvTiles``): K3 holds
-    Q and dO once, one or two K / V buffers (two at D ≤ 64) and the
+    Q and dO once, one or two K / V buffers (two at D ≤ 80) and the
     exchange tile of its warp pairs; K4 holds K and V once, a two-deep ring
     of Q, dO, lse and delta, and the exchange tile. Tiles are rows of
     D + 4 floats; an exchange row is the step's keys or queries + 8."""

@@ -1,6 +1,7 @@
-"""The paper's parent model: an elastic residual CNN — the port of the
-reference's ``models/cnn.py`` (``init_params``, ``forward`` with
-``gate_mode="off"``, ``loss_fn``, ``flops``).
+"""The paper's parent model: an elastic residual CNN with layer-wise RL
+gates — the port of the reference's ``models/cnn.py`` (``init_params``,
+``forward`` in every gate mode, the hybrid supervised + REINFORCE
+``loss_fn``, ``flops``).
 
 Layout as the reference's: activations NHWC, conv weights HWIO, SAME
 padding, GroupNorm (BN statistics do not aggregate across FL clients).
@@ -13,9 +14,15 @@ axis G on every leaf, matched by a leading G on the activations (the
 reference's ``vmap`` written out): ``conv2d`` then runs one grouped
 convolution for all clients.
 
-The RL gates' sampled modes (``gate_mode`` "soft" / "sample" / "hard",
-the reference's REINFORCE objective) are not ported yet (ROADMAP A19); the
-gate parameters are still part of the tree, so trees bridge both ways.
+The RL gates (paper §III-C, SkipNet-style): each residual block has a
+gate — global average pool, ``fc1``, ReLU, ``fc2`` — whose sigmoid
+``p`` decides whether the block runs: ``soft`` mixes ``x + p·(f(x) − x)``
+(the supervised warm-up), ``sample`` draws ``b ~ Bernoulli(p)`` and keeps
+its log-probability for REINFORCE, ``hard`` takes ``b = p > 0.5``
+(inference). ``jax.random.bernoulli(key, p)`` is ``uniform(key) < p``; the
+port draws the uniforms from an explicit ``torch.Generator`` or takes
+them from the caller, one (B,) tensor per executed block, so that a test
+can replay the reference's draws.
 """
 from __future__ import annotations
 
@@ -138,49 +145,109 @@ def _block(bp, x, groups, width_mask=None):
     return F.relu(x + h)
 
 
+def _gate_logit(bp, x):
+    """The block's gate logit (B,) from its input: GAP, fc1, ReLU, fc2."""
+    feat = torch.mean(x, dim=(-3, -2))
+    h = F.relu(dense(bp["gate"]["fc1"], feat))
+    return dense(bp["gate"]["fc2"], h)[..., 0]
+
+
+GATE_MODES = ("off", "soft", "sample", "hard")
+
+
 def forward(params, cfg: CNNConfig, x, *,
             depth: Optional[Sequence[int]] = None,
             width_masks: Optional[List[torch.Tensor]] = None,
-            gate_mode: str = "off"):
-    """Plain forward of a (sub)model. x (B, H, W, C), or (G, B, H, W, C)
-    with client-stacked params. ``depth``: blocks kept per stage (None =
-    all); ``width_masks``: per-stage (C,) 0/1 masks on the blocks' hidden
-    channels. Returns (logits, info) as the reference's ``gate_mode="off"``
-    does."""
-    if gate_mode != "off":
-        raise NotImplementedError(
-            f"gate_mode={gate_mode!r} (the RL gates' soft / sampled / hard "
-            "modes) is not ported yet (ROADMAP A19)")
+            gate_mode: str = "off",
+            gate_uniforms: Optional[Sequence[torch.Tensor]] = None,
+            generator: Optional[torch.Generator] = None):
+    """Forward of a (sub)model. x (B, H, W, C), or (G, B, H, W, C) with
+    client-stacked params. ``depth``: blocks kept per stage (None = all);
+    ``width_masks``: per-stage (C,) 0/1 masks on the blocks' hidden
+    channels. ``gate_mode``:
+
+    * ``"off"``: every kept block runs (the submodel's structure only);
+    * ``"soft"``: expected gating ``x + p·(f(x) − x)`` (supervised warm-up);
+    * ``"sample"``: ``b = u < p`` with ``u`` uniform — from
+      ``gate_uniforms`` (one tensor of x's batch shape per executed block,
+      in order) or drawn from ``generator`` (on x's device);
+    * ``"hard"``: ``b = p > 0.5`` (inference).
+
+    Returns (logits, info): ``log_prob`` (batch) the sampled gates'
+    summed log-probabilities (zeros unless sampling), ``compute_pct`` the
+    mean executed fraction over examples and blocks, ``per_example_compute``
+    (batch) each example's."""
+    if gate_mode not in GATE_MODES:
+        raise ValueError(f"gate_mode must be one of {GATE_MODES}, got "
+                         f"{gate_mode!r}")
+    if gate_mode == "sample" and gate_uniforms is None and generator is None:
+        raise ValueError("gate_mode='sample' needs gate_uniforms or a "
+                         "generator")
+    draws = iter(gate_uniforms) if gate_uniforms is not None else None
     g = cfg.groupnorm_groups
     x = F.relu(groupnorm(_conv(params["stem"], x), g))
-    n_exec = 0
+    log_probs, executed = [], []
     for si, stage in enumerate(params["stages"]):
         x = F.relu(groupnorm(_conv(stage["down"], x, stride=2), g))
         keep = cfg.stages[si][1] if depth is None else depth[si]
         wm = None if width_masks is None else width_masks[si]
         for bp in stage["blocks"][:keep]:
-            x = _block(bp, x, g, wm)
-            n_exec += 1
+            if gate_mode == "off":
+                x = _block(bp, x, g, wm)
+                continue
+            p = torch.sigmoid(_gate_logit(bp, x))
+            y = _block(bp, x, g, wm)
+            if gate_mode == "soft":
+                b = p
+            elif gate_mode == "sample":
+                u = next(draws) if draws is not None else torch.rand(
+                    p.shape, generator=generator, device=p.device)
+                b = (u.to(p.device) < p).to(x.dtype)
+                log_probs.append(b * torch.log(p + 1e-8)
+                                 + (1 - b) * torch.log(1 - p + 1e-8))
+            else:
+                b = (p > 0.5).to(x.dtype)
+            x = x + b[..., None, None, None] * (y - x)
+            executed.append(b)
     feat = torch.mean(x, dim=(-3, -2))
     logits = dense(params["head"], feat)
     batch = x.shape[:-3]
-    info = {"log_prob": torch.zeros(batch, device=x.device),
-            "compute_pct": torch.ones((), device=x.device),
-            "per_example_compute": torch.ones(batch, device=x.device)}
+    if executed:
+        frac = torch.stack(executed, -1)
+        info = {"compute_pct": frac.mean(),
+                "per_example_compute": frac.mean(-1)}
+    else:                       # "off": every kept block ran
+        info = {"compute_pct": torch.ones((), device=x.device),
+                "per_example_compute": torch.ones(batch, device=x.device)}
+    info["log_prob"] = torch.stack(log_probs, -1).sum(-1) if log_probs \
+        else torch.zeros(batch, device=x.device)
     return logits, info
 
 
 def loss_fn(params, cfg: CNNConfig, batch, *, depth=None, width_masks=None,
-            gate_mode="off"):
-    """The supervised objective (§III-C without the REINFORCE term, which
-    comes with the gates' sampled modes)."""
+            gate_mode="off", gate_uniforms=None, generator=None,
+            compute_penalty=0.1):
+    """The hybrid supervised (+ REINFORCE) objective (§III-C). ``sample``
+    adds REINFORCE with reward ``−(ce_i + λ · compute_i)`` (``ce_i``
+    detached) and the batch-mean baseline; ``soft`` adds ``λ ·
+    compute_pct``. Returns (loss, {"ce", "acc", "compute_pct"})."""
     logits, info = forward(params, cfg, batch["x"], depth=depth,
-                           width_masks=width_masks, gate_mode=gate_mode)
+                           width_masks=width_masks, gate_mode=gate_mode,
+                           gate_uniforms=gate_uniforms, generator=generator)
     labels = batch["y"].long()
     lp = F.log_softmax(logits, dim=-1)
-    ce = -torch.gather(lp, -1, labels[..., None])[..., 0].mean()
+    ce_i = -torch.gather(lp, -1, labels[..., None])[..., 0]
+    ce = ce_i.mean()
+    loss = ce
+    if gate_mode == "sample":
+        reward = -(ce_i.detach()
+                   + compute_penalty * info["per_example_compute"])
+        baseline = reward.mean()
+        loss = ce + torch.mean(-(reward - baseline) * info["log_prob"])
+    elif gate_mode == "soft":
+        loss = ce + compute_penalty * info["compute_pct"]
     acc = (torch.argmax(logits, -1) == labels).float().mean()
-    return ce, {"ce": ce, "acc": acc, "compute_pct": info["compute_pct"]}
+    return loss, {"ce": ce, "acc": acc, "compute_pct": info["compute_pct"]}
 
 
 def flops(cfg: CNNConfig, depth=None, widths=None) -> float:

@@ -15,9 +15,15 @@ Two batch layouts replace the reference's ``vmap``:
   slot axis);
 * training (``forward``): a leading client axis G on every parameter,
   mask and activation — each client its own weights and its own
-  submodel — with tokens (G, B, S). No remat: at the training slice's
-  shapes the activations of a step fit beside the optimizer state (the
-  dense SSD path checkpoints each chunk itself, as the reference does).
+  submodel — with tokens (G, B, S). The engine's rounds run without
+  remat: at the training slice's shapes the activations of a step fit
+  beside the optimizer state (the dense SSD path checkpoints each chunk
+  itself, as the reference does).
+* one model (``forward_batch``, ``loss_fn``): the reference's batch-dict
+  forward and LM loss — token, audio-frame or image-embedding inputs
+  (``embed_inputs``), the MoE aux loss, optional remat and activation
+  dtype, the chunked unembedding + CE — run as a one-client stack of the
+  training layout.
 
 Segment kinds (``configs.base.Segment``):
 
@@ -45,9 +51,6 @@ attention block with ``shared_attn_d_ff``) runs after every segment with
 ``ff`` / ``depth`` / ``heads`` stripped (every submodel keeps it whole),
 through the same op table; ``DecodeCaches.shared`` holds its KV cache per
 site, stacked (n_sites, B, ...).
-
-Not ported yet, and raising NotImplementedError when a config needs
-them: the audio / vision input frontends (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ import math
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
@@ -63,16 +67,9 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (at_least_fp32, embed, layernorm,
                                        mlp, rmsnorm, softcap)
+from repro_torch.optim.optimizers import tree_map
 
 Params = Dict[str, Any]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError naming the ROADMAP item for any part of
-    ``cfg`` the port does not run."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} input "
-                                  "frontend is not ported yet (ROADMAP A7)")
 
 
 def _norm(cfg: ModelConfig, p, x):
@@ -108,20 +105,23 @@ def _masks_get(masks, name):
     return None if masks is None else masks.get(name)
 
 
-def _ffn(bp, h, cfg: ModelConfig, masks, kernels, per_row: bool):
+def _ffn(bp, h, cfg: ModelConfig, masks, kernels, per_row: bool,
+         with_aux: bool = False):
     """The block's feed-forward: the MLP, or the MoE layer of a ``moe``
     block. h (B, S, d); with ``per_row`` every row of h is its own MoE
     group (own capacity, own expert prefix), else the B·S tokens form one
-    group."""
+    group. Returns (out, aux): with ``with_aux`` a MoE block's aux loss
+    (load balance + router z) per group, else None."""
     if "moe" not in bp:
         return mlp(bp["mlp"], h, cfg.act, width_mask=_masks_get(masks, "ff"),
-                   kernel=_masks_get(kernels, "mlp"))
+                   kernel=_masks_get(kernels, "mlp")), None
     x = h if per_row else h.reshape(1, -1, h.shape[-1])
-    m, _ = moe_lib.moe_forward(
+    m, aux = moe_lib.moe_forward(
         bp["moe"], x, cfg.moe, act=cfg.act,
         expert_mask=_masks_get(masks, "experts"),
-        kernel=_masks_get(kernels, "moe"), return_aux=False)
-    return m.reshape(h.shape)
+        kernel=_masks_get(kernels, "moe"), return_aux=with_aux)
+    return m.reshape(h.shape), \
+        aux["aux_loss"] + aux["z_loss"] if with_aux else None
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +133,6 @@ def _param_tree(cfg: ModelConfig, leaf) -> Params:
     weights, ``0.02`` for the embedding), ``"zeros"``, ``"ones"`` or one of
     ``models.ssm.INITS``. Leaves are made in the order :func:`init_params`
     draws them."""
-    check_supported(cfg)
     d, f = cfg.d_model, cfg.d_ff
 
     def norm(lead, n):
@@ -270,53 +269,153 @@ def _pairs(seg_p, n: int, dim: int):
 
 
 def _cohort_attn_block(bp, x, cfg: ModelConfig, seq_len: int, window,
-                       masks, kernels, gate=None):
+                       masks, kernels, gate=None, with_aux=False,
+                       remat=False):
     """One attention block over a cohort: x (G, T, d) with T = B·S token
     rows per client, every weight of ``bp`` with a leading client axis.
     ``gate`` (G,) 0/1 multiplies the block's residual contributions (CFL
-    depth elasticity: gate 0 is exactly the identity)."""
+    depth elasticity: gate 0 is exactly the identity) and its aux loss.
+    Returns (x, aux): with ``with_aux`` the MoE aux loss (G,) of a ``moe``
+    block (zeros for an MLP block), else None. ``remat``: the attention
+    and the FFN are recomputed in the backward instead of saved
+    (``_ckpt``)."""
+    wrap = _ckpt if remat else (lambda fn: fn)
     h = _norm(cfg, bp["ln1"], x)
     if cfg.attn_type == "mla":
-        a = attn_lib.mla_forward_cohort(
-            bp["attn"], h, seq_len, n_heads=cfg.n_heads, mla=cfg.mla,
+        a = wrap(lambda p_, h_: attn_lib.mla_forward_cohort(
+            p_, h_, seq_len, n_heads=cfg.n_heads, mla=cfg.mla,
             causal=cfg.causal, norm_eps=cfg.norm_eps,
-            head_mask=_masks_get(masks, "heads"))
+            head_mask=_masks_get(masks, "heads")))(bp["attn"], h)
     else:
-        a = attn_lib.gqa_forward_cohort(
-            bp["attn"], h, seq_len, n_heads=cfg.n_heads,
+        a = wrap(lambda p_, h_: attn_lib.gqa_forward_cohort(
+            p_, h_, seq_len, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
             rope_theta=cfg.rope_theta, causal=cfg.causal, window=window,
             cap=cfg.attn_softcap, qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
             head_mask=_masks_get(masks, "heads"),
-            kernel=_masks_get(kernels, "attention"))
+            kernel=_masks_get(kernels, "attention")))(bp["attn"], h)
     if cfg.post_norms:
         a = _norm(cfg, bp["post_ln1"], a)
     if gate is not None:
         a = a * _gate(gate, a)
     x = x + a
     h = _norm(cfg, bp["ln2"], x)
-    m = _ffn(bp, h, cfg, masks, kernels, per_row=True)
+    m, aux = wrap(lambda bp_, h_: _ffn(bp_, h_, cfg, masks, kernels,
+                                       per_row=True, with_aux=with_aux))(
+        bp, h)
     if cfg.post_norms:
         m = _norm(cfg, bp["post_ln2"], m)
     if gate is not None:
         m = m * _gate(gate, m)
-    return x + m
+    if with_aux and aux is None:
+        aux = torch.zeros(x.shape[0], device=x.device)
+    if with_aux and gate is not None:
+        aux = aux * gate.to(aux.dtype)
+    return x + m, aux
 
 
 def _cohort_ssm_block(bp, x, cfg: ModelConfig, batch: int, masks, kernels,
-                      gate=None):
+                      gate=None, with_aux=False, remat=False):
     """One SSM block over a cohort: x (G, T, d) with T = batch·S token rows
     per client; ``x + gate · mamba(ln(x))`` (the reference's
-    ``_apply_ssm_block``)."""
+    ``_apply_ssm_block``). Returns (x, aux): zeros (G,) with
+    ``with_aux``, else None."""
     G, T, d = x.shape
+    wrap = _ckpt if remat else (lambda fn: fn)
     h = _norm(cfg, bp["ln"], x).reshape(G, batch, T // batch, d)
-    y = ssm_lib.mamba_forward_cohort(
-        bp["mamba"], h, cfg.ssm, norm_eps=cfg.norm_eps,
+    y = wrap(lambda p_, h_: ssm_lib.mamba_forward_cohort(
+        p_, h_, cfg.ssm, norm_eps=cfg.norm_eps,
         head_mask=_masks_get(masks, "ssm_heads"),
-        kernel=_masks_get(kernels, "ssd")).reshape(G, T, d)
+        kernel=_masks_get(kernels, "ssd")))(bp["mamba"], h).reshape(G, T, d)
     if gate is not None:
         y = y * _gate(gate, y)
-    return x + y
+    aux = torch.zeros(G, device=x.device) if with_aux else None
+    return x + y, aux
+
+
+def _ckpt(fn):
+    """Inner remat (the reference's ``_ckpt``): ``fn``'s activations are
+    recomputed in the backward instead of saved (non-reentrant
+    ``torch.utils.checkpoint``)."""
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _remat_group(n: int) -> int:
+    """Largest divisor of n not exceeding ~sqrt(n): the layers a remat
+    group checkpoints at its boundary (the reference's)."""
+    target = math.isqrt(n) + 1
+    best = 1
+    for g in range(1, target + 1):
+        if n % g == 0:
+            best = g
+    return best
+
+
+def _cohort_stack(params, cfg: ModelConfig, x, seq_len: int, batch: int,
+                  masks, kernels, with_aux=False, remat=False):
+    """Every segment (and the shared block after the segments that have
+    it) over a cohort x (G, T, d), T = batch · seq_len, then the final
+    norm. Returns (x, aux): the MoE aux losses (G,) summed over the layers
+    with ``with_aux``, else None. ``remat``: the reference's two-level
+    remat — each segment's layers in groups of ``_remat_group(n)`` (half
+    as many pairs) checkpointed at the group's boundary, and each block's
+    attention and FFN checkpointed inside (``_ckpt``); the outputs and
+    gradients are the same, the forward runs up to three times."""
+    depth = _masks_get(masks, "depth")
+    aux = torch.zeros(x.shape[0], device=x.device) if with_aux else None
+    kw = dict(with_aux=with_aux, remat=remat)
+
+    def add(total, a):
+        return None if total is None else total + a
+
+    for si, (seg_p, seg) in enumerate(zip(params["segments"], cfg.segments)):
+        window = seg.sliding_window or cfg.sliding_window
+        gates = None if depth is None else depth[si]
+        if seg.kind == "attn_pair":
+            units = _pairs(seg_p, seg.n_layers, 1)
+        else:
+            units = _unbind_layers(seg_p["blocks"], seg.n_layers, dim=1)
+
+        def run(l, x, unit):
+            """Layer (or pair) ``l``: (x, aux of the unit or None)."""
+            g = None if gates is None else gates[:, l]
+            if seg.kind == "attn_pair":
+                x, a1 = _cohort_attn_block(unit[0], x, cfg, seq_len,
+                                           seg.pair_local_window, masks,
+                                           kernels, gate=g, **kw)
+                x, a2 = _cohort_attn_block(unit[1], x, cfg, seq_len, None,
+                                           masks, kernels, gate=g, **kw)
+                return x, None if a1 is None else a1 + a2
+            if seg.kind == "ssm":
+                return _cohort_ssm_block(unit, x, cfg, batch, masks,
+                                         kernels, gate=g, **kw)
+            return _cohort_attn_block(unit, x, cfg, seq_len, window, masks,
+                                      kernels, gate=g, **kw)
+
+        if not remat:
+            for l, unit in enumerate(units):
+                x, a = run(l, x, unit)
+                aux = add(aux, a)
+        else:
+            size = _remat_group(seg.n_layers)
+            if seg.kind == "attn_pair":
+                size = max(1, size // 2)
+            for lo in range(0, seg.n_layers, size):
+                def group(x, lo=lo):
+                    total = torch.zeros(x.shape[0], device=x.device) \
+                        if with_aux else None
+                    for l in range(lo, min(lo + size, seg.n_layers)):
+                        x, a = run(l, x, units[l])
+                        total = add(total, a)
+                    return x, total
+                x, a = checkpoint(group, x, use_reentrant=False)
+                aux = add(aux, a)
+        if seg.shared_attn_after:
+            x, a = _cohort_attn_block(params["shared_attn"], x, cfg, seq_len,
+                                      cfg.sliding_window,
+                                      _shared_masks(masks), kernels, **kw)
+            aux = add(aux, a)
+    return _norm(cfg, params["final_norm"], x), aux
 
 
 def forward(params: Params, cfg: ModelConfig, tokens, *, masks=None,
@@ -329,36 +428,173 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, masks=None,
     table of ``kernels.dispatch`` (the tile-skipping path, differentiable
     through the kernels' closed backward) or None for the dense masked
     path."""
-    check_supported(cfg)
     G, B, S = tokens.shape
     x = embed(params["embed"], tokens, scale=cfg.embed_scale)
     x = x.reshape(G, B * S, cfg.d_model)
-    depth = _masks_get(masks, "depth")
-    for si, (seg_p, seg) in enumerate(zip(params["segments"], cfg.segments)):
-        window = seg.sliding_window or cfg.sliding_window
-        if seg.kind == "attn_pair":
-            for l, (lp, gp) in enumerate(_pairs(seg_p, seg.n_layers, 1)):
-                g = None if depth is None else depth[si][:, l]
-                x = _cohort_attn_block(lp, x, cfg, S, seg.pair_local_window,
-                                       masks, kernels, gate=g)
-                x = _cohort_attn_block(gp, x, cfg, S, None, masks, kernels,
-                                       gate=g)
-        else:
-            layers = _unbind_layers(seg_p["blocks"], seg.n_layers, dim=1)
-            for l, bp in enumerate(layers):
-                g = None if depth is None else depth[si][:, l]
-                if seg.kind == "ssm":
-                    x = _cohort_ssm_block(bp, x, cfg, B, masks, kernels,
-                                          gate=g)
-                else:
-                    x = _cohort_attn_block(bp, x, cfg, S, window, masks,
-                                           kernels, gate=g)
-        if seg.shared_attn_after:
-            x = _cohort_attn_block(params["shared_attn"], x, cfg, S,
-                                   cfg.sliding_window, _shared_masks(masks),
-                                   kernels)
-    x = _norm(cfg, params["final_norm"], x)
+    x, _ = _cohort_stack(params, cfg, x, S, B, masks, kernels)
     return _logits(params, cfg, x).reshape(G, B, S, -1)
+
+
+# ---------------------------------------------------------------------------
+# training: the batch-dict forward of one model, the LM loss
+# ---------------------------------------------------------------------------
+def embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+                 dtype=None):
+    """x (B, S, d) of one (unstacked) model's batch: the token embedding,
+    the audio frontend's precomputed ``frames`` (B, S, d), or the vision
+    frontend's ``image_embeds`` (B, F, d) over the first F token
+    positions; cast to ``dtype`` where one is given."""
+    if cfg.frontend == "audio":
+        x = batch["frames"]
+    elif cfg.frontend == "vision":
+        tok = embed(params["embed"], batch["tokens"], scale=cfg.embed_scale)
+        img = batch["image_embeds"].to(tok.dtype)
+        x = torch.cat([img, tok[:, img.shape[1]:, :]], dim=1)
+    else:
+        x = embed(params["embed"], batch["tokens"], scale=cfg.embed_scale)
+    return x if dtype is None else x.to(dtype)
+
+
+def _unembed_w(params, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].transpose(-1, -2)
+    return params["lm_head"]["w"]
+
+
+def _one_client(tree):
+    """A tree (params or masks) as a one-client stack: a leading axis of
+    1 on every leaf (views: gradients reach the caller's leaves)."""
+    return tree_map(lambda t: t.unsqueeze(0), tree)
+
+
+def forward_batch(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+                  *, masks=None, kernels=None, remat: bool = False,
+                  activation_dtype=None, last_only: bool = False,
+                  return_hidden: bool = False):
+    """The reference's batch-dict forward of one model: ``batch`` holds
+    ``tokens`` (B, S), and ``image_embeds`` (B, F, d) for a vision
+    frontend, or an audio frontend's ``frames`` (B, S, d); ``params`` and
+    ``masks`` carry no client axis (``ff`` (d_ff,), ``heads`` (H,),
+    ``experts`` (E,), ``depth`` an (n_layers,) gate per segment). It runs
+    as a one-client stack of the cohort path (the MoE layer routes the
+    B·S tokens as one group, as the reference's ``moe_forward``). Returns
+    (logits (B, S, V) in the activation dtype, softcapped, or only the
+    last position's with ``last_only``; aux) — with ``return_hidden`` the
+    final-normed hidden states (B, S, d) in place of the logits — where
+    aux is the scalar MoE aux loss summed over the layers under their
+    depth gates. ``activation_dtype`` (e.g. ``torch.bfloat16``) casts the
+    embeddings; the weights are cast to it at each product. ``remat``: see
+    ``_cohort_stack``."""
+    x = embed_inputs(params, cfg, batch, activation_dtype)
+    B, S, d = x.shape
+    h, aux = _cohort_stack(_one_client(params), cfg, x.reshape(1, B * S, d),
+                           S, B, None if masks is None
+                           else _one_client(masks), kernels, with_aux=True,
+                           remat=remat)
+    h = h.reshape(B, S, d)
+    aux = aux[0]
+    if return_hidden:
+        return h, aux
+    if last_only:
+        h = h[:, -1:, :]
+    logits = h @ _unembed_w(params, cfg).to(h.dtype)
+    return softcap(logits, cfg.final_softcap), aux
+
+
+class _GradDtypeBarrier(torch.autograd.Function):
+    """Identity whose backward casts the cotangent to the primal dtype (the
+    reference's ``_grad_dtype_barrier``): fp32 loss-side cotangents do not
+    reach bf16 activations as fp32 copies."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def _grad_dtype_barrier(x):
+    return _GradDtypeBarrier.apply(x)
+
+
+def _xent_chunk(xc, w, tc, mc, cap):
+    """(Σ masked CE, Σ mask) of one sequence chunk: its logits xc @ w,
+    softcapped, in fp32 with the max subtracted; the target logit picked
+    by index."""
+    logits = softcap(_grad_dtype_barrier(xc) @ w.to(xc.dtype), cap)
+    lf = logits.float()
+    shifted = lf - lf.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(shifted).sum(-1))
+    tgt = torch.gather(shifted, -1, tc[..., None].long())[..., 0]
+    return ((lse - tgt) * mc).sum(), mc.sum()
+
+
+def chunked_softmax_xent(x, w, targets, mask, *, cap=None, chunk=256):
+    """Fused unembedding + CE over sequence chunks, each checkpointed: the
+    full (B, S, V) logits never live at once (the backward recomputes each
+    chunk's logits from x and w). The chunk is the largest divisor of S
+    not above ``chunk``. x (B, S, d) hidden states, w (d, V), targets and
+    mask (B, S). Returns the mean CE over the mask."""
+    B, S, d = x.shape
+    cs = next(c for c in range(min(chunk, S), 0, -1) if S % c == 0)
+    x = _grad_dtype_barrier(x)
+    ce_sum = torch.zeros((), device=x.device)
+    m_sum = torch.zeros((), device=x.device)
+    for lo in range(0, S, cs):
+        sl = slice(lo, lo + cs)
+        c, m = checkpoint(_xent_chunk, x[:, sl], w, targets[:, sl],
+                          mask[:, sl].float(), cap, use_reentrant=False)
+        ce_sum = ce_sum + c
+        m_sum = m_sum + m
+    return ce_sum / torch.clamp(m_sum, min=1.0)
+
+
+def cross_entropy(logits, targets, mask):
+    """Masked mean CE of (…, V) logits, reduced in fp32, the max
+    subtracted (the reference's ``cross_entropy``)."""
+    lf = logits.float()
+    shifted = lf - lf.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(shifted).sum(-1))
+    tgt = torch.gather(shifted, -1, targets[..., None].long())[..., 0]
+    mask = mask.float()
+    return ((lse - tgt) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            masks=None, kernels=None, remat: bool = False,
+            activation_dtype=None):
+    """The LM objective of one model (the reference's ``loss_fn``): CE of
+    the chunked unembedding plus the MoE aux loss. Encoder-only (hubert):
+    ``labels`` (B, S) under ``loss_mask`` (all ones by default). Decoders:
+    next-token targets (the last position masked), and for a vision
+    frontend no loss on the image positions. Returns (loss, {"ce",
+    "aux"})."""
+    hidden, aux = forward_batch(params, cfg, batch, masks=masks,
+                                kernels=kernels, remat=remat,
+                                activation_dtype=activation_dtype,
+                                return_hidden=True)
+    w = _unembed_w(params, cfg)
+    if cfg.encoder_only:
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, device=labels.device)
+        ce = chunked_softmax_xent(hidden, w, labels, mask,
+                                  cap=cfg.final_softcap)
+    else:
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        targets = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], 1)
+        pos = torch.arange(S, device=tokens.device)[None, :]
+        mask = (pos < S - 1).float()
+        if cfg.frontend == "vision":
+            mask = mask * (pos >= batch["image_embeds"].shape[1]).float()
+        ce = chunked_softmax_xent(hidden, w, targets, mask.expand(B, S),
+                                  cap=cfg.final_softcap)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -397,8 +633,8 @@ def _apply_attn_block(bp, x, positions, cfg: ModelConfig, window, masks,
     x = x + a
     h = _norm(cfg, bp["ln2"], x)
     experts = _masks_get(masks, "experts")
-    m = _ffn(bp, h, cfg, masks, kernels,
-             per_row=experts is not None and experts.dim() == 2)
+    m, _ = _ffn(bp, h, cfg, masks, kernels,
+                per_row=experts is not None and experts.dim() == 2)
     if cfg.post_norms:
         m = _norm(cfg, bp["post_ln2"], m)
     if gate is not None:
@@ -444,7 +680,6 @@ def prefill(params: Params, cfg: ModelConfig, tokens, max_len: int, *,
 
     Returns ``(last_logits (B, V) fp32 softcapped, caches)``; generation
     continues at ``pos = S`` with :func:`decode_step`."""
-    check_supported(cfg)
     x = embed(params["embed"], tokens, scale=cfg.embed_scale)
     B, S = tokens.shape
     if S > max_len:
@@ -508,7 +743,6 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
     (``min(max_len, window)`` slots), MLA latents of ``max_len``
     positions, SSM states and conv histories, and the shared block's KV
     cache per site."""
-    check_supported(cfg)
     device = resolve_device(device)
 
     def kv(window):
@@ -559,7 +793,7 @@ def _decode_attn_block(bp, x, cache, pos, cfg: ModelConfig, window,
         a = a * _gate(gate, a)
     x = x + a
     h = _norm(cfg, bp["ln2"], x)
-    m = _ffn(bp, h, cfg, masks, kernels, per_row=True)
+    m, _ = _ffn(bp, h, cfg, masks, kernels, per_row=True)
     if cfg.post_norms:
         m = _norm(cfg, bp["post_ln2"], m)
     if gate is not None:
@@ -597,7 +831,6 @@ def decode_step(params: Params, cfg: ModelConfig, caches: DecodeCaches,
     the caches are updated **in place** and returned. ``masks`` /
     ``kernels`` mirror :func:`prefill`'s elastic surface; a mask with a
     leading batch axis gives every row its own submodel."""
-    check_supported(cfg)
     x = embed(params["embed"], token, scale=cfg.embed_scale)
     depth = _masks_get(masks, "depth")
     site = 0

@@ -1,7 +1,8 @@
 """Minimal optimizers over client-stacked parameter trees.
 
 The port of the reference's ``optim/optimizers.py`` (``sgd``,
-``adamw``, ``clip_by_global_norm``, ``apply_updates``). In the batched
+``adamw``, ``clip_by_global_norm``, ``apply_updates``, the schedule hook
+``_lr_at``). In the batched
 engine every leaf carries a leading client axis (G, ...) — the axis the
 reference gets from ``vmap``; ``adamw`` (the accuracy predictor's) is
 elementwise and takes any tree. The API mirrors the reference's (and optax's):
@@ -14,14 +15,23 @@ Trees are nested dicts, lists and tuples of tensors (the layout of
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Union
 
 import torch
+
+# a learning rate: a float, or a schedule step -> rate (``optim.schedule``)
+Schedule = Union[float, Callable]
 
 
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable
+
+
+def _lr_at(lr: Schedule, step):
+    """The rate at ``step`` (the step count after this update, from 1):
+    the schedule's value, or the float itself."""
+    return lr(step) if callable(lr) else lr
 
 
 def tree_map(fn, tree, *rest):
@@ -48,33 +58,54 @@ def tree_leaves(tree):
     return [] if tree is None else [tree]
 
 
+def value_and_grad(fn, params, *args):
+    """(value, aux, grads) of ``value, aux = fn(params, *args)`` over the
+    tensors of ``params`` (a tree, not modified): value and aux detached,
+    grads a tree like ``params``. A leaf the value does not reach gets a
+    zero gradient, as ``jax.grad`` gives it."""
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    value, aux = fn(leaves, *args)
+    flat = tree_leaves(leaves)
+    grads = iter([torch.zeros_like(t) if g is None else g for t, g in zip(
+        flat, torch.autograd.grad(value, flat, allow_unused=True))])
+    return value.detach(), tree_map(torch.Tensor.detach, aux), \
+        tree_map(lambda _: next(grads), leaves)
+
+
 def _client(v, like):
     """A (G,) per-client value shaped to broadcast over ``like`` (G, ...)."""
     return v.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
-def sgd(lr: float, momentum: float = 0.0):
+def sgd(lr: Schedule, momentum: float = 0.0, weight_decay: float = 0.0):
+    """SGD with optional momentum and (L2, added to the gradient) weight
+    decay; ``lr`` a float or a schedule of the step count."""
     def init(params):
         mu = tree_map(torch.zeros_like, params) if momentum else None
         return {"step": 0, "mu": mu}
 
     def update(grads, state, params=None):
-        del params
+        step = state["step"] + 1
+        if weight_decay and params is not None:
+            grads = tree_map(lambda g, p: g + weight_decay * p, grads,
+                             params)
         if momentum:
             mu = tree_map(lambda m, g: momentum * m + g, state["mu"], grads)
             upd = mu
         else:
             mu = None
             upd = grads
-        upd = tree_map(lambda u: lr * u, upd)
-        return upd, {"step": state["step"] + 1, "mu": mu}
+        rate = _lr_at(lr, step)
+        upd = tree_map(lambda u: rate * u, upd)
+        return upd, {"step": step, "mu": mu}
 
     return Optimizer(init, update)
 
 
-def adamw(lr: float, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
+def adamw(lr: Schedule, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
     """Adam with decoupled weight decay; moments kept in fp32, the bias
-    corrections ``1 - b^step`` computed in fp32, as the reference's."""
+    corrections ``1 - b^step`` computed in fp32, as the reference's;
+    ``lr`` a float or a schedule of the step count."""
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
@@ -90,13 +121,14 @@ def adamw(lr: float, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
                      state["v"], grads)
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** step
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** step
+        rate = _lr_at(lr, step)
 
         def upd_leaf(m_, v_, p):
             bc1_, bc2_ = bc1.to(m_.device), bc2.to(m_.device)
             u = (m_ / bc1_) / (torch.sqrt(v_ / bc2_) + eps)
             if weight_decay and p is not None:
                 u = u + weight_decay * p.float()
-            return (lr * u).to(p.dtype if p is not None else u.dtype)
+            return (rate * u).to(p.dtype if p is not None else u.dtype)
 
         if params is None:
             upd = tree_map(lambda m_, v_: upd_leaf(m_, v_, None), m, v)

@@ -335,9 +335,24 @@ def test_groupnorm_and_cnn_forward_match_reference():
     for depth, widths in ((None, None), ((1, 2), (0.5, 1.0))):
         assert cnn.flops(CFG, depth, widths) == \
             ref_cnn.flops(REF_CFG, depth, widths)
+    # the RL gates' modes (ROADMAP A21 landed): soft and hard as the
+    # reference's, sample on the reference's own uniforms replayed
+    key = jax.random.PRNGKey(4)
+    uniforms = []
+    for _ in range(CFG.n_blocks):
+        key, sub = jax.random.split(key)
+        uniforms.append(torch.tensor(np.asarray(
+            jax.random.uniform(sub, (len(labels),), jnp.float32))))
     for mode in ("soft", "sample", "hard"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-            cnn.forward(p, CFG, torch.as_tensor(imgs), gate_mode=mode)
+        want, want_info = ref_cnn.forward(
+            ref_p, REF_CFG, jnp.asarray(imgs), gate_mode=mode,
+            gate_key=jax.random.PRNGKey(4))
+        got, info = cnn.forward(p, CFG, torch.as_tensor(imgs),
+                                gate_mode=mode, gate_uniforms=uniforms)
+        _close(got.numpy(), np.asarray(want))
+        _close(info["log_prob"].numpy(), np.asarray(want_info["log_prob"]))
+        _close(float(info["compute_pct"]),
+               float(want_info["compute_pct"]))
     fresh = cnn.init_params(CFG, seed=0, device="cpu")
     assert jax.tree.structure(params_to_numpy(fresh)) == \
         jax.tree.structure(ref_p)

@@ -387,7 +387,8 @@ def _banks(words):
 @pytest.mark.parametrize("D", fa.KERNEL_HEAD_DIMS)
 def test_every_fragment_read_hits_distinct_banks(D):
     """Every shared tile of the mma variant is row-major at stride D + 4
-    (≡ 4 mod 32): each 32-bit fragment load of a warp — A fragments along
+    (≡ 4 mod 32; 20 at D = 80 — an odd multiple of 4 either way): each
+    32-bit fragment load of a warp — A fragments along
     a tile's rows (K3's Q and dO, K4's K and V; rows r + g and r + g + 8,
     columns c + t and c + t + 4), B fragments along the rows (S's and
     dP's K and V, Sᵀ's and dPᵀ's Q and dO: row n + g, columns c + t and
@@ -396,9 +397,10 @@ def test_every_fragment_read_hits_distinct_banks(D):
     every offset the kernels use; so does each half warp's 64-bit access
     to a warp pair's exchange tile (row stride 8 mod 32: the step's 16 or
     32 columns + 8), and each 8-thread phase of a 16-byte cp.async row
-    copy."""
+    copy (a row's chunks numbered in slots of a multiple of 8, so that no
+    phase straddles two rows)."""
     S = D + fa.BWD_ROW_PAD
-    assert S % 32 == 4 and S % 4 == 0
+    assert S % 32 == (20 if D == 80 else 4) and S % 4 == 0
     for r in (0, 16, 32, 48):                 # a warp's rows in the tile
         for c in range(0, D, 8):
             for dr, dc in ((0, 0), (8, 0), (0, 4), (8, 4)):        # load_a
@@ -423,12 +425,14 @@ def test_every_fragment_read_hits_distinct_banks(D):
                         assert len(set(_banks(half + [w + 1 for w in half]))
                                    ) == 32
     chunks = D // 4                           # copy_rows: 16-byte chunks
-    for c0 in range(0, 64 * chunks, 8):
+    slots = -(-chunks // 8) * 8               # numbered in slots of 8s
+    for c0 in range(0, 64 * slots, 8):
         words = []
         for c in range(c0, c0 + 8):
-            i, d = divmod(c, chunks)
-            words += [i * S + 4 * d + e for e in range(4)]
-        assert len(set(_banks(words))) == 32
+            i, d = divmod(c, slots)
+            if d < chunks:
+                words += [i * S + 4 * d + e for e in range(4)]
+        assert len(set(_banks(words))) == len(words)
 
 
 # ---------------------------------------------------------------------------

@@ -274,8 +274,9 @@ def test_fused_prefill_matches_stepwise_decode(window):
 def test_cnn_family_raises_naming_its_roadmap_item():
     """The CNN family is ported (ROADMAP A4 landed): ``family_for`` builds
     it from the port's ``CNNConfig`` and refuses the reference's config
-    object; what of it is still to come — the RL gates' sampled modes —
-    raises naming ROADMAP A19."""
+    object. The RL gates (ROADMAP A21 landed) run on the paper's CNN in
+    every mode: ``sample`` takes a generator or replayed uniforms and
+    raises without either, an unknown mode raises."""
     from repro.configs.paper_cnn import CNNConfig as RefCNNConfig
     from repro_torch.configs.paper_cnn import PAPER_CNN
     from repro_torch.core.elastic import CNNElasticFamily
@@ -284,9 +285,19 @@ def test_cnn_family_raises_naming_its_roadmap_item():
     with pytest.raises(TypeError, match="no elastic family"):
         family_for(RefCNNConfig())
     params = cnn.init_params(PAPER_CNN, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-        cnn.forward(params, PAPER_CNN, torch.zeros((1, 32, 32, 3)),
-                    gate_mode="sample")
+    x = torch.rand((2, 32, 32, 3), generator=torch.Generator().manual_seed(0))
+    for mode in ("soft", "hard"):
+        logits, info = cnn.forward(params, PAPER_CNN, x, gate_mode=mode)
+        assert logits.shape == (2, PAPER_CNN.n_classes)
+        assert 0.0 <= float(info["compute_pct"]) <= 1.0
+    logits, info = cnn.forward(params, PAPER_CNN, x, gate_mode="sample",
+                               generator=torch.Generator().manual_seed(1))
+    assert info["log_prob"].shape == (2,) and \
+        bool(torch.isfinite(info["log_prob"]).all())
+    with pytest.raises(ValueError, match="generator"):
+        cnn.forward(params, PAPER_CNN, x, gate_mode="sample")
+    with pytest.raises(ValueError, match="gate_mode"):
+        cnn.forward(params, PAPER_CNN, x, gate_mode="skip")
 
 
 def test_unported_configs_raise_naming_roadmap():
@@ -297,7 +308,10 @@ def test_unported_configs_raise_naming_roadmap():
     SSD-head dim on zamba2, expert and d_ff dims on deepseek — and its
     reduced parent runs ``init_params`` / ``forward`` / ``prefill`` /
     ``decode_step`` to finite logits. What is still to come, the input
-    frontends of llava and hubert, raises naming ROADMAP A7."""
+    frontends of llava and hubert (ROADMAP A7 landed), build too: their
+    reduced parents run ``init_params`` and the batch-dict
+    ``forward_batch`` on token / image-embedding / frame inputs to finite
+    logits."""
     dims = {"gemma2-9b": {"ff", "heads", "depth"},
             "deepseek-v2-lite-16b": {"ff", "experts", "depth"},
             "zamba2-1.2b": {"ff", "ssm_heads", "depth"}}
@@ -317,10 +331,24 @@ def test_unported_configs_raise_naming_roadmap():
         step, _ = PT.decode_step(params, cfg, caches, toks[0, :, -1:],
                                  torch.full((2,), 16))
         assert torch.isfinite(last).all() and torch.isfinite(step).all()
+    gen = torch.Generator().manual_seed(2)
     for arch in ("llava-next-mistral-7b", "hubert-xlarge"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            PT.init_params(reduced(ARCHS[arch], n_layers=2, d_model=64),
-                           device="cpu")
+        cfg = reduced(ARCHS[arch], n_layers=2, d_model=64)
+        params = PT.init_params(cfg, seed=1, device="cpu")
+        if cfg.frontend == "audio":
+            batch = {"frames": torch.randn((2, 16, cfg.d_model),
+                                           generator=gen)}
+        else:
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                             generator=gen),
+                     "image_embeds": torch.randn(
+                         (2, cfg.frontend_tokens, cfg.d_model),
+                         generator=gen)}
+        logits, aux = PT.forward_batch(params, cfg, batch)
+        assert logits.shape[:2] == (2, 16 if cfg.frontend == "audio"
+                                    else 24)
+        assert logits.shape[-1] == cfg.padded_vocab
+        assert bool(torch.isfinite(logits).all()) and float(aux) == 0.0
 
 
 @pytest.mark.parametrize("reduce", [True, False])
