@@ -245,9 +245,10 @@ printing its own lines; any failed phase exits non-zero:
    and fp32 bounds, plain, SDPA and its all-grads backward, non-causal).
 
 17. the zoo's last three decoder parents end to end: ``EdgeServer`` as
-   phase 5 on gemma2-9b (all 42 layers, 37.0 GB fp32), zamba2-1.2b (all
-   38) and deepseek-v2-lite-16b cut to its dense first layer and 16 of its
-   26 MoE layers (39.5 GB), kernel path against dense path (greedy tokens
+   phase 5 on gemma2-9b (10 of its 21 pairs), zamba2-1.2b (its first two
+   segments and its last, 14 of 38 layers) and deepseek-v2-lite-16b (its
+   dense first layer and 8 of its 26 MoE layers), widths published, kernel
+   path against dense path (greedy tokens
    equal, logits within ``SLICE_LOGIT_RTOL``), every kernel of the path
    launched; then phase 15's sessions (``phase_zoo``) at published width:
    gemma2 one (local, global) pair and deepseek its dense and one MoE
@@ -296,6 +297,22 @@ printing its own lines; any failed phase exits non-zero:
    and its gradients kernel vs dense, one train step, llava's
    ``make_prefill_step`` logits kernel vs dense.
 
+20. the tile-accounting gate (``phase_gate``,
+   ``repro_torch.launch.elastic_kernels``): each tile-skipping op — K1's
+   output- and contraction-prefix MLP projections, K5, K6 / K7's dispatch
+   and combine, K8 (+ K9 backward), K2 (+ K3 / K4 backward), the CNN conv
+   on K1 — swept over 25 / 50 / 75 / 100 % of its width at the
+   reference's bench shapes and at the main widths, forward and backward:
+   the counted build of every kernel (``csrc/tile_counters.cuh``) must
+   give the host model's tiles and DMA blocks exactly
+   (``launch/roofline.py``), also at prefix 0, ragged per-group prefixes,
+   shapes that are not tile multiples and in every variant; ``max_err``
+   against the plain version in fp64 ≤ 1e-5 and ``gate_elastic_rows``
+   (the reference's rules and defaults) must pass on both sets. Prints
+   every row (tiles, DMA, arithmetic intensity, counters, error, fast and
+   dense-masked ms, time share of the full width), the gate's verdict and
+   its seconds.
+
 The last lines are a ``kernels:`` line, the slices' stats, the card line,
 one JSON object with every kernel's launches and times, and the result
 line ``{"ok": true, "device": {...}}``.
@@ -314,9 +331,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
-TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 K1_TOL = 1e-4                  # K up to 12800 fp32 products, outputs O(1)
 K2_TOL = 2e-5                  # D-length dots and one softmax, outputs O(1)
 K34_TOL = 1e-4                 # two D-length dots per pair, then sums over up
@@ -339,9 +353,9 @@ K9_RTOL = 1e-4                 # each output relative to its max: three
 SLICE_LOGIT_RTOL = 1e-3        # 40 fp32 layers summed in another order
 TRAIN_LOSS_RTOL = 1e-4         # eval CE after a round: 2 fp32 layers and 2
                                # SGD steps summed in another order
-IL_PARAM_TOL = 1e-3            # IL's trained clients (33 steps) against
-                               # the fp64 dense path on the kernel path's
-                               # ReLU decisions, over their movement: 4.7e-4
+IL_PARAM_TOL = 1e-3            # IL's trained clients against the fp64 dense
+                               # path on the kernel path's ReLU decisions,
+                               # over their movement: 4.7e-4 after 33 steps
                                # on an H100 (the fp32 dense path: 3.5e-3)
 SLICE = dict(arch="granite-3-8b", slots=2, n_requests=4, prompt_len=32,
              gen=8, seed=0)
@@ -455,6 +469,7 @@ def cuda_ms(fn, device, iters=20, warmup=3) -> float:
 
 
 def bound(nbytes: float, ops: float):
+    from repro_torch.launch.mesh import FP32_OPS_PER_S, HBM_BYTES_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -465,6 +480,7 @@ def add_tc_bound(row, nbytes: float, ops: float):
     bound: max(bytes / 3.35 TB/s, 3 · operations / 495 TFLOP/s) — three
     TF32 products per fp32 product — and the achieved rates (operations
     and bytes the function needs over the kernel's time)."""
+    from repro_torch.launch.mesh import HBM_BYTES_PER_S, TF32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 3.0 * ops / TF32_OPS_PER_S * 1e3
     row["tc_bound_ms"] = max(t_bytes, t_ops)
@@ -2771,6 +2787,11 @@ def phase_ssd_times(device, d_model, head_dim, d_state, clients, rows, seq,
 CNN_SLICE = dict(kind="synthcifar", n_workers=8, n_samples=4000,
                  heterogeneity="quality", rounds=2, seed=0)
 CNN_BATCH = 32
+# the IL witness's budget (phase 14): the kernel path's recorded ReLU
+# decisions replayed on the dense path in fp32 and fp64 over one round's
+# local steps (the timed IL calls keep the slice's rounds); cut from the
+# timed budget to make room for phase 20
+IL_WITNESS_ROUNDS = 1
 # the phase 3d / 14a cohort's width per client: channel prefixes 8 / 16 /
 # 24 / 32 of stage 0, 16 ... 64 of stage 1, 32 ... 128 of stage 2, ragged
 # and differing per client
@@ -3191,9 +3212,9 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
     the round's movement, each client's test CE within ``TRAIN_LOSS_RTOL``,
     accuracies within one test sample, later specs identical while the
     earlier accuracies are; fedavg (1 round): the same parameter, CE and
-    accuracy checks; il (the timed budget): the dense path replays the
-    decisions in fp32 and in fp64, the witness of what they give without
-    fp32 rounding; the kernel path's trained clients within
+    accuracy checks; il (``IL_WITNESS_ROUNDS``' budget): the dense path
+    replays the decisions in fp32 and in fp64, the witness of what they
+    give without fp32 rounding; the kernel path's trained clients within
     ``IL_PARAM_TOL`` of their movement of the witness's and its
     accuracies within one test sample of the witness's (the fp32 dense
     path's drift from the witness printed). The sequential
@@ -3281,29 +3302,30 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
                                 if r == 0 else None))
         return sess, out
 
-    def il_call(ek, mode=None, kept=None):
-        """One IL call of ``rounds`` rounds' local budget on a fresh
-        session: timed and counted when free-running; ``kept`` keeps its
-        trained clients."""
+    def il_call(ek, mode=None, kept=None, n=rounds):
+        """One IL call of ``n`` rounds' local budget on a fresh session:
+        timed and counted when free-running; ``kept`` keeps its trained
+        clients."""
         sess, _ = make("il", ek)
         with CnnCounters() as count, (relus(mode) if mode
                                       else contextlib.nullcontext()), \
                 (kept or contextlib.nullcontext()):
             sync(device)
             t = time.perf_counter()
-            sess.run(rounds)
+            sess.run(n)
             sync(device)
         return sess, time.perf_counter() - t, count
 
     def replayed_il():
-        """IL at the timed budget on one set of ReLU decisions: the kernel
-        path records them, the dense path replays them in fp32 and in fp64
-        (the witness: what those decisions give with fp32 rounding taken
-        out). Returns ({pair: ratio of the trained clients' difference to
-        their movement}, {pair: accuracy differences in test samples})."""
+        """IL at ``IL_WITNESS_ROUNDS`` rounds' budget on one set of ReLU
+        decisions: the kernel path records them, the dense path replays
+        them in fp32 and in fp64 (the witness: what those decisions give
+        with fp32 rounding taken out). Returns ({pair: ratio of the trained
+        clients' difference to their movement}, {pair: accuracy
+        differences in test samples})."""
         kept = KeptTrained()
-        il_r, _, _ = il_call(True, "record", kept)
-        il_p, _, _ = il_call(False, "replay", kept)
+        il_r, _, _ = il_call(True, "record", kept, IL_WITNESS_ROUNDS)
+        il_p, _, _ = il_call(False, "replay", kept, IL_WITNESS_ROUNDS)
         replayed = [relus.pos]
 
         def wide(ds):
@@ -3313,7 +3335,7 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
                 il_r.family, tree_map(lambda a: a.double(),
                                       il_r._init_params),
                 il_r.clients, wide(il_r.client_data), wide(il_r.test_data),
-                rounds=rounds, fl_cfg=dataclasses.replace(
+                rounds=IL_WITNESS_ROUNDS, fl_cfg=dataclasses.replace(
                     il_r.fl, elastic_kernels=False), device=device)
         replayed.append(relus.pos)
         if replayed != [len(relus.masks)] * 2:
@@ -4857,12 +4879,14 @@ def phase_selection(device, cfg=None, zoo=True, cfg_of=None):
 # ---------------------------------------------------------------------------
 # phases 3e and 17: the zoo's last three decoder parents
 # ---------------------------------------------------------------------------
-# phase 17's serving slices: gemma2-9b at all 42 layers (9.24 B parameters,
-# 37.0 GB fp32) and zamba2-1.2b at all 38; deepseek-v2-lite-16b cut to its
-# dense first layer and 16 of its 26 MoE layers (9.86 B parameters, 39.5 GB:
-# all 27 would be 15.7 B, 62.8 GB) — (arch, depth for cut_depth or None)
-A11_SLICES = (("gemma2-9b", None), ("zamba2-1.2b", None),
-              ("deepseek-v2-lite-16b", ((0, 1), (1, 16))))
+# phase 17's serving slices, depth cut to make room for phase 20 (widths
+# kept): gemma2-9b 10 of its 21 (local, global) pairs, zamba2-1.2b its first
+# two 6-layer segments with their shared blocks and its last segment (14 of
+# 38 layers), deepseek-v2-lite-16b its dense first layer and 8 of its 26
+# MoE layers — (arch, depth for cut_depth)
+A11_SLICES = (("gemma2-9b", ((0, 10),)),
+              ("zamba2-1.2b", ((0, 6), (1, 6), (6, 2))),
+              ("deepseek-v2-lite-16b", ((0, 1), (1, 8))))
 # phase 17's CFL sessions at published width, as phase 15's (name, depth,
 # sequence length, timed CFL rounds, FedAvg / IL and a warm-up, clients):
 # gemma2 one (local, global) pair and deepseek its dense layer and one MoE
@@ -5993,6 +6017,44 @@ def without_arch(settings):
     return {k: v for k, v in settings.items() if k != "arch"}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the tile-accounting gate
+# ---------------------------------------------------------------------------
+def phase_gate(device):
+    """The tile-accounting gate (``repro_torch.launch.elastic_kernels``) on
+    the card: for every row set (the reference's bench shapes, the main
+    widths, the dispatch at the main path's capacity) and fraction, the
+    counted kernels' tiles and DMA blocks against the host model, parity
+    against the plain version in fp64, fast and dense-masked times and
+    their shares; counters against the model at the edges (prefix 0,
+    ragged per-group prefixes that differ, shapes that are not tile
+    multiples, every variant); then ``gate_elastic_rows`` on the bench and
+    main sets. Any mismatch or gate failure raises. Returns the stats."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import elastic_kernels as ek
+    t0 = time.perf_counter()
+    rows, fails = ek.run_card(device)
+    seconds = time.perf_counter() - t0
+    counted = {k: round(v, 1) for k, v in build.build_seconds.items()
+               if k.endswith("_counted")}
+    gated = [r for r in rows if r["set"] in ek.GATED
+             and r["kernel_path"] == "tile-skipping"]
+    shares = {f"{r['set']} {r['op']}/{r['pass']}@{r['frac']:g}":
+              round(r["share"], 3) for r in rows
+              if r["kernel_path"] == "tile-skipping" and r["frac"] < 1}
+    stats = dict(seconds=seconds, rows=len(rows), gated_rows=len(gated),
+                 worst_err=max(r["max_err"] for r in gated),
+                 counted_build_s=counted, failures=fails, shares=shares)
+    print(f"  counted builds, seconds from their start: {counted}")
+    print(f"  gate {'FAIL' if fails else 'PASS'}: {len(gated)} gated "
+          f"tile-skipping rows of {ek.GATED}, counters == model at every "
+          f"row and edge: {not any('counted' in f for f in fails)}, worst "
+          f"max_err {stats['worst_err']:.2e}; {seconds:.1f} s")
+    if fails:
+        raise PhaseError("tile-accounting gate: " + "; ".join(fails))
+    return stats
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     try:
@@ -6190,8 +6252,8 @@ def main() -> int:
         release()
         done("16")
         print("== 17. the last three decoder parents: EdgeServer on "
-              "gemma2-9b (42 layers), zamba2-1.2b (38) and "
-              "deepseek-v2-lite-16b (its dense layer and 16 MoE layers), "
+              "gemma2-9b (10 pairs), zamba2-1.2b (14 layers) and "
+              "deepseek-v2-lite-16b (its dense layer and 8 MoE layers), "
               "then CFLSession on each at published width (gemma2 one "
               "pair, deepseek its dense and one MoE layer, 2 clients; "
               "zamba2 two segments and the shared block, 4 clients), fp32")
@@ -6228,6 +6290,13 @@ def main() -> int:
         lm_launches, lm_stats = phase_lm(device)
         release()
         done("19")
+        print("== 20. the tile-accounting gate: the counted kernels' tiles "
+              "and DMA blocks against the host model, parity, times and "
+              "shares over the width (bench shapes, main widths), the "
+              "edges, gate_elastic_rows")
+        gate_stats = phase_gate(device)
+        release()
+        done("20")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6359,6 +6428,7 @@ def main() -> int:
     print(f"last three decoder parents: {json.dumps(a11_stats)}")
     print(f"fleet: {json.dumps(fleet_stats)}")
     print(f"gates and lm training: {json.dumps(lm_stats)}")
+    print(f"tile-accounting gate: {json.dumps(gate_stats)}")
     print(f"phase seconds: {json.dumps(phase_s)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
     print(card_line())

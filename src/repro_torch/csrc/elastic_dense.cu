@@ -84,6 +84,7 @@
 #include <math.h>
 
 #include "mma_tf32.cuh"
+#include "tile_counters.cuh"
 
 namespace {
 
@@ -233,6 +234,7 @@ edense_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int k_lo = blockIdx.z * kchunk;
   const int k_hi = min(kend_tile, k_lo + kchunk);
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
+  TC_DECL;  // a stage of math a tile; the x and w tiles of a stage 2 blocks
 
   // One ring stage: the x tile (BM × kBK) and the w tile (kBK × BN) at
   // contraction offset k0, in 16-byte copies along each operand's stored
@@ -240,6 +242,7 @@ edense_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   auto load_stage = [&](int stage, int k0) {
     float* as = As + stage * SA::kFloats;
     float* bs = Bs + stage * SB::kFloats;
+    TC_DMA(2);
     for (int c = tid; c < BM * kBK / 4; c += kThreads) {
       int i, kk, bytes;
       const float* src = x;
@@ -303,8 +306,10 @@ edense_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const float* as = As + (kt % STAGES) * SA::kFloats;
     const float* bs = Bs + (kt % STAGES) * SB::kFloats;
     tf32x3::stage_mma<BM, BN, MT, NT, XT, WT>(as, bs, wm, wn, g, t, acc);
+    TC_TILES(1);
   }
   tf32x3::cp_async_wait<0>();
+  TC_FLUSH(tid == 0);
 
   // epilogue: a row's group, m mask and n limit are read once; split-K
   // chunks write raw sums to their partials, the reduction applies them
@@ -386,6 +391,7 @@ edense_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int k_lo = blockIdx.z * kchunk;
   const int k_hi = min(kend_tile, k_lo + kchunk);
   const int tx = tid % (kSBN / kTN), ty = tid / (kSBN / kTN);
+  TC_DECL;  // a 16-deep step a tile; its x and w tiles 2 blocks
 
   float acc[kTM][kTN];
 #pragma unroll
@@ -394,6 +400,8 @@ edense_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
 
   for (int k0 = k_lo; k0 < k_hi; k0 += kSBK) {
+    TC_TILES(1);
+    TC_DMA(2);
     // neighbouring threads take neighbouring addresses of the stored layout
     for (int e = tid; e < kSBM * kSBK; e += kSimtThreads) {
       int i, kk;
@@ -439,6 +447,7 @@ edense_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
                         act, y, partial);
     }
   }
+  TC_FLUSH(tid == 0);
 }
 
 // ---------------------------------------------------------------------------

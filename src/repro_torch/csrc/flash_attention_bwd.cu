@@ -115,6 +115,7 @@
 #include <math.h>
 
 #include "mma_tf32.cuh"
+#include "tile_counters.cuh"
 
 namespace {
 
@@ -231,8 +232,10 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int kvh = h / (H / KV);
+  TC_DECL;  // a key block a tile; the Q and dO tiles, K and V a key block
   load_rows<D>(qs, q, b, q0, Sq, H, h);
   load_rows<D>(dos, dout, b, q0, Sq, H, h);
+  TC_DMA(2);
   const size_t at = ((size_t)b * H + h) * Sq + qpos;
   const float lse_r = q_ok ? lse[at] : kNegInf;
   const float delta_r = q_ok ? delta[at] : 0.0f;
@@ -249,6 +252,8 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // the previous step's readers of ks / vs are done
     load_rows<D>(ks, k, b, k0, Sk, KV, kvh);
     load_rows<D>(vs, v, b, k0, Sk, KV, kvh);
+    TC_TILES(1);
+    TC_DMA(2);
     __syncthreads();
 #pragma unroll
     for (int jj = 0; jj < kCPT; ++jj) {
@@ -272,6 +277,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DPT; ++i) dq_row[t + i * kTPR] = acc[i];
   }
+  TC_FLUSH(tid == 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -308,9 +314,11 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < DPT; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
 
   const int h_end = min(kvh * G + G, ha[b]);  // live heads of the group
+  TC_DECL;  // a (head, query block) a tile; K and V once, Q and dO a tile
   if (kvh * G < h_end) {
     load_rows<D>(ks, k, b, k0, Sk, KV, kvh);
     load_rows<D>(vs, v, b, k0, Sk, KV, kvh);
+    TC_DMA(2);
   }
   const int nq = (Sq + kBC - 1) / kBC;
   for (int h = kvh * G; h < h_end; ++h) {
@@ -320,6 +328,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();  // the previous step's readers of qs / dos are done
       load_rows<D>(qs, q, b, q0, Sq, H, h);
       load_rows<D>(dos, dout, b, q0, Sq, H, h);
+      TC_TILES(1);
+      TC_DMA(2);
       if (tid < kBC) {
         const int qp = q0 + tid;
         const size_t at = ((size_t)b * H + h) * Sq + qp;
@@ -357,6 +367,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       dv[off + t + c * kTPR] = dv_acc[c];
     }
   }
+  TC_FLUSH(tid == 0);
 }
 
 // ===========================================================================
@@ -563,9 +574,12 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const int kb_hi = causal ? min(nk, (q0 + kDqBQ - 1) / kDqBK + 1) : nk;
 
+  TC_DECL;  // a key block a tile; the Q and dO tiles, K and V a key block
   copy_rows<D, kDqBQ, kPairThreads>(Qs, q, b, q0, Sq, H, h);
   copy_rows<D, kDqBQ, kPairThreads>(Os, dout, b, q0, Sq, H, h);
+  TC_DMA(2);
   auto load_kv = [&](int buf, int kb) {
+    TC_DMA(2);
     copy_rows<D, kDqBK, kPairThreads>(Ks + buf * L::kK, k, b, kb * kDqBK,
                                       Sk, KV, kvh);
     copy_rows<D, kDqBK, kPairThreads>(Vs + buf * L::kK, v, b, kb * kDqBK,
@@ -595,6 +609,7 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kb = kb_lo, it = 0; kb < kb_hi; ++kb, ++it) {
     const int buf = L::kNBuf == 2 ? it & 1 : 0;
+    TC_TILES(1);
     if (L::kNBuf == 2) {
       if (kb + 1 < kb_hi) load_kv(buf ^ 1, kb + 1);
       tf32x3::cp_async_commit();
@@ -703,6 +718,7 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // every warp is done with this buffer and xs
   }
   tf32x3::cp_async_wait<0>();
+  TC_FLUSH(tid == 0);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -795,10 +811,14 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_qb = max(0, qb_hi - qb_lo);
   const int steps = (h_hi - h_lo) * n_qb;  // heads outer, in order
 
+  TC_DECL;  // a (head, query block) a tile each pass; K and V once, the
+            // Q and dO tiles of a step (lse and delta are narrow)
   copy_rows<D, kDkvBK, kPairThreads>(Ks, k, b, k0, Sk, KV, kvh);
   copy_rows<D, kDkvBK, kPairThreads>(Vs, v, b, k0, Sk, KV, kvh);
+  TC_DMA(2);
   auto load_q = [&](int buf, int step) {
     const int h = h_lo + step / n_qb, q0 = (qb_lo + step % n_qb) * BQ;
+    TC_DMA(2);
     float* dst = ring + buf * L::kBuf;
     copy_rows<D, BQ, kPairThreads>(dst, q, b, q0, Sq, H, h);
     copy_rows<D, BQ, kPairThreads>(dst + L::kQ, dout, b, q0, Sq, H, h);
@@ -831,6 +851,7 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int step = 0; step < steps; ++step) {
     const int buf = step & 1;
+    TC_TILES(1);
     if (step + 1 < steps) load_q(buf ^ 1, step + 1);
     tf32x3::cp_async_commit();
     tf32x3::cp_async_wait<1>();  // K, V and this step's block landed
@@ -943,6 +964,7 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
           make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
   }
   }  // pass
+  TC_FLUSH(tid == 0);
 }
 
 // Each mma kernel's dynamic shared memory limit is raised once per

@@ -78,6 +78,7 @@
 #include <math.h>
 
 #include "mma_tf32.cuh"
+#include "tile_counters.cuh"
 
 namespace {
 
@@ -164,6 +165,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // that did would write both on 4 common banks); at D a multiple of 32 the
   // slots are the chunks
   constexpr int kC = D / 4, kCP = (kC + 7) / 8 * 8;
+  TC_DECL;  // a key block a tile; the Q tile, and K and V a key block
+  TC_DMA(1);
   for (int c = tid; c < kBQ * kCP; c += kThreads) {
     const int i = c / kCP, d = (c % kCP) * 4, qp = q0 + i;
     if (kCP != kC && d >= D) continue;
@@ -177,6 +180,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   auto load_kv = [&](int buf, int kb) {
     const int k0 = kb * kBK;
+    TC_DMA(2);
     for (int c = tid; c < kBK * kCP; c += kThreads) {
       const int j = c / kCP, d = (c % kCP) * 4, kp = k0 + j;
       if (kCP != kC && d >= D) continue;
@@ -207,6 +211,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kb = kb_lo, it = 0; kb < kb_hi; ++kb, ++it) {
     const int buf = kKVBuf == 2 ? it & 1 : 0;
+    TC_TILES(1);
     if (kKVBuf == 2) {
       if (kb + 1 < kb_hi) load_kv(buf ^ 1, kb + 1);
       tf32x3::cp_async_commit();
@@ -332,6 +337,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // every warp is done with this buffer
   }
   tf32x3::cp_async_wait<0>();
+  TC_FLUSH(tid == 0);
 
   if (qr0 >= Sq) return;
 #pragma unroll

@@ -78,6 +78,7 @@
 #include <cuda_runtime.h>
 
 #include "mma_tf32.cuh"
+#include "tile_counters.cuh"
 
 namespace {
 
@@ -167,6 +168,7 @@ gmm_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int k_lo = split * kchunk;
   const int k_hi = min(K, k_lo + kchunk);
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
+  TC_DECL;  // a stage of math a tile; the x and w tiles of a stage 2 blocks
 
   // One ring stage: the x tile (BM × kBK) and the w tile (kBK × BN) at
   // contraction offset k0, in 16-byte copies along each operand's stored
@@ -174,6 +176,7 @@ gmm_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   auto load_stage = [&](int stage, int k0) {
     float* as = As + stage * SA::kFloats;
     float* bs = Bs + stage * SB::kFloats;
+    TC_DMA(2);
     for (int c = tid; c < BM * kBK / 4; c += kThreads) {
       int i, kk, bytes;
       const float* src = x;
@@ -237,8 +240,10 @@ gmm_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
     tf32x3::stage_mma<BM, BN, MT, NT, XT, WT>(
         As + (kt % STAGES) * SA::kFloats, Bs + (kt % STAGES) * SB::kFloats,
         wm, wn, g, t, acc);
+    TC_TILES(1);
   }
   tf32x3::cp_async_wait<0>();
+  TC_FLUSH(tid == 0);
 
   // epilogue: dead rows of a live tile write zeros
   const bool pairs = (N & 1) == 0;  // (offset + c) even: 8-byte stores
@@ -329,6 +334,7 @@ gmm_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
                              ? (long long)g_blk * w_gs : 0) +
                     (long long)e * w_es;
   const int tx = tid % (kSBN / kTN), ty = tid / (kSBN / kTN);
+  TC_DECL;  // a 16-deep step a tile; its x and w tiles 2 blocks
   float acc[kTM][kTN];
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
@@ -336,6 +342,8 @@ gmm_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
 
   for (int k0 = 0; k0 < K; k0 += kSBK) {
+    TC_TILES(1);
+    TC_DMA(2);
     // neighbouring threads take neighbouring addresses of the stored layout
     for (int i = tid; i < kSBM * kSBK; i += kSimtThreads) {
       int ri, kk;
@@ -382,6 +390,7 @@ gmm_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
       if (c < N) y[yoff_row[ri] + c] = lr > 0 ? acc[i][j] : 0.0f;
     }
   }
+  TC_FLUSH(tid == 0);
 }
 
 struct Args {

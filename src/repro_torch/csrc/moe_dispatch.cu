@@ -66,6 +66,8 @@
 
 #include <cstdint>
 
+#include "tile_counters.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -149,6 +151,12 @@ gather_rows_first_kernel(const float* __restrict__ x,
   if (r >= R) return;
   const bool ok = valid[r] != 0;
   const long long src = ok ? clamp_row(idx[r], n_src) : 0;
+  TC_DECL;  // a warp's row: a source row read is a tile and a block
+  if (ok) {
+    TC_TILES(1);
+    TC_DMA(1);
+  }
+  TC_FLUSH(lane == 0);
   if (kVec) {
     const int d4 = d >> 2;
     const float4* xr = reinterpret_cast<const float4*>(x + src * d);
@@ -172,6 +180,16 @@ gather_reduce_first_kernel(const float* __restrict__ y,
   const long long t = blockIdx.x;
   const int* dt = dest + t * k;
   const float* gt = gates + t * k;
+#ifdef REPRO_TILE_COUNTERS
+  TC_DECL;  // the token's rows read (gate ≠ 0): a tile and a block each
+  for (int j = 0; j < k; ++j) {
+    if (gt[j] != 0.0f) {
+      TC_TILES(1);
+      TC_DMA(1);
+    }
+  }
+  TC_FLUSH(threadIdx.x == 0);
+#endif
   if (kVec) {
     const int d4 = d >> 2;
     float4* orow = reinterpret_cast<float4*>(out + t * d);
@@ -226,6 +244,12 @@ gather_rows_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   const bool ok = __ldg(&valid[r]) != 0;
   const long long src = ok ? clamp_row(__ldg(&idx[r]), n_src) : 0;
   const float s = (kScale && ok) ? __ldg(&scale[r]) : 1.0f;
+  TC_DECL;  // a warp's row: a source row read is a tile and a block
+  if (ok) {
+    TC_TILES(1);
+    TC_DMA(1);
+  }
+  TC_FLUSH(lane == 0);
   const int n = d / Vec<kVec>::kW;  // vectors a row
   const V* xr = reinterpret_cast<const V*>(x + src * d);
   V* orow = reinterpret_cast<V*>(out + (long long)r * d);
@@ -263,6 +287,9 @@ gather_dot_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   const int span = (n + split - 1) / split;
   const int c_hi = min(n, (w + 1) * span);
   const V* zr = reinterpret_cast<const V*>(z + (tok ? t : 0) * d);
+  TC_DECL;  // a token's valid assignments: a tile and a block each; its
+            // z row a block (counted by the token's first warp)
+  if (tok) TC_DMA(1);
   for (int j0 = 0; j0 < k; j0 += KC) {
     // lane j < KC loads assignment j0 + j once; the warp shares them
     int my_ok = 0, my_src = 0;
@@ -278,6 +305,10 @@ gather_dot_kernel(const float* __restrict__ x, const int* __restrict__ idx,
       ok[j] = __shfl_sync(kFull, my_ok, j) != 0;
       xr[j] = reinterpret_cast<const V*>(
           x + (long long)__shfl_sync(kFull, my_src, j) * d);
+      if (ok[j]) {
+        TC_TILES(1);
+        TC_DMA(1);
+      }
     }
     float acc[KC];
 #pragma unroll
@@ -319,6 +350,7 @@ gather_dot_kernel(const float* __restrict__ x, const int* __restrict__ idx,
         if (j0 + j < k) out[t * k + j0 + j] = ok[j] ? acc[j] : 0.0f;
     }
   }
+  TC_FLUSH(tok && w == 0 && lane == 0);
 }
 
 // K7: a warp per (token, 32 column vectors); KC assignments a pass.
@@ -340,6 +372,8 @@ gather_reduce_kernel(const float* __restrict__ y,
   const int c = static_cast<int>(wid % chunks) * 32 + lane;
   const bool col = c < n;
   V acc = zero<V>();
+  TC_DECL;  // the token's rows read (gate ≠ 0): a tile and a block each,
+            // counted by the warp of its first 32 column vectors
   for (int j0 = 0; j0 < k; j0 += KC) {
     int my_dest = 0;
     float my_gate = 0.0f;
@@ -356,12 +390,17 @@ gather_reduce_kernel(const float* __restrict__ y,
       v[j] = (g[j] != 0.0f && col)
                  ? load(reinterpret_cast<const V*>(y + row * d) + c)
                  : zero<V>();
+      if (g[j] != 0.0f) {
+        TC_TILES(1);
+        TC_DMA(1);
+      }
     }
 #pragma unroll
     for (int j = 0; j < KC; ++j)  // j = 0 … k−1, a gate of 0 adds nothing
       if (g[j] != 0.0f) fma_into(acc, g[j], v[j]);
   }
   if (col) __stcs(reinterpret_cast<V*>(out + t * d) + c, acc);
+  TC_FLUSH(wid % chunks == 0 && lane == 0);
 }
 
 template <bool kVec>

@@ -132,6 +132,7 @@
 #include <algorithm>
 
 #include "mma_tf32.cuh"
+#include "tile_counters.cuh"
 
 namespace {
 
@@ -270,9 +271,11 @@ ssd_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   float* wend = dts + Q;             // [Q] e^{cum_Q − cum_s}
   for (int e = tid; e < P * ldn; e += kThreads) Hs[e] = 0.0f;
   const float a = A[(long long)r * H + h];
+  TC_DECL;  // a chunk a tile; each 64-row tile load_rows copies a block
 
   for (int c = 0; c < nc; ++c) {
     const int c0 = c * Q;
+    TC_TILES(1);
     const float* xc = xb + (long long)c0 * q.xrow;
     const float* Bc = Bb + (long long)c0 * q.brow;
     const float* Cc = Cb + (long long)c0 * q.brow;
@@ -289,6 +292,7 @@ ssd_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     }
     for (int q0 = 0; q0 < Q; q0 += kT) {
       load_rows(Cs, ldn, Cc, q.brow, q0, Q, N, nullptr, nullptr);
+      TC_DMA(1);
       float acc[4][PJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -297,6 +301,7 @@ ssd_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       for (int k0 = 0; k0 <= q0; k0 += kT) {
         load_rows(Bs, ldn, Bc, q.brow, k0, Q, N, nullptr, nullptr);
         load_rows(Xs, kLdX, xc, q.xrow, k0, Q, P, dts, nullptr);
+        TC_DMA(2);
         __syncthreads();
         float sc[4][4];
         score_tile(Cs, Bs, ldn, N, tx, ty, sc);
@@ -361,6 +366,7 @@ ssd_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     for (int k0 = 0; k0 < Q; k0 += kT) {
       load_rows(Bs, ldn, Bc, q.brow, k0, Q, N, nullptr, nullptr);
       load_rows(Xs, kLdX, xc, q.xrow, k0, Q, P, dts, wend);
+      TC_DMA(2);
       __syncthreads();
       const int rows = min(kT, Q - k0);
       for (int s = 0; s < rows; ++s) {
@@ -391,6 +397,7 @@ ssd_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       }
     __syncthreads();
   }
+  TC_FLUSH(tid == 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -615,16 +622,19 @@ ssd_fwd_mma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const bool has_qt[2] = {warp < n_qt, 15 - warp < n_qt && 15 - warp > 7};
   const int wp = (warp / WARPS_N) * 16, wn = (warp % WARPS_N) * 8 * NT;
   const int n_kt = Qr / kKT;
+  TC_DECL;  // a chunk a tile; a stage's x and B tiles 2 blocks
 
   for (int c = 0; c < nc; ++c) {
     const int c0 = c * Q;
     const float* xc = xb + (long long)c0 * xrow;
     const float* Bc = Bb + (long long)c0 * brow;
     const float* Cc = Cb + (long long)c0 * brow;
+    TC_TILES(1);
     // one ring stage: keys [kt·32, kt·32 + 32) of x (PT columns) and B
     auto load_stage = [&](int kt) {
       float* xs = ring + (kt % kStages) * stage_floats;
       float* bs = xs + kKT * LDX;
+      TC_DMA(2);
       for (int e = tid; e < kKT * (PT / 4); e += kMmaThreads) {
         const int i = e / (PT / 4), k = (e % (PT / 4)) * 4;
         const int s = kt * kKT + i;
@@ -854,6 +864,7 @@ ssd_fwd_mma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     }
     __syncthreads();
   }
+  TC_FLUSH(tid == 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -928,9 +939,11 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   float* dxx = tw + Q;               // Σ_p dxdt·x
   for (int e = tid; e < P * ldn; e += kThreads) dH[e] = 0.0f;
   const float a = A[(long long)r * H + h];
+  TC_DECL;  // a chunk a tile; each 64-row tile load_rows copies a block
 
   for (int c = nc - 1; c >= 0; --c) {
     const int c0 = c * Q;
+    TC_TILES(1);
     const float* xc = xb + (long long)c0 * q.xrow;
     const float* dyc = dyb + (long long)c0 * q.xrow;
     const float* Bc = Bb + (long long)c0 * q.brow;
@@ -956,6 +969,7 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     for (int q0 = 0; q0 < Q; q0 += kT) {
       load_rows(Cs, ldn, Cc, q.brow, q0, Q, N, nullptr, nullptr);
       load_rows(Ds, kLdX, dyc, q.xrow, q0, Q, P, nullptr, nullptr);
+      TC_DMA(2);
       float dcv[4][kNB];                 // t = ty+16i, n = tx+16j
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -964,6 +978,7 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       for (int k0 = 0; k0 <= q0; k0 += kT) {
         load_rows(Bs, ldn, Bc, q.brow, k0, Q, N, nullptr, nullptr);
         load_rows(Xs, kLdX, xc, q.xrow, k0, Q, P, dts, nullptr);
+        TC_DMA(2);
         __syncthreads();
         float cb[4][4], dg[4][4];
         score_tile(Cs, Bs, ldn, N, tx, ty, cb);
@@ -1048,6 +1063,7 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     for (int k0 = 0; k0 < Q; k0 += kT) {
       load_rows(Bs, ldn, Bc, q.brow, k0, Q, N, nullptr, nullptr);
       load_rows(Xs, kLdX, xc, q.xrow, k0, Q, P, dts, nullptr);
+      TC_DMA(2);
       float dbv[4][kNB];                 // s = ty+16i, n = tx+16j
       float dxd[4][PJ];                  // s = ty+16i, p = tx+16j
 #pragma unroll
@@ -1060,6 +1076,7 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       for (int q0 = k0; q0 < Q; q0 += kT) {
         load_rows(Cs, ldn, Cc, q.brow, q0, Q, N, nullptr, nullptr);
         load_rows(Ds, kLdX, dyc, q.xrow, q0, Q, P, nullptr, nullptr);
+        TC_DMA(2);
         __syncthreads();
         float cb[4][4], dcb[4][4];
         score_tile(Cs, Bs, ldn, N, tx, ty, cb);
@@ -1224,6 +1241,7 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     for (int q0 = 0; q0 < Q; q0 += kT) {
       load_rows(Ds, kLdX, dyc, q.xrow, q0, Q, P, ev, nullptr);
       load_rows(Cs, ldn, Cc, q.brow, q0, Q, N, nullptr, nullptr);
+      TC_DMA(2);
       __syncthreads();
       const int rows = min(kT, Q - q0);
       for (int t = 0; t < rows; ++t) {
@@ -1254,6 +1272,7 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       }
     __syncthreads();
   }
+  TC_FLUSH(tid == 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -1366,14 +1385,17 @@ ssd_bwd_dh_kernel(const float* __restrict__ dy, const float* __restrict__ C,
   for (int e = tid; e < PT * ldh; e += kMmaThreads) hs[e] = 0.0f;
   const int wp = (warp / WARPS_N) * 16, wn = (warp % WARPS_N) * 8 * NT;
   const int n_kt = Qr / kKT;
+  TC_DECL;  // a chunk a tile; a stage's dy and C tiles 2 blocks
 
   for (int c = nc - 1; c >= 1; --c) {
     const int c0 = c * Q;
     const float* dyc = dyb + (long long)c0 * xrow;
     const float* Cc = Cb + (long long)c0 * brow;
+    TC_TILES(1);
     auto load_stage = [&](int kt) {
       float* xs = ring + (kt % kStages) * stage_floats;
       float* bs = xs + kKT * LDX;
+      TC_DMA(2);
       cp_rows(xs, LDX, dyc, xrow, kt * kKT, kKT, Q, PT, kMmaThreads);
       cp_rows(bs, ldb, Cc, brow, kt * kKT, kKT, Q, N, kMmaThreads);
     };
@@ -1457,6 +1479,7 @@ ssd_bwd_dh_kernel(const float* __restrict__ dy, const float* __restrict__ C,
       dhh[(((long long)r * H + h) * nc + (c - 1)) * slices + ps] = sum;
     }
   }
+  TC_FLUSH(tid == 0);
 }
 
 // The block of a K9 tile kernel: the grid runs the tiles with the most
@@ -1540,7 +1563,10 @@ ssd_bwd_dc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   }
   const float* Cc = C + ((long long)r * S + c0) * brow + (long long)grp * N;
   const float* Bc = B + ((long long)r * S + c0) * brow + (long long)grp * N;
+  TC_DECL;  // a (live head, 32-key stage) a tile; the C tile once, a
+            // head's dy tile and h_in, a stage's x and B tiles 2 blocks
   cp_rows(Ct, ldc, Cc, brow, t0, kBT, Q, N, kBThreads);
+  TC_DMA(1);
   tf32x3::cp_async_commit();
 
   const int nt = N / 8;
@@ -1562,9 +1588,11 @@ ssd_bwd_dc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       float* xs = ring + (k & 1) * stage;
       cp_rows(xs, LDP, x + xo, xrow, k * kBS, kBS, Q, P, kBThreads);
       cp_rows(xs + kBS * LDP, ldb, Bc, brow, k * kBS, kBS, Q, N, kBThreads);
+      TC_DMA(2);
     };
     __syncthreads();                      // the last head is done with all
     cp_rows(Dy, LDP, dy + xo, xrow, t0, kBT, Q, P, kBThreads);
+    TC_DMA(1);
     load_step(0);
     tf32x3::cp_async_commit();
     const float* cumh = cum + ((long long)r * H + h) * S + c0;
@@ -1575,6 +1603,7 @@ ssd_bwd_dc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     }
     float rs_a = 0.0f, rs_b = 0.0f;       // Σ_s DL of rows ta, tb
     for (int k = 0; k < n_steps; ++k) {
+      TC_TILES(1);
       if (k > 0) __syncthreads();         // stage (k + 1) & 1 is free
       if (k + 1 < n_steps) load_step(k + 1);
       tf32x3::cp_async_commit();
@@ -1641,6 +1670,7 @@ ssd_bwd_dc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     const float* hin =
         states + (((long long)r * nc + c) * H + h) * (long long)P * N;
     cp_rows(ring, ldh, hin, N, 0, P, P, N, kBThreads);
+    TC_DMA(1);
     tf32x3::cp_async_commit();
     tf32x3::cp_async_wait<0>();
     __syncthreads();
@@ -1717,6 +1747,7 @@ ssd_bwd_dc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       *reinterpret_cast<float2*>(out + (long long)tb * brow + n) =
           make_float2(acc[j][2], acc[j][3]);
   }
+  TC_FLUSH(tid == 0);
 }
 
 // K9's key tiles: a block per (64 keys s, row, chunk, head slice of a
@@ -1779,7 +1810,10 @@ ssd_bwd_dbx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   }
   const float* Cc = C + ((long long)r * S + c0) * brow + (long long)grp * N;
   const float* Bc = B + ((long long)r * S + c0) * brow + (long long)grp * N;
+  TC_DECL;  // a (live head, 32-query stage) a tile; the B tile once, a
+            // head's x tile and dh, a stage's dy and C tiles 2 blocks
   cp_rows(Bk, ldk, Bc, brow, s0, kBT, Q, N, kBThreads);
+  TC_DMA(1);
   tf32x3::cp_async_commit();
 
   const int nt = N / 8;
@@ -1802,9 +1836,11 @@ ssd_bwd_dbx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       cp_rows(ys, LDP, dy + xo, xrow, s0 + k * kBS, kBS, Q, P, kBThreads);
       cp_rows(ys + kBS * LDP, ldc, Cc, brow, s0 + k * kBS, kBS, Q, N,
               kBThreads);
+      TC_DMA(2);
     };
     __syncthreads();                      // the last head is done with all
     cp_rows(Xk, LDP, x + xo, xrow, s0, kBT, Q, P, kBThreads);
+    TC_DMA(1);
     load_step(0);
     tf32x3::cp_async_commit();
     const float* cumh = cum + ((long long)r * H + h) * S + c0;
@@ -1820,6 +1856,7 @@ ssd_bwd_dbx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       for (int q = 0; q < 4; ++q) dxa[j][q] = 0.0f;
     float cs_a = 0.0f, cs_b = 0.0f;       // Σ_t DL of keys sa, sb
     for (int k = 0; k < n_steps; ++k) {
+      TC_TILES(1);
       if (k > 0) __syncthreads();         // stage (k + 1) & 1 is free
       if (k + 1 < n_steps) load_step(k + 1);
       tf32x3::cp_async_commit();
@@ -1898,6 +1935,7 @@ ssd_bwd_dbx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       const float* dh = dhs + (((long long)r * (nc - 1) + c) * H + h) *
                                   (long long)P * N;
       cp_rows(ring, ldh, dh, N, 0, P, P, N, kBThreads);
+      TC_DMA(1);
       tf32x3::cp_async_commit();
       tf32x3::cp_async_wait<0>();
       __syncthreads();
@@ -2035,6 +2073,7 @@ ssd_bwd_dbx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       *reinterpret_cast<float2*>(out + (long long)sb * brow + n) =
           make_float2(dbacc[j][2], dbacc[j][3]);
   }
+  TC_FLUSH(tid == 0);
 }
 
 // dB and dC from the head slices' partials (ns, R, S, G, N), summed in

@@ -53,9 +53,15 @@ ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
 X_TRANS, W_TRANS, W_PER_GROUP = 1, 2, 4
 
 
-@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = build.library("elastic_dense")
+    """The loaded library: the counted build inside ``build.counting()``,
+    else the fast one."""
+    return _library_bound(build.counting_active())
+
+
+@functools.lru_cache(maxsize=None)
+def _library_bound(counted: bool) -> ctypes.CDLL:
+    lib = build.library("elastic_dense", counted)
     lib.edense_forward.argtypes = [ctypes.c_void_p] * 8 + \
         [ctypes.c_int] * 10 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
     lib.edense_forward.restype = ctypes.c_int
@@ -379,3 +385,20 @@ def elastic_dense(x, w, bias=None, *, k_active=None, n_active=None,
 elastic_dense.launches = 0
 # launches per variant of the plan (same increments as ``launches``)
 elastic_dense.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def elastic_matmul(x, w, k_active):
+    """y[m, n] = Σ_k x[m, k] w[k, n] for n < k_active, else 0 — the PR-1
+    entry point of the reference (``k_active`` is the *output-column*
+    prefix here), over K1 with one group.
+
+    x: (M, K), w: (K, N), k_active: an int32 scalar tensor (or an int).
+    ``elastic_dense`` is the general, differentiable entry point; this one
+    is differentiable through it.
+    """
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"x (M, K) and w (K, N) required, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    na = torch.as_tensor(k_active, dtype=torch.int32,
+                         device=x.device).reshape(1)
+    return elastic_dense(x[None], w, n_active=na)[0]

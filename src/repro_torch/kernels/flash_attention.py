@@ -114,9 +114,15 @@ def bwd_launch_plan(q, k, v, do) -> FlashBwdPlan:
     return flash_bwd_plan(B, Sq, k.shape[1], H, k.shape[2], D, aligned)
 
 
-@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = build.library("flash_attention_fwd")
+    """The loaded library: the counted build inside ``build.counting()``,
+    else the fast one."""
+    return _library_bound(build.counting_active())
+
+
+@functools.lru_cache(maxsize=None)
+def _library_bound(counted: bool) -> ctypes.CDLL:
+    lib = build.library("flash_attention_fwd", counted)
     lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 6 + \
         [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float,
                               ctypes.c_void_p]
@@ -124,9 +130,15 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
 def _bwd_library() -> ctypes.CDLL:
-    lib = build.library("flash_attention_bwd")
+    """The loaded library: the counted build inside ``build.counting()``,
+    else the fast one."""
+    return _bwd_library_bound(build.counting_active())
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library_bound(counted: bool) -> ctypes.CDLL:
+    lib = build.library("flash_attention_bwd", counted)
     lib.flash_attention_dq.argtypes = [ctypes.c_void_p] * 8 + \
         [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                               ctypes.c_void_p]

@@ -44,9 +44,15 @@ from repro_torch.kernels.backend import stream_handle
 X_TRANS, W_TRANS, W_PER_GROUP = 1, 2, 4
 
 
-@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = build.library("grouped_matmul")
+    """The loaded library: the counted build inside ``build.counting()``,
+    else the fast one."""
+    return _library_bound(build.counting_active())
+
+
+@functools.lru_cache(maxsize=None)
+def _library_bound(counted: bool) -> ctypes.CDLL:
+    lib = build.library("grouped_matmul", counted)
     lib.gmm_forward.argtypes = [ctypes.c_void_p] * 5 + \
         [ctypes.c_int] * 10 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
     lib.gmm_forward.restype = ctypes.c_int

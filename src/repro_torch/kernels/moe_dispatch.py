@@ -114,9 +114,15 @@ def _sms(device_index: int) -> int:
         .multi_processor_count
 
 
-@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = build.library("moe_dispatch")
+    """The loaded library: the counted build inside ``build.counting()``,
+    else the fast one."""
+    return _library_bound(build.counting_active())
+
+
+@functools.lru_cache(maxsize=None)
+def _library_bound(counted: bool) -> ctypes.CDLL:
+    lib = build.library("moe_dispatch", counted)
     lib.gather_rows_forward.argtypes = [ctypes.c_void_p] * 5 + \
         [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.gather_rows_forward.restype = ctypes.c_int

@@ -65,6 +65,7 @@ KERNEL_MAX_STATE = 128
 SSD_VARIANTS = ("simt", "mma")
 MMA_MAX_CHUNK = 256      # 16 query tiles of 16: two per warp
 CB_TILE = 64             # C·Bᵀ tiles; the buffer's rows are padded to it
+SIMT_TILE = 64           # rows of the simt variants' query and key tiles
 # K9's variants (csrc/ssd_scan.cu::ssd_scan_bwd)
 SSD_BWD_VARIANTS = ("simt", "mma")
 BWD_TILE = 64            # queries or keys of a K9 tile block
@@ -156,9 +157,15 @@ def _sms(device_index: int) -> int:
         .multi_processor_count
 
 
-@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = build.library("ssd_scan")
+    """The loaded library: the counted build inside ``build.counting()``,
+    else the fast one."""
+    return _library_bound(build.counting_active())
+
+
+@functools.lru_cache(maxsize=None)
+def _library_bound(counted: bool) -> ctypes.CDLL:
+    lib = build.library("ssd_scan", counted)
     lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 10 + \
         [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.ssd_scan_fwd.restype = ctypes.c_int
@@ -175,9 +182,9 @@ def chunk_cumsum(u, dim):
     return torch.cumsum(u.double(), dim).float()
 
 
-def row_A(A, R):
-    """A (H,) or (R, H) -> (R, H) fp32."""
-    A = A.float()
+def row_A(A, R, dtype=torch.float32):
+    """A (H,) or (R, H) -> (R, H) fp32 (or ``dtype``)."""
+    A = A.to(dtype)
     return A.expand(R, A.shape[-1]) if A.dim() == 1 else A
 
 
@@ -188,9 +195,9 @@ def _live(h_active, R, H, device):
     return torch.arange(H, device=device)[None, :] < h_active[:, None]
 
 
-def _heads(t, rep):
+def _heads(t, rep, dtype=torch.float32):
     """(R, S, G, N) -> (R, S, H, N): each group repeated over its heads."""
-    return t.float().repeat_interleave(rep, dim=2)
+    return t.to(dtype).repeat_interleave(rep, dim=2)
 
 
 def _decay(cum):
@@ -209,15 +216,18 @@ def ssd_scan_plain(xh, dt, A, Bm, Cm, chunk, h_active=None,
     R, S, H, P = xh.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep, nc = H // G, S // chunk
-    A = row_A(A, R)
-    x, dtf = xh.float(), dt.float()
-    Bh, Ch = _heads(Bm, rep), _heads(Cm, rep)
-    h = torch.zeros((R, H, P, N), dtype=torch.float32, device=xh.device)
+    acc = torch.promote_types(xh.dtype, torch.float32)  # fp64 runs in fp64
+    A = row_A(A, R, acc)
+    x, dtf = xh.to(acc), dt.to(acc)
+    Bh, Ch = _heads(Bm, rep, acc), _heads(Cm, rep, acc)
+    h = torch.zeros((R, H, P, N), dtype=acc, device=xh.device)
     ys, states = [], []
     for c in range(nc):
         sl = slice(c * chunk, (c + 1) * chunk)
         dtc, Bc, Cc = dtf[:, sl], Bh[:, sl], Ch[:, sl]
-        cum = chunk_cumsum(dtc * A[:, None, :], 1)            # (R,Q,H)
+        # dt·A and cum rounded to fp32 as the kernels round them, also in
+        # an fp64 run (whose other sums then carry no fp32 rounding)
+        cum = chunk_cumsum(dtc.float() * A[:, None, :].float(), 1).to(acc)
         CB = torch.einsum("rthn,rshn->rtsh", Cc, Bc)
         xdt = x[:, sl] * dtc[..., None]
         y_intra = torch.einsum("rtsh,rshp->rthp", CB * _decay(cum), xdt)
@@ -230,7 +240,7 @@ def ssd_scan_plain(xh, dt, A, Bm, Cm, chunk, h_active=None,
         S_c = torch.einsum("rshp,rshn->rhpn", xdt * decay_end[..., None], Bc)
         h = h * torch.exp(cum[:, -1])[..., None, None] + S_c
     live = _live(h_active, R, H, xh.device)
-    zero = torch.zeros((), dtype=torch.float32, device=xh.device)
+    zero = torch.zeros((), dtype=acc, device=xh.device)
     y = torch.where(live[:, None, :, None], torch.cat(ys, 1), zero)
     if not return_states:
         return y.to(xh.dtype)
