@@ -29,6 +29,20 @@ not time itself. Run from the root of a checkout (the card's build reuses
         (another tree's OUT) each array is compared bit for bit. Run it on
         the parent and the change in one call to show that a kernel edit
         left those head dims' bits unchanged.
+    python3 chip_probe.py ssd-bits ROOT OUT [REF]
+        K9's dx, ddt, du, dB and dC in both variants (mma and simt) of the
+        tree at ROOT, at mamba2-2.7b's training widths (4 rows of 512
+        tokens, 80 heads of 64, d_state 128, chunk 256, per-row head
+        prefixes) on the main path's inputs and on the reference bench's,
+        and at two edge shapes (d_state 16 in two groups; d_state 20, simt
+        only), on inputs drawn on the CPU from a fixed seed, saved to OUT;
+        with REF each array is compared bit for bit. It also reports each
+        variant's dA (``ssd_scan_bwd``) on the bench's inputs against the
+        fp64 plain version's autograd, and each variant's median time
+        (CUDA events around 20 back-to-back calls, 7 rounds) at the main
+        path's training shape (16 rows, head prefixes 80 / 40 / 60 / 20).
+        Run it on the parent and the change in one call, in the order
+        parent, change, change, parent, to compare their times.
     python3 chip_probe.py conv-error
         the fp32 error of each convolution of the paper CNN's masked
         forward (the stem and the stage convs, 8 clients × 32 images) on
@@ -228,6 +242,105 @@ def flash_bits(device, out_path, ref_path=None):
     return result
 
 
+def _median_ms(fn, warm=3, iters=20, rounds=7):
+    """Median over ``rounds`` of the mean device ms of ``fn`` in ``iters``
+    back-to-back calls between two CUDA events, after ``warm`` untimed
+    calls."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return sorted(times)[len(times) // 2]
+
+
+def _k9_times(device, gen):
+    """K9's median ms in each variant at the main path's training shape
+    (16 rows of 512 tokens, 80 heads of 64, d_state 128, chunk 256, head
+    prefixes 80 / 40 / 60 / 20 a client of 4 rows)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    R, S, H, P, N, Q = 16, 512, 80, 64, 128, 256
+    x = torch.randn((R, S, H, P), generator=gen)
+    dt = 0.01 + 0.29 * torch.rand((R, S, H), generator=gen)
+    A = -torch.exp(torch.linspace(0.0, 2.77, H))[None].repeat(R, 1)
+    Bm, Cm, dy = (torch.randn(shape, generator=gen) for shape in
+                  ((R, S, 1, N), (R, S, 1, N), (R, S, H, P)))
+    ha = torch.tensor([h for h in (80, 40, 60, 20) for _ in range(4)],
+                      dtype=torch.int32, device=device)
+    args = [t.to(device).contiguous() for t in (x, dt, A, Bm, Cm)]
+    dy = dy.to(device)
+    _, st = ss.ssd_scan(*args, Q, h_active=ha, return_states=True)
+    return {v: _median_ms(lambda v=v: ss.ssd_scan_bwd_raw(
+        *args, st, dy, Q, h_active=ha, variant=v)) for v in ("mma", "simt")}
+
+
+def ssd_bits(device, out_path, ref_path=None):
+    """K9's outputs saved to ``out_path`` and compared with ``ref_path``'s
+    bit for bit where it is given; dA's error on the bench's inputs; each
+    variant's median ms at the main path's inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator().manual_seed(11)
+    out, da_err = {}, {}
+    cases = (("train_main", 4, 512, 80, 64, 1, 128, 256, "main"),
+             ("train_bench", 4, 512, 80, 64, 1, 128, 256, "bench"),
+             ("groups", 2, 128, 8, 32, 2, 16, 32, "main"),
+             ("state20", 2, 64, 4, 32, 1, 20, 32, "main"))
+    for label, R, S, H, P, G, N, Q, kind in cases:
+        x = torch.randn((R, S, H, P), generator=gen)
+        if kind == "bench":
+            dt = torch.nn.functional.softplus(
+                torch.randn((R, S, H), generator=gen))
+            A = -torch.exp(0.3 * torch.randn((H,), generator=gen))
+        else:
+            dt = 0.01 + 0.29 * torch.rand((R, S, H), generator=gen)
+            A = -torch.exp(torch.linspace(0.0, 2.77, H))[None].repeat(R, 1)
+        Bm, Cm, dy = (torch.randn(shape, generator=gen) for shape in
+                      ((R, S, G, N), (R, S, G, N), (R, S, H, P)))
+        ha = torch.tensor([H, H // 2 + 1] * (R // 2), dtype=torch.int32)
+        args = [t.to(device).contiguous() for t in (x, dt, A, Bm, Cm)]
+        hat = ha.to(device)
+        _, st = ss.ssd_scan(*args, Q, h_active=hat, return_states=True)
+        plan = ss.bwd_launch_plan(args[0], args[3], args[4], st,
+                                  dy.to(device), Q)
+        variants = ["mma", "simt"] if plan.variant == "mma" else ["simt"]
+        for variant in variants:
+            g = ss.ssd_scan_bwd_raw(*args, st, dy.to(device), Q,
+                                    h_active=hat, variant=variant)
+            for n, t in zip(("dx", "ddt", "du", "dB", "dC"), g[:5]):
+                out[f"{label}_{variant}_{n}"] = t.cpu().numpy()
+            if kind == "bench":
+                dA = ss.ssd_scan_bwd(*args, st, dy.to(device), Q,
+                                     h_active=hat, variant=variant)[2]
+                lv = [t.double().requires_grad_(True) for t in args]
+                ref = torch.autograd.grad(
+                    ss.ssd_scan_plain(*lv, Q, hat), lv,
+                    dy.to(device).double())[2]
+                da_err[variant] = float(
+                    (dA.double() - ref).abs().max()
+                    / max(float(ref.abs().max()), 1.0))
+    torch.cuda.synchronize(device)
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    np.savez(out_path, **out)
+    result = {"arrays": len(out), "dA_err_bench": da_err,
+              "k9_ms": _k9_times(device, gen)}
+    if ref_path:
+        ref = np.load(ref_path)
+        differ = [n for n in out if not np.array_equal(out[n], ref[n])]
+        result.update(bit_equal=not differ, differ=differ)
+    return result
+
+
 def conv_error(cs, device, G=8, B=32):
     """{conv: {path: [forward, dx, dw] relative errors}} at PAPER_CNN's
     convolution shapes, fp32 against fp64 of the dense path's op: the
@@ -402,7 +515,7 @@ def il_drift(cs, device):
 
 def main() -> int:
     commands = ("shapes", "moe-step", "cnn-round", "flash-bits",
-                "conv-error", "il-drift")
+                "ssd-bits", "conv-error", "il-drift")
     if len(sys.argv) < 2 or sys.argv[1] not in commands:
         print(__doc__, file=sys.stderr)
         return 2
@@ -430,6 +543,9 @@ def main() -> int:
     elif sys.argv[1] == "il-drift":
         from repro_torch.kernels.backend import resolve_device
         out = il_drift(cs, resolve_device(device))
+    elif sys.argv[1] == "ssd-bits":
+        out = ssd_bits(device, sys.argv[3],
+                       sys.argv[4] if len(sys.argv) > 4 else None)
     else:
         out = flash_bits(device, sys.argv[3],
                          sys.argv[4] if len(sys.argv) > 4 else None)

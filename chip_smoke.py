@@ -135,14 +135,17 @@ printing its own lines; any failed phase exits non-zero:
    the predictor; batched round, aggregate, predictor update) and FedAvg
    (every client the full spec) 2 timed sync rounds each on the kernels
    and on the dense masked path, each after an untimed warm-up round of
-   its own session; IL (the same local budget, no aggregation) one timed
-   call on each path; CFL on the sequential trainer
-   (``batched_rounds=False``) one timed round. Every timed run is
-   free-running (no ReLU record or count), and its launches are counted
-   from 0: K1 21 × (3 · steps + 1) a round of CFL and FedAvg and
-   21 × 3 · steps · rounds + 21 an IL call, all ``tile`` / ``skinny``,
-   ``F.conv2d`` only for the stem; none on the sequential trainer, whose
-   plain forward calls ``F.conv2d`` once a conv. The free-running paths
+   its own session; IL (the same local budget, no aggregation) one
+   free-running call at one round's budget and the sequential trainer
+   (``batched_rounds=False``) on each client's first step, with its
+   round-0 specs drawn untrained and held equal to the batched round's,
+   both untimed, to leave the script's time budget to phase 21.
+   Every free-running run (no ReLU record or count) has its launches
+   counted from 0: K1 21 × (3 · steps + 1) a round of CFL and FedAvg and
+   21 × 3 · steps + 21 the IL call,
+   all ``tile`` / ``skinny``, ``F.conv2d`` only for the stem; none on the
+   sequential trainer, whose plain forward calls ``F.conv2d`` once a
+   conv. The free-running paths
    drift apart through ReLU decisions that rounding flips (counted, per
    forward), so the held comparisons run in separate untimed sessions
    with the same seeds: the dense path replays the kernel path's recorded
@@ -307,11 +310,24 @@ printing its own lines; any failed phase exits non-zero:
    give the host model's tiles and DMA blocks exactly
    (``launch/roofline.py``), also at prefix 0, ragged per-group prefixes,
    shapes that are not tile multiples and in every variant; ``max_err``
-   against the plain version in fp64 ≤ 1e-5 and ``gate_elastic_rows``
-   (the reference's rules and defaults) must pass on both sets. Prints
-   every row (tiles, DMA, arithmetic intensity, counters, error, fast and
-   dense-masked ms, time share of the full width), the gate's verdict and
-   its seconds.
+   against the plain version in fp64 ≤ 1e-5 (the main SSD row's on the
+   reference bench's inputs as well, where dA cancels) and
+   ``gate_elastic_rows`` (the reference's rules and defaults) must pass on
+   both sets. Prints every row (tiles, DMA, arithmetic intensity,
+   counters, error, fast and dense-masked ms, time share of the full
+   width), the gate's verdict and its seconds.
+21. cohort sharding (``phase_cohort``): ``run_fl_round`` with
+   ``cohort_shards=2`` on 2 ranks started by ``spawn_cohort``, both on the
+   one card over an explicit gloo group, for the paper's CNN (8 clients,
+   full width and depth), granite-moe-1b-a400m and mamba2-2.7b (2 layers,
+   4 clients, full width): each rank's block bit-equal to that block run
+   alone in this process, the hierarchical aggregate within
+   ``COHORT_RTOL`` of the movement from the flat one on the same blocks,
+   the ranks bit-equal, one all-reduce a round, every kernel of the path
+   launched on each rank; each rank's round wall, the all-reduce's bytes
+   and ms and its launches printed. Then ``nccl_checks``: NCCL at world
+   size 1 bit-equal to the unsharded engine, and on 2 and 4 cards where
+   the machine has them (printed as not run otherwise).
 
 The last lines are a ``kernels:`` line, the slices' stats, the card line,
 one JSON object with every kernel's launches and times, and the result
@@ -2535,7 +2551,7 @@ def phase_ssd_kernels(device, d_model, head_dim, d_state, clients, rows,
     and dB, dC per group, fed by K8's own states; the plain backward takes
     the plain forward's) against their plain versions on ``ssd_cases``,
     each error relative to the largest value of its output; and dA, the
-    wrapper's reduction Σ_s du·dt, relative to Σ_s |du·dt|. K9 runs in
+    sum of K9's fp64 partials Σ_s du·dt, relative to Σ_s |du·dt|. K9 runs in
     each variant the operands take (mma and simt where the plan is mma),
     twice each, and each run must equal the first bit for bit; heads past
     the prefix must get exact zeros. Returns the worst error of each
@@ -2588,10 +2604,9 @@ def phase_ssd_kernels(device, d_model, head_dim, d_state, clients, rows,
             sync(device)
             e9s = {n: _rel_err(a, b) for n, a, b in
                    zip(("dx", "ddt", "du", "dB", "dC"), g, g_p)}
-            # dA = Σ_s du·dt, the wrapper's torch reduction of K9's du,
-            # cancels along s: its rounding scales with Σ_s |du·dt|
-            dA, dA_p = (torch.einsum("rsh,rsh->rh", u, dt)
-                        for u in (g[2], g_p[2]))
+            # dA = Σ of K9's fp64 partials Σ_s du·dt, which cancel along
+            # s: their rounding scales with Σ_s |du·dt|
+            dA, dA_p = (t[5].sum(-1) for t in (g, g_p))
             e9s["dA"] = float((dA - dA_p).abs().max()) / max(float(
                 torch.einsum("rsh,rsh->rh", g_p[2].abs(), dt).max()),
                 1e-30)
@@ -3196,14 +3211,17 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
 
     Timing (each run free-running, with neither a ReLU record nor a
     count): cfl and fedavg ``rounds`` timed rounds of a fresh session after
-    an untimed warm-up round of another; il one timed call of ``rounds``
-    rounds' budget; the sequential path one timed round after a warm-up
-    round. The counts of K1's launches and of the library convolutions are
-    set to 0 just before each timed run and read just after it: K1 must
-    launch 21 × (3 · steps + 1) a round on cfl / fedavg, 21 × 3 · steps ·
-    rounds + 21 on il, every launch through a tensor-core variant, and
-    ``F.conv2d`` only for the stem; the sequential path launches no K1 and
-    calls ``F.conv2d`` once a conv of each submodel forward.
+    an untimed warm-up round of another. IL and the sequential trainer run
+    untimed, to leave the script's time budget to phase 21: IL one
+    free-running call at the witness's budget, the sequential server its
+    round-0 specs drawn untrained, held equal to the batched round's, and
+    each client's first step. The counts of
+    K1's launches and of the library convolutions are set to 0 just before
+    each free-running run and read just after it: K1 must launch 21 ×
+    (3 · steps + 1) a round on cfl / fedavg, 21 × 3 · steps · rounds + 21
+    on il, every launch through a tensor-core variant, and ``F.conv2d``
+    only for the stem; the sequential path launches no K1 and calls
+    ``F.conv2d`` once a conv of each submodel forward.
 
     The held comparisons run in separate, untimed sessions with the same
     seeds: the kernel path records its ReLU decisions
@@ -3322,7 +3340,8 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
         them in fp32 and in fp64 (the witness: what those decisions give
         with fp32 rounding taken out). Returns ({pair: ratio of the trained
         clients' difference to their movement}, {pair: accuracy
-        differences in test samples})."""
+        differences in test samples}, the kernel path's session, the dense
+        path's session)."""
         kept = KeptTrained()
         il_r, _, _ = il_call(True, "record", kept, IL_WITNESS_ROUNDS)
         il_p, _, _ = il_call(False, "replay", kept, IL_WITNESS_ROUNDS)
@@ -3353,7 +3372,7 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
         acc_diff = {f"{a} - {b}": [round((x - y) * n, 1) for x, y, n in
                                    zip(accs[a], accs[b], n_test)]
                     for a, b in pairs}
-        return ratios, acc_diff
+        return ratios, acc_diff, il_r, il_p
 
     problems = []
 
@@ -3586,22 +3605,19 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
 
     # ---- IL --------------------------------------------------------------
     t1 = time.perf_counter()
-    il_k, il_k_s, il_count = il_call(True)
-    il_d, il_d_s, _ = il_call(False)
-    il_ratios, il_acc = replayed_il()
+    il_ratios, il_acc, il_k, il_d = replayed_il()
+    # K1's launches from a free-running, untimed call at the same budget
+    _, _, il_count = il_call(True, n=IL_WITNESS_ROUNDS)
     il_steps = max(n_stream_steps(c.n_samples, CNN_BATCH, 1)
                    for c in clients)
-    il_want = k1_per_forward * (3 * il_steps * rounds + 1)
+    il_want = k1_per_forward * (3 * il_steps * IL_WITNESS_ROUNDS + 1)
     check_launches("il, kernel path", dict(
         launches=il_count.launches, by_variant=il_count.by_variant,
-        conv_calls=il_count.conv_calls), il_want, il_steps * rounds + 1)
-    il_images = sum(n_stream_steps(c.n_samples, CNN_BATCH, 1)
-                    for c in clients) * CNN_BATCH * rounds
-    print(f"  il ({rounds} rounds' budget, {il_steps * rounds} local "
-          f"steps): kernel path {il_k_s:.3f} s ({il_images / il_k_s:.0f} "
-          f"train images/s), dense path {il_d_s:.3f} s "
-          f"({il_images / il_d_s:.0f} images/s), both free-running; "
-          f"accuracies kernel {np.round(il_k.il_accs, 4).tolist()}, dense "
+        conv_calls=il_count.conv_calls), il_want,
+        il_steps * IL_WITNESS_ROUNDS + 1)
+    print(f"  il ({IL_WITNESS_ROUNDS} round's budget, {il_steps} local "
+          f"steps; not timed): accuracies kernel "
+          f"{np.round(il_k.il_accs, 4).tolist()}, dense on its ReLUs "
           f"{np.round(il_d.il_accs, 4).tolist()}")
     print(f"  il on the kernel path's ReLU decisions, trained clients: max "
           f"difference over movement "
@@ -3624,27 +3640,20 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
     il_s = time.perf_counter() - t1
 
     # ---- the sequential trainer --------------------------------------------
+    # (not timed: its first steps run on round 0's specs, drawn from its
+    # own server untrained, which must be the batched round's)
     t1 = time.perf_counter()
-    seq_sess, seq, sinfo = timed("cfl", False, 1, batched=False)
-    srec = seq[0]["rec"]
-    sspecs = cnn_specs(srec["specs"])
-    check_launches("cfl, sequential trainer", sinfo, 0, cnn_seq_conv_calls(
-        cfg, sspecs, srec["n_steps"]))
-    sfree, _, _ = move_ratio(seq[0]["params"], dense[0]["params"], init)
-    same0 = srec["specs"] == dense[0]["rec"]["specs"]
-    simages = sum(srec["n_steps"]) * CNN_BATCH
-    print(f"  cfl on the sequential trainer: round 0 {seq[0]['seconds']:.3f}"
-          f" s ({simages / seq[0]['seconds']:.0f} train images/s), "
-          f"free-running; specs "
-          f"{'identical' if same0 else 'DIFFER'} to the batched round's; "
-          f"round-0 parameters against the batched "
-          f"dense round's: ratio {sfree:.3e} of the movement (not held: "
-          f"ReLU decisions); accuracies "
-          f"{np.round(srec['accs'], 4).tolist()} (batched dense "
-          f"{np.round(dense[0]['rec']['accs'], 4).tolist()})")
+    seq_sess, _ = make("cfl", False, batched=False)
+    sserver = seq_sess.server
+    sgenes = [sserver.family.genes(s) for s in sserver.cohort_specs(
+        [int(i) for i in sserver.tracker.select(0).participants])]
+    same0 = sgenes == dense[0]["rec"]["specs"]
+    print(f"  cfl on the sequential trainer: round-0 specs "
+          f"{'identical' if same0 else 'DIFFER'} to the batched round's")
     if not same0:
         problems.append("sequential: round-0 specs differ from the batched "
                         "round's")
+    sspecs = cnn_specs(sgenes)
     first_steps = {}
     for dtype in (torch.float64, torch.float32):
         wide = np.float64 if dtype == torch.float64 else np.float32
@@ -3656,10 +3665,17 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
                   seeds=[seq_sess.server._client_seed(k)
                          for k in range(n_workers)])
         sizes = [CNN_BATCH] * n_workers
-        with CnnCounters():
-            got, accs_s, _ = SequentialFamilyTrainer(
+        with CnnCounters() as scount:
+            got, accs_s, ssteps = SequentialFamilyTrainer(
                 cfg, lr=seq_sess.fl.lr, momentum=seq_sess.fl.momentum
             ).run_fl_round(p0, sspecs, one, tests, sizes, **kw)
+        if dtype == torch.float32:
+            sinfo = dict(launches=scount.launches,
+                         by_variant=scount.by_variant,
+                         conv_calls=scount.conv_calls)
+            check_launches("cfl, sequential trainer (one step a client)",
+                           sinfo, 0, cnn_seq_conv_calls(cfg, sspecs, ssteps))
+        with CnnCounters():
             want_p, accs_b, _ = BatchedRoundEngine(
                 cfg, lr=seq_sess.fl.lr, momentum=seq_sess.fl.momentum,
                 backend=None, device=device).run_fl_round(
@@ -3706,14 +3722,14 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
             simulated_round_s=med([o["rec"]["timing"]["round_time"]
                                    for o in k_runs]))
     table["IL"] = dict(
-        round_s=il_k_s / rounds, dense_round_s=il_d_s / rounds,
-        images_per_s=il_images / il_k_s,
-        dense_images_per_s=il_images / il_d_s,
-        accs=summary(il_k.il_accs), dense_accs=summary(il_d.il_accs),
-        simulated_round_s=None)
+        round_s=None, dense_round_s=None, images_per_s=None,
+        dense_images_per_s=None, accs=summary(il_k.il_accs),
+        dense_accs=summary(il_d.il_accs), simulated_round_s=None)
     print(f"  Table II ({rounds} rounds, {n_workers} clients; "
-          f"round s: median of the timed rounds, IL: its call / rounds; "
-          f"accuracies after the last round; dense path in brackets):")
+          f"round s: median of the timed rounds; IL: not timed, its "
+          f"accuracies at {IL_WITNESS_ROUNDS} round's budget, the dense "
+          f"path on its ReLUs; accuracies after the last round; dense path "
+          f"in brackets):")
     print("  algorithm | round s | train images/s | accuracy mean / min / "
           "std / Jain | simulated round s")
     def accs(a):
@@ -3722,9 +3738,10 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
     for name, row in table.items():
         sim = "—" if row["simulated_round_s"] is None \
             else f"{row['simulated_round_s']:.3f}"
-        print(f"  {name} | {row['round_s']:.3f} [{row['dense_round_s']:.3f}]"
-              f" | {row['images_per_s']:.0f} "
-              f"[{row['dense_images_per_s']:.0f}] | {accs(row['accs'])} "
+        speed = "— | —" if row["round_s"] is None else (
+            f"{row['round_s']:.3f} [{row['dense_round_s']:.3f}] | "
+            f"{row['images_per_s']:.0f} [{row['dense_images_per_s']:.0f}]")
+        print(f"  {name} | {speed} | {accs(row['accs'])} "
               f"[{accs(row['dense_accs'])}] | {sim}")
     phase_s = time.perf_counter() - t0
     print(f"  phase {phase_s:.1f} s (cfl {cfl_s:.1f}, fedavg {fed_s:.1f}, "
@@ -3753,13 +3770,12 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
                  round0_test_ce_rel=fce),
              "il": dict(launches=il_count.launches, launches_design=il_want,
                         by_variant=il_count.by_variant,
-                        seconds=il_k_s, dense_seconds=il_d_s,
+                        budget_rounds=IL_WITNESS_ROUNDS,
                         accs=il_k.il_accs, dense_accs=il_d.il_accs,
                         replayed_param_ratios=il_ratios,
                         replayed_acc_diff_samples=il_acc),
-             "sequential": dict(seconds=seq[0]["seconds"],
-                                conv_calls=sinfo["conv_calls"],
-                                round0_free_ratio=sfree,
+             "sequential": dict(conv_calls=sinfo["conv_calls"],
+                                specs_same_as_batched=same0,
                                 first_steps=first_steps),
              "table_ii": table,
              "max_memory_allocated_gib": kinfo["peak"] / 2**30,
@@ -6055,6 +6071,374 @@ def phase_gate(device):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 21: cohort sharding over a process group (A17)
+# ---------------------------------------------------------------------------
+# (case, parent, layers, clients, tokens a sequence): the paper's CNN at
+# full width and depth (K1 through B2), granite-moe at 2 layers (K2–K7)
+# and mamba2 at 2 layers on 512-token sequences (K8, K9), full width
+COHORT_CASES = (("cnn", "paper-elastic-cnn", None, 8, None),
+                ("moe", "granite-moe-1b-a400m", 2, 4, 128),
+                ("ssm", "mamba2-2.7b", 2, 4, 512))
+COHORT_RTOL = 1e-5             # the sharded aggregate against the flat one
+                               # on the same deltas, over the movement
+
+
+def cohort_case(case, device, cfg_of=None):
+    """The inputs of one phase-21 round, the same in every process: (family,
+    parameters, train sets, test sets, specs, seeds, sizes, batch). The CNN
+    takes ``CNN_SLICE``'s synthetic CIFAR population (100 samples a
+    client) and random specs of its elastic grid; a zoo parent the
+    training slice's data and specs (``train_specs``) at its depth."""
+    import random
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper_cnn import PAPER_CNN
+    from repro_torch.core.elastic import family_for
+    from repro_torch.data.synth import make_lm_dataset
+    from repro_torch.fl.rounds import build_population
+    label, arch, layers, clients, seq = case
+    cfg = cfg_of(arch) if cfg_of is not None else (
+        PAPER_CNN if label == "cnn" else get_config(arch))
+    if label == "cnn":
+        fam = family_for(cfg)
+        _, train, test = build_population(
+            fam, kind=CNN_SLICE["kind"], n_workers=clients,
+            n_samples=100 * clients, heterogeneity="quality", seed=0)
+        specs = [fam.random_spec(random.Random(k)) for k in range(clients)]
+        batch = CNN_BATCH
+    else:
+        fam = train_family(cfg, layers, seq_len=seq)
+        cfg = fam.cfg
+        train = [make_lm_dataset(TRAIN["train_seqs"], seq, cfg.vocab_size,
+                                 seed=k, chain_seed=1000 + k)
+                 for k in range(clients)]
+        test = [make_lm_dataset(TRAIN["test_seqs"], seq, cfg.vocab_size,
+                                seed=50 + k, chain_seed=1000 + k)
+                for k in range(clients)]
+        specs = train_specs(fam)[:clients]
+        batch = TRAIN["batch"]
+    params = fam.init_params(seed=0, device=device)
+    return (fam, params, train, test, specs, list(range(7, 7 + clients)),
+            [float(len(d["y"])) for d in train], batch)
+
+
+def tree_digest(tree):
+    """sha256 of a tree's tensors' bytes, leaf by leaf (host copies)."""
+    import hashlib
+    from repro_torch.optim.optimizers import tree_leaves
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class ReduceClock:
+    """Wraps ``torch.distributed.all_reduce`` while entered: each call's
+    bytes and ms (the card synchronised around it)."""
+
+    def __init__(self, device):
+        self.device, self.calls = device, []
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self._real = dist.all_reduce
+
+        def timed(tensor, *a, **kw):
+            sync(self.device)
+            t = time.perf_counter()
+            out = self._real(tensor, *a, **kw)
+            sync(self.device)
+            self.calls.append((tensor.numel() * tensor.element_size(),
+                               (time.perf_counter() - t) * 1e3))
+            return out
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.all_reduce = self._real
+
+
+def cohort_rank(rank, cases, out_dir, device, threads, cfg_of=None):
+    """One rank of phase 21: for each case a warm-up round, then one timed
+    sharded round through ``run_fl_round`` with the launches counted from
+    0 just before it and the all-reduce timed; then the sharded
+    ``train_cohort`` again for the digests of this rank's block. Rank 0
+    saves each round's new parameters under ``out_dir``."""
+    import torch
+    from repro_torch.fl.engine import BatchedRoundEngine
+    from repro_torch.kernels.backend import resolve_device
+    if device == "cpu":         # a CPU rehearsal: the caller's threads
+        torch.set_num_threads(threads)
+    device = resolve_device("cpu" if device == "cpu" else torch.device(
+        "cuda", torch.cuda.current_device()))
+    out = {}
+    for case in cases:
+        fam, params, train, test, specs, seeds, sizes, batch = \
+            cohort_case(case, device, cfg_of)
+        eng = BatchedRoundEngine(fam, lr=0.05, momentum=0.9,
+                                 cohort_shards=2, device=device)
+        kw = dict(batch_size=batch, epochs=1, seeds=seeds)
+        eng.run_fl_round(params, specs, train, test, sizes, **kw)  # warm-up
+        counters = cohort_counters(case, fam)
+        reset_launches(counters)
+        sync(device)
+        t = time.perf_counter()
+        with ReduceClock(device) as clock:
+            new, accs, steps = eng.run_fl_round(params, specs, train, test,
+                                                sizes, **kw)
+        sync(device)
+        wall = time.perf_counter() - t
+        launches = {c.__name__: c.launches for c in counters}
+        res = eng.train_cohort(eng.broadcast_params(params, len(specs)),
+                               specs, train, eval_datasets=test, **kw)
+        if rank == 0:
+            torch.save([t.cpu() for t in _leaves(new)],
+                       os.path.join(out_dir, f"{case[0]}.pt"))
+        out[case[0]] = dict(
+            wall_s=wall, launches=launches, block=list(res.block),
+            shards=eng.cohort_sharding(len(specs)).mesh.n_shards,
+            all_reduce=[dict(bytes=b, ms=ms) for b, ms in clock.calls],
+            deltas=tree_digest(res.deltas), trained=tree_digest(res.trained),
+            accs_block=[float(a) for a in res.accs],
+            accs=[float(a) for a in accs], n_steps=[int(n) for n in steps],
+            params=tree_digest(new))
+        del eng, new, res
+        gc.collect()
+    return out
+
+
+def cohort_counters(case, fam):
+    """The kernel wrappers a phase-21 case's path must launch."""
+    from repro_torch.kernels.elastic_matmul import elastic_dense
+    return (elastic_dense,) if case[0] == "cnn" else path_counters(fam.cfg)
+
+
+def cohort_rank_unsharded_twin(rank, case, shards, device="cuda",
+                               cfg_of=None):
+    """One rank of an NCCL group (a card a rank): the round sharded
+    ``shards`` ways (the hierarchical aggregate over the group; ranks past
+    the effective shard count idle) and the unsharded engine's round on
+    the same inputs. Returns both parameters' digests, whether the
+    accuracies agree, the sharded round's distance from the unsharded one
+    over the movement, and the mesh."""
+    import torch
+    from repro_torch.fl.engine import BatchedRoundEngine
+    from repro_torch.kernels.backend import resolve_device
+    device = resolve_device("cpu" if device == "cpu" else torch.device(
+        "cuda", torch.cuda.current_device()))
+    fam, params, train, test, specs, seeds, sizes, batch = \
+        cohort_case(case, device, cfg_of)
+    kw = dict(batch_size=batch, epochs=1, seeds=seeds)
+    runs, timing = {}, {}
+    for n in (shards, 1):
+        eng = BatchedRoundEngine(fam, lr=0.05, momentum=0.9,
+                                 cohort_shards=n, device=device)
+        eng.run_fl_round(params, specs, train, test, sizes, **kw)  # warm
+        sync(device)
+        t = time.perf_counter()
+        with ReduceClock(device) as clock:
+            runs[n] = eng.run_fl_round(params, specs, train, test, sizes,
+                                       **kw)
+        sync(device)
+        timing[n] = dict(wall_s=time.perf_counter() - t,
+                         all_reduce=[dict(bytes=b, ms=ms)
+                                     for b, ms in clock.calls])
+        sh = eng.cohort_sharding(len(specs))
+        if n == shards:
+            mesh = None if sh is None else dict(
+                shards=sh.mesh.n_shards, world=sh.mesh.world,
+                backend=sh.mesh.backend, block=list(eng.block(len(specs))))
+    ratio, _, moved = move_ratio(runs[shards][0], runs[1][0], params)
+    return dict(sharded=tree_digest(runs[shards][0]),
+                unsharded=tree_digest(runs[1][0]),
+                accs_equal=runs[shards][1] == runs[1][1], ratio=ratio,
+                moved=moved, mesh=mesh, timing=timing)
+
+
+def nccl_checks(case, cfg_of, problems, n_cards=None):
+    """``case``'s round over NCCL, a card a rank: at world size 1 the
+    sharded engine must give the unsharded engine's round to the bit; on
+    two cards (and on four: sharded 4 ways, and 2 ways with two ranks
+    idle) every rank's parameters must be bit-equal, their distance from
+    the unsharded round printed. Groups past the card count are printed as
+    not run. Returns the readings."""
+    import torch
+    from repro_torch.sharding.cohort import spawn_cohort
+    n_cards = torch.cuda.device_count() if n_cards is None else n_cards
+    out = {}
+    for world, shards in ((1, 2), (2, 2), (4, 4), (4, 2)):
+        label = f"world {world}, {shards} shards requested"
+        if world > n_cards:
+            print(f"  NCCL {label}: not run ({n_cards} card"
+                  f"{'' if n_cards == 1 else 's'})")
+            out[label] = f"not run: {n_cards} card(s)"
+            continue
+        ranks = spawn_cohort(cohort_rank_unsharded_twin, world,
+                             backend="nccl", device="cuda",
+                             args=(case, shards, "cuda", cfg_of),
+                             timeout=600)
+        r0 = ranks[0]
+        same_ranks = all(r["sharded"] == r0["sharded"] for r in ranks)
+        exact = r0["sharded"] == r0["unsharded"] and r0["accs_equal"]
+        walls = [round(r["timing"][shards]["wall_s"], 4) for r in ranks]
+        reduce_ms = [[round(c["ms"], 3) for c in
+                      r["timing"][shards]["all_reduce"]] for r in ranks]
+        print(f"  NCCL {label} ({case[0]}): mesh {r0['mesh']}; ranks' "
+              f"parameters bit-equal {same_ranks}; against the unsharded "
+              f"round: bit-equal {exact}, {r0['ratio']:.3e} of the "
+              f"movement {r0['moved']:.3e}"
+              + (" (world 1: must be bit-equal)" if world == 1 else
+                 " (not held: another G)")
+              + f"; round walls {walls} s (unsharded "
+              f"{r0['timing'][1]['wall_s']:.4f}), all-reduce ms {reduce_ms}"
+              f" of {[c['bytes'] for c in r0['timing'][shards]['all_reduce']]}"
+              f" bytes")
+        out[label] = dict(ranks_bit_equal=same_ranks, bit_equal=exact,
+                          ratio=r0["ratio"], mesh=r0["mesh"],
+                          blocks=[r["mesh"]["block"] for r in ranks],
+                          timing=[r["timing"] for r in ranks])
+        if not same_ranks or r0["mesh"] is None:
+            problems.append(f"NCCL {label}: the ranks differ or no mesh")
+        if world == 1 and not exact:
+            problems.append("NCCL world size 1: not the unsharded round "
+                            "to the bit")
+    return out
+
+
+def phase_cohort(device, cases=COHORT_CASES, cfg_of=None):
+    """Phase 21: cohort sharding (``repro_torch.sharding.cohort``) through
+    ``BatchedRoundEngine.run_fl_round`` on 2 ranks started by
+    ``spawn_cohort``, both on the one card over an explicit gloo group
+    (NCCL puts one rank a card), for each case of ``cases``. Held against
+    this process's unsharded engine on the same inputs: each rank's block
+    (its deltas, trained parameters and accuracies) bit-equal to an
+    unsharded run of that block alone (the same G, the same kernel plans);
+    the sharded round's new parameters (the hierarchical aggregate: one
+    all-reduce) within ``COHORT_RTOL`` of the round's movement of the flat
+    ``aggregate_apply`` of the same blocks; both ranks' parameters
+    bit-equal; every kernel of the case's path launched on each rank. The
+    unsharded round of the whole cohort is run and its distance printed
+    (another G: another plan and order of summation; a ReLU or a route can
+    take the other side). Then ``nccl_checks``: a 1-rank NCCL group's
+    sharded round bit-equal to the unsharded engine's; the CNN round over
+    NCCL on two and four cards where there are that many, else printed as
+    not run. Returns ({run: launches}, stats)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core.aggregate import aggregate_apply
+    from repro_torch.fl.engine import BatchedRoundEngine
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.sharding.cohort import spawn_cohort
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="cohort_")
+    problems, launches, stats = [], {}, {"cases": {}}
+    try:
+        ranks = spawn_cohort(cohort_rank, 2, backend="gloo",
+                             device="cuda" if cuda else "cpu",
+                             args=(cases, tmp, device.type,
+                                   torch.get_num_threads(), cfg_of),
+                             timeout=900)
+        stats["spawn_s"] = time.perf_counter() - t0
+        for case in cases:
+            label = case[0]
+            r0, r1 = (r[label] for r in ranks)
+            fam, params, train, test, specs, seeds, sizes, batch = \
+                cohort_case(case, device, cfg_of)
+            kw = dict(batch_size=batch, epochs=1)
+            eng = BatchedRoundEngine(fam, lr=0.05, momentum=0.9,
+                                     device=device)
+            blocks = []
+            for r in (r0, r1):
+                lo, hi = r["block"]
+                blocks.append(eng.train_cohort(
+                    eng.broadcast_params(params, hi - lo), specs[lo:hi],
+                    train[lo:hi], eval_datasets=test[lo:hi],
+                    seeds=seeds[lo:hi], **kw))
+            alone = [dict(deltas=tree_digest(b.deltas),
+                          trained=tree_digest(b.trained),
+                          accs=[float(a) for a in b.accs]) for b in blocks]
+            same_blocks = all(
+                r["deltas"] == a["deltas"] and r["trained"] == a["trained"]
+                and r["accs_block"] == a["accs"]
+                for r, a in zip((r0, r1), alone))
+            with torch.no_grad():
+                flat = aggregate_apply(
+                    params, tree_map(lambda a, b: torch.cat([a, b]),
+                                     blocks[0].deltas, blocks[1].deltas),
+                    None, torch.as_tensor(sizes, device=device))
+            got = [t.to(device) for t in torch.load(
+                os.path.join(tmp, f"{label}.pt"))]
+            ratio, _, moved = move_ratio(got, flat, params)
+            del flat, blocks
+            full, full_accs, _ = eng.run_fl_round(
+                params, specs, train, test, sizes, seeds=seeds, **kw)
+            free = move_ratio(got, full, params)[0]
+            del full, got
+            bytes_ = [c["bytes"] for c in r0["all_reduce"]]
+            print(f"  {label} ({fam.cfg.name}, {len(specs)} clients, "
+                  f"blocks {r0['block']} / {r1['block']}): rank walls "
+                  f"{r0['wall_s']:.3f} / {r1['wall_s']:.3f} s; all-reduce "
+                  f"{len(bytes_)} call(s), {sum(bytes_) / 2**20:.2f} MiB, "
+                  f"ms rank 0 {[round(c['ms'], 3) for c in r0['all_reduce']]}"
+                  f" / rank 1 {[round(c['ms'], 3) for c in r1['all_reduce']]}"
+                  f"; launches rank 0 {r0['launches']}, rank 1 "
+                  f"{r1['launches']}")
+            print(f"  {label}: blocks bit-equal to each block run alone "
+                  f"{same_blocks}; ranks' parameters bit-equal "
+                  f"{r0['params'] == r1['params']}; aggregate against the "
+                  f"flat aggregate of the same blocks {ratio:.3e} of the "
+                  f"movement {moved:.3e} (tol {COHORT_RTOL:g}); against the "
+                  f"unsharded round of the whole cohort {free:.3e} (not "
+                  f"held: another G); accuracies {r0['accs']} (unsharded "
+                  f"{[round(a, 6) for a in full_accs]})")
+            if not same_blocks:
+                problems.append(f"{label}: a block differs from its block "
+                                f"run alone")
+            if r0["params"] != r1["params"]:
+                problems.append(f"{label}: the ranks' parameters differ")
+            if not (ratio <= COHORT_RTOL and math.isfinite(ratio)):
+                problems.append(f"{label}: the sharded aggregate is "
+                                f"{ratio:.3e} of the movement from the "
+                                f"flat one")
+            if len(bytes_) != 1:
+                problems.append(f"{label}: {len(bytes_)} all-reduces in a "
+                                f"round")
+            if r0["shards"] != 2 or r1["shards"] != 2:
+                problems.append(f"{label}: not 2 shards")
+            for r, rk in enumerate((r0, r1)):
+                launches[f"cohort {label} rank {r}"] = rk["launches"]
+                if cuda:
+                    missing = [k for k, v in rk["launches"].items() if v == 0]
+                    if missing:
+                        problems.append(f"{label} rank {r}: no launch of "
+                                        f"{missing}")
+            stats["cases"][label] = dict(
+                ranks=[dict(wall_s=rk["wall_s"], launches=rk["launches"],
+                            all_reduce=rk["all_reduce"], block=rk["block"])
+                       for rk in (r0, r1)],
+                blocks_bit_equal=same_blocks,
+                ranks_bit_equal=r0["params"] == r1["params"],
+                aggregate_ratio=ratio, unsharded_ratio=free, moved=moved)
+            del eng
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        if cuda:
+            stats["nccl"] = nccl_checks(cases[0], cfg_of, problems)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats["phase_seconds"] = time.perf_counter() - t0
+    print(f"  phase 21: {stats['phase_seconds']:.1f} s (the 2-rank spawn "
+          f"{stats.get('spawn_s', 0.0):.1f}); "
+          + (card_line() if cuda else "no card"))
+    if problems:
+        raise PhaseError("cohort sharding: " + "; ".join(problems))
+    return launches, stats
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     try:
@@ -6297,6 +6681,13 @@ def main() -> int:
         gate_stats = phase_gate(device)
         release()
         done("20")
+        print("== 21. cohort sharding: run_fl_round on 2 ranks (one card, "
+              "gloo) for the paper's CNN (8 clients), granite-moe-1b-a400m "
+              "and mamba2-2.7b (2 layers, 4 clients), full width, against "
+              "the unsharded engine; NCCL at world size 1")
+        cohort_launches, cohort_stats = phase_cohort(device)
+        release()
+        done("21")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6345,7 +6736,7 @@ def main() -> int:
                **{f"zoo {run}": c for run, c in zoo_launches.items()},
                **{f"selection {run}": c for run, c in sel_launches.items()},
                **{f"a11 {run}": c for run, c in a11_launches.items()},
-               **fleet_launches, **lm_launches}
+               **fleet_launches, **lm_launches, **cohort_launches}
     for name, err in (list(mworst.items()) + list(sworst.items())
                       + list(cworst.items()) + list(a11_worst.items())
                       + list(d80_worst.items())):
@@ -6429,6 +6820,7 @@ def main() -> int:
     print(f"fleet: {json.dumps(fleet_stats)}")
     print(f"gates and lm training: {json.dumps(lm_stats)}")
     print(f"tile-accounting gate: {json.dumps(gate_stats)}")
+    print(f"cohort sharding: {json.dumps(cohort_stats)}")
     print(f"phase seconds: {json.dumps(phase_s)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
     print(card_line())

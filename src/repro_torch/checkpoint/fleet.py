@@ -24,13 +24,19 @@ and comes back where the port keeps it: the parameters and the runtime's
 deltas on the server's device, the fleet columns on the CPU, the
 predictor on its own device.
 
+A cohort-sharded run (``sharding.cohort``) snapshots on every rank alike:
+the in-flight groups' deltas are gathered from every rank's block, and
+rank 0 writes the same single file an unsharded run writes (atomically,
+as ``save_state`` does) while the others wait at a barrier. A restore on
+the same topology takes each rank's block back and resumes bit for bit.
+
 The degraded path — **reshard and rewind**: a snapshot taken on another
-device count (``n_devices``: ``torch.cuda.device_count()`` on the card,
-1 on the CPU) or cohort-shard count cannot replay its in-flight groups
-bit for bit, so the restore drops them, clears those clients' pending
-flags and restarts the event loop from the last aggregate; the durable
-state (parameters, fleet columns, history) survives.
-``restore_fleet_checkpoint`` says which path it took.
+device count (``n_devices``: the process group's world size, 1 without a
+group — the reference's ``len(jax.devices())``) or cohort-shard count
+cannot replay its in-flight groups bit for bit, so the restore drops them,
+clears those clients' pending flags and restarts the event loop from the
+last aggregate; the durable state (parameters, fleet columns, history)
+survives. ``restore_fleet_checkpoint`` says which path it took.
 """
 from __future__ import annotations
 
@@ -39,23 +45,27 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.io import (_to_device, _to_host, load_state,
                                        save_state)
 from repro_torch.configs.base import config_fingerprint
+from repro_torch.sharding.cohort import barrier, group_ready
 
 FORMAT_VERSION = 1
 
 
 def _n_devices(server) -> int:
-    """The devices the server's engine runs on."""
-    dev = server.device
-    return torch.cuda.device_count() if dev.type == "cuda" else 1
+    """The devices the server's cohort runs on: the process group's world
+    size, 1 without a group."""
+    del server
+    return dist.get_world_size() if group_ready() else 1
 
 
 def snapshot_server(server) -> Dict:
     """Snapshot a CFL or FedAvg server (and its runtime, when built) as a
-    picklable host dict."""
+    picklable host dict. Sharded, every rank must call it (the in-flight
+    deltas are gathered) and every rank gets the same snapshot."""
     arrays = server.tracker.arrays
     runtime = server._runtime
     predictor = getattr(server, "predictor", None)
@@ -84,12 +94,19 @@ def snapshot_server(server) -> Dict:
 
 def save_fleet_checkpoint(path: str, server, metadata: Dict = None) -> None:
     """Write a resumable snapshot of ``server`` to ``path`` (atomically),
-    with a ``.meta.json`` naming its round and mode."""
+    with a ``.meta.json`` naming its round and mode. In a process group
+    every rank calls it: rank 0 writes, and all ranks meet at a barrier
+    after the write."""
     meta = {"round_idx": int(server.round_idx), "mode": server.fl.mode,
             "format_version": FORMAT_VERSION}
     if metadata:
         meta.update(metadata)
-    save_state(path, snapshot_server(server), metadata=meta)
+    snap = snapshot_server(server)
+    if not group_ready() or dist.get_rank() == 0:
+        save_state(path, snap, metadata=meta)
+    sh = None if server.engine is None else \
+        server.engine.cohort_sharding(len(server.clients))
+    barrier(None if sh is None else sh.mesh)
 
 
 def restore_server(server, snap: Dict) -> Dict:

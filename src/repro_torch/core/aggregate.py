@@ -31,14 +31,25 @@ den)`` (scaled by ``staleness_scale``), ``buffer_add`` adds groups up,
 ``buffer_apply`` serves Δ = num / den. ``delta_validity`` is the
 quarantine gate in front of every aggregate: non-finite deltas and norm
 outliers past ``clip_factor`` × the median norm.
+
+``aggregate_apply`` with a cohort ``mesh`` (the reference's
+``aggregate_apply_hierarchical``) is the cohort-sharded server step
+(``sharding.cohort``): each rank reduces its block of the stacked cohort to
+the fp32 partial sums ``(num, den)`` of ``cohort_reduce``, the partials of
+every leaf go into one flat buffer, one ``all_reduce`` (SUM) crosses the
+group, and every rank divides and applies alike. Under sharding the gate
+splits in two: ``delta_norms`` on the block, ``validity_verdict`` on the
+all-gathered columns, so every rank quarantines the same slots.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 
 from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.sharding.cohort import CohortSharding, all_reduce_flat
 
 EPS = 1e-8       # floor of the denominators: an all-absent cohort is a no-op
 
@@ -81,7 +92,7 @@ def apply_server_update(params, delta, server_lr: float = 1.0):
 
 def aggregate_apply(params, stacked_deltas, stacked_coverages, weights, *,
                     coverage_norm: bool = False, participation=None,
-                    sanitize: bool = False):
+                    sanitize: bool = False, mesh=None):
     """Fused Alg. 3 + Alg. 4 server step over a stacked cohort.
 
     ``weights`` (G,) data sizes; ``participation`` optional (G,) 0/1 flags
@@ -92,11 +103,32 @@ def aggregate_apply(params, stacked_deltas, stacked_coverages, weights, *,
     ``stacked_coverages`` may be None when ``coverage_norm`` is False.
     It is the buffered step of one group holding the whole cohort
     (``cohort_reduce`` then ``buffer_apply``).
+
+    With a cohort ``mesh`` it is the sharded step: ``weights`` and
+    ``participation`` span the whole cohort (K,), ``stacked_deltas`` and
+    ``stacked_coverages`` are this rank's block of it
+    (``CohortSharding.block``; empty on a rank past the shard count, which
+    still joins the collective with zeros), and the partial sums cross the
+    group in one ``all_reduce`` (``all_reduce_partials``) before every
+    rank divides and applies alike. The numerics match the flat mean to
+    ≤1e-5 (the same fp32 partial sums, summed in another order); one shard
+    is the flat mean to the bit.
     """
-    return buffer_apply(params, *cohort_reduce(
+    if mesh is not None:
+        lo, hi = CohortSharding(mesh).block(int(weights.shape[0]))
+        for d in tree_leaves(stacked_deltas):
+            if d.shape[0] != hi - lo:
+                raise ValueError(f"rank {mesh.rank}'s block is [{lo}, {hi}) "
+                                 f"but its deltas stack {d.shape[0]} slots")
+        weights = weights[lo:hi]
+        if participation is not None:
+            participation = participation[lo:hi]
+    num, den = cohort_reduce(
         stacked_deltas, stacked_coverages, weights,
         coverage_norm=coverage_norm, participation=participation,
-        sanitize=sanitize), coverage_norm=coverage_norm)
+        sanitize=sanitize)
+    return buffer_apply(params, *all_reduce_partials(num, den, mesh),
+                        coverage_norm=coverage_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -170,25 +202,27 @@ def buffer_apply(params, num, den, *, coverage_norm: bool = False,
 # ---------------------------------------------------------------------------
 # delta validation: the quarantine gate in front of every aggregate
 # ---------------------------------------------------------------------------
-def delta_validity(stacked_deltas, participation, clip_factor: float):
-    """Per-client validity gate over a stacked (K, ...) delta tree:
-    ``(valid, norms)``, (K,) float32 0/1 flags and the (K,) fp32 global L2
-    norms. A slot is valid iff every entry of its delta is finite and
-    (unless ``clip_factor <= 0``) its norm is at most ``clip_factor`` ×
-    the median norm of the finite participating slots. The median is the
-    reference's (``jnp.nanmedian``): the mean of the two middle values
-    when their count is even (``torch.nanmedian`` would take the lower);
-    with no finite participating slot there is no limit."""
-    part = participation.to(torch.float32) > 0
+def delta_norms(stacked_deltas):
+    """Per-slot (K,) fp32 squared global L2 norms over the finite entries,
+    and (K,) bool all-finite flags, of a stacked (K, ...) delta tree: the
+    half of ``delta_validity`` that reads the deltas."""
     sq, finite = None, None
     for d in tree_leaves(stacked_deltas):
-        d32 = d.to(torch.float32).reshape(d.shape[0], -1)
+        d32 = d.to(torch.float32).reshape(d.shape[0],
+                                          math.prod(d.shape[1:]))
         fin = torch.isfinite(d32)
         s = torch.sum(torch.where(fin, d32 * d32,
                                   torch.zeros((), device=d.device)), 1)
         f = torch.all(fin, 1)
         sq = s if sq is None else sq + s
         finite = f if finite is None else finite & f
+    return sq, finite
+
+
+def validity_verdict(sq, finite, participation, clip_factor: float):
+    """The half of ``delta_validity`` over the whole cohort's columns
+    (``delta_norms``): ``(valid, norms)``."""
+    part = participation.to(torch.float32) > 0
     norm = torch.sqrt(sq)
     ref = torch.where(part & finite, norm,
                       torch.full_like(norm, float("nan")))
@@ -199,3 +233,47 @@ def delta_validity(stacked_deltas, participation, clip_factor: float):
                           norm <= limit)
     ok = finite & ((clip_factor <= 0) | norm_ok)
     return ok.to(torch.float32), norm
+
+
+def delta_validity(stacked_deltas, participation, clip_factor: float):
+    """Per-client validity gate over a stacked (K, ...) delta tree:
+    ``(valid, norms)``, (K,) float32 0/1 flags and the (K,) fp32 global L2
+    norms. A slot is valid iff every entry of its delta is finite and
+    (unless ``clip_factor <= 0``) its norm is at most ``clip_factor`` ×
+    the median norm of the finite participating slots. The median is the
+    reference's (``jnp.nanmedian``): the mean of the two middle values
+    when their count is even (``torch.nanmedian`` would take the lower);
+    with no finite participating slot there is no limit."""
+    return validity_verdict(*delta_norms(stacked_deltas), participation,
+                            clip_factor)
+
+
+# ---------------------------------------------------------------------------
+# hierarchical aggregation: per-rank partial sums and one collective
+# ---------------------------------------------------------------------------
+def all_reduce_partials(num, den, mesh=None):
+    """Sum every rank's ``(num, den)`` (``cohort_reduce`` partials, either
+    form of ``den``) over the mesh's group: one flat buffer, one
+    ``all_reduce``. Returns the summed ``(num, den)`` on the partials'
+    device; without a ``mesh`` (unsharded) the partials themselves."""
+    if mesh is None:
+        return num, den
+    leaves = tree_leaves(num) + tree_leaves(den)
+    out = iter(all_reduce_flat(leaves, mesh))
+    num = tree_map(lambda _: next(out), num)
+    den = tree_map(lambda _: next(out), den)
+    return num, den
+
+
+def aggregate_apply_hierarchical(params, stacked_deltas, stacked_coverages,
+                                 weights, *, mesh,
+                                 coverage_norm: bool = False,
+                                 participation=None,
+                                 sanitize: bool = False):
+    """The reference's name for the sharded server step:
+    :func:`aggregate_apply` over this rank's block with the cohort
+    ``mesh`` (None: the flat step)."""
+    return aggregate_apply(params, stacked_deltas, stacked_coverages,
+                           weights, coverage_norm=coverage_norm,
+                           participation=participation, sanitize=sanitize,
+                           mesh=mesh)

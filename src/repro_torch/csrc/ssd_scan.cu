@@ -11,8 +11,9 @@
 //   y_t   = Σ_{s≤t} (C_t·B_s) e^{cum_t − cum_s} dt_s x_s + e^{cum_t} C_t·hᵀ
 //   h    ← e^{cum_Q} h + Σ_s e^{cum_Q − cum_s} dt_s x_s ⊗ B_s
 //
-// K9 emits dx, ddt, du (the cotangent of u = dt·A) and dB / dC per group;
-// the wrapper reduces du to dA. It reads the state each chunk entered with
+// K9 emits dx, ddt, du (the cotangent of u = dt·A), dB / dC per group and
+// each (row, head, chunk)'s partial Σ_s du·dt in fp64, from du's fp64
+// values; the wrapper sums the partials to dA in fp64. It reads the state each chunk entered with
 // from the forward's `states` output (K8 rerun with states, flash style:
 // no O(S·P) activations are kept). With dG = dy·xdtᵀ over P, L the masked
 // decay, dCB = dG∘L, DL = dCB∘CB, w_s = e^{cum_Q − cum_s} and dh the
@@ -878,7 +879,8 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ dy, const int* __restrict__ ha,
                float* __restrict__ dx, float* __restrict__ ddt,
                float* __restrict__ du, float* __restrict__ dB,
-               float* __restrict__ dC, int S, int H, int G, int N, int Q) {
+               float* __restrict__ dC, double* __restrict__ dap, int S,
+               int H, int G, int N, int Q) {
   constexpr int PJ = P / 16;
   constexpr int kLdX = P + 1;
   extern __shared__ float smem[];
@@ -905,6 +907,7 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   float* dCb = dC + hoff;
   const float* stb = states + ((long long)r * nc * H + h) * pn;
   const long long st_c = (long long)H * pn;
+  double* dapb = dap + ((long long)r * H + h) * nc;
 
   if (ha != nullptr && h >= ha[r]) {          // past the prefix: zeros
     for (long long e = tid; e < (long long)S * P; e += kThreads)
@@ -917,10 +920,13 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       ddtb[(long long)s * H] = 0.0f;
       dub[(long long)s * H] = 0.0f;
     }
+    for (int c = tid; c < nc; c += kThreads) dapb[c] = 0.0;
     return;
   }
   double* red = reinterpret_cast<double*>(smem);  // [kThreads]
-  float* Hin = smem + 2 * kThreads;  // [P][ldn] state entering the chunk
+  double* r64 = red + kThreads;      // [Q] the row sums of DL in fp64 (dA)
+  double* c64 = r64 + Q;             // [Q] its column sums in fp64
+  float* Hin = smem + 2 * kThreads + 4 * Q;  // [P][ldn] state entering
   float* dH = Hin + P * ldn;         // [P][ldn] cotangent of the state out
   float* Cs = dH + P * ldn;          // [kT][ldn] C rows of a query tile
   float* Bs = Cs + kT * ldn;         // [kT][ldn] B rows of a key tile
@@ -952,6 +958,8 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       dts[i] = dtb[(long long)(c0 + i) * H];
       rsum[i] = 0.0f;
       csum[i] = 0.0f;
+      r64[i] = 0.0;
+      c64[i] = 0.0;
     }
     for (long long e = tid; e < pn; e += kThreads)
       Hin[(e / N) * ldn + e % N] = stb[c * st_c + e];
@@ -1009,8 +1017,13 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         }
         if (tid < kT && q0 + tid < Q) {
           float acc = 0.0f;
-          for (int s = 0; s < rows; ++s) acc += T2[tid * kLdT + s];
+          double acc64 = 0.0;
+          for (int s = 0; s < rows; ++s) {
+            acc += T2[tid * kLdT + s];
+            acc64 += (double)T2[tid * kLdT + s];
+          }
           rsum[q0 + tid] += acc;
+          r64[q0 + tid] += acc64;
         }
         __syncthreads();
       }
@@ -1124,8 +1137,13 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         __syncthreads();
         if (tid < kT && k0 + tid < Q) {
           float acc = 0.0f;
-          for (int t = 0; t < rows; ++t) acc += T1[t * kLdT + tid];
+          double acc64 = 0.0;
+          for (int t = 0; t < rows; ++t) {
+            acc += T1[t * kLdT + tid];
+            acc64 += (double)T1[t * kLdT + tid];
+          }
           csum[k0 + tid] += acc;
+          c64[k0 + tid] += acc64;
         }
         __syncthreads();
       }
@@ -1202,7 +1220,10 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     // du_s = (Σ dcum + last) − Σ_{t≤s} dcum + dcum_s is summed in fp64, as
     // the plain version sums it: the common offset Σ dcum + last reaches
     // every du_s, and through dA = Σ_s du_s·dt_s an fp32 rounding of it
-    // would be multiplied by Σ_s dt_s.
+    // would be multiplied by Σ_s dt_s. The chunk's partial of dA,
+    // Σ_s du_s·dt_s, is taken from a du formed in fp64 throughout, from
+    // DL's fp64 row and column sums: the sum cancels, and their fp32 sums
+    // would carry ~1e-5 into it.
     double part = 0.0;
     for (long long e = tid; e < pn; e += kThreads) {
       const long long at = (e / N) * ldn + e % N;
@@ -1225,6 +1246,17 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         cs += (double)rsum[s];
         csum[s] = (float)(((total + last) - cs) + (double)rsum[s]);
       }
+      double total64 = 0.0;
+      for (int s = 0; s < Q; ++s) {
+        r64[s] = ((r64[s] - c64[s]) + (double)inter[s]) - (double)tw[s];
+        total64 += r64[s];
+      }
+      double cs64 = 0.0, da = 0.0;
+      for (int s = 0; s < Q; ++s) {
+        cs64 += r64[s];
+        da += (((total64 + last) - cs64) + r64[s]) * (double)dts[s];
+      }
+      dapb[c] = da;
     }
     __syncthreads();
     for (int s = tid; s < Q; s += kThreads) {
@@ -1310,6 +1342,12 @@ __device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&h)[4],
 
 // Sum over the 4 lanes of a row of an mma tile (t = lane % 4).
 __device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+__device__ __forceinline__ double quad_sum(double v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   v += __shfl_xor_sync(0xffffffffu, v, 2);
   return v;
@@ -1531,8 +1569,9 @@ ssd_bwd_dc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ states,
                   const float* __restrict__ dy, const int* __restrict__ ha,
                   float* __restrict__ dCp, float* __restrict__ rsum,
-                  float* __restrict__ inter, int R, int S, int H, int G,
-                  int N, int Q, int Qp, int hs, int ns) {
+                  double* __restrict__ rsum64, float* __restrict__ inter,
+                  int R, int S, int H, int G, int N, int Q, int Qp, int hs,
+                  int ns) {
   constexpr int LDP = P + 4, KP = P / 8;
   extern __shared__ __align__(16) float smem[];
   const int ldc = N + 8, ldb = N + 4, ldh = N + 8;
@@ -1602,6 +1641,7 @@ ssd_bwd_dc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       dts[i] = i < Q ? dth[(long long)i * H] : 0.0f;
     }
     float rs_a = 0.0f, rs_b = 0.0f;       // Σ_s DL of rows ta, tb
+    double ra64 = 0.0, rb64 = 0.0;        // the same sums in fp64 (dA)
     for (int k = 0; k < n_steps; ++k) {
       TC_TILES(1);
       if (k > 0) __syncthreads();         // stage (k + 1) & 1 is free
@@ -1643,10 +1683,13 @@ ssd_bwd_dc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
           dcb[q] = in ? __fmul_rn(dg[q], l) : 0.0f;
           const float dl =
               in ? __fmul_rn(dcb[q], cbz[(long long)tt * Qp + ss]) : 0.0f;
-          if (q < 2)
+          if (q < 2) {
             rs_a += dl;
-          else
+            ra64 += (double)dl;
+          } else {
             rs_b += dl;
+            rb64 += (double)dl;
+          }
         }
         // dC += dCB · B_s over the 8 keys (k = 2t in slot t, 2t + 1 in
         // slot t + 4: the dG tile is the A fragment as it stands)
@@ -1721,16 +1764,20 @@ ssd_bwd_dc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     }
     rs_a = quad_sum(rs_a);
     rs_b = quad_sum(rs_b);
+    ra64 = quad_sum(ra64);
+    rb64 = quad_sum(rb64);
     ia = quad_sum(ia);
     ib = quad_sum(ib);
     if (t == 0) {
       const long long o = ((long long)r * H + h) * S + c0;
       if (ta < Q) {
         rsum[o + ta] = rs_a;
+        rsum64[o + ta] = ra64;
         inter[o + ta] = __fmul_rn(ia, ea);
       }
       if (tb < Q) {
         rsum[o + tb] = rs_b;
+        rsum64[o + tb] = rb64;
         inter[o + tb] = __fmul_rn(ib, eb);
       }
     }
@@ -1773,8 +1820,9 @@ ssd_bwd_dbx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ dy, const int* __restrict__ ha,
                    float* __restrict__ dx, float* __restrict__ ddt,
                    float* __restrict__ dBp, float* __restrict__ csum,
-                   float* __restrict__ twv, int R, int S, int H, int G,
-                   int N, int Q, int Qp, int hs, int ns) {
+                   double* __restrict__ csum64, float* __restrict__ twv,
+                   int R, int S, int H, int G, int N, int Q, int Qp, int hs,
+                   int ns) {
   constexpr int LDP = P + 4, KP = P / 8;
   extern __shared__ __align__(16) float smem[];
   const int ldk = N + 8, ldc = N + 4, ldh = N + 8;
@@ -1855,6 +1903,7 @@ ssd_bwd_dbx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
       for (int q = 0; q < 4; ++q) dxa[j][q] = 0.0f;
     float cs_a = 0.0f, cs_b = 0.0f;       // Σ_t DL of keys sa, sb
+    double ca64 = 0.0, cb64 = 0.0;        // the same sums in fp64 (dA)
     for (int k = 0; k < n_steps; ++k) {
       TC_TILES(1);
       if (k > 0) __syncthreads();         // stage (k + 1) & 1 is free
@@ -1895,10 +1944,13 @@ ssd_bwd_dbx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
           dcb[q] = in ? __fmul_rn(dg[q], l) : 0.0f;
           m[q] = in ? __fmul_rn(cv, l) : 0.0f;
           const float dl = __fmul_rn(dcb[q], cv);
-          if (q < 2)
+          if (q < 2) {
             cs_a += dl;
-          else
+            ca64 += (double)dl;
+          } else {
             cs_b += dl;
+            cb64 += (double)dl;
+          }
         }
         // dB += dCBᵀ · C_t and dxdt += (L∘CB)ᵀ · dy_t over the 8 queries
         const float af[4] = {dcb[0], dcb[2], dcb[1], dcb[3]};
@@ -2044,6 +2096,8 @@ ssd_bwd_dbx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     xb = quad_sum(xb);
     cs_a = quad_sum(cs_a);
     cs_b = quad_sum(cs_b);
+    ca64 = quad_sum(ca64);
+    cb64 = quad_sum(cb64);
     T_a = quad_sum(T_a);
     T_b = quad_sum(T_b);
     if (t == 0) {
@@ -2052,11 +2106,13 @@ ssd_bwd_dbx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       if (sa < Q) {
         ddt[od + (long long)sa * H] = xa;
         csum[o + sa] = cs_a;
+        csum64[o + sa] = ca64;
         twv[o + sa] = __fmul_rn(T_a, wa);
       }
       if (sb < Q) {
         ddt[od + (long long)sb * H] = xb;
         csum[o + sb] = cs_b;
+        csum64[o + sb] = cb64;
         twv[o + sb] = __fmul_rn(T_b, wb);
       }
     }
@@ -2102,17 +2158,25 @@ ssd_bwd_sum_kernel(const float* __restrict__ parts, float* __restrict__ dB,
 // inter) − T·w, du_s = (Σ dcum + last) − Σ_{t≤s} dcum + dcum_s with the
 // offset and the prefix sums in fp64 (last = e^{cum_Q} Σ dh∘h_in + Σ T·w),
 // as the simt variant sums them; ddt = Σ_p dxdt·x (left in ddt by the key
-// kernel) + du·A. A lane owns a run of Q / 32 positions. A dead head gets
-// zeros.
+// kernel) + du·A. And dA's partial Σ_s du_s·dt_s into dap, from a du
+// formed the same way in fp64 throughout: from the fp64 row and column sums
+// of DL (rsum64 / csum64), whose fp32 sums would carry ~1e-5 into it (the
+// terms of Σ du·dt are ~1e3 times their total at mamba2's widths); its
+// lanes' partials are summed in a fixed order. A lane owns a run of Q / 32
+// positions. A dead head gets zeros.
 __global__ void __launch_bounds__(kDuWarps * 32)
-ssd_bwd_du_kernel(const float* __restrict__ A, const float* __restrict__ cum,
+ssd_bwd_du_kernel(const float* __restrict__ dt, const float* __restrict__ A,
+                  const float* __restrict__ cum,
                   const float* __restrict__ rsum,
                   const float* __restrict__ csum,
                   const float* __restrict__ inter,
                   const float* __restrict__ twv,
+                  const double* __restrict__ rsum64,
+                  const double* __restrict__ csum64,
                   const double* __restrict__ dhh, const int* __restrict__ ha,
-                  float* __restrict__ ddt, float* __restrict__ du, int R,
-                  int S, int H, int Q, int pslices) {
+                  float* __restrict__ ddt, float* __restrict__ du,
+                  double* __restrict__ dap, int R, int S, int H, int Q,
+                  int pslices) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nc = S / Q;
   const long long id = (long long)blockIdx.x * kDuWarps + warp;
@@ -2120,11 +2184,13 @@ ssd_bwd_du_kernel(const float* __restrict__ A, const float* __restrict__ cum,
   const int c = (int)(id % nc), h = (int)((id / nc) % H);
   const int r = (int)(id / ((long long)nc * H));
   const long long od = ((long long)r * S + (long long)c * Q) * H + h;
+  const long long oa = ((long long)r * H + h) * nc + c;
   if (!head_live(ha, r, h)) {
     for (int s = lane; s < Q; s += 32) {
       ddt[od + (long long)s * H] = 0.0f;
       du[od + (long long)s * H] = 0.0f;
     }
+    if (lane == 0) dap[oa] = 0.0;
     return;
   }
   const long long o = ((long long)r * H + h) * S + (long long)c * Q;
@@ -2162,6 +2228,31 @@ ssd_bwd_du_kernel(const float* __restrict__ A, const float* __restrict__ cum,
     ddt[od + (long long)s * H] =
         __fadd_rn(ddt[od + (long long)s * H], __fmul_rn(u, a));
   }
+  // dA's partial: the suffix sums again, from the fp64 dcum
+  double d64 = 0.0;
+  for (int s = b; s < e; ++s)
+    d64 += ((rsum64[o + s] - csum64[o + s]) + (double)inter[o + s]) -
+           (double)twv[o + s];
+  double inc64 = d64;
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    const double v = __shfl_up_sync(0xffffffffu, inc64, k);
+    if (lane >= k) inc64 += v;
+  }
+  const double total64 = __shfl_sync(0xffffffffu, inc64, 31);
+  double cs64 = __shfl_up_sync(0xffffffffu, inc64, 1);
+  if (lane == 0) cs64 = 0.0;
+  double da = 0.0;
+  for (int s = b; s < e; ++s) {
+    const double d = ((rsum64[o + s] - csum64[o + s]) +
+                      (double)inter[o + s]) - (double)twv[o + s];
+    cs64 += d;
+    da += (((total64 + last) - cs64) + d) * (double)dt[od + (long long)s * H];
+  }
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1)
+    da += __shfl_xor_sync(0xffffffffu, da, k);
+  if (lane == 0) dap[oa] = da;
 }
 
 size_t fwd_smem(int P, int N, int Q) {
@@ -2170,7 +2261,7 @@ size_t fwd_smem(int P, int N, int Q) {
 }
 
 size_t bwd_smem(int P, int N, int Q) {
-  return sizeof(double) * kThreads +
+  return sizeof(double) * (kThreads + 2 * (size_t)Q) +
          sizeof(float) * ((size_t)(2 * P + 2 * kT) * (N + 1) +
                           (size_t)2 * kT * (P + 1) + (size_t)2 * kT * kLdT +
                           9 * (size_t)Q);
@@ -2266,19 +2357,23 @@ extern "C" int ssd_scan_fwd(const float* x, const float* dt, const float* A,
 // be null) or 1 (mma: dB, dC per group, (R, S, G, N)) with its head slice
 // and scratch: cum (R, H, S), cb (R, G, S/Q, Qp, Qp), dhs (R, S/Q − 1, H,
 // P, N) (null with one chunk), dhh (R, H, S/Q, P/32) fp64, vecs 4 × (R, H,
-// S) (the row sums, column sums, inter term and T·w) and, when a group
+// S) (the row sums, column sums, inter term and T·w), vecs64 2 × (R, H, S)
+// fp64 (the row and column sums again, for dA) and, when a group
 // has more than one head slice, parts 2 × (slices, R, S, G, N) (dB's
-// partials, then dC's). dx (R, S, H, P); ddt, du (R, S, H).
+// partials, then dC's). dx (R, S, H, P); ddt, du (R, S, H); dap (R, H,
+// S/Q) fp64, each (row, head, chunk)'s Σ_s du·dt, from du formed in fp64
+// with DL's row and column sums taken in fp64 (both variants).
 extern "C" int ssd_scan_bwd(const float* x, const float* dt, const float* A,
                             const float* B, const float* C,
                             const float* states, const float* dy,
                             const int* ha, float* dx, float* ddt, float* du,
-                            float* dB, float* dC, float* cum, float* cb,
-                            float* dhs, double* dhh, float* vecs,
-                            float* parts, int R, int S, int H, int P, int G,
+                            float* dB, float* dC, double* dap, float* cum,
+                            float* cb, float* dhs, double* dhh, float* vecs,
+                            double* vecs64, float* parts, int R, int S,
+                            int H, int P, int G,
                             int N, int Q, int variant, int head_slice,
                             void* stream) {
-  if (bad_shape(R, S, H, P, G, N, Q))
+  if (bad_shape(R, S, H, P, G, N, Q) || dap == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
@@ -2288,12 +2383,14 @@ extern "C" int ssd_scan_bwd(const float* x, const float* dt, const float* A,
       err = prepare(ssd_bwd_kernel<64>, smem);
       if (err) return err;
       ssd_bwd_kernel<64><<<R * H, kThreads, smem, s>>>(
-          x, dt, A, B, C, states, dy, ha, dx, ddt, du, dB, dC, S, H, G, N, Q);
+          x, dt, A, B, C, states, dy, ha, dx, ddt, du, dB, dC, dap, S, H, G,
+          N, Q);
     } else {
       err = prepare(ssd_bwd_kernel<32>, smem);
       if (err) return err;
       ssd_bwd_kernel<32><<<R * H, kThreads, smem, s>>>(
-          x, dt, A, B, C, states, dy, ha, dx, ddt, du, dB, dC, S, H, G, N, Q);
+          x, dt, A, B, C, states, dy, ha, dx, ddt, du, dB, dC, dap, S, H, G,
+          N, Q);
     }
     return static_cast<int>(cudaGetLastError());
   }
@@ -2302,7 +2399,8 @@ extern "C" int ssd_scan_bwd(const float* x, const float* dt, const float* A,
   const int ns = head_slice > 0 ? (rep + head_slice - 1) / head_slice : 0;
   if (variant != 1 || N % 8 != 0 || Q > kQMax || head_slice <= 0 ||
       cum == nullptr || cb == nullptr || dhh == nullptr || vecs == nullptr ||
-      (nc > 1 && dhs == nullptr) || (ns > 1 && parts == nullptr))
+      vecs64 == nullptr || (nc > 1 && dhs == nullptr) ||
+      (ns > 1 && parts == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tile_blocks = (long long)(Qp / kBT) * R * nc * G * ns;
   if ((long long)R * G * nc > 65535 || tile_blocks > 2147483647LL)
@@ -2331,6 +2429,8 @@ extern "C" int ssd_scan_bwd(const float* x, const float* dt, const float* A,
   float* csum = vecs + (long long)R * H * S;
   float* inter = csum + (long long)R * H * S;
   float* twv = inter + (long long)R * H * S;
+  double* rsum64 = vecs64;
+  double* csum64 = vecs64 + (long long)R * H * S;
   const long long rsgn = (long long)R * S * G * N;
   float* dBp = ns > 1 ? parts : dB;
   float* dCp = ns > 1 ? parts + ns * rsgn : dC;
@@ -2341,21 +2441,21 @@ extern "C" int ssd_scan_bwd(const float* x, const float* dt, const float* A,
     if (!err) err = prepare(ssd_bwd_dbx_kernel<64>, tsmem);
     if (err) return err;
     ssd_bwd_dc_kernel<64><<<tb, kBThreads, tsmem, s>>>(
-        x, dt, B, C, cb, cum, states, dy, ha, dCp, rsum, inter, R, S, H, G,
-        N, Q, Qp, head_slice, ns);
+        x, dt, B, C, cb, cum, states, dy, ha, dCp, rsum, rsum64, inter, R, S,
+        H, G, N, Q, Qp, head_slice, ns);
     ssd_bwd_dbx_kernel<64><<<tb, kBThreads, tsmem, s>>>(
-        x, dt, B, C, cb, cum, dhs, dy, ha, dx, ddt, dBp, csum, twv, R, S, H,
-        G, N, Q, Qp, head_slice, ns);
+        x, dt, B, C, cb, cum, dhs, dy, ha, dx, ddt, dBp, csum, csum64, twv, R,
+        S, H, G, N, Q, Qp, head_slice, ns);
   } else {
     err = prepare(ssd_bwd_dc_kernel<32>, tsmem);
     if (!err) err = prepare(ssd_bwd_dbx_kernel<32>, tsmem);
     if (err) return err;
     ssd_bwd_dc_kernel<32><<<tb, kBThreads, tsmem, s>>>(
-        x, dt, B, C, cb, cum, states, dy, ha, dCp, rsum, inter, R, S, H, G,
-        N, Q, Qp, head_slice, ns);
+        x, dt, B, C, cb, cum, states, dy, ha, dCp, rsum, rsum64, inter, R, S,
+        H, G, N, Q, Qp, head_slice, ns);
     ssd_bwd_dbx_kernel<32><<<tb, kBThreads, tsmem, s>>>(
-        x, dt, B, C, cb, cum, dhs, dy, ha, dx, ddt, dBp, csum, twv, R, S, H,
-        G, N, Q, Qp, head_slice, ns);
+        x, dt, B, C, cb, cum, dhs, dy, ha, dx, ddt, dBp, csum, csum64, twv, R,
+        S, H, G, N, Q, Qp, head_slice, ns);
   }
   // 6: the slices' partials, summed in slice order
   if (ns > 1) {
@@ -2369,8 +2469,9 @@ extern "C" int ssd_scan_bwd(const float* x, const float* dt, const float* A,
   const long long triples = (long long)R * H * nc;
   ssd_bwd_du_kernel<<<static_cast<unsigned>((triples + kDuWarps - 1) /
                                             kDuWarps),
-                      kDuWarps * 32, 0, s>>>(A, cum, rsum, csum, inter, twv,
-                                             dhh, ha, ddt, du, R, S, H, Q,
+                      kDuWarps * 32, 0, s>>>(dt, A, cum, rsum, csum, inter,
+                                             twv, rsum64, csum64, dhh, ha,
+                                             ddt, du, dap, R, S, H, Q,
                                              P / 32);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,10 +10,12 @@ otherwise. FedAvg runs what the port's ``CFLServer`` runs (it shares
 its ``SyncServer``): every selection policy, partial participation, async
 buffered rounds (``fl.runtime``), fault injection (``fl.faults``), the
 prefetch ring (``SyncServer._stage_next_round`` stages FedAvg's next
-cohort as it does CFL's) and fleet checkpoints (``checkpoint.fleet``);
-cohort sharding (ROADMAP A17) raises, naming its item. IL has no rounds to
-subsample, schedule, overlap or checkpoint: ``CFLSession`` rejects a
-non-full selection, async, overlap and checkpoints for it.
+cohort as it does CFL's), fleet checkpoints (``checkpoint.fleet``) and
+cohort sharding (``cohort_shards``). IL has no rounds to subsample,
+schedule, overlap or checkpoint: ``CFLSession`` rejects a non-full
+selection, async, overlap and checkpoints for it; sharded, each rank keeps
+its block of the clients' trained parameters across the rounds and only
+the accuracies are gathered.
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ def independent_learning(cfg, init_params, clients: List[ClientInfo],
 
     ``apply_server_update(p, ω_0 − ω_E) == ω_E``, so a round is 'keep
     training from where you left off': the batched path carries the
-    client-stacked trained parameters from round to round."""
+    client-stacked trained parameters from round to round (sharded: this
+    rank's block of them; ``eval_cohort`` all-gathers the accuracies)."""
     check_supported(fl_cfg)
     family = family_for(cfg)
     spec = family.full_spec()

@@ -63,8 +63,19 @@ eagerly, so the ring can cost a re-pack, never a bit. Callers flush on
 policy / fleet / mode changes, drain, deadline misses, retries and
 checkpoint restore.
 
-Not ported yet, and raising NotImplementedError: cohort sharding over
-several cards (``cohort_shards > 1``, ROADMAP A17).
+Cohort sharding (``cohort_shards > 1`` inside a process group,
+``sharding.cohort``): an n-slot cohort's stacked client axis splits into
+``effective_cohort_shards(n, cohort_shards)`` blocks, rank r holding
+``[r·n/s, (r+1)·n/s)`` (ranks past s an empty block). A rank packs,
+copies, trains and evaluates its block only — the host's stream packing
+and the host-to-device copies shrink by s — and ``CohortResult`` holds the
+block (``block``): its deltas, trained parameters, masks, local steps and
+accuracies. ``gather_slots`` all-gathers per-slot columns (accuracies,
+steps, validity) to every rank in one collective, and ``run_fl_round``
+aggregates through ``aggregate_apply`` over the cohort mesh: one
+``all_reduce`` a round. Each block is the unsharded engine's result on that block alone
+(the same G, the same kernel plans). Without a process group the request
+clamps to one shard, as the reference's clamps to its device count.
 """
 from __future__ import annotations
 
@@ -86,6 +97,10 @@ from repro_torch.kernels.dispatch import kernel_dispatch
 from repro_torch.optim.optimizers import (apply_updates,
                                           clip_by_global_norm, sgd,
                                           tree_leaves, tree_map)
+from repro_torch.sharding.cohort import (all_gather_slots,
+                                         cohort_axis_sharding, cohort_mesh,
+                                         effective_cohort_shards,
+                                         group_ready, shard_cohort)
 
 
 # ---------------------------------------------------------------------------
@@ -199,23 +214,24 @@ class StagedCohort:
     sel_valid: Optional[np.ndarray] = None
     sel_weights: Optional[np.ndarray] = None
     event: Optional[object] = None
+    block: Optional[Tuple[int, int]] = None   # the rank's slots it holds
 
 
 @dataclasses.dataclass
 class CohortResult:
+    """One cohort call's results for the slots ``block`` = [lo, hi) of the
+    cohort's ``n_slots`` this rank holds (all of them unsharded)."""
     deltas: Dict            # stacked (G, ...) masked updates ω_0 − ω_E
     trained: Dict           # stacked (G, ...) locally-trained parent params
     masks: CohortMasks
     n_steps: np.ndarray
     accs: Optional[np.ndarray] = None   # local-eval accuracies
+    block: Tuple[int, int] = (0, 0)
+    n_slots: int = 0
 
 
 def _or_zeros(grad, like):
     return torch.zeros_like(like) if grad is None else grad
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 class BatchedRoundEngine:
@@ -232,9 +248,9 @@ class BatchedRoundEngine:
     def __init__(self, cfg, *, lr: float, momentum: float,
                  grad_clip: float = 5.0, cohort_shards: int = 1,
                  backend="auto", device=None):
-        if int(cohort_shards) != 1:
-            raise _not_ported("cohort sharding over several cards", "A17")
         self.device = resolve_device(device)
+        self._requested_shards = int(cohort_shards)
+        self._cohort_meshes: Dict[int, object] = {}
         self.family = family_for(cfg)
         self.cfg = self.family.cfg
         self._kernels = kernel_dispatch(backend).table(self.family.name)
@@ -258,6 +274,41 @@ class BatchedRoundEngine:
     def kernel_path(self) -> str:
         """'tile-skipping' | 'dense-masked' — which path this engine runs."""
         return "tile-skipping" if self._kernels else "dense-masked"
+
+    # -- cohort sharding ---------------------------------------------------
+    def cohort_sharding(self, n_clients: int):
+        """The ``CohortSharding`` of an ``n_clients``-slot cohort, or None
+        when the engine runs unsharded (``cohort_shards`` 1, or no process
+        group: the clamp to one device)."""
+        if self._requested_shards <= 1 or not group_ready():
+            return None
+        s = effective_cohort_shards(n_clients, self._requested_shards)
+        mesh = self._cohort_meshes.get(s)
+        if mesh is None:
+            mesh = self._cohort_meshes.setdefault(
+                s, cohort_mesh(s, device=self.device))
+        return cohort_axis_sharding(mesh)
+
+    def block(self, n_clients: int) -> Tuple[int, int]:
+        """This rank's [lo, hi) of an ``n_clients``-slot cohort."""
+        sh = self.cohort_sharding(n_clients)
+        return (0, n_clients) if sh is None else sh.block(n_clients)
+
+    def gather_slots(self, res: "CohortResult", *columns) -> List:
+        """Each per-slot column of ``res``'s block (1-D, this rank's slots)
+        over the whole cohort, on every rank: ONE ``all_gather`` when
+        sharded, the columns themselves otherwise."""
+        sh = self.cohort_sharding(res.n_slots)
+        if sh is None:
+            return list(columns)
+        return all_gather_slots(columns, res.n_slots, sh)
+
+    def _block_masks(self, specs, lo: int, hi: int) -> CohortMasks:
+        if hi > lo:
+            return self.family.cohort_masks(specs[lo:hi], self.device)
+        one = self.family.cohort_masks(specs[:1], self.device)
+        return CohortMasks(tree_map(lambda t: t[:0], one.param_mask),
+                           tree_map(lambda t: t[:0], one.fwd))
 
     # -- the double-buffered prefetch ring ----------------------------------
     @property
@@ -300,10 +351,12 @@ class BatchedRoundEngine:
         if not self.prefetch_enabled:
             return
         seeds = tuple(int(s) for s in seeds)
+        block = self.block(len(seeds))
         # the resident packs are built once, on the current stream
-        self._cohort_data(datasets)
+        pack_block = None if participation is not None else block
+        self._cohort_data(datasets, pack_block)
         if eval_datasets is not None:
-            self._eval_pack(eval_datasets)
+            self._eval_pack(eval_datasets, pack_block)
         event = None
         if self.device.type == "cuda":
             if self._side is None:
@@ -315,18 +368,18 @@ class BatchedRoundEngine:
             with torch.cuda.stream(self._side):
                 inputs = self._pack_inputs(
                     datasets, participation, batch_size, epochs, seeds,
-                    eval_datasets, pinned=True)
+                    eval_datasets, block, pinned=True)
                 event = torch.cuda.Event()
                 event.record(self._side)
         else:
             inputs = self._pack_inputs(datasets, participation, batch_size,
-                                       epochs, seeds, eval_datasets)
+                                       epochs, seeds, eval_datasets, block)
         part = participation
         self._prefetch_ring.append(StagedCohort(
             round_idx=int(round_idx), batch_size=int(batch_size),
             epochs=int(epochs), seeds=seeds, data_ref=datasets,
             eval_ref=eval_datasets, has_eval=eval_datasets is not None,
-            inputs=inputs, event=event,
+            inputs=inputs, event=event, block=block,
             sel_idx=None if part is None else np.array(part.idx, copy=True),
             sel_valid=None if part is None
             else np.array(part.valid, copy=True),
@@ -337,17 +390,18 @@ class BatchedRoundEngine:
             self._prefetch_ring.pop(0)
 
     def _take_staged(self, datasets, eval_datasets, participation,
-                     batch_size: int, epochs: int,
-                     seeds) -> Optional[CohortInputs]:
+                     batch_size: int, epochs: int, seeds,
+                     block) -> Optional[CohortInputs]:
         """Pop the staged entry matching this exact call, if any, by value
-        (selection triple, seeds, geometry, resident-pack identity). A hit
-        drops it and everything staged before it from the ring; a miss
-        flushes the whole ring (the prediction went wrong)."""
+        (the whole cohort's selection triple and seeds, geometry,
+        resident-pack identity, this rank's block). A hit drops it and
+        everything staged before it from the ring; a miss flushes the
+        whole ring (the prediction went wrong)."""
         if not self.prefetch_enabled or not self._prefetch_ring:
             return None
         seeds = tuple(int(s) for s in seeds)
         for pos, e in enumerate(self._prefetch_ring):
-            if (e.batch_size == int(batch_size)
+            if (e.block == tuple(block) and e.batch_size == int(batch_size)
                     and e.epochs == int(epochs) and e.seeds == seeds
                     and e.data_ref is datasets
                     and e.has_eval == (eval_datasets is not None)
@@ -493,20 +547,39 @@ class BatchedRoundEngine:
         the round — the seam where it stages the next cohort
         (``stage_cohort``) while this one still runs on the card. A
         matching staged entry in the ring is consumed instead of packing
-        afresh."""
+        afresh.
+
+        Sharded (``cohort_sharding``), the call trains this rank's block
+        of the slots only: ``theta0_stacked`` stacks the whole cohort, or
+        just the block when it is an earlier sharded call's result
+        (``shard_cohort``), and the result holds the block (see the module
+        docstring)."""
         if participation is not None and not (
                 len(specs) == len(seeds) == len(participation.idx)):
             raise ValueError(
                 f"per-slot specs/seeds must match the padded cohort size "
                 f"{len(participation.idx)}, got {len(specs)}/{len(seeds)}")
-        masks = self.family.cohort_masks(specs, self.device)
+        n = len(specs)
+        lo, hi = self.block(n)
+        theta0_stacked = shard_cohort(theta0_stacked,
+                                      self.cohort_sharding(n), n)
+        masks = self._block_masks(specs, lo, hi)
+        if hi == lo:            # a rank past the shard count: no slots
+            if prefetch_hook is not None:
+                prefetch_hook()
+            return CohortResult(
+                theta0_stacked, theta0_stacked, masks,
+                np.zeros((0,), np.int64),
+                None if eval_datasets is None else np.zeros((0,),
+                                                            np.float32),
+                (lo, hi), n)
         inp = self._take_staged(datasets, eval_datasets, participation,
-                                batch_size, epochs, seeds)
+                                batch_size, epochs, seeds, (lo, hi))
         if inp is None:
             inp = self._pack_inputs(datasets, participation, batch_size,
-                                    epochs, seeds, eval_datasets)
+                                    epochs, seeds, eval_datasets, (lo, hi))
         x, y, idx, sv = inp.x, inp.y, inp.idx, inp.sample_valid
-        rows = torch.arange(len(specs), device=self.device)[:, None]
+        rows = torch.arange(hi - lo, device=self.device)[:, None]
         params, opt_state = self.local_state(theta0_stacked)
         for t in range(inp.step_valid.shape[1]):
             if not inp.step_valid[:, t].any():   # every client padded
@@ -525,10 +598,11 @@ class BatchedRoundEngine:
             prefetch_hook()
         if accs is not None:
             accs = accs.cpu().numpy()
-        return CohortResult(deltas, trained, masks, inp.n_steps, accs)
+        return CohortResult(deltas, trained, masks, inp.n_steps, accs,
+                            (lo, hi), n)
 
     def _pack_inputs(self, datasets, participation, batch_size: int,
-                     epochs: int, seeds, eval_datasets,
+                     epochs: int, seeds, eval_datasets, block,
                      pinned: bool = False) -> CohortInputs:
         """Everything ``train_cohort`` feeds the cohort beyond parameters
         and masks: the stream pack (host numpy, ``_pack_streams``), a
@@ -536,8 +610,10 @@ class BatchedRoundEngine:
         its indices, sample weights and per-step validity columns to the
         device, and the eval pack's gather. The eager path and
         ``stage_cohort`` both call it, so a staged hit is bit-identical.
-        ``pinned``: copy from pinned host buffers with
-        ``non_blocking=True`` (the staging side stream's copies)."""
+        ``block``: the [lo, hi) of the slots to pack (``seeds`` and the
+        selection span the whole cohort). ``pinned``: copy from pinned
+        host buffers with ``non_blocking=True`` (the staging side
+        stream's copies)."""
         dev = self.device
         owned = []
 
@@ -548,19 +624,24 @@ class BatchedRoundEngine:
             owned.append(t)
             return t
 
-        x, y = self._cohort_data(datasets)
+        lo, hi = block
+        seeds = list(seeds)[lo:hi]
+        part = participation
+        x, y = self._cohort_data(datasets, None if part is not None
+                                 else block)
         lengths = [len(d["y"]) for d in datasets]
         steps_pad = gidx = None
-        part = participation
         if part is not None:
             # S is the fleet-wide maximum: it never depends on the subset
             steps_pad = max(n_stream_steps(n, batch_size, epochs)
                             for n in lengths)
             lengths = [lengths[i] if v > 0 else 0
-                       for i, v in zip(part.idx, part.valid)]
-            gidx = put(np.asarray(part.idx, np.int64))
+                       for i, v in zip(part.idx[lo:hi], part.valid[lo:hi])]
+            gidx = put(np.asarray(part.idx[lo:hi], np.int64))
             x, y = x.index_select(0, gidx), y.index_select(0, gidx)
             owned += [x, y]
+        else:
+            lengths = lengths[lo:hi]
         idx, sv, stv, n_steps = _pack_streams(
             lengths, batch_size, epochs=epochs, seeds=seeds,
             n_steps_pad=steps_pad)
@@ -570,12 +651,13 @@ class BatchedRoundEngine:
             [None if stv[:, t].all() else cols[t]
              for t in range(stv.shape[1])], n_steps)
         if eval_datasets is not None:
-            inp.ex, inp.ey, inp.ev = self._eval_pack(eval_datasets)
+            inp.ex, inp.ey, inp.ev = self._eval_pack(
+                eval_datasets, None if part is not None else block)
             if gidx is not None:
                 inp.ex = inp.ex.index_select(0, gidx)
                 inp.ey = inp.ey.index_select(0, gidx)
                 inp.ev = inp.ev.index_select(0, gidx) * put(
-                    np.asarray(part.valid))[:, None]
+                    np.asarray(part.valid[lo:hi]))[:, None]
                 owned += [inp.ex, inp.ey, inp.ev]
         inp.owned = tuple(owned)
         return inp
@@ -590,13 +672,19 @@ class BatchedRoundEngine:
         ``participation`` the round trains its padded cohort (see
         ``train_cohort``), ``sizes`` gives way to the selection's weights,
         padding slots drop out of the aggregate, and accs / n_steps are
-        per slot (filter by ``participation.valid``)."""
+        per slot (filter by ``participation.valid``).
+
+        Sharded, each rank trains its block; one ``all_gather`` brings the
+        whole cohort's accs and n_steps to every rank, and the aggregate
+        runs through ``aggregate_apply`` over the mesh (one ``all_reduce``),
+        so every rank returns the same new parameters."""
         theta0 = self.broadcast_params(params, len(specs))
         res = self.train_cohort(theta0, specs, datasets,
                                 batch_size=batch_size, epochs=epochs,
                                 seeds=seeds, eval_datasets=test_datasets,
                                 participation=participation,
                                 prefetch_hook=prefetch_hook)
+        accs, n_steps = self.gather_slots(res, res.accs, res.n_steps)
         covs = res.masks.param_mask if coverage_norm else None
         part = None
         if participation is not None:
@@ -604,21 +692,33 @@ class BatchedRoundEngine:
             part = torch.as_tensor(participation.valid, device=self.device)
         weights = torch.as_tensor(np.asarray(sizes, np.float32),
                                   device=self.device)
+        sh = self.cohort_sharding(len(specs))
         with torch.no_grad():
-            new_params = aggregate_apply(params, res.deltas, covs, weights,
-                                         coverage_norm=coverage_norm,
-                                         participation=part)
-        return new_params, [float(a) for a in res.accs], res.n_steps
+            new_params = aggregate_apply(
+                params, res.deltas, covs, weights,
+                coverage_norm=coverage_norm, participation=part,
+                mesh=None if sh is None else sh.mesh)
+        return new_params, [float(a) for a in accs], \
+            np.asarray(n_steps).astype(np.int64)
 
     def eval_cohort(self, params_stacked, specs: Sequence,
                     datasets: Sequence[Dict],
                     masks: Optional[CohortMasks] = None) -> np.ndarray:
         """Per-client accuracy of each client's masked submodel on its own
-        eval set."""
+        eval set. Sharded, this rank evaluates its block (``params_stacked``
+        as ``train_cohort``'s ``theta0_stacked``; ``masks`` the block's) and
+        one ``all_gather`` returns the whole cohort's accuracies."""
+        n = len(specs)
+        sh = self.cohort_sharding(n)
+        lo, hi = self.block(n)
         if masks is None:
-            masks = self.family.cohort_masks(specs, self.device)
-        return self._metric(params_stacked, masks,
-                            *self._eval_pack(datasets))
+            masks = self._block_masks(specs, lo, hi)
+        accs = np.zeros((0,), np.float32) if hi == lo else self._metric(
+            shard_cohort(params_stacked, sh, n), masks,
+            *self._eval_pack(datasets, (lo, hi)))
+        if sh is None:
+            return accs
+        return all_gather_slots([accs], n, sh)[0]
 
     def _metric(self, params_stacked, masks: CohortMasks, x, y, valid):
         return self._metric_device(params_stacked, masks, x, y,
@@ -630,20 +730,24 @@ class BatchedRoundEngine:
             return self.family.masked_metric(params_stacked, masks.fwd, x,
                                              y, valid, kernels=self._kernels)
 
-    def _eval_pack(self, datasets: Sequence[Dict]):
+    def _eval_pack(self, datasets: Sequence[Dict], block=None):
+        """The eval pack of ``datasets`` (or of its ``block`` [lo, hi)),
+        resident on the device."""
         def build(d):
             p = pack_eval(d)
             return (self._samples(p.x),
                     torch.as_tensor(p.y, device=self.device).long(),
                     torch.as_tensor(p.valid, device=self.device))
-        return self._cached(self._eval_cache, datasets, build)
+        return self._cached(self._eval_cache, datasets, build, block)
 
-    def _cohort_data(self, datasets: Sequence[Dict]):
+    def _cohort_data(self, datasets: Sequence[Dict], block=None):
+        """The stacked data of ``datasets`` (or of its ``block``),
+        resident on the device."""
         def build(d):
             x, y = pack_cohort_data(d)
             return (self._samples(x),
                     torch.as_tensor(y, device=self.device).long())
-        return self._cached(self._data_cache, datasets, build)
+        return self._cached(self._data_cache, datasets, build, block)
 
     def _samples(self, x: np.ndarray):
         """Packed samples on the device: token rows as int64 (embedding
@@ -651,12 +755,16 @@ class BatchedRoundEngine:
         t = torch.as_tensor(x, device=self.device)
         return t.long() if np.issubdtype(x.dtype, np.integer) else t
 
-    def _cached(self, cache: OrderedDict, datasets, build, bound: int = 4):
-        key = id(datasets)
+    def _cached(self, cache: OrderedDict, datasets, build, block=None,
+                bound: int = 4):
+        if block is not None and tuple(block) == (0, len(datasets)):
+            block = None                        # the whole cohort
+        key = (id(datasets), None if block is None else tuple(block))
         hit = cache.get(key)
         if hit is not None and hit[0] is datasets:
             return hit[1]
-        val = build(datasets)
+        val = build(datasets if block is None
+                    else list(datasets)[block[0]:block[1]])
         if self.device.type == "cuda":    # what the staging stream waits on
             self._packs_ready = torch.cuda.Event()
             self._packs_ready.record()

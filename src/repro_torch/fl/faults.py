@@ -12,9 +12,12 @@ async mode, the round index in sync mode — so a retried client gets a
 fresh draw.
 
 Corruption enters the stacked deltas through one elementwise pass
-(:func:`inject_deltas`) taking runtime (M,) code / scale tensors. On one
-card the cohort has one shard, so ``shard_kill_rate`` never fires, as in
-the reference's unsharded run; sharded cohorts are ROADMAP A17.
+(:func:`inject_deltas`) taking runtime (M,) code / scale tensors (a
+sharded cohort's rank corrupts its block with its slice of them). With the
+cohort sharded (``BatchedRoundEngine.cohort_sharding``) the draw takes the
+engine's effective shard count, so ``shard_kill_rate`` can kill a shard:
+its block's slots drop, on every rank alike (the plan is a pure function
+of the engagement); unsharded it never fires, as in the reference.
 """
 from __future__ import annotations
 
@@ -82,7 +85,7 @@ class FaultPlan:
     their simulated time, ``corrupt_rate`` clients return a bad delta
     (uniformly NaN / Inf / ``outlier_scale``× norm outlier), and with
     probability ``shard_kill_rate`` per engagement one cohort shard dies
-    (inert on one card: one shard). ``seed`` namespaces the schedule."""
+    (inert on an unsharded cohort). ``seed`` namespaces the schedule."""
     seed: int = 0
     drop_rate: float = 0.0
     straggle_rate: float = 0.0
@@ -161,8 +164,14 @@ def faulty_sync_round(server, specs, sel):
     applies the server step with ``sanitize=True`` over the gated
     participation (a fully shed round is a no-op step). Returns
     ``(accs, times, participants, specs_kept, stats, n_steps)`` over the
-    kept clients; ``server.params`` is updated in place."""
-    from repro_torch.core.aggregate import aggregate_apply, delta_validity
+    kept clients; ``server.params`` is updated in place.
+
+    Sharded, each rank corrupts and measures its block; ONE all-gather
+    brings the whole cohort's accuracies, steps and delta norms to every
+    rank, the verdict is taken on them alike, and the sanitised step is
+    ``aggregate_apply`` over the cohort mesh (one ``all_reduce``)."""
+    from repro_torch.core.aggregate import (aggregate_apply, delta_norms,
+                                            validity_verdict)
     fl = server.fl
     engine = server.engine
     if engine is None:
@@ -181,10 +190,27 @@ def faulty_sync_round(server, specs, sel):
         prefetch_hook=server._stage_next_round)
     covs = res.masks.param_mask if fl.coverage_norm else None
     deltas = res.deltas
+    sh = engine.cohort_sharding(m)
+    lo, hi = res.block
+
+    # the draw, then the corruption of this rank's slots, before the one
+    # gather: the columns it brings are the final deltas'
+    gf = None
+    if plan is not None and plan.any_rates():
+        gf = plan.draw(STREAM_SYNC, server.round_idx, m,
+                       1 if sh is None else sh.mesh.n_shards)
+        if gf.corrupt.any():
+            codes, scales = gf.codes_scales(plan.outlier_scale, dev)
+            deltas = inject_deltas(deltas, codes[lo:hi], scales[lo:hi])
+    with torch.no_grad():
+        sq, finite = delta_norms(deltas)
+    accs_all, n_steps_all, sq_all, fin_all = engine.gather_slots(
+        res, res.accs, res.n_steps, sq.cpu().double().numpy(),
+        finite.cpu().double().numpy())
 
     participants = [int(i) for i in sel.participants]
     valid_slots = np.flatnonzero(sel.valid > 0)
-    n_steps_valid = [int(n) for n in sel.take_valid(res.n_steps)]
+    n_steps_valid = [int(n) for n in sel.take_valid(n_steps_all)]
     times_valid = server._simulated_times(specs, n_steps_valid,
                                           participants)
     times = np.zeros((m,), np.float64)
@@ -192,11 +218,7 @@ def faulty_sync_round(server, specs, sel):
 
     kept = sel.valid > 0
     dropped_ids: list = []
-    if plan is not None and plan.any_rates():
-        gf = plan.draw(STREAM_SYNC, server.round_idx, m, 1)
-        if gf.corrupt.any():
-            codes, scales = gf.codes_scales(plan.outlier_scale, dev)
-            deltas = inject_deltas(deltas, codes, scales)
+    if gf is not None:
         # the deadline comes from the clean predicted times, *then* the
         # stragglers inflate: a straggler gets no extra rope
         df = fl.deadline_factor if fl.deadline_factor is not None else 4.0
@@ -210,9 +232,11 @@ def faulty_sync_round(server, specs, sel):
 
     part_np = np.asarray(sel.valid * kept, np.float32)
     with torch.no_grad():
-        gatev, _ = delta_validity(deltas, torch.as_tensor(part_np,
-                                                          device=dev),
-                                  float(fl.norm_clip_factor))
+        gatev, _ = validity_verdict(
+            torch.as_tensor(sq_all, dtype=torch.float32, device=dev),
+            torch.as_tensor(fin_all > 0, device=dev),
+            torch.as_tensor(part_np, device=dev),
+            float(fl.norm_clip_factor))
         gv = gatev.cpu().numpy()
         quar_slots = np.flatnonzero((part_np > 0) & (gv == 0))
         part = torch.as_tensor(part_np * gv.astype(np.float32), device=dev)
@@ -221,17 +245,17 @@ def faulty_sync_round(server, specs, sel):
         server.params = aggregate_apply(
             server.params, deltas, covs, weights,
             coverage_norm=fl.coverage_norm, participation=part,
-            sanitize=True)
+            sanitize=True, mesh=None if sh is None else sh.mesh)
 
     quarantined_ids = [int(sel.idx[s]) for s in quar_slots]
     server.tracker.record_miss(dropped_ids)
     server.tracker.record_miss(quarantined_ids)
     kept_slots = np.flatnonzero(kept)
-    accs = [float(res.accs[s]) for s in kept_slots]
+    accs = [float(accs_all[s]) for s in kept_slots]
     kept_times = [float(times[s]) for s in kept_slots]
     kept_ids = [int(sel.idx[s]) for s in kept_slots]
     specs_kept = [specs_pad[s] for s in kept_slots]
-    n_steps = [int(res.n_steps[s]) for s in kept_slots]
+    n_steps = [int(n_steps_all[s]) for s in kept_slots]
     server.tracker.record(kept_ids, accs)
     stats = {"dropped": len(dropped_ids), "retried": 0,
              "quarantined": len(quar_slots),

@@ -41,6 +41,17 @@ buffered step of one group is the sync path's ``aggregate_apply``
 (``buffer_apply(cohort_reduce(...))``) over the same padded cohort:
 async at the sync operating point is the sync round, bit for bit.
 
+Cohort sharding: a dispatch trains each rank's block of the padded
+cohort; one all-gather brings the whole cohort's accuracies and steps to
+every rank, so the event heap, the tracker and the records stay identical
+across ranks. A group holds its rank's block of the deltas (and masks);
+the buffered step reduces each group's block locally (``cohort_reduce``),
+adds them, and joins ONE ``all_reduce`` of the buffer
+(``all_reduce_partials``) before ``buffer_apply`` — one group at the sync
+point is ``aggregate_apply`` over the cohort mesh, the sharded sync round,
+to the bit. With the gate on, each group's delta norms are gathered and judged
+alike on every rank.
+
 Servers stay thin policies over the runtime: they give the cohort specs
 (``cohort_specs``), the seeds (``_client_seed``), the simulated times
 (``_simulated_times``) and the ``post_aggregate`` hook.
@@ -61,14 +72,18 @@ from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.io import _to_device, _to_host
-from repro_torch.core.aggregate import (buffer_add, buffer_apply,
-                                        cohort_reduce, delta_validity,
-                                        staleness_scale)
+from repro_torch.core.aggregate import (all_reduce_partials, buffer_add,
+                                        buffer_apply, cohort_reduce,
+                                        delta_norms, staleness_scale,
+                                        validity_verdict)
 from repro_torch.core.fairness import accuracy_fairness, round_time_fairness
 from repro_torch.fl.faults import STREAM_ASYNC, inject_deltas, resolve_fault_plan
 from repro_torch.fl.selection import FleetState, Selection, _pad_selection
+from repro_torch.optim.optimizers import tree_map
+from repro_torch.sharding.cohort import all_gather_slots
 
 DISPATCH, COMPLETE, AGGREGATE = "dispatch", "complete", "aggregate"
 DEADLINE, RETRY = "deadline", "retry"
@@ -81,8 +96,9 @@ DEFAULT_DEADLINE_FACTOR = 4.0
 @dataclasses.dataclass
 class InFlightCohort:
     """One dispatched cohort's state while its deltas stream in: the
-    engine's stacked (M, ...) deltas stay on the device until every valid
-    slot is consumed by an aggregate or has ``failed`` its deadline."""
+    engine's stacked deltas (this rank's ``block`` of the M slots; all of
+    them unsharded) stay on the device until every valid slot is consumed
+    by an aggregate or has ``failed`` its deadline."""
     version: int              # server version at dispatch (staleness base)
     dispatch_t: float
     sel: Selection
@@ -98,10 +114,13 @@ class InFlightCohort:
     complete_t: np.ndarray    # (M,) arrival clock (aggregate-lag metric)
     failed: np.ndarray = None          # (M,) bool — missed its deadline
     deadline_t: float = float("inf")   # this dispatch's time budget
+    block: Tuple[int, int] = None      # the slots [lo, hi) of ``deltas``
 
     def __post_init__(self):
         if self.failed is None:
             self.failed = np.zeros_like(self.completed)
+        if self.block is None:
+            self.block = (0, len(self.completed))
 
     def pending_slots(self) -> np.ndarray:
         """Valid slots whose delta has arrived but not been applied."""
@@ -117,6 +136,13 @@ class InFlightCohort:
         """Every valid slot aggregated or failed."""
         return bool(np.all((self.consumed | self.failed)
                            [self.sel.valid > 0]))
+
+
+def _rows(tree, block):
+    """The slots [lo, hi) of a host-stacked (M, ...) tree."""
+    if tree is None:
+        return None
+    return tree_map(lambda a: a[block[0]:block[1]], tree)
 
 
 class FleetRuntime:
@@ -270,17 +296,20 @@ class FleetRuntime:
         """Everything that rebuilds this machine bit for bit in a fresh
         process: the clock, the event heap, every in-flight group (its
         deltas pulled to host numpy) and the retry ladder. Host data only:
-        picklable by ``checkpoint.io.save_state``."""
+        picklable by ``checkpoint.io.save_state``. Sharded, every rank's
+        block of each group's deltas and masks is gathered (a collective),
+        so the snapshot is the unsharded run's, on every rank."""
         groups = {}
         for gid, g in self.groups.items():
+            deltas, covs = self._gather_group(g)
             groups[int(gid)] = {
                 "version": int(g.version),
                 "dispatch_t": float(g.dispatch_t),
                 "sel": (np.asarray(g.sel.idx), np.asarray(g.sel.valid),
                         np.asarray(g.sel.weights)),
                 "specs": list(g.specs),
-                "deltas": _to_host(g.deltas),
-                "covs": _to_host(g.covs),
+                "deltas": deltas,
+                "covs": covs,
                 "weights": _to_host(g.weights),
                 "accs": np.asarray(g.accs),
                 "n_steps": np.asarray(g.n_steps),
@@ -306,9 +335,29 @@ class FleetRuntime:
             "retried_since_agg": int(self._retried_since_agg),
         }
 
+    def _gather_group(self, g: InFlightCohort):
+        """The whole cohort's deltas and masks of group ``g`` as host
+        numpy: this rank's block, or every rank's blocks concatenated
+        (``all_gather_object``) when the group is sharded."""
+        deltas, covs = _to_host(g.deltas), _to_host(g.covs)
+        m = len(g.sel.idx)
+        sh = self.engine.cohort_sharding(m)
+        if sh is None:
+            return deltas, covs
+        parts = [None] * sh.mesh.world
+        dist.all_gather_object(parts, (deltas, covs), group=sh.mesh.group)
+        parts = parts[:sh.mesh.n_shards]
+
+        def cat(*blocks):
+            return np.concatenate(blocks, 0)
+        return (tree_map(cat, *[p[0] for p in parts]),
+                None if covs is None else tree_map(cat, *[p[1]
+                                                          for p in parts]))
+
     def load_state(self, snap: Dict) -> None:
         """Inverse of :meth:`state_snapshot`: the groups' deltas, masks
-        and weights go back to the engine's device."""
+        and weights go back to the engine's device (sharded: this rank's
+        block of the deltas and masks)."""
         dev = self.engine.device
         self.clock = float(snap["clock"])
         self._next_gid = int(snap["next_gid"])
@@ -326,14 +375,15 @@ class FleetRuntime:
         self.groups = {}
         for gid, gs in snap.get("groups", {}).items():
             idx, valid, weights = gs["sel"]
+            block = self.engine.block(len(idx))
             self.groups[int(gid)] = InFlightCohort(
                 version=int(gs["version"]),
                 dispatch_t=float(gs["dispatch_t"]),
                 sel=Selection(np.asarray(idx), np.asarray(valid),
                               np.asarray(weights)),
                 specs=list(gs["specs"]),
-                deltas=_to_device(gs["deltas"], dev),
-                covs=_to_device(gs["covs"], dev),
+                deltas=_to_device(_rows(gs["deltas"], block), dev),
+                covs=_to_device(_rows(gs["covs"], block), dev),
                 weights=_to_device(gs["weights"], dev),
                 accs=np.asarray(gs["accs"]),
                 n_steps=np.asarray(gs["n_steps"]),
@@ -342,7 +392,7 @@ class FleetRuntime:
                 consumed=np.array(gs["consumed"]),
                 complete_t=np.array(gs["complete_t"]),
                 failed=np.array(gs["failed"]),
-                deadline_t=float(gs["deadline_t"]))
+                deadline_t=float(gs["deadline_t"]), block=block)
 
     # -- dispatch ----------------------------------------------------------
     def _select_available(self, round_idx: int,
@@ -418,8 +468,11 @@ class FleetRuntime:
         covs = res.masks.param_mask if fl.coverage_norm else None
         deltas = res.deltas
         weights = torch.as_tensor(sel.weights, device=dev)
+        accs_all, n_steps_all = self.engine.gather_slots(res, res.accs,
+                                                         res.n_steps)
+        lo, hi = res.block
 
-        n_steps_valid = [int(n) for n in sel.take_valid(res.n_steps)]
+        n_steps_valid = [int(n) for n in sel.take_valid(n_steps_all)]
         times_valid = server._simulated_times(specs_real, n_steps_valid,
                                               participants)
         times = np.zeros((m,), np.float64)
@@ -432,11 +485,14 @@ class FleetRuntime:
         self._next_gid += 1
         gf = None
         if self.faults is not None and self.faults.any_rates():
-            gf = self.faults.draw(STREAM_ASYNC, gid, m, 1)
+            sh = self.engine.cohort_sharding(m)
+            gf = self.faults.draw(STREAM_ASYNC, gid, m,
+                                  1 if sh is None else sh.mesh.n_shards)
             if gf.corrupt.any():
                 codes, scales = gf.codes_scales(self.faults.outlier_scale,
                                                 dev)
-                deltas = inject_deltas(deltas, codes, scales)
+                deltas = inject_deltas(deltas, codes[lo:hi],
+                                       scales[lo:hi])
             straggle = gf.straggle & (sel.valid > 0)
             times[straggle] *= self.faults.straggle_factor
 
@@ -450,12 +506,13 @@ class FleetRuntime:
         group = InFlightCohort(
             version=r, dispatch_t=t, sel=sel, specs=specs_slots,
             deltas=deltas, covs=covs, weights=weights,
-            accs=np.asarray(res.accs), n_steps=np.asarray(res.n_steps),
+            accs=np.asarray(accs_all),
+            n_steps=np.asarray(n_steps_all).astype(np.int64),
             times=times, completed=np.zeros((m,), bool),
             consumed=np.zeros((m,), bool),
             complete_t=np.zeros((m,), np.float64),
             failed=np.zeros((m,), bool),
-            deadline_t=deadline_t)
+            deadline_t=deadline_t, block=(lo, hi))
         self.groups[gid] = group
         self._cohort_slots = len(participants)
         self.tracker.mark_pending(participants)
@@ -536,11 +593,22 @@ class FleetRuntime:
     # -- aggregate ---------------------------------------------------------
     def _gate(self, g: InFlightCohort, mask: np.ndarray):
         """The quarantine gate over one group's contributing slots: the
-        gated participation (a tensor) and the quarantined slots."""
+        gated participation (a tensor over the M slots) and the
+        quarantined slots. Sharded, the block's norms are all-gathered and
+        every rank takes the same verdict."""
         dev = self.engine.device
-        gatev, _ = delta_validity(g.deltas, torch.as_tensor(mask,
-                                                            device=dev),
-                                  self.norm_clip_factor)
+        sq, finite = delta_norms(g.deltas)
+        m = len(g.sel.idx)
+        sh = self.engine.cohort_sharding(m)
+        if sh is not None:
+            sq_all, fin_all = all_gather_slots(
+                [sq.cpu().double().numpy(), finite.cpu().double().numpy()],
+                m, sh)
+            sq = torch.as_tensor(sq_all, dtype=torch.float32, device=dev)
+            finite = torch.as_tensor(fin_all > 0, device=dev)
+        gatev, _ = validity_verdict(sq, finite,
+                                    torch.as_tensor(mask, device=dev),
+                                    self.norm_clip_factor)
         gv = gatev.cpu().numpy()
         quarantined = np.flatnonzero((mask > 0) & (gv == 0))
         return torch.as_tensor(mask * gv.astype(np.float32),
@@ -565,12 +633,16 @@ class FleetRuntime:
             else:
                 part = torch.as_tensor(mask, device=self.engine.device)
             scale = staleness_scale(r - g.version, self.staleness_decay)
-            nd = cohort_reduce(g.deltas, g.covs, g.weights,
+            lo, hi = g.block
+            nd = cohort_reduce(g.deltas, g.covs, g.weights[lo:hi],
                                coverage_norm=fl.coverage_norm,
-                               participation=part,
+                               participation=part[lo:hi],
                                scale=float(np.float32(scale)),
                                sanitize=self._validate)
             total = nd if total is None else buffer_add(total, nd)
+        sh = self.engine.cohort_sharding(len(contribs[0][0].sel.idx))
+        # the one collective of the step (none unsharded)
+        total = all_reduce_partials(*total, None if sh is None else sh.mesh)
         server.params = buffer_apply(server.params, *total,
                                      coverage_norm=fl.coverage_norm)
 

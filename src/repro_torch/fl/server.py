@@ -34,8 +34,11 @@ from the derivational selection RNG, for the state-independent policies
 it. ``checkpoint_every`` is ``CFLSession``'s autosave
 (``checkpoint.fleet``).
 
-``CFLConfig`` keeps every field of the reference's. What is not ported
-yet raises, naming its ROADMAP item: ``cohort_shards > 1`` (A17).
+``CFLConfig`` keeps every field of the reference's. ``cohort_shards > 1``
+splits the batched engine's cohort axis over the ranks of a process group
+(``sharding.cohort``; without one it clamps to one shard): every rank runs
+this server's host state identically and trains its block; a padded
+cohort of M slots shards by ``effective_cohort_shards(M, ...)``.
 ``elastic_kernels`` keeps its meaning: False is the dense masked path;
 True / "auto" / "cuda" the hand kernels (the batched engine's; the
 sequential trainer runs the plain forward).
@@ -58,8 +61,7 @@ from repro_torch.core.latency import LatencyTable
 from repro_torch.core.predictor import AccuracyPredictor
 from repro_torch.core.search import SearchConfig, search_all_workers
 from repro_torch.fl.client import ClientInfo
-from repro_torch.fl.engine import (BatchedRoundEngine,
-                                   SequentialFamilyTrainer, _not_ported)
+from repro_torch.fl.engine import BatchedRoundEngine, SequentialFamilyTrainer
 from repro_torch.fl.selection import (FleetTracker, SelectionPolicy,
                                       predict_full_round_times)
 from repro_torch.kernels.backend import resolve_backend, resolve_device
@@ -78,6 +80,9 @@ class CFLConfig:
     # devices at/below the median train the full parent model.
     latency_bound_frac: float = 1.05
     batched_rounds: bool = True     # parent-space cohort engine vs seq loop
+    # split the batched engine's cohort axis over this many ranks of the
+    # process group (sharding.cohort; clamped to a divisor of the cohort
+    # and to the rank count, 1 without a group)
     cohort_shards: int = 1
     # the batched engine's masked compute: False = the dense masked path;
     # True / "auto" / "cuda" = the hand-written kernels (kernels.dispatch)
@@ -118,17 +123,20 @@ def check_supported(fl: CFLConfig) -> None:
     if fl.mode not in ("sync", "async"):
         raise ValueError(f"mode must be 'sync' or 'async', "
                          f"got {fl.mode!r}")
-    if int(fl.cohort_shards) != 1:
-        raise _not_ported("cohort sharding over several cards", "A17")
+    if int(fl.cohort_shards) < 1:
+        raise ValueError(f"cohort_shards must be >= 1, got "
+                         f"{fl.cohort_shards}")
     engine_backend(fl.elastic_kernels)
 
 
 def round_engines(family, fl: CFLConfig, device):
-    """(engine, seq): the batched engine and None, or None and the
-    sequential trainer, as ``fl.batched_rounds`` says."""
+    """(engine, seq): the batched engine (sharded by ``fl.cohort_shards``)
+    and None, or None and the sequential trainer (never sharded, as in the
+    reference), as ``fl.batched_rounds`` says."""
     if fl.batched_rounds:
         return BatchedRoundEngine(
             family, lr=fl.lr, momentum=fl.momentum,
+            cohort_shards=fl.cohort_shards,
             backend=engine_backend(fl.elastic_kernels), device=device), None
     return None, SequentialFamilyTrainer(family, lr=fl.lr,
                                          momentum=fl.momentum)

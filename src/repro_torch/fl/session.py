@@ -104,7 +104,11 @@ class CFLSession:
                        device=None) -> "CFLSession":
         """Build the paper's synthetic heterogeneous population (devices ×
         quality × distribution) and wrap it in a session; the parent's
-        initial parameters are keyed by the population ``seed``."""
+        initial parameters are keyed by the population ``seed``.
+        ``cohort_shards`` splits the batched engine's cohort over that many
+        ranks of the process group (``sharding.cohort``: run the same
+        session on every rank, e.g. under ``torchrun`` after
+        ``init_cohort_group()``)."""
         from repro_torch.fl.rounds import build_population
         if fl_cfg is None:
             fl_cfg = CFLConfig(n_workers=n_workers, seed=seed,

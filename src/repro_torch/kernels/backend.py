@@ -58,5 +58,16 @@ def stream_handle(device: torch.device) -> int:
     """The raw handle of the current CUDA stream of ``device``, for a kernel
     launched through ctypes (the cheap form of
     ``torch.cuda.current_stream(device).cuda_stream``: the serving path
-    makes hundreds of launches a decode step and is bound by the host)."""
+    makes hundreds of launches a decode step and is bound by the host).
+
+    A ctypes launch runs on the thread's *current* card, whatever card the
+    stream belongs to, so every wrapper's launch passes this guard: a
+    tensor on another card than the current one raises (one integer
+    compare; the device is never switched silently)."""
+    if device.index != torch._C._cuda_getDevice():
+        raise RuntimeError(
+            f"a kernel's operands are on {device}, but the current card is "
+            f"cuda:{torch._C._cuda_getDevice()}: call "
+            f"torch.cuda.set_device({device.index}) (one rank a card) or "
+            f"move the tensors")
     return torch._C._cuda_getCurrentRawStream(device.index)

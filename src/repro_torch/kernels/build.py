@@ -24,6 +24,14 @@ result is loaded with
 memory, spills) is kept beside it as ``<name>_<hash>.log``. A failed
 build or load raises.
 
+Several processes (the ranks of a cohort group, started cold together)
+build in turn: ``build_all`` holds an ``fcntl.flock`` on the build
+directory while it starts the missing builds and waits for the ones it
+needs, so the first process builds and the others find the libraries and
+load them. A counted build still running in the background of the process
+that started it is marked by ``<target>.pid``; another process does not
+start it again, and waits for it if it needs it.
+
 A counted library loads only inside ``counting()``: outside it
 ``library(name)`` is always the fast build, so the main path never
 reaches a counter. ``reset_counters`` / ``read_counters`` zero and read the
@@ -34,6 +42,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -90,6 +99,7 @@ def _start(name: str, counted: bool, nvcc: str) -> None:
     log = open(target.with_suffix(".log"), "w")
     flags = COUNTED_FLAGS if counted else NVCC_FLAGS
     cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    target.with_suffix(".pid").write_text(str(os.getpid()))
     # each build in a process group of its own (``_stop`` ends nvcc's
     # children too); the counted builds yield the cores to the fast ones
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
@@ -97,10 +107,46 @@ def _start(name: str, counted: bool, nvcc: str) -> None:
                             preexec_fn=(lambda: os.nice(10)) if counted
                             else None)
     t0, end = time.perf_counter(), []
-    threading.Thread(target=lambda: (proc.wait(),
-                                     end.append(time.perf_counter())),
-                     daemon=True).start()      # when it ended, if later read
-    _running[_key(name, counted)] = (proc, tmp, log, target, t0, end)
+
+    def finish():             # the library lands as soon as nvcc ends
+        rc = proc.wait()
+        end.append(time.perf_counter())
+        if rc == 0:
+            os.replace(tmp, target)
+        target.with_suffix(".pid").unlink(missing_ok=True)
+    watcher = threading.Thread(target=finish, daemon=True)
+    watcher.start()
+    _running[_key(name, counted)] = (proc, watcher, log, target, t0, end)
+
+
+def _building_elsewhere(target: Path) -> bool:
+    """Whether another live process is building ``target`` now."""
+    try:
+        pid = int(target.with_suffix(".pid").read_text())
+    except (OSError, ValueError):
+        return False
+    if pid == os.getpid():
+        return False
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        pass
+    return True
+
+
+@contextlib.contextmanager
+def _dir_lock():
+    """An exclusive ``flock`` on the build directory: the processes that
+    build at once (the ranks of a cohort group) take turns."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def _wait(keys) -> None:
@@ -109,19 +155,15 @@ def _wait(keys) -> None:
     failed = []
     while pending:                   # each build's own time
         for key in list(pending):
-            proc, tmp, log, target, t0, end = _running[key]
-            rc = proc.poll()
-            if rc is None:
+            proc, watcher, log, target, t0, end = _running[key]
+            if watcher.is_alive():
                 continue
             pending.remove(key)
             del _running[key]
             log.close()
-            build_seconds[key] = (end[0] if end else time.perf_counter()) \
-                - t0
-            if rc != 0:
+            build_seconds[key] = end[0] - t0
+            if proc.returncode != 0:
                 failed.append((key, target))
-                continue
-            os.replace(tmp, target)
         if pending:
             time.sleep(0.2)
     if failed:
@@ -135,14 +177,14 @@ def _wait(keys) -> None:
 @atexit.register
 def _stop() -> None:
     """Stop the builds still running when the process ends."""
-    for proc, tmp, log, *_ in _running.values():
+    for proc, watcher, log, target, *_ in _running.values():
         try:
             os.killpg(proc.pid, signal.SIGKILL)
         except ProcessLookupError:
             pass
-        proc.wait()
+        watcher.join()
         log.close()
-        tmp.unlink(missing_ok=True)
+        target.with_suffix(f".{os.getpid()}.tmp").unlink(missing_ok=True)
     _running.clear()
 
 
@@ -150,16 +192,30 @@ def build_all(counted: bool = False) -> Dict[str, Path]:
     """Start every missing kernel library, fast and counted, in one parallel
     pass (the counted builds at a lower priority), and wait for the fast
     ones — and with ``counted`` for the counted ones too; returns the fast
-    library path of each source. Raises if a build waited for fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name in SOURCES:
-        for c in (False, True):
-            if _key(name, c) not in _running and \
-                    not _target(name, c).exists():
-                _start(name, c, _nvcc())
-    _wait([_key(n, c) for n in SOURCES for c in (False, True)
-           if counted or not c])
-    return {n: _target(n) for n in SOURCES}
+    library path of each source. Raises if a build waited for fails. The
+    pass holds the build directory's lock (``_dir_lock``); a build that
+    another live process runs is not started again, but waited for (out
+    of the lock) when it is needed, and started here if that process ends
+    without it."""
+    need = [(n, c) for n in SOURCES for c in (False, True)
+            if counted or not c]
+    while True:
+        with _dir_lock():
+            for name in SOURCES:
+                for c in (False, True):
+                    target = _target(name, c)
+                    if _key(name, c) not in _running and \
+                            not target.exists() and \
+                            not _building_elsewhere(target):
+                        _start(name, c, _nvcc())
+            _wait([_key(n, c) for n, c in need])
+        elsewhere = [_target(n, c) for n, c in need
+                     if not _target(n, c).exists()]
+        if not elsewhere:
+            return {n: _target(n) for n in SOURCES}
+        while any(not t.exists() and _building_elsewhere(t)
+                  for t in elsewhere):
+            time.sleep(0.5)
 
 
 def build_log(name: str, counted: bool = False) -> str:

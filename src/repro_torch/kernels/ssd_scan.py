@@ -29,8 +29,14 @@ float64): the two agree to the last bit whatever order the sum runs in.
   by variant (one per call, though the mma variant runs three kernels);
 * ``ssd_scan_bwd`` (K9, same source) -> (dx, ddt, dA, dB, dC): the
   transposed scan. The kernel (``ssd_scan_bwd_raw``) emits dx, ddt, du
-  (the cotangent of u = dt·A) and dB / dC per group; ``dA = Σ_s du·dt``
-  (per row) is a plain torch reduction outside it, as in the reference.
+  (the cotangent of u = dt·A), dB / dC per group and, in fp64, each
+  (row, head, chunk)'s partial ``Σ_s du·dt``; ``dA`` sums those partials
+  in fp64 and rounds once (``_reduce_bwd``). The sum cancels: at mamba2's
+  widths on
+  the reference bench's inputs its terms are ~1e3 times its total, and
+  fp32 row and column sums of DL (the decay-weighted dG∘CB of the chunk)
+  inside du carry ~1e-5 into it, so the partials come from a du formed in
+  fp64 from fp64 sums of DL; du itself keeps its fp32 sums.
   ``ssd_bwd_plan`` picks its variant from the shapes
   (``SSD_BWD_VARIANTS``: ``mma``, the chunks in parallel on 3×TF32 tensor
   cores after a short pass that carries the state cotangent across them,
@@ -169,7 +175,7 @@ def _library_bound(counted: bool) -> ctypes.CDLL:
     lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 10 + \
         [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.ssd_scan_fwd.restype = ctypes.c_int
-    lib.ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 19 + \
+    lib.ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 21 + \
         [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.ssd_scan_bwd.restype = ctypes.c_int
     return lib
@@ -251,8 +257,9 @@ def ssd_scan_plain(xh, dt, A, Bm, Cm, chunk, h_active=None,
 
 def ssd_scan_bwd_raw_plain(xh, dt, A, Bm, Cm, states, dy, chunk,
                            h_active=None):
-    """The plain PyTorch version of K9's own outputs (dx, ddt, du, and dB /
-    dC per group): a transcription of the reference's ``_bwd_kernel``,
+    """The plain PyTorch version of K9's own outputs (dx, ddt, du, dB / dC
+    per group, and the fp64 partials ``Σ_s du·dt`` per (row, head, chunk),
+    (R, H, S/chunk)): a transcription of the reference's ``_bwd_kernel``,
     chunks in reverse carrying the state cotangent, then dB / dC summed
     over each group's heads."""
     R, S, H, P = xh.shape
@@ -265,6 +272,7 @@ def ssd_scan_bwd_raw_plain(xh, dt, A, Bm, Cm, states, dy, chunk,
     dx, ddt, du, dB, dC = (torch.zeros_like(x), torch.zeros_like(dtf),
                            torch.zeros_like(dtf), torch.zeros_like(Bh),
                            torch.zeros_like(Ch))
+    dap = torch.zeros((R, H, nc), dtype=torch.float64, device=xh.device)
     for c in reversed(range(nc)):
         sl = slice(c * chunk, (c + 1) * chunk)
         xc, dtc, Bc, Cc, dyc = x[:, sl], dtf[:, sl], Bh[:, sl], Ch[:, sl], \
@@ -305,6 +313,13 @@ def ssd_scan_bwd_raw_plain(xh, dt, A, Bm, Cm, states, dy, chunk,
         d64 = dcum.double()
         duc = ((d64.sum(1, keepdim=True) + last[:, None])
                - torch.cumsum(d64, 1) + d64).float()
+        # dA's partial: du again in fp64, from DL's sums in fp64
+        e64 = (DL.sum(2, dtype=torch.float64)
+               - DL.sum(1, dtype=torch.float64)) \
+            + ((dyc * CH).sum(-1) * e).double() - (Tt * w_end).double()
+        du64 = (e64.sum(1, keepdim=True) + last[:, None]) \
+            - torch.cumsum(e64, 1) + e64
+        dap[:, :, c] = (du64 * dtc.double()).sum(1)
         dh = dh * E_Q[..., None, None] + dh_y
         dx[:, sl] = dxdt * dtc[..., None]
         ddt[:, sl] = (dxdt * xc).sum(-1) + duc * Ar[:, None, :]
@@ -316,7 +331,8 @@ def ssd_scan_bwd_raw_plain(xh, dt, A, Bm, Cm, states, dy, chunk,
     m4, m3 = live[:, None, :, None], live[:, None, :]
     return (torch.where(m4, dx, zero), torch.where(m3, ddt, zero),
             torch.where(m3, du, zero), group_sum(torch.where(m4, dB, zero), G),
-            group_sum(torch.where(m4, dC, zero), G))
+            group_sum(torch.where(m4, dC, zero), G),
+            torch.where(live[..., None], dap, zero.double()))
 
 
 def group_sum(t, G):
@@ -334,10 +350,11 @@ def ssd_scan_bwd_plain(xh, dt, A, Bm, Cm, states, dy, chunk, h_active=None):
 
 def _reduce_bwd(raw, xh, dt, A, Bm, Cm):
     """K9's outputs -> (dx, ddt, dA, dB, dC): dA = Σ_s du·dt per row
-    ((R, H), or (H,) for a shared A), a plain torch reduction as in the
-    reference, and each output in its input's dtype."""
-    dx, ddt, du, dB, dC = raw
-    dA = torch.einsum("rsh,rsh->rh", du, dt.float())
+    ((R, H), or (H,) for a shared A), summed from the fp64 partials over
+    the chunks (and rows) in fp64 and rounded once, and each output in its
+    input's dtype."""
+    dx, ddt, _, dB, dC, dap = raw
+    dA = dap.sum(-1)
     if A.dim() == 1:
         dA = dA.sum(0)
     return (dx.to(xh.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
@@ -463,8 +480,9 @@ def _bwd_plan(xh, Bm, Cm, states, dy, chunk, variant):
 
 def ssd_scan_bwd_raw(xh, dt, A, Bm, Cm, states, dy, chunk, *,
                      h_active=None, variant: Optional[str] = None):
-    """K9's own outputs: dx (R, S, H, P), ddt and du (R, S, H), and dB / dC
-    per group (R, S, G, N). ``states``: the per-chunk initial states of
+    """K9's own outputs: dx (R, S, H, P), ddt and du (R, S, H), dB / dC
+    per group (R, S, G, N), and the fp64 partials of dA, Σ_s du·dt per
+    (row, head, chunk), (R, H, S/chunk). ``states``: the per-chunk initial states of
     ``ssd_scan(..., return_states=True)``; ``dy`` the output cotangent.
     Heads past the row's prefix get exactly-zero cotangents and add
     nothing to their group's dB / dC. ``variant`` (CUDA tensors only):
@@ -490,8 +508,9 @@ def ssd_scan_bwd_raw(xh, dt, A, Bm, Cm, states, dy, chunk, *,
     ddt = torch.empty_like(dt)
     du = torch.empty_like(dt)
     nc = S // chunk
+    dap = torch.empty((R, H, nc), dtype=torch.float64, device=dev)
     scratch = dict(cum=None, cb=None, dhs=None, dhh=None, vecs=None,
-                   parts=None)
+                   vecs64=None, parts=None)
     if plan.variant == "simt":       # per head, summed over groups below
         dB = torch.empty((R, S, H, N), dtype=f32, device=dev)
         dC = torch.empty_like(dB)
@@ -508,14 +527,17 @@ def ssd_scan_bwd_raw(xh, dt, A, Bm, Cm, states, dy, chunk, *,
             dhh=torch.empty((R, H, nc, P // 32), dtype=torch.float64,
                             device=dev),
             vecs=torch.empty((4, R, H, S), dtype=f32, device=dev),
+            vecs64=torch.empty((2, R, H, S), dtype=torch.float64,
+                               device=dev),
             parts=torch.empty((2, ns, R, S, G, N), dtype=f32, device=dev)
             if ns > 1 else None)
     err = _library().ssd_scan_bwd(
         xh.data_ptr(), dt.data_ptr(), Ar.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), states.data_ptr(), dy.data_ptr(), _ptr(h_active),
         dx.data_ptr(), ddt.data_ptr(), du.data_ptr(), dB.data_ptr(),
-        dC.data_ptr(), *(_ptr(scratch[k]) for k in
-                         ("cum", "cb", "dhs", "dhh", "vecs", "parts")),
+        dC.data_ptr(), dap.data_ptr(), *(_ptr(scratch[k]) for k in
+                         ("cum", "cb", "dhs", "dhh", "vecs", "vecs64",
+                          "parts")),
         R, S, H, P, G, N, chunk, SSD_BWD_VARIANTS.index(plan.variant),
         plan.head_slice, stream)
     if err != 0:
@@ -525,7 +547,7 @@ def ssd_scan_bwd_raw(xh, dt, A, Bm, Cm, states, dy, chunk, *,
     ssd_scan_bwd.launches += 1
     if plan.variant == "simt":
         dB, dC = group_sum(dB, G), group_sum(dC, G)
-    return dx, ddt, du, dB, dC
+    return dx, ddt, du, dB, dC, dap
 
 
 def ssd_scan_bwd(xh, dt, A, Bm, Cm, states, dy, chunk, *, h_active=None,

@@ -128,6 +128,11 @@ class Op:
     def frac(self, f) -> float:
         return f
 
+    def parity_sets(self, f, device) -> list:
+        """Further (leaves, ctx) sets the row's parity is also held on
+        (none by default)."""
+        return []
+
     def _gen(self, device):
         return torch.Generator(device=device).manual_seed(self.seed)
 
@@ -350,15 +355,21 @@ class SsdOp(Op):
     ``inputs="bench"``: the reference bench's (dt = softplus(N(0, 1)), one
     A = −exp(0.3 N(0, 1)) shared by the rows); ``"main"``: the main path's,
     as ``chip_smoke.py`` makes them for the SSM slices (dt uniform in
-    [0.01, 0.3], each row its own A from −1 to −16)."""
+    [0.01, 0.3], each row its own A from −1 to −16). ``also``: further
+    input kinds the row's parity is held on as well (the main widths on
+    the bench's inputs, where dA = Σ du·dt cancels a thousandfold)."""
 
     op = tag = "ssd_heads"
     seed = 3
 
-    def __init__(self, R, S, H, P, G, N, Q, inputs="bench"):
+    def __init__(self, R, S, H, P, G, N, Q, inputs="bench", also=()):
         self.R, self.S, self.H, self.P, self.G, self.N, self.Q = \
             R, S, H, P, G, N, Q
         self.inputs = inputs
+        self._also = [SsdOp(R, S, H, P, G, N, Q, inputs=k) for k in also]
+
+    def parity_sets(self, f, device):
+        return [op.setup(f, device) + (op.cot,) for op in self._also]
 
     def _ha(self, f):
         return max(1, int(f * self.H))
@@ -527,13 +538,15 @@ def main_ops() -> List[Op]:
     its dispatch (2048 tokens × top 8, d 1024, into T·k = 16384 slots: the
     reference's sweep fills every slot at full width, ``DISP``),
     mamba2-2.7b's SSD (16 rows of 512 tokens, 80 heads of 64, one group,
-    d_state 128, chunk 256, the main path's inputs) and the paper CNN's
+    d_state 128, chunk 256, the main path's inputs; its parity held on the
+    reference bench's inputs too) and the paper CNN's
     stage-1 blocks (8 clients, batch 32, 8×8, 64 channels)."""
     return [MlpOp("mlp_up", 4, 512, 4096, 12800, True),
             MlpOp("mlp_down", 4, 512, 12800, 4096, True),
             GroupedOp(4, 32, 160, 1024, 512, True),
             DispatchOp(2048, 8, 32, 512, 1024),
-            SsdOp(16, 512, 80, 64, 1, 128, 256, inputs="main"),
+            SsdOp(16, 512, 80, 64, 1, 128, 256, inputs="main",
+                  also=("bench",)),
             AttentionOp(16, 128, 32, 8, 128),
             ConvOp(8, 32, 8, 64, True)]
 
@@ -542,11 +555,10 @@ def stress_ops() -> List[Op]:
     """Measured and counted, not gated: the dispatch at the main path's own
     capacity, 1.25 × T·k / E (20480 slots) — at full width a fifth of the
     slots stay empty while a 75 % expert prefix overflows its experts, so
-    the rows moved (and read by the kernels) saturate at T·k; and the SSD
-    at the main widths on the bench's inputs, where dA = Σ du·dt cancels
-    a thousandfold and fp32's rounding of du shows at 1e-5."""
-    return [DispatchOp(2048, 8, 32, 640, 1024),
-            SsdOp(16, 512, 80, 64, 1, 128, 256)]
+    the rows moved (and read by the kernels) saturate at T·k. (The SSD at
+    the main widths on the bench's inputs is gated: the main set's SSD row
+    holds its parity there too.)"""
+    return [DispatchOp(2048, 8, 32, 640, 1024)]
 
 
 ROW_SETS = {"bench": bench_ops, "main": main_ops, "stress": stress_ops}
@@ -623,11 +635,13 @@ def measure_op(op: Op, set_name: str, device, sms: int,
         leaves, ctx = op.setup(f, device)
         geo = op.model(f, sms)
         for pas in op.passes:
+            extra = op.parity_sets(f, device)
             if pas == "fwd":
                 with torch.no_grad():
                     counted = _counted(lambda: op.kernel(leaves, ctx))
-                    errs = [_err(op.kernel(leaves, ctx),
-                                 op.plain(_f64(leaves), ctx))]
+                    errs = [_err(op.kernel(lv, cx), op.plain(_f64(lv), cx))
+                            for lv, cx in [(leaves, ctx)]
+                            + [e[:2] for e in extra]]
                     ms = _ms(lambda: op.kernel(leaves, ctx), iters)
                     dense_ms = _ms(lambda: op.plain(leaves, ctx), iters)
             else:
@@ -637,10 +651,11 @@ def measure_op(op: Op, set_name: str, device, sms: int,
                     build.reset_counters()
                     torch.autograd.grad(out, lv, op.cot)
                     counted = build.read_counters()
-                errs = [_err(a, b) for a, b in zip(
-                    _grads(op.kernel, leaves, ctx, op.cot),
-                    _grads(op.plain, _f64(leaves), ctx,
-                           op.cot.double()))]
+                errs = [_err(a, b)
+                        for lv, cx, cot in [(leaves, ctx, op.cot)] + extra
+                        for a, b in zip(
+                            _grads(op.kernel, lv, cx, cot),
+                            _grads(op.plain, _f64(lv), cx, cot.double()))]
                 ms = _ms(lambda: _grads(op.kernel, leaves, ctx, op.cot),
                          iters)
                 dense_ms = _ms(lambda: _grads(op.plain, leaves, ctx, op.cot),

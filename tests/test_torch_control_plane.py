@@ -266,17 +266,13 @@ def test_unported_paths_raise():
         with pytest.raises(ValueError, match="'dense', 'cuda'"):
             CFLSession.from_synthetic(
                 CFG, fl_cfg=CFLConfig(n_workers=2, elastic_kernels=ek), **kw)
-    for algorithm in ("cfl", "fedavg"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-            CFLSession.from_synthetic(
-                CFG, fl_cfg=CFLConfig(n_workers=2, cohort_shards=2),
-                algorithm=algorithm, **kw)
     # selection, async rounds and faults (once raising, naming ROADMAP
-    # A12 / A13), the overlap ring and checkpoints (A14) now build; async
-    # and faults need the batched engine, as in the reference
+    # A12 / A13), the overlap ring and checkpoints (A14) and cohort
+    # sharding (A17: without a process group it clamps to one shard) now
+    # build; async and faults need the batched engine, as in the reference
     for field, value in (("mode", "async"), ("faults", "drop=0.2"),
                          ("selection", "uniform"), ("overlap", True),
-                         ("checkpoint_every", 1)):
+                         ("checkpoint_every", 1), ("cohort_shards", 2)):
         for algorithm in ("cfl", "fedavg"):
             CFLSession.from_synthetic(
                 CFG, fl_cfg=CFLConfig(n_workers=2, **{field: value}),

@@ -136,7 +136,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert len(files) > 15
     names = {os.path.relpath(p, ROOT) for p in files}
     for new in ("checkpoint/fleet.py", "serving/export.py",
-                "serving/distill.py"):
+                "serving/distill.py", "sharding/__init__.py",
+                "sharding/cohort.py"):
         assert os.path.join("src", "repro_torch", new) in names
     for path in files:
         with open(path) as f:
@@ -166,6 +167,7 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.checkpoint, repro_torch.checkpoint.fleet\n"
             "import repro_torch.serving.export, repro_torch.serving.distill\n"
             "import repro_torch.fl.runtime, repro_torch.fl.faults\n"
+            "import repro_torch.sharding, repro_torch.sharding.cohort\n"
             "import chip_smoke, relu_replay\n"
             "print('ok')\n")
     env = dict(os.environ)
