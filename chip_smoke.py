@@ -164,9 +164,8 @@ printing its own lines; any failed phase exits non-zero:
    MAE, fairness, peak memory, Table II (CFL / FedAvg / IL: round s,
    images/s, accuracy mean / min / std / Jain, simulated round s), one
    local step's wall, device busy and idle share with K1's device share,
-   and that step with cuDNN's deterministic algorithms off and on (twice
-   each from one state: bit-equal or the first leaf that differs; wall
-   and device ms).
+   and that step twice from one state under cuDNN's deterministic
+   algorithms (bit-equal or the first leaf that differs).
 14a. times, CNN shapes — per conv shape: K1, its plain version and
    ``torch.matmul`` on the im2col product (forward, dx, dw), the grouped
    ``F.conv2d`` (cuDNN, TF32 off) of the whole conv and the im2col, beside
@@ -178,7 +177,8 @@ printing its own lines; any failed phase exits non-zero:
    cfg, seq_len=...), kind="synthlm", n_workers=4, n_samples=32,
    heterogeneity="both")`` (8 train / 8 test sequences a client, batch 4,
    2 local steps) at each parent's published width, with phase 7's / 9's
-   / 12's depth and sequence length: granite-3-8b CFL 3 timed rounds on
+   / 12's sequence length, granite at phase 7's depth, granite-moe and
+   mamba2 at 4 layers: granite-3-8b CFL 3 timed rounds on
    the kernels (after an untimed warm-up session round), FedAvg 1 round,
    IL 1 round's budget; granite-moe-1b-a400m and mamba2-2.7b 1 CFL round;
    each parent 1 round on the sequential trainer (``batched_rounds=
@@ -248,9 +248,10 @@ printing its own lines; any failed phase exits non-zero:
    and fp32 bounds, plain, SDPA and its all-grads backward, non-causal).
 
 17. the zoo's last three decoder parents end to end: ``EdgeServer`` as
-   phase 5 on gemma2-9b (10 of its 21 pairs), zamba2-1.2b (its first two
-   segments and its last, 14 of 38 layers) and deepseek-v2-lite-16b (its
-   dense first layer and 8 of its 26 MoE layers), widths published, kernel
+   phase 5 on gemma2-9b (4 of its 21 pairs), zamba2-1.2b (3 layers of
+   each of its first two segments and its last, 8 of 38 layers) and
+   deepseek-v2-lite-16b (its dense first layer and 3 of its 26 MoE
+   layers), widths published, kernel
    path against dense path (greedy tokens
    equal, logits within ``SLICE_LOGIT_RTOL``), every kernel of the path
    launched; then phase 15's sessions (``phase_zoo``) at published width:
@@ -319,7 +320,7 @@ printing its own lines; any failed phase exits non-zero:
 21. cohort sharding (``phase_cohort``): ``run_fl_round`` with
    ``cohort_shards=2`` on 2 ranks started by ``spawn_cohort``, both on the
    one card over an explicit gloo group, for the paper's CNN (8 clients,
-   full width and depth), granite-moe-1b-a400m and mamba2-2.7b (2 layers,
+   full width and depth), granite-moe-1b-a400m and mamba2-2.7b (1 layer,
    4 clients, full width): each rank's block bit-equal to that block run
    alone in this process, the hierarchical aggregate within
    ``COHORT_RTOL`` of the movement from the flat one on the same blocks,
@@ -328,6 +329,19 @@ printing its own lines; any failed phase exits non-zero:
    and ms and its launches printed. Then ``nccl_checks``: NCCL at world
    size 1 bit-equal to the unsharded engine, and on 2 and 4 cards where
    the machine has them (printed as not run otherwise).
+22. the model axis for serving (``phase_model_axis``): granite-3-8b,
+   granite-moe-1b-a400m and mamba2-2.7b at full width, 4 layers, 2 prompts
+   of 32 tokens and 8 greedy decode steps through the kernel table, each
+   rank with its block of the parameters (``sharding.specs.shard_params``)
+   on a ``launch.mesh.make_host_mesh`` mesh: a 1-rank NCCL mesh (1, 1)
+   bit-equal to this process's unsharded run; 2 ranks on the one card
+   over gloo, mesh (1, 2): the ranks identical, the greedy tokens the
+   unsharded run's, prefill / decode logits within ``MA_PREFILL_TOL`` /
+   ``MA_DECODE_TOL`` of the largest, every kernel of the family launched
+   on every rank as often as ``model_axis_design``; each rank's parameter
+   and peak GiB and tok/s printed. Then ``model_axis_nccl``: meshes
+   (1, 2), (1, 4) and (2, 2) over NCCL where the cards exist (the ranks'
+   tokens identical), printed as not run otherwise.
 
 The last lines are a ``kernels:`` line, the slices' stats, the card line,
 one JSON object with every kernel's launches and times, and the result
@@ -3789,21 +3803,16 @@ def phase_cnn(device, *, kind, n_workers, n_samples, heterogeneity, rounds,
     if not cuda:
         return launches, stats
     stats["kernel_local_step"] = cnn_local_step(
-        device, kern_sess, cnn_specs(kern[-1]["rec"]["specs"]), fk_sess)
+        device, kern_sess, cnn_specs(kern[-1]["rec"]["specs"]))
     return launches, stats
 
 
-def cnn_local_step(device, sess, specs, fed_sess, turns=1):
+def cnn_local_step(device, sess, specs):
     """One local step of the kernel path's cohort (``specs``, the session's
-    parameters): wall ms and ``torch.profiler``'s device ms and idle share
-    with K1's share. Then what cuDNN's deterministic algorithms cost
-    (``resolve_device`` turns them on): with them off and on in turn,
-    ``turns`` times each, the step's wall ms, a round of ``fed_sess`` (a
-    FedAvg kernel-path session: every round the same work) in seconds,
-    and last the step's device ms (a finished profiler session slows the
-    launches after it); medians, and each setting's step run twice from
-    one state, bit-equal or the first leaf that differs."""
-    import numpy as np
+    parameters) under cuDNN's deterministic algorithms (``resolve_device``
+    turns them on): wall ms and ``torch.profiler``'s device ms and idle
+    share with K1's share, and the step run twice from one state,
+    bit-equal or the first leaf that differs."""
     import torch
     from repro_torch.fl.engine import pack_cohort_data
     from repro_torch.optim.optimizers import tree_map
@@ -3825,48 +3834,15 @@ def cnn_local_step(device, sess, specs, fed_sess, turns=1):
         eng.local_step(p, o, masks, x, sw, None, y)
         return tree_map(lambda t: t.detach(), p)
 
-    def fed_round():
-        sync(device)
-        t = time.perf_counter()
-        fed_sess.server.run_round()
-        sync(device)
-        return time.perf_counter() - t
-
-    def in_turns(runs, key, measure):
-        for _ in range(turns):
-            for flag in (False, True):
-                torch.backends.cudnn.deterministic = flag
-                runs[flag][key].append(measure())
-
-    runs = {flag: {"wall_ms": [], "fedavg_round_s": [], "device_busy_ms": []}
-            for flag in (False, True)}
-    try:
-        in_turns(runs, "wall_ms", lambda: step_wall_ms(step, device))
-        in_turns(runs, "fedavg_round_s", fed_round)
-        torch.backends.cudnn.deterministic = True
-        wall = step_wall_ms(step, device)
-        busy, top, by_name = step_device_ms(step, device)
-        in_turns(runs, "device_busy_ms",
-                 lambda: step_device_ms(step, device)[0])
-        det = {}
-        for flag in (False, True):
-            torch.backends.cudnn.deterministic = flag
-            d = first_difference(fresh_step(), fresh_step())
-            med = {k: float(np.median(v)) for k, v in runs[flag].items()}
-            det[str(flag)] = dict(
-                bit_equal=d is None,
-                first_difference=None if d is None else list(d),
-                median=med, turns=runs[flag])
-            print(f"  cudnn.deterministic={flag}: the step twice from one "
-                  f"state " + ("bit-equal" if d is None else
-                               f"DIFFERS: first at {d[0]} by {d[1]:.3e} "
-                               f"({d[2]} leaves)")
-                  + f"; medians of {turns} turns (off and on alternating) "
-                  f"{json.dumps(med)}; turns "
-                  + json.dumps({k: [round(x, 4) for x in v]
-                                for k, v in runs[flag].items()}))
-    finally:
-        torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.deterministic = True
+    wall = step_wall_ms(step, device)
+    busy, top, by_name = step_device_ms(step, device)
+    d = first_difference(fresh_step(), fresh_step())
+    det = dict(bit_equal=d is None,
+               first_difference=None if d is None else list(d))
+    print("  cudnn.deterministic=True: the step twice from one state "
+          + ("bit-equal" if d is None else
+             f"DIFFERS: first at {d[0]} by {d[1]:.3e} ({d[2]} leaves)"))
     k1 = sum(v for k, v in by_name.items()
              if any(f in k for f in KERNEL_FUNCTIONS["elastic_dense"]))
     prof = {"wall_ms": wall, "device_busy_ms": busy,
@@ -3886,19 +3862,18 @@ def cnn_local_step(device, sess, specs, fed_sess, turns=1):
 # phase 15: CFLSession on the transformer zoo
 # ---------------------------------------------------------------------------
 # the zoo sessions: CFLSession.from_synthetic(kind="synthlm") at each
-# parent's published width, with phase 7's / 9's / 12's depth and sequence
-# length; 32 samples over 4 clients give 8 train and 8 test sequences a
-# client, 2 local steps of 4 sequences
+# parent's published width, with phase 7's / 9's / 12's sequence length,
+# granite at phase 7's depth, granite-moe and mamba2 at 4 layers (12 and 8
+# until phase 22 needed the time); 32 samples over 4 clients give 8 train
+# and 8 test sequences a client, 2 local steps of 4 sequences
 ZOO = dict(n_workers=4, n_samples=32, heterogeneity="both", batch=4,
            lr=0.05, seed=0)
 # (arch, depth, sequence length, timed CFL rounds, FedAvg / IL and a
 # warm-up session too)
 ZOO_PARENTS = (("granite-3-8b", TRAIN["n_layers"], TRAIN["seq_len"], 3,
                 True),
-               ("granite-moe-1b-a400m", MOE_TRAIN["n_layers"],
-                MOE_TRAIN["seq_len"], 1, False),
-               ("mamba2-2.7b", SSM_TRAIN["n_layers"], SSM_TRAIN["seq_len"],
-                1, False))
+               ("granite-moe-1b-a400m", 4, MOE_TRAIN["seq_len"], 1, False),
+               ("mamba2-2.7b", 4, SSM_TRAIN["seq_len"], 1, False))
 SEQ_FP64_TOL = 1e-5            # a client's first step, sequential against
                                # batched dense, both in fp64, over its
                                # movement (the attention, norm statistics
@@ -3935,8 +3910,8 @@ class RouteLog:
         from repro_torch.models import moe as moe_mod
         self._mod, real = moe_mod, moe_mod.route
 
-        def hooked(router, xt, moe_cfg, expert_mask=None):
-            out = real(router, xt, moe_cfg, expert_mask)
+        def hooked(router, xt, moe_cfg, expert_mask=None, mesh=None):
+            out = real(router, xt, moe_cfg, expert_mask, mesh=mesh)
             c = self.calls
             self.calls += 1
             if self.mode == "record":
@@ -4895,14 +4870,14 @@ def phase_selection(device, cfg=None, zoo=True, cfg_of=None):
 # ---------------------------------------------------------------------------
 # phases 3e and 17: the zoo's last three decoder parents
 # ---------------------------------------------------------------------------
-# phase 17's serving slices, depth cut to make room for phase 20 (widths
-# kept): gemma2-9b 10 of its 21 (local, global) pairs, zamba2-1.2b its first
-# two 6-layer segments with their shared blocks and its last segment (14 of
-# 38 layers), deepseek-v2-lite-16b its dense first layer and 8 of its 26
-# MoE layers — (arch, depth for cut_depth)
-A11_SLICES = (("gemma2-9b", ((0, 10),)),
-              ("zamba2-1.2b", ((0, 6), (1, 6), (6, 2))),
-              ("deepseek-v2-lite-16b", ((0, 1), (1, 8))))
+# phase 17's serving slices, depth cut to make room for phases 20 and 22
+# (widths kept): gemma2-9b 4 of its 21 (local, global) pairs, zamba2-1.2b
+# 3 layers of each of its first two segments with their shared blocks and
+# its last segment (8 of 38 layers), deepseek-v2-lite-16b its dense first
+# layer and 3 of its 26 MoE layers — (arch, depth for cut_depth)
+A11_SLICES = (("gemma2-9b", ((0, 4),)),
+              ("zamba2-1.2b", ((0, 3), (1, 3), (6, 2))),
+              ("deepseek-v2-lite-16b", ((0, 1), (1, 3))))
 # phase 17's CFL sessions at published width, as phase 15's (name, depth,
 # sequence length, timed CFL rounds, FedAvg / IL and a warm-up, clients):
 # gemma2 one (local, global) pair and deepseek its dense layer and one MoE
@@ -6039,7 +6014,8 @@ def without_arch(settings):
 def phase_gate(device):
     """The tile-accounting gate (``repro_torch.launch.elastic_kernels``) on
     the card: for every row set (the reference's bench shapes, the main
-    widths, the dispatch at the main path's capacity) and fraction, the
+    widths, the dispatch at the main path's capacity, a model rank's
+    blocks of phase 22's serving prefill) and fraction, the
     counted kernels' tiles and DMA blocks against the host model, parity
     against the plain version in fp64, fast and dense-masked times and
     their shares; counters against the model at the edges (prefix 0,
@@ -6075,11 +6051,13 @@ def phase_gate(device):
 # phase 21: cohort sharding over a process group (A17)
 # ---------------------------------------------------------------------------
 # (case, parent, layers, clients, tokens a sequence): the paper's CNN at
-# full width and depth (K1 through B2), granite-moe at 2 layers (K2–K7)
-# and mamba2 at 2 layers on 512-token sequences (K8, K9), full width
+# full width and depth (K1 through B2), granite-moe (K2–K7) and mamba2 on
+# 512-token sequences (K8, K9) at full width, their depth cut to 1 layer
+# for the script's time budget (their gloo all-reduces of 0.4 / 0.6 GB are
+# mostly the embeddings', whatever the depth)
 COHORT_CASES = (("cnn", "paper-elastic-cnn", None, 8, None),
-                ("moe", "granite-moe-1b-a400m", 2, 4, 128),
-                ("ssm", "mamba2-2.7b", 2, 4, 512))
+                ("moe", "granite-moe-1b-a400m", 1, 4, 128),
+                ("ssm", "mamba2-2.7b", 1, 4, 512))
 COHORT_RTOL = 1e-5             # the sharded aggregate against the flat one
                                # on the same deltas, over the movement
 
@@ -6439,6 +6417,312 @@ def phase_cohort(device, cases=COHORT_CASES, cfg_of=None):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the model axis for serving (A17b's forward half)
+# ---------------------------------------------------------------------------
+# (arch, layers): each parent at full width, its depth cut
+MODEL_AXIS_CASES = (("granite-3-8b", 4), ("granite-moe-1b-a400m", 4),
+                    ("mamba2-2.7b", 4))
+MODEL_AXIS = dict(batch=2, prompt=32, steps=8, seed=0)
+MA_PREFILL_TOL = 1e-5          # prefill logits over the largest logit
+MA_DECODE_TOL = 1e-4           # decode logits over the run's largest
+
+
+def model_axis_design(cfg, steps):
+    """The launches one rank's serving run of ``cfg`` must make: each
+    layer's MLP three K1 launches a forward (the prefill and each decode
+    step), a MoE layer three K5, one K6 and one K7 a forward, each
+    attention layer one K2 in the prefill (decode attention is plain ops),
+    each SSM layer one K8 in the prefill — the unsharded run's, as every
+    rank runs every layer on its block."""
+    fwd = 1 + steps
+    out = {}
+    for seg in cfg.segments:
+        L = seg.n_layers
+        if seg.kind == "ssm":
+            out["ssd_scan"] = out.get("ssd_scan", 0) + L
+            continue
+        out["flash_attention"] = out.get("flash_attention", 0) + L
+        if seg.use_moe:
+            for name, n in (("grouped_matmul", 3), ("gather_rows", 1),
+                            ("gather_reduce", 1)):
+                out[name] = out.get(name, 0) + n * L * fwd
+        else:
+            out["elastic_dense"] = out.get("elastic_dense", 0) + 3 * L * fwd
+    return out
+
+
+def model_axis_case(arch, layers, cfg_of=None):
+    """A phase-22 case's config and prompts (the same in every process):
+    the parent at full width with ``layers`` layers, ``MODEL_AXIS``'s
+    prompts from a seeded CPU generator."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = cfg_of(arch) if cfg_of is not None else cut_depth(
+        get_config(arch), layers)
+    gen = torch.Generator().manual_seed(MODEL_AXIS["seed"])
+    tokens = torch.randint(0, cfg.vocab_size, (MODEL_AXIS["batch"],
+                                                MODEL_AXIS["prompt"]),
+                           generator=gen)
+    return cfg, tokens
+
+
+def model_axis_serve(cfg, params, tokens, kernels, mesh, steps, device):
+    """Fused prefill and ``steps`` greedy decode steps through the port's
+    entry points: (logits (steps + 1, B, V), tokens (steps, B)) as numpy,
+    and the prefill's and the decode steps' seconds."""
+    import torch
+    from repro_torch.models import transformer as T
+    S = tokens.shape[1]
+    sync(device)
+    t0 = time.perf_counter()
+    logits, caches = T.prefill(params, cfg, tokens, S + steps,
+                               kernels=kernels, mesh=mesh)
+    sync(device)
+    t1 = time.perf_counter()
+    out, toks = [logits], []
+    for i in range(steps):
+        tok = out[-1].argmax(-1)
+        toks.append(tok)
+        logits, caches = T.decode_step(params, cfg, caches, tok[:, None],
+                                       S + i, kernels=kernels, mesh=mesh)
+        out.append(logits)
+    sync(device)
+    t2 = time.perf_counter()
+    return (torch.stack(out).cpu().numpy(),
+            torch.stack(toks).cpu().numpy(), t1 - t0, t2 - t1)
+
+
+def model_axis_rank(rank, model, cases, device="cuda", cfg_of=None):
+    """One rank of a phase-22 group: the ``(world / model, model)`` mesh
+    (``make_host_mesh``); for each case the parent drawn whole from its
+    seed, cut to this rank's block (``shard_params``) and served through
+    the kernel table — one short untimed run, then the counted and timed
+    run with the launches counted from 0 just before it. Returns each
+    case's logits and tokens (numpy), launches, seconds, the block's
+    parameter GiB and the run's peak GiB."""
+    import torch
+    from repro_torch.kernels.backend import resolve_device
+    from repro_torch.kernels.dispatch import kernel_dispatch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.sharding.specs import shard_params
+    dev = resolve_device("cpu" if device == "cpu" else torch.device(
+        "cuda", torch.cuda.current_device()))
+    mesh = make_host_mesh(model, device=dev)
+    table = kernel_dispatch("auto").table("transformer")
+    steps = MODEL_AXIS["steps"]
+    out = {}
+    for arch, layers in cases:
+        cfg, tokens = model_axis_case(arch, layers, cfg_of)
+        tokens = tokens.to(dev)
+        whole = T.init_params(cfg, seed=MODEL_AXIS["seed"], device=dev)
+        params = shard_params(whole, cfg, mesh)
+        del whole
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        model_axis_serve(cfg, params, tokens, table, mesh, 1, dev)  # warm
+        counters = path_counters(cfg, serving=True)
+        reset_launches(counters)
+        logits, toks, pre_s, dec_s = model_axis_serve(
+            cfg, params, tokens, table, mesh, steps, dev)
+        launches = {c.__name__: c.launches for c in counters}
+        out[arch] = dict(
+            logits=logits, tokens=toks, prefill_s=pre_s, decode_s=dec_s,
+            launches=launches, coords=(mesh.data_rank, mesh.model_rank),
+            param_gib=sum(t.numel() * t.element_size()
+                          for t in tree_leaves(params)) / 2 ** 30,
+            peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                      if dev.type == "cuda" else None))
+        del params
+        gc.collect()
+    return out
+
+
+def _ma_rel(got, want):
+    import numpy as np
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+    return a.shape == b.shape and bool(np.array_equal(a, b))
+
+
+def phase_model_axis(device, cases=MODEL_AXIS_CASES, cfg_of=None,
+                     n_cards=None):
+    """Phase 22: serving over the model axis (``sharding.specs``,
+    ``launch.mesh.make_host_mesh``, the sharded layers of ``models``) for
+    each case of ``cases``: 2 prompts of 32 tokens and 8 greedy decode
+    steps through the kernel table, on (a) a 1-rank NCCL mesh (1, 1), held
+    bit-equal to this process's unsharded run on the same parameters, and
+    (b) 2 ranks on the one card over an explicit gloo group, mesh (1, 2):
+    the ranks' results identical, the greedy tokens the unsharded run's,
+    the prefill logits within ``MA_PREFILL_TOL`` and the decode logits
+    within ``MA_DECODE_TOL`` of the largest logit; on every rank every
+    kernel of the family launched, as many times as
+    ``model_axis_design``. Then (c) NCCL a rank a card on meshes (1, 2),
+    (1, 4) and (2, 2) where there are that many cards (the ranks'
+    tokens identical, the distance to the unsharded run printed), else
+    printed as not run. Prints each rank's parameter and peak GiB and
+    tok/s. Returns ({run: launches}, stats)."""
+    import torch
+    from repro_torch.kernels.dispatch import kernel_dispatch
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.cohort import spawn_cohort
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    steps = MODEL_AXIS["steps"]
+    table = kernel_dispatch("auto").table("transformer")
+    problems, launches, stats = [], {}, {"cases": {}}
+    whole = {}
+    for arch, layers in cases:
+        cfg, tokens = model_axis_case(arch, layers, cfg_of)
+        params = T.init_params(cfg, seed=MODEL_AXIS["seed"], device=device)
+        counters = path_counters(cfg, serving=True)
+        model_axis_serve(cfg, params, tokens.to(device), table, None, 1,
+                         device)                               # warm
+        reset_launches(counters)
+        logits, toks, pre_s, dec_s = model_axis_serve(
+            cfg, params, tokens.to(device), table, None, steps, device)
+        whole[arch] = dict(logits=logits, tokens=toks, prefill_s=pre_s,
+                           decode_s=dec_s, design=model_axis_design(
+                               cfg, steps),
+                           launches={c.__name__: c.launches
+                                     for c in counters})
+        del params
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    dev_name = "cuda" if cuda else "cpu"
+    runs = {"nccl world 1, mesh (1, 1)": (1, 1, "nccl"),
+            "gloo world 2 on one card, mesh (1, 2)": (2, 2, "gloo")}
+    if not cuda:
+        runs = {"gloo world 2, mesh (1, 2)": (2, 2, "gloo")}
+    for label, (world, model, backend) in runs.items():
+        t = time.perf_counter()
+        ranks = spawn_cohort(model_axis_rank, world, backend=backend,
+                             device=dev_name,
+                             args=(model, cases, dev_name, cfg_of),
+                             timeout=600)
+        stats[label] = dict(spawn_s=time.perf_counter() - t, cases={})
+        for arch, _ in cases:
+            w = whole[arch]
+            rs = [r[arch] for r in ranks]
+            same = all(np_equal(r["logits"], rs[0]["logits"]) and
+                       np_equal(r["tokens"], rs[0]["tokens"]) for r in rs)
+            bit = np_equal(rs[0]["logits"], w["logits"]) and np_equal(
+                rs[0]["tokens"], w["tokens"])
+            toks_ok = np_equal(rs[0]["tokens"], w["tokens"])
+            pre = _ma_rel(rs[0]["logits"][0], w["logits"][0])
+            dec = _ma_rel(rs[0]["logits"], w["logits"])
+            B = MODEL_AXIS["batch"]
+            row = dict(
+                ranks_equal=same, bit_equal=bit, tokens_equal=toks_ok,
+                prefill_rel=pre, decode_rel=dec,
+                ranks=[dict(coords=r["coords"], launches=r["launches"],
+                            param_gib=r["param_gib"], peak_gib=r["peak_gib"],
+                            prefill_tok_s=B * MODEL_AXIS["prompt"] /
+                            r["prefill_s"],
+                            decode_tok_s=B * steps / r["decode_s"])
+                       for r in rs],
+                unsharded=dict(prefill_tok_s=B * MODEL_AXIS["prompt"] /
+                               w["prefill_s"],
+                               decode_tok_s=B * steps / w["decode_s"],
+                               launches=w["launches"]))
+            stats[label]["cases"][arch] = row
+            peaks = [r["peak_gib"] and round(r["peak_gib"], 3)
+                     for r in row["ranks"]]
+            print(f"  {label} {arch}: ranks equal {same}; against the "
+                  f"unsharded run: bit-equal {bit}, tokens equal {toks_ok},"
+                  f" prefill {pre:.3e} (tol {MA_PREFILL_TOL:g}), decode "
+                  f"{dec:.3e} (tol {MA_DECODE_TOL:g}) of the largest logit"
+                  f"; per rank param GiB "
+                  f"{[round(r['param_gib'], 3) for r in row['ranks']]}, peak"
+                  f" GiB {peaks}"
+                  f", decode tok/s "
+                  f"{[round(r['decode_tok_s'], 1) for r in row['ranks']]} "
+                  f"(unsharded {row['unsharded']['decode_tok_s']:.1f}), "
+                  f"prefill tok/s "
+                  f"{[round(r['prefill_tok_s'], 1) for r in row['ranks']]} "
+                  f"(unsharded {row['unsharded']['prefill_tok_s']:.1f}); "
+                  f"launches {[r['launches'] for r in rs]} (design "
+                  f"{w['design']}; unsharded {w['launches']})")
+            if not same:
+                problems.append(f"{label} {arch}: the ranks differ")
+            if world == 1 and not bit:
+                problems.append(f"{label} {arch}: not the unsharded run to "
+                                f"the bit")
+            if not toks_ok:
+                problems.append(f"{label} {arch}: greedy tokens differ from "
+                                f"the unsharded run's")
+            if not (pre <= MA_PREFILL_TOL and dec <= MA_DECODE_TOL):
+                problems.append(f"{label} {arch}: logits {pre:.3e} / "
+                                f"{dec:.3e} of the largest")
+            for r, rk in enumerate(rs):
+                launches[f"model axis {label} {arch} rank {r}"] = \
+                    rk["launches"]
+                if cuda and (any(v == 0 for v in rk["launches"].values())
+                             or rk["launches"] != w["design"]):
+                    problems.append(f"{label} {arch} rank {r}: launches "
+                                    f"{rk['launches']}, design "
+                                    f"{w['design']}")
+            if cuda and w["launches"] != w["design"]:
+                problems.append(f"{arch} unsharded: launches "
+                                f"{w['launches']}, design {w['design']}")
+    if cuda:
+        stats["nccl"] = model_axis_nccl(cases, whole, cfg_of, problems,
+                                        n_cards)
+    stats["phase_seconds"] = time.perf_counter() - t0
+    print(f"  phase 22: {stats['phase_seconds']:.1f} s; "
+          + (card_line() if cuda else "no card"))
+    if problems:
+        raise PhaseError("model axis: " + "; ".join(problems))
+    return launches, stats
+
+
+def model_axis_nccl(cases, whole, cfg_of, problems, n_cards=None):
+    """NCCL a rank a card: meshes (1, 2) on two cards, (1, 4) and (2, 2)
+    on four; the ranks' tokens must be identical, their distance to the
+    unsharded run is printed. Meshes past the card count are printed as
+    not run."""
+    import torch
+    from repro_torch.sharding.cohort import spawn_cohort
+    n_cards = torch.cuda.device_count() if n_cards is None else n_cards
+    out = {}
+    for world, model in ((2, 2), (4, 4), (4, 2)):
+        label = f"NCCL world {world}, mesh ({world // model}, {model})"
+        if world > n_cards:
+            print(f"  {label}: not run ({n_cards} card"
+                  f"{'' if n_cards == 1 else 's'})")
+            out[label] = f"not run: {n_cards} card(s)"
+            continue
+        ranks = spawn_cohort(model_axis_rank, world, backend="nccl",
+                             device="cuda", args=(model, cases, "cuda",
+                                                  cfg_of), timeout=600)
+        out[label] = {}
+        for arch, _ in cases:
+            rs = [r[arch] for r in ranks]
+            same = all(np_equal(r["tokens"], rs[0]["tokens"]) for r in rs)
+            dist_ = _ma_rel(rs[0]["logits"], whole[arch]["logits"])
+            toks = np_equal(rs[0]["tokens"], whole[arch]["tokens"])
+            tok_s = [round(MODEL_AXIS["batch"] * MODEL_AXIS["steps"]
+                           / r["decode_s"], 1) for r in rs]
+            print(f"  {label} {arch}: ranks' tokens identical {same}; "
+                  f"against the unsharded run: tokens equal {toks}, logits "
+                  f"{dist_:.3e} of the largest; decode tok/s "
+                  f"{tok_s}"
+                  f", param GiB {[round(r['param_gib'], 3) for r in rs]}")
+            out[label][arch] = dict(ranks_tokens_equal=same,
+                                    tokens_equal=toks, logits_rel=dist_)
+            if not same:
+                problems.append(f"{label} {arch}: the ranks' tokens differ")
+    return out
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     try:
@@ -6621,8 +6905,9 @@ def main() -> int:
         done("14a")
         print(f"== 15. CFLSession on the transformer zoo: granite-3-8b "
               f"(CFL {ZOO_PARENTS[0][3]} rounds, FedAvg, IL, the sequential "
-              f"trainer), granite-moe-1b-a400m and mamba2-2.7b (CFL and the "
-              f"sequential trainer), full width, {ZOO['n_workers']} "
+              f"trainer), granite-moe-1b-a400m and mamba2-2.7b ("
+              f"{ZOO_PARENTS[1][1]} layers; CFL and the sequential trainer), "
+              f"full width, {ZOO['n_workers']} "
               f"clients, fp32")
         zoo_launches, zoo_stats = phase_zoo(device)
         release()
@@ -6636,8 +6921,8 @@ def main() -> int:
         release()
         done("16")
         print("== 17. the last three decoder parents: EdgeServer on "
-              "gemma2-9b (10 pairs), zamba2-1.2b (14 layers) and "
-              "deepseek-v2-lite-16b (its dense layer and 8 MoE layers), "
+              "gemma2-9b (4 pairs), zamba2-1.2b (8 layers) and "
+              "deepseek-v2-lite-16b (its dense layer and 3 MoE layers), "
               "then CFLSession on each at published width (gemma2 one "
               "pair, deepseek its dense and one MoE layer, 2 clients; "
               "zamba2 two segments and the shared block, 4 clients), fp32")
@@ -6683,11 +6968,22 @@ def main() -> int:
         done("20")
         print("== 21. cohort sharding: run_fl_round on 2 ranks (one card, "
               "gloo) for the paper's CNN (8 clients), granite-moe-1b-a400m "
-              "and mamba2-2.7b (2 layers, 4 clients), full width, against "
+              "and mamba2-2.7b (1 layer, 4 clients), full width, against "
               "the unsharded engine; NCCL at world size 1")
         cohort_launches, cohort_stats = phase_cohort(device)
         release()
         done("21")
+        print(f"== 22. the model axis for serving: "
+              f"{', '.join(f'{a} ({n} layers)' for a, n in MODEL_AXIS_CASES)}"
+              f" at full width, {MODEL_AXIS['batch']} prompts of "
+              f"{MODEL_AXIS['prompt']} tokens and {MODEL_AXIS['steps']} "
+              f"greedy decode steps through the kernels, on a 1-rank NCCL "
+              f"mesh (1, 1) and 2 ranks on one card over gloo (1, 2), "
+              f"against the unsharded run; NCCL meshes (1, 2), (1, 4), "
+              f"(2, 2) where the cards exist")
+        ma_launches, ma_stats = phase_model_axis(device)
+        release()
+        done("22")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6736,7 +7032,8 @@ def main() -> int:
                **{f"zoo {run}": c for run, c in zoo_launches.items()},
                **{f"selection {run}": c for run, c in sel_launches.items()},
                **{f"a11 {run}": c for run, c in a11_launches.items()},
-               **fleet_launches, **lm_launches, **cohort_launches}
+               **fleet_launches, **lm_launches, **cohort_launches,
+               **ma_launches}
     for name, err in (list(mworst.items()) + list(sworst.items())
                       + list(cworst.items()) + list(a11_worst.items())
                       + list(d80_worst.items())):
@@ -6821,6 +7118,7 @@ def main() -> int:
     print(f"gates and lm training: {json.dumps(lm_stats)}")
     print(f"tile-accounting gate: {json.dumps(gate_stats)}")
     print(f"cohort sharding: {json.dumps(cohort_stats)}")
+    print(f"model axis: {json.dumps(ma_stats)}")
     print(f"phase seconds: {json.dumps(phase_s)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
     print(card_line())

@@ -561,7 +561,26 @@ def stress_ops() -> List[Op]:
     return [DispatchOp(2048, 8, 32, 640, 1024)]
 
 
-ROW_SETS = {"bench": bench_ops, "main": main_ops, "stress": stress_ops}
+def shard_ops() -> List[Op]:
+    """Measured and counted, not gated: one model rank's blocks at mesh
+    (1, 2) of ``chip_smoke.py`` phase 22's serving prefill (2 prompts of
+    32 tokens): granite-3-8b's MLP up / down on its 6400-column block of
+    d_ff, its attention on 16 query heads and 4 KV heads,
+    granite-moe-1b-a400m's 16 local experts at the expert-parallel
+    branch's capacity (24 slots of 64 tokens, top 8 of 32) and
+    mamba2-2.7b's SSD on 40 of its 80 heads and its one B / C group (a
+    rank reads the groups its heads span). Each fraction is a local
+    prefix ending inside the block; the rank past a prefix runs at 0,
+    which the edges count."""
+    return [MlpOp("mlp_up", 1, 64, 4096, 6400, False),
+            MlpOp("mlp_down", 1, 64, 6400, 4096, False),
+            GroupedOp(1, 16, 24, 1024, 512, False),
+            SsdOp(2, 32, 40, 64, 1, 128, 32),
+            AttentionOp(2, 32, 16, 4, 128)]
+
+
+ROW_SETS = {"bench": bench_ops, "main": main_ops, "stress": stress_ops,
+            "shard": shard_ops}
 GATED = ("bench", "main")
 
 

@@ -77,26 +77,32 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay=0.01,
 
 
 def make_prefill_step(cfg: ModelConfig, *, kernels=None,
-                      activation_dtype=ACT_DTYPE):
+                      activation_dtype=ACT_DTYPE, mesh=None):
     """``prefill_step(params, batch) -> (B, V)``: the last position's
-    logits of the batch-dict forward (what a server samples from)."""
+    logits of the batch-dict forward (what a server samples from).
+    ``mesh`` (``launch.mesh.make_host_mesh``): ``params`` is this rank's
+    block (``sharding.specs.shard_params``), the batch the whole batch;
+    every rank returns the whole (B, V) logits."""
     _check_dtype(kernels, activation_dtype)
 
     @torch.no_grad()
     def prefill_step(params, batch):
         logits, _ = T.forward_batch(params, cfg, batch, kernels=kernels,
                                     activation_dtype=activation_dtype,
-                                    last_only=True)
+                                    last_only=True, mesh=mesh)
         return logits[:, -1, :]
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, *, kernels=None):
+def make_serve_step(cfg: ModelConfig, *, kernels=None, mesh=None):
     """``serve_step(params, caches, token, pos) -> (logits, caches)``: one
     cached decode step (``models.transformer.decode_step``) at the
-    precision of the parameters and caches."""
+    precision of the parameters and caches. ``mesh``: ``params`` and
+    ``caches`` are this rank's blocks (``shard_params``, ``prefill`` or
+    ``init_decode_caches`` with the mesh), ``token`` / ``pos`` the whole
+    batch's; every rank returns the whole (B, V) logits."""
     @torch.no_grad()
     def serve_step(params, caches, token, pos):
         return T.decode_step(params, cfg, caches, token, pos,
-                             kernels=kernels)
+                             kernels=kernels, mesh=mesh)
     return serve_step

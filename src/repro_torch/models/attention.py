@@ -17,6 +17,18 @@ Elastic masks may carry a leading batch axis: ``head_mask`` (H,) or
 (B, H), so every row of a serving batch can be a different submodel.
 ``gqa_forward_cohort`` is the training form: client-stacked weights with
 a leading client axis G, one head mask row per client.
+
+Head parallelism (``mesh``, a ``sharding.mesh.HostMesh``): the reference's
+``dispatch_attention``. ``wq`` and ``wo`` hold this model rank's block of
+the query heads; K/V heads shard with them when ``n_kv`` is a multiple of
+the axis, and otherwise every rank holds all of them (gathered over
+``model`` where the rules split ``wk`` / ``wv`` unevenly) and takes its
+heads' K/V by ``(lo + j) // G``. The head mask is sliced to the block, the
+attention runs on the local heads with the local prefix, and ``wo``'s
+partial products meet in one all-reduce over ``model``. The reference
+leaves decode (``Sq == 1``) to GSPMD; the port shards it by heads the same
+way, with the KV cache's head axis over ``model`` where the K/V heads
+shard (else whole on every rank).
 """
 from __future__ import annotations
 
@@ -113,6 +125,36 @@ def gqa_cache_init(batch, max_len, n_kv, head_dim, window=None,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _head_block(mesh, n_heads, n_kv):
+    """``(lo, hi, kv_local)``: this model rank's query heads and whether
+    the K/V heads shard with them (``n_kv`` a multiple of the axis), or
+    None where the heads are not sharded (``mesh`` None or the rules
+    replicate ``wq``)."""
+    if mesh is None or not mesh.sharded(n_heads):
+        return None
+    lo, hi = mesh.block(n_heads)
+    return lo, hi, n_kv % mesh.model == 0
+
+
+def _kv_for_heads(mesh, k, v, dim, n_heads, n_kv, block):
+    """(k, v, k_q, v_q): the K/V this rank keeps in its cache — its block
+    of the K/V heads, or all of them (gathered over ``model`` where the
+    rules split them) — and the K/V its query heads read: the same block,
+    or head ``(lo + j) // G`` for local query head j."""
+    lo, hi, kv_local = block
+    if kv_local:
+        return k, v, k, v
+    k = mesh.all_gather(k, dim, n_kv)
+    v = mesh.all_gather(v, dim, n_kv)
+    idx = (lo + torch.arange(hi - lo, device=k.device)) // (n_heads // n_kv)
+    return k, v, k.index_select(dim, idx), v.index_select(dim, idx)
+
+
+def _local_heads(mask, block):
+    return mask if mask is None or block is None else \
+        mask[..., block[0]:block[1]]
+
+
 def _qkv(p, x, positions, rope_theta, qk_norm, norm_eps):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
@@ -127,22 +169,29 @@ def _qkv(p, x, positions, rope_theta, qk_norm, norm_eps):
 def gqa_forward(p, x, positions, *, n_heads, n_kv, head_dim, rope_theta,
                 causal=True, window=None, cap=None, qk_norm=False,
                 norm_eps=1e-6, head_mask=None, kernel=None,
-                cache_len=None, cache_dtype=None):
+                cache_len=None, cache_dtype=None, mesh=None):
     """Full-sequence GQA. ``kernel``: the ``attention`` op of
     ``kernels.dispatch`` (the head prefix is then skipped inside the
     kernel), or None for :func:`dense_attention`. ``cache_len``: when set,
     also return the post-rope K/V packed into a ring-buffer
-    :class:`KVCache` of that many slots (the fused prefill path)."""
-    del n_heads, n_kv, head_dim
+    :class:`KVCache` of that many slots (the fused prefill path).
+    ``mesh``: head parallel (module docstring)."""
+    del head_dim
+    block = _head_block(mesh, n_heads, n_kv)
     q, k, v = _qkv(p, x, positions, rope_theta, qk_norm, norm_eps)
+    kq, vq = k, v
+    if block is not None:
+        k, v, kq, vq = _kv_for_heads(mesh, k, v, 2, n_heads, n_kv, block)
+    hm = _local_heads(head_mask, block)
     if kernel is not None:
-        o = kernel(q.contiguous(), k.contiguous(), v.contiguous(),
-                   causal=causal, window=window, cap=cap,
-                   head_mask=head_mask)
+        o = kernel(q.contiguous(), kq.contiguous(), vq.contiguous(),
+                   causal=causal, window=window, cap=cap, head_mask=hm)
     else:
-        o = dense_attention(q, k, v, causal=causal, window=window, cap=cap,
-                            head_mask=head_mask)
+        o = dense_attention(q, kq, vq, causal=causal, window=window, cap=cap,
+                            head_mask=hm)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    if block is not None:
+        out = mesh.all_reduce(out)
     if cache_len is None:
         return out
     return out, _ring_pack(k, v, cache_len, cache_dtype or k.dtype)
@@ -151,7 +200,7 @@ def gqa_forward(p, x, positions, *, n_heads, n_kv, head_dim, rope_theta,
 def gqa_forward_cohort(p, x, seq_len, *, n_heads, n_kv, head_dim,
                        rope_theta, causal=True, window=None, cap=None,
                        qk_norm=False, norm_eps=1e-6, head_mask=None,
-                       kernel=None):
+                       kernel=None, mesh=None):
     """Full-sequence GQA over a cohort (no cache): x (G, T, d) with
     T = B · seq_len token rows per client, every weight of ``p`` with a
     leading client axis ((G, d, H, hd) ``wq`` and so on), ``head_mask``
@@ -159,8 +208,10 @@ def gqa_forward_cohort(p, x, seq_len, *, n_heads, n_kv, head_dim,
     row axis is client × sequence, each row with its client's head
     prefix — through ``kernel`` (the differentiable ``attention`` op of
     ``kernels.dispatch``) or :func:`dense_attention`. Returns (G, T, d).
-    The projections are plain products, as in the reference."""
-    del n_heads, n_kv, head_dim
+    The projections are plain products, as in the reference. ``mesh``:
+    head parallel (module docstring)."""
+    del head_dim
+    block = _head_block(mesh, n_heads, n_kv)
     G, T, d = x.shape
     B = T // seq_len
     xs = x.reshape(G, B, seq_len, d)
@@ -173,6 +224,9 @@ def gqa_forward_cohort(p, x, seq_len, *, n_heads, n_kv, head_dim,
     positions = torch.arange(seq_len, device=x.device)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
+    if block is not None:
+        _, _, k, v = _kv_for_heads(mesh, k, v, 3, n_heads, n_kv, block)
+    head_mask = _local_heads(head_mask, block)
     rows = lambda t: t.reshape((G * B,) + t.shape[2:])     # noqa: E731
     hm = None if head_mask is None else head_mask.repeat_interleave(B, 0)
     if kernel is not None:
@@ -184,6 +238,8 @@ def gqa_forward_cohort(p, x, seq_len, *, n_heads, n_kv, head_dim,
                             window=window, cap=cap, head_mask=hm)
     o = o.reshape((G, B) + o.shape[1:])
     out = torch.einsum("gbshk,ghkd->gbsd", o, p["wo"].to(x.dtype))
+    if block is not None:
+        out = mesh.all_reduce(out)
     return out.reshape(G, T, d)
 
 
@@ -204,7 +260,7 @@ def _ring_pack(k, v, C: int, dtype):
 
 def gqa_decode(p, x, cache: KVCache, pos, *, n_heads, n_kv, head_dim,
                rope_theta, window=None, cap=None, qk_norm=False,
-               norm_eps=1e-6, head_mask=None):
+               norm_eps=1e-6, head_mask=None, mesh=None):
     """x: (B,1,d); pos: (B,) integer tensor, each row's own position (a
     Python int or 0-d tensor applies to every row). Returns (out, cache).
 
@@ -212,24 +268,40 @@ def gqa_decode(p, x, cache: KVCache, pos, *, n_heads, n_kv, head_dim,
     validity. The write is **in place**: the returned cache holds the same
     tensors as ``cache`` (the serving path keeps one cache allocation).
     head_mask: optional (H,) or (B, H) 0/1 query-head prefix — masked
-    heads' outputs are zeroed before ``wo``."""
+    heads' outputs are zeroed before ``wo``. ``mesh``: head parallel
+    (module docstring); ``cache`` is then this rank's block."""
     del window
+    block = _head_block(mesh, n_heads, n_kv)
     B = x.shape[0]
     C = cache.k.shape[1]
     dev = x.device
     posv = torch.as_tensor(pos, device=dev).to(torch.int64).reshape(-1)
     posv = posv.expand(B) if posv.numel() == 1 else posv
     q, k, v = _qkv(p, x, posv[:, None], rope_theta, qk_norm, norm_eps)
+    if block is not None and not block[2]:
+        k = mesh.all_gather(k, 2, n_kv)
+        v = mesh.all_gather(v, 2, n_kv)
 
     rows = torch.arange(B, device=dev)
     slot = torch.remainder(posv, C)
     cache.k[rows, slot] = k[:, 0].to(cache.k.dtype)
     cache.v[rows, slot] = v[:, 0].to(cache.v.dtype)
 
+    kc, vc = cache.k, cache.v
+    if block is not None:
+        lo, hi, kv_local = block
+        group = n_heads // n_kv
+        n_heads = hi - lo
+        if kv_local:
+            n_kv = kc.shape[2]
+        else:                   # each local query head its own K/V head
+            idx = (lo + torch.arange(n_heads, device=dev)) // group
+            kc, vc = kc[:, :, idx], vc[:, :, idx]
+            n_kv = n_heads
     G = n_heads // n_kv
     qr = q.reshape(B, n_kv, G, head_dim)
     s = torch.einsum("bkgd,bskd->bkgs", qr.float(),
-                     cache.k.float()) / math.sqrt(head_dim)
+                     kc.float()) / math.sqrt(head_dim)
     s = softcap(s, cap)
     # slot j holds position pos - ((pos - j) mod C); valid iff >= 0
     slots = torch.arange(C, device=dev)
@@ -237,11 +309,14 @@ def gqa_decode(p, x, cache: KVCache, pos, *, n_heads, n_kv, head_dim,
     s = torch.where((slot_pos >= 0)[:, None, None, :], s,
                     torch.full((), NEG_INF, device=dev))
     pattn = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", pattn, cache.v.float())
+    o = torch.einsum("bkgs,bskd->bkgd", pattn, vc.float())
     o = o.reshape(B, 1, n_heads, head_dim).to(x.dtype)
+    head_mask = _local_heads(head_mask, block)
     if head_mask is not None:
         o = o * _head_mask_bshd(head_mask, o)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    if block is not None:
+        out = mesh.all_reduce(out)
     return out, cache
 
 

@@ -120,12 +120,24 @@ def _row_mask(mask, x):
     return m[:, None, :] if m.dim() == 2 else m
 
 
-def mlp(params, x, act="silu", *, width_mask=None, kernel=None):
+def mlp(params, x, act="silu", *, width_mask=None, kernel=None, mesh=None,
+        d_ff=None):
     """width_mask: optional (d_ff,) or per-row (B, d_ff) 0/1 mask — CFL
     elastic width. kernel: optional ``mlp`` op (``kernels.dispatch``) —
     masked width is then *skipped* inside ``elastic_dense`` instead of
     multiplied by zero. Client-stacked weights (G, d, d_ff) take x
-    (G, T, d) and a (G, d_ff) mask: each client its own product."""
+    (G, T, d) and a (G, d_ff) mask: each client its own product.
+
+    ``mesh`` (a ``sharding.mesh.HostMesh``): tensor parallel over its
+    ``model`` axis — ``wi`` / ``wg`` hold this rank's block of the
+    ``d_ff`` columns and ``wo`` of its rows; the width mask is sliced to
+    the block (the local prefix; a block past it still runs, and adds
+    zeros) and the partial products meet in one all-reduce."""
+    if mesh is not None and mesh.sharded(d_ff):
+        lo, hi = mesh.block(d_ff)
+        local = None if width_mask is None else width_mask[..., lo:hi]
+        return mesh.all_reduce(mlp(params, x, act, width_mask=local,
+                                   kernel=kernel))
     if kernel is not None:
         return kernel(params, x, act, width_mask)
     a = act_fn(act)
@@ -142,11 +154,22 @@ def mlp(params, x, act="silu", *, width_mask=None, kernel=None):
 # ---------------------------------------------------------------------------
 # embedding
 # ---------------------------------------------------------------------------
-def embed(params, ids, *, scale=False):
+def embed(params, ids, *, scale=False, mesh=None, vocab=None):
     """ids (...) -> (..., d); a client-stacked table (G, V, d) takes ids
-    (G, ...) and looks each client's rows up in its own table."""
+    (G, ...) and looks each client's rows up in its own table. ``mesh``:
+    the table holds this model rank's block of the ``vocab`` rows — each
+    rank gathers the ids in its block (zeros elsewhere) and one all-reduce
+    over ``model`` sums the one nonzero row (the reference's vocab-parallel
+    lookup, exact for any block)."""
     t = params["table"]
-    if t.dim() == 3:
+    if mesh is not None and mesh.sharded(vocab):
+        lo, hi = mesh.block(vocab)
+        local = ids - lo
+        ok = (local >= 0) & (local < hi - lo)
+        out = t[local.clamp(0, hi - lo - 1)]
+        out = mesh.all_reduce(torch.where(ok[..., None], out,
+                                          out.new_zeros(())))
+    elif t.dim() == 3:
         lead = torch.arange(t.shape[0], device=ids.device)
         out = t[lead.reshape((-1,) + (1,) * (ids.dim() - 1)), ids]
     else:

@@ -28,8 +28,16 @@ and the wide (·, d) dispatch / combine rows run the gather kernels. The
 router, softmax, top-k, sort and the int32 slot tables stay plain tensor
 ops, as the reference computes them outside any Pallas kernel.
 
-Not ported: the reference's ``shard_map`` branch (expert-sharded compute
-over a ``model`` mesh axis) waits for multi-GPU sharding (ROADMAP A17).
+Expert parallelism (``mesh``, a ``sharding.mesh.HostMesh``): the
+reference's ``shard_map`` branch. Each model rank holds its block of the
+experts (and of the router's columns and the shared experts' width); the
+router's columns are gathered over ``model`` so every rank routes every
+token alike, each rank dispatches to its *local* experts only (ids
+shifted by the block's first expert, ``e_offset``; ids out of the block
+dropped, as ``src/repro/models/moe.py`` does), and the partial outputs —
+the shared experts' tensor-parallel partial sum riding along — meet in one
+all-reduce over ``model``. The expert mask becomes the block's slice, so
+the kernels run on the local experts with the local prefix.
 """
 from __future__ import annotations
 
@@ -98,11 +106,17 @@ def _active(mask, G: int, E: int, device) -> torch.Tensor:
     return n.expand(G).contiguous() if n.dim() == 0 else n
 
 
-def route(router, xt, moe_cfg, expert_mask=None):
+def route(router, xt, moe_cfg, expert_mask=None, mesh=None):
     """Top-k routing of xt (G, T, d): returns ``(logits, probs, gates,
     idx)`` — fp32 logits and probabilities (G, T, E) (masked experts at
     ``NEG_INF`` / exactly 0), the k renormalised gates (G, T, k) in xt's
-    dtype and the k expert ids (G, T, k), largest first."""
+    dtype and the k expert ids (G, T, k), largest first. With ``mesh`` the
+    router holds this model rank's block of the experts' columns, gathered
+    over ``model`` first (d·E values): every rank forms the whole logits
+    with the unsharded product, so the routes are the unsharded model's to
+    the bit and a near tie cannot route a token differently."""
+    if mesh is not None:
+        router = mesh.all_gather(router, -1, moe_cfg.n_experts)
     logits = torch.matmul(xt, router.to(xt.dtype)).float()
     if expert_mask is not None:
         logits = torch.where(_group_mask(expert_mask, 3) > 0, logits,
@@ -113,13 +127,45 @@ def route(router, xt, moe_cfg, expert_mask=None):
     return logits, probs, gate_vals, idx
 
 
-def capacity(n_tokens: int, moe_cfg) -> int:
-    """Per-expert slots of one group of ``n_tokens`` tokens (the reference's
-    single-device rule, ``capacity_experts`` defaulting to all of E)."""
-    e_cap = moe_cfg.capacity_experts or moe_cfg.n_experts
+def capacity(n_tokens: int, moe_cfg, experts: Optional[int] = None) -> int:
+    """Per-expert slots of one group of ``n_tokens`` tokens: the reference's
+    single-device rule, sized by ``capacity_experts`` (default all of E);
+    ``experts`` overrides that count (its expert-parallel branch sizes by
+    all of E)."""
+    e_cap = experts or moe_cfg.capacity_experts or moe_cfg.n_experts
     cap = int(math.ceil(n_tokens * moe_cfg.top_k / e_cap *
                         moe_cfg.capacity_factor))
     return max(8, -(-cap // 8) * 8)
+
+
+class ExpertPlan(NamedTuple):
+    """How the model axis runs the MoE over a batch (:func:`expert_plan`).
+    ``sharded``: this rank computes its block of the experts (the rules'
+    ``_div``, as ``sharding.specs.shard_params`` split them) and the
+    partial sums meet in one all-reduce. ``groups``: the batch's token
+    groups — one per data rank in the reference's expert-parallel branch
+    where its tokens split evenly, else one. ``cap``: a group's slots an
+    expert under that branch's rule."""
+    sharded: bool
+    groups: int
+    cap: int
+
+
+def expert_plan(moe_cfg, mesh, n_tokens: int,
+                split: bool = True) -> ExpertPlan:
+    """The :class:`ExpertPlan` of ``n_tokens`` tokens on ``mesh`` (None:
+    one device). The reference takes its expert-parallel branch where a
+    model axis divides E; that branch routes each data rank's tokens on
+    their own and sizes capacity by all of E, the single-device branch
+    routes every token together and sizes by ``capacity_experts``.
+    ``split=False``: the tokens are one group already (a row of its own)."""
+    E = moe_cfg.n_experts
+    branch = mesh is not None and mesh.model > 1 and E % mesh.model == 0
+    groups = mesh.data if (split and branch and mesh.data > 1
+                           and n_tokens % mesh.data == 0) else 1
+    return ExpertPlan(mesh is not None and mesh.sharded(E), groups,
+                      capacity(n_tokens // groups, moe_cfg,
+                               E if branch else None))
 
 
 class SlotTables(NamedTuple):
@@ -138,17 +184,24 @@ class SlotTables(NamedTuple):
     ga: torch.Tensor
 
 
-def slot_tables(idx, gate_vals, *, E, cap, expert_mask=None) -> SlotTables:
+def slot_tables(idx, gate_vals, *, E, cap, expert_mask=None,
+                e_offset: Optional[int] = None) -> SlotTables:
     """The reference's sort-based capacity assignment, batched over the
     groups of idx / gate_vals (G, T, k): a stable sort by expert, each
     assignment's rank within its expert (``searchsorted``), the drop rule,
     and the scatter into ``E·cap + 1`` slots whose last one is the drop
-    sentinel."""
+    sentinel. With ``e_offset`` the ``E`` experts are a model rank's block
+    from that global id on: assignments to other experts sort last and are
+    dropped."""
     G, T, k = idx.shape
     dev = idx.device
     n = T * k
     n_slots = E * cap
     e_flat = idx.reshape(G, n)
+    if e_offset is not None:
+        e_flat = e_flat - e_offset
+        e_flat = torch.where((e_flat >= 0) & (e_flat < E), e_flat,
+                             torch.full((), E, device=dev))
     order = torch.sort(e_flat, dim=-1, stable=True).indices
     se = torch.gather(e_flat, 1, order)
     token_of = order // k
@@ -197,7 +250,7 @@ def flat_tables(tables: SlotTables, T: int):
 
 
 def _dispatch_compute_combine(xt, gate_vals, idx, wi, wg, wo, *, E, k, cap,
-                              act, expert_mask, kernel=None):
+                              act, expert_mask, kernel=None, e_offset=None):
     """Sort-based dispatch over the experts of every group at once.
 
     xt (G, T, d); idx / gate_vals (G, T, k); wi / wg / wo: (E, ...) expert
@@ -209,12 +262,14 @@ def _dispatch_compute_combine(xt, gate_vals, idx, wi, wg, wo, *, E, k, cap,
     zeroed, and, when the op carries ``.dispatch`` / ``.combine``, the
     (·, d) token rows move through the gather kernels, with the group axis
     flattened into the rows (each group's indices offset by its rows).
+    ``e_offset``: the global id of the first of the ``E`` (local) experts —
+    see :func:`slot_tables`.
     """
     G, T, d = xt.shape
     a = act_fn(act)
     n_slots = E * cap
     tables = slot_tables(idx, gate_vals, E=E, cap=cap,
-                         expert_mask=expert_mask)
+                         expert_mask=expert_mask, e_offset=e_offset)
     slot_src, slot_gate = tables.slot_src, tables.slot_gate
 
     disp = getattr(kernel, "dispatch", None)
@@ -256,11 +311,17 @@ def _dispatch_compute_combine(xt, gate_vals, idx, wi, wg, wo, *, E, k, cap,
 
 
 def moe_forward(p, x, moe_cfg, *, act="silu", expert_mask=None, kernel=None,
-                return_aux: bool = True):
+                return_aux: bool = True, mesh=None, cap: Optional[int] = None):
     """x: (G, T, d), G groups of T tokens each routed and dispatched on
     their own (own capacity, own expert prefix). ``p``'s leaves are the
     reference's shapes, or carry a leading G axis (one expert set per
-    group). expert_mask: None, (E,) or (G, E).
+    group). expert_mask: None, (E,) or (G, E). ``cap``: the per-expert
+    slots of a group (default :func:`capacity` of T).
+
+    ``mesh``: expert parallelism over its ``model`` axis (see the module
+    docstring); ``p`` then holds this rank's block of every expert-sharded
+    leaf (``sharding.specs.shard_params``) and ``expert_mask`` stays
+    whole.
 
     Returns ``(y (G, T, d), aux)``, aux = {"aux_loss": (G,), "z_loss":
     (G,)} — the reference's load-balance and router-z terms, per group —
@@ -269,12 +330,18 @@ def moe_forward(p, x, moe_cfg, *, act="silu", expert_mask=None, kernel=None,
     G, T, d = x.shape
     E, k = moe_cfg.n_experts, moe_cfg.top_k
     logits, probs, gate_vals, idx = route(p["router"], x, moe_cfg,
-                                          expert_mask)
+                                          expert_mask, mesh=mesh)
+    ep = expert_plan(moe_cfg, mesh, T).sharded
+    lo, hi = mesh.block(E) if ep else (0, E)
+    local_mask = expert_mask if expert_mask is None or not ep else \
+        expert_mask[..., lo:hi]
     out = _dispatch_compute_combine(
-        x, gate_vals, idx, p["wi"], p.get("wg"), p["wo"], E=E, k=k,
-        cap=capacity(T, moe_cfg), act=act, expert_mask=expert_mask,
-        kernel=kernel)
-
+        x, gate_vals, idx, p["wi"], p.get("wg"), p["wo"], E=hi - lo, k=k,
+        cap=capacity(T, moe_cfg) if cap is None else cap, act=act,
+        expert_mask=local_mask, kernel=kernel, e_offset=lo if ep else None)
+    # the expert-parallel partial sum (and the shared experts' tensor-
+    # parallel one) meet in one all-reduce; a replicated part adds after
+    partial, whole = (out, None) if ep else (None, out)
     if "shared" in p:                       # always-on experts, plain
         sp = p["shared"]
         a = act_fn(act)
@@ -283,7 +350,17 @@ def moe_forward(p, x, moe_cfg, *, act="silu", expert_mask=None, kernel=None,
             hs = a(torch.matmul(x, sp["wg"].to(x.dtype))) * hs
         else:
             hs = a(hs)
-        out = out + torch.matmul(hs, sp["wo"].to(x.dtype))
+        hs = torch.matmul(hs, sp["wo"].to(x.dtype))
+        if mesh is not None and mesh.sharded(moe_cfg.d_ff_expert *
+                                              moe_cfg.n_shared):
+            partial = hs if partial is None else partial + hs
+        else:
+            whole = hs if whole is None else whole + hs
+    if partial is not None:
+        partial = mesh.all_reduce(partial)
+        out = partial if whole is None else whole + partial
+    else:
+        out = whole
     if not return_aux:
         return out, None
 

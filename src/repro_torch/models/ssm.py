@@ -19,6 +19,18 @@ Two batch layouts, as in ``models/transformer.py``:
   XLA); the scan runs on G·B rows, each with its client's A and head
   prefix.
 
+Head parallelism (``mesh``, a ``sharding.mesh.HostMesh``): ``wz``, ``wx``,
+``conv_x`` and the gated norm's scale hold this model rank's block of
+``d_inner`` — whole SSD heads — and ``out_proj`` its rows; ``dt``, ``A``,
+``D`` and ``dt_bias`` are sliced to the block's heads at use and ``B`` /
+``C`` (replicated) to the groups those heads read. The scan runs on the
+local heads with the local prefix. The gated RMSNorm's statistics run over
+the whole ``d_inner``: the block's sum of squares is all-reduced over
+``model`` before ``rsqrt`` (the count of active dims under a head mask is
+the whole mask's), and ``out_proj``'s partial products meet in a second
+all-reduce. The decode cache's state ``h`` and ``conv_x`` are the block's
+heads.
+
 The decay is masked *before* the exponential in :func:`ssd_chunked` (the
 reference's ``where(tri, exp(diff), 0)`` overflows in the upper triangle
 once a chunk's Σ|dt·A| passes ~88 and its gradient turns NaN); ``cum``
@@ -205,6 +217,48 @@ def _masked_gated_rmsnorm(p, x, dim_mask, eps):
     return (y * m).to(x.dtype)
 
 
+def _sharded_gated_norm(p, x, mesh, n_dims, dim_mask=None, eps=1e-6):
+    """The gated RMSNorm of a model rank's block x (..., di_loc) of
+    ``d_inner``: the block's sum of squares all-reduced over ``model``,
+    over ``n_dims`` dims (the whole ``d_inner``, or a tensor of the active
+    dims under a head mask, ``dim_mask`` the block's slice of it). The
+    statistics of :func:`_masked_gated_rmsnorm` (masked) or of the plain
+    ``rmsnorm`` (fp32 variance) over the whole width."""
+    scale = p["scale"].float()
+    if scale.dim() == 2:
+        scale = _per_client(scale, x)
+    x32 = x.float() if dim_mask is None else x.float() * dim_mask.float()
+    ss = mesh.all_reduce(torch.sum(x32.square(), dim=-1, keepdim=True))
+    inv = torch.rsqrt(ss / n_dims + eps)
+    y = (1.0 + scale) * x32 * inv
+    return (y if dim_mask is None else y * dim_mask.float()).to(x.dtype)
+
+
+def _head_slice(mesh, ssm, d_model):
+    """``(h0, h1)``: this model rank's SSD heads, or None where ``d_inner``
+    is not sharded (``mesh`` None or the rules replicate it)."""
+    di = ssm.d_inner(d_model)
+    if mesh is None or not mesh.sharded(di):
+        return None
+    lo, hi = mesh.block(di, unit=ssm.head_dim)
+    return lo // ssm.head_dim, hi // ssm.head_dim
+
+
+def _group_slice(t, heads, nh: int, axis: int):
+    """B or C (..., ng, N) on ``axis`` for the heads ``[h0, h1)`` of
+    ``nh``: the groups the block spans where its heads split evenly over
+    them (always so for one group, or a block inside one group), else one
+    group per head (the group's row repeated)."""
+    h0, h1 = heads
+    rep, n = nh // t.shape[axis], h1 - h0
+    g0 = h0 // rep
+    k = (h1 - 1) // rep + 1 - g0 if n else 0
+    if k and n % k == 0 and all((h0 + j) // rep - g0 == j // (n // k)
+                                for j in range(n)):
+        return t.narrow(axis, g0, k)
+    return t.repeat_interleave(rep, dim=axis).narrow(axis, h0, n)
+
+
 def _ssd_final_state(xh, dt, A, Bm, Cm):
     """Closed-form final SSD state after S tokens — the state the decode
     recurrence reaches: h = Σ_s exp(Σ_{t>s} dA_t) · dt_s · x_s ⊗ B_s. Used
@@ -241,18 +295,23 @@ class SSMCache(NamedTuple):
 
 
 def _mamba(p, x, ssm, norm_eps, head_mask, kernel, return_cache,
-           cache_dtype):
+           cache_dtype, mesh=None):
     """The block over the client-stacked layout: p (G, ...), x (G, B, S,
     d), head_mask None or (G, B|1, H). Returns out (G, B, S, d) [and the
-    cache of every (client, row), (G·B, ...)]."""
+    cache of every (client, row), (G·B, ...)]. ``mesh``: head parallel
+    (module docstring)."""
     G, B, S, d = x.shape
     di, nh = ssm.d_inner(d), ssm.n_heads(d)
     ng, N, P = ssm.n_groups, ssm.d_state, ssm.head_dim
+    heads = _head_slice(mesh, ssm, d)
     R = G * B
     xt = x.reshape(G, B * S, d)
 
     def proj(w):
         return torch.matmul(xt, w.to(x.dtype)).reshape(G, B, S, -1)
+
+    def local(t):                    # a per-head vector: the block's heads
+        return t if heads is None else t[..., heads[0]:heads[1]]
     z = proj(p["wz"])
     xc_raw = proj(p["wx"])
     Bm_raw = proj(p["wB"])
@@ -260,19 +319,24 @@ def _mamba(p, x, ssm, norm_eps, head_mask, kernel, return_cache,
     xc = _causal_conv(p["conv_x"], xc_raw, ssm.d_conv)
     Bm = _causal_conv(p["conv_B"], Bm_raw, ssm.d_conv)
     Cm = _causal_conv(p["conv_C"], Cm_raw, ssm.d_conv)
-    dt = proj(p["wdt"])
+    dt = local(proj(p["wdt"]))
+    nh_loc = nh if heads is None else heads[1] - heads[0]
 
-    xh = xc.reshape(R, S, nh, P)
+    xh = xc.reshape(R, S, nh_loc, P)
     Bm = Bm.reshape(R, S, ng, N)
     Cm = Cm.reshape(R, S, ng, N)
-    dtv = F.softplus(dt.float() + _per_client(p["dt_bias"].float(), dt))
-    dtv = dtv.reshape(R, S, nh)
+    if heads is not None:
+        Bm = _group_slice(Bm, heads, nh, 2)
+        Cm = _group_slice(Cm, heads, nh, 2)
+    dtv = F.softplus(dt.float() + _per_client(local(p["dt_bias"]).float(),
+                                              dt))
+    dtv = dtv.reshape(R, S, nh_loc)
 
     def rows(t):                     # (G, B|1, H) or (G, H) -> (R, H)
         t = t if t.dim() == 3 else t[:, None]
         return t.expand(G, B, t.shape[-1]).reshape(R, t.shape[-1])
-    A = rows(-torch.exp(p["A_log"].float()))
-    mask = None if head_mask is None else rows(head_mask)
+    A = rows(-torch.exp(local(p["A_log"]).float()))
+    mask = None if head_mask is None else rows(local(head_mask))
     chunk = min(ssm.chunk, S)
     h_final = None
     if kernel is not None:
@@ -283,20 +347,30 @@ def _mamba(p, x, ssm, norm_eps, head_mask, kernel, return_cache,
             h_final = _ssd_final_state(xh, dtv, A, Bm, Cm)
     else:
         y, h_final = ssd_chunked(xh, dtv, A, Bm, Cm, chunk)
-    y = y.to(x.dtype) + xh.to(x.dtype) * rows(p["D"]).to(x.dtype)[
+    y = y.to(x.dtype) + xh.to(x.dtype) * rows(local(p["D"])).to(x.dtype)[
         :, None, :, None]
     if mask is not None:
         y = y * mask.to(y.dtype)[:, None, :, None]
-    y = y.reshape(G, B, S, di)
+    y = y.reshape(G, B, S, nh_loc * P)
     gated = y * F.silu(z.float()).to(y.dtype)
     if head_mask is not None:
         hm = head_mask if head_mask.dim() == 3 else head_mask[:, None]
-        dim_mask = hm.repeat_interleave(P, dim=-1)[:, :, None, :]
-        y = _masked_gated_rmsnorm(p["norm"], gated, dim_mask, norm_eps)
-    else:
+        dim_mask = local(hm).repeat_interleave(P, dim=-1)[:, :, None, :]
+        if heads is None:
+            y = _masked_gated_rmsnorm(p["norm"], gated, dim_mask, norm_eps)
+        else:
+            n = torch.clamp((hm > 0).float().sum(-1, keepdim=True)[
+                :, :, None, :] * P, min=1.0)
+            y = _sharded_gated_norm(p["norm"], gated, mesh, n, dim_mask,
+                                    norm_eps)
+    elif heads is None:
         y = rmsnorm(p["norm"], gated, norm_eps)
-    out = torch.matmul(y.to(x.dtype).reshape(G, B * S, di),
+    else:
+        y = _sharded_gated_norm(p["norm"], gated, mesh, di, eps=norm_eps)
+    out = torch.matmul(y.to(x.dtype).reshape(G, B * S, nh_loc * P),
                        p["out_proj"].to(x.dtype)).reshape(G, B, S, d)
+    if heads is not None:
+        out = mesh.all_reduce(out)
     if not return_cache:
         return out
     cdt = cache_dtype or x.dtype
@@ -318,7 +392,7 @@ def _stacked(p):
 
 
 def mamba_forward(p, x, ssm, *, norm_eps=1e-6, head_mask=None, kernel=None,
-                  return_cache=False, cache_dtype=None):
+                  return_cache=False, cache_dtype=None, mesh=None):
     """Full-sequence Mamba2 block, serving layout. x (B, S, d) -> (B, S, d).
 
     head_mask: None, (H,) or per row (B, H) 0/1 prefix mask over SSD heads
@@ -329,30 +403,35 @@ def mamba_forward(p, x, ssm, *, norm_eps=1e-6, head_mask=None, kernel=None,
 
     return_cache: also return the :class:`SSMCache` stepwise decode would
     hold after these S tokens (final SSD state + conv histories) — the
-    fused one-shot prefill path."""
+    fused one-shot prefill path. ``mesh``: head parallel (module
+    docstring); the cache then holds this rank's heads."""
     hm = None
     if head_mask is not None:
         hm = head_mask[None, None] if head_mask.dim() == 1 else head_mask[None]
     res = _mamba(_stacked(p), x[None], ssm, norm_eps, hm, kernel,
-                 return_cache, cache_dtype)
+                 return_cache, cache_dtype, mesh)
     if not return_cache:
         return res[0]
     return res[0][0], res[1]
 
 
 def mamba_forward_cohort(p, x, ssm, *, norm_eps=1e-6, head_mask=None,
-                         kernel=None):
+                         kernel=None, mesh=None):
     """Full-sequence Mamba2 block over a cohort: every leaf of ``p`` with a
     leading client axis G, x (G, B, S, d), head_mask None or (G, H).
-    Returns (G, B, S, d)."""
-    return _mamba(p, x, ssm, norm_eps, head_mask, kernel, False, None)
+    Returns (G, B, S, d). ``mesh``: head parallel (module docstring)."""
+    return _mamba(p, x, ssm, norm_eps, head_mask, kernel, False, None, mesh)
 
 
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
-def ssm_cache_init(batch, d_model, ssm, dtype=torch.float32, device=None):
-    di, nh = ssm.d_inner(d_model), ssm.n_heads(d_model)
+def ssm_cache_init(batch, d_model, ssm, dtype=torch.float32, device=None,
+                   n_heads=None):
+    """A zeroed cache of ``batch`` rows; ``n_heads``: a model rank's SSD
+    heads (its state and ``conv_x`` block), default all of them."""
+    nh = ssm.n_heads(d_model) if n_heads is None else n_heads
+    di = nh * ssm.head_dim
     gn, w = ssm.n_groups * ssm.d_state, ssm.d_conv
     return SSMCache(
         h=torch.zeros((batch, nh, ssm.head_dim, ssm.d_state),
@@ -371,15 +450,21 @@ def _conv_step(cp, hist, new):
 
 
 def mamba_decode(p, x, cache: SSMCache, ssm, *, norm_eps=1e-6,
-                 head_mask=None):
+                 head_mask=None, mesh=None):
     """x (B, 1, d). Returns (out (B, 1, d), new cache).
 
     head_mask: None, (H,) or per row (B, H) 0/1 SSD-head prefix — masked
     heads' outputs (the D skip term too) are zeroed and excluded from the
-    gated-norm statistics, mirroring :func:`mamba_forward`."""
+    gated-norm statistics, mirroring :func:`mamba_forward`. ``mesh``: head
+    parallel (module docstring); ``cache`` is then this rank's block."""
     B, _, d = x.shape
     di, nh = ssm.d_inner(d), ssm.n_heads(d)
     ng, N = ssm.n_groups, ssm.d_state
+    heads = _head_slice(mesh, ssm, d)
+
+    def local(t):                    # a per-head vector: the block's heads
+        return t if heads is None else t[..., heads[0]:heads[1]]
+    nh_loc = nh if heads is None else heads[1] - heads[0]
     z = x @ p["wz"].to(x.dtype)
     xc_raw = x @ p["wx"].to(x.dtype)
     Bm_raw = x @ p["wB"].to(x.dtype)
@@ -390,28 +475,42 @@ def mamba_decode(p, x, cache: SSMCache, ssm, *, norm_eps=1e-6,
     Bm, new_cB = _conv_step(p["conv_B"], cache.conv_B, Bm_raw)
     Cm, new_cC = _conv_step(p["conv_C"], cache.conv_C, Cm_raw)
 
-    xh = xc.reshape(B, nh, ssm.head_dim)
+    xh = xc.reshape(B, nh_loc, ssm.head_dim)
     Bm = Bm.reshape(B, ng, N).repeat_interleave(nh // ng, dim=1)
     Cm = Cm.reshape(B, ng, N).repeat_interleave(nh // ng, dim=1)
-    dtv = F.softplus(dt[:, 0].float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())
+    if heads is not None:
+        Bm, Cm = Bm[:, heads[0]:heads[1]], Cm[:, heads[0]:heads[1]]
+    dtv = F.softplus(local(dt[:, 0]).float() + local(p["dt_bias"]).float())
+    A = -torch.exp(local(p["A_log"]).float())
     dA = torch.exp(dtv * A[None, :])                              # (B,H)
     upd = torch.einsum("bh,bhp,bhn->bhpn", dtv, xh.float(), Bm.float())
     h = cache.h * dA[:, :, None, None] + upd
     y = torch.einsum("bhpn,bhn->bhp", h, Cm.float())
-    y = y + xh.float() * p["D"].float()[None, :, None]
-    if head_mask is not None:
-        y = y * head_mask.to(y.dtype)[..., None]
-    y = y.reshape(B, 1, di)
+    y = y + xh.float() * local(p["D"]).float()[None, :, None]
+    hm = None if head_mask is None else local(head_mask)
+    if hm is not None:
+        y = y * hm.to(y.dtype)[..., None]
+    y = y.reshape(B, 1, nh_loc * ssm.head_dim)
     gated = (y * F.silu(z.float())).to(x.dtype)
     if head_mask is not None:
-        dim_mask = head_mask.repeat_interleave(ssm.head_dim, dim=-1)
+        dim_mask = hm.repeat_interleave(ssm.head_dim, dim=-1)
         if dim_mask.dim() == 2:
             dim_mask = dim_mask[:, None, :]
-        y = _masked_gated_rmsnorm(p["norm"], gated, dim_mask, norm_eps)
-    else:
+        if heads is None:
+            y = _masked_gated_rmsnorm(p["norm"], gated, dim_mask, norm_eps)
+        else:
+            n = (head_mask > 0).float().sum(-1, keepdim=True)
+            n = torch.clamp((n[:, None, :] if n.dim() == 2 else n)
+                            * ssm.head_dim, min=1.0)
+            y = _sharded_gated_norm(p["norm"], gated, mesh, n, dim_mask,
+                                    norm_eps)
+    elif heads is None:
         y = rmsnorm(p["norm"], gated, norm_eps)
+    else:
+        y = _sharded_gated_norm(p["norm"], gated, mesh, di, eps=norm_eps)
     out = y @ p["out_proj"].to(x.dtype)
+    if heads is not None:
+        out = mesh.all_reduce(out)
     return out, SSMCache(h=h, conv_x=new_cx.to(cache.conv_x.dtype),
                          conv_B=new_cB.to(cache.conv_B.dtype),
                          conv_C=new_cC.to(cache.conv_C.dtype))

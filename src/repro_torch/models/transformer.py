@@ -45,6 +45,24 @@ Segment kinds (``configs.base.Segment``):
   (``models.ssm``) with the ``ssm_heads`` mask and the ``ssd`` op; an
   ``SSMCache`` (state and conv histories) per layer.
 
+The model axis (``mesh``, a ``sharding.mesh.HostMesh`` of ``(data,
+model)``; ``prefill``, ``decode_step``, ``forward_batch``,
+``init_decode_caches``): ``params`` is this rank's block
+(``sharding.specs.shard_params``) — vocab-parallel embedding and logits,
+tensor-parallel MLP, head-parallel attention and Mamba2, expert-parallel
+MoE (the layers' docstrings) — and the batch goes over ``data`` where
+``sharding.specs.input_shardings`` puts it there (else every data rank
+runs every row). The entry points take the whole batch and return the
+whole (B, V) logits on every rank; a decode cache is this rank's block.
+The MoE groups its tokens as the reference's branch for the mesh does: in
+the expert-parallel branch (E a multiple of ``model``) one group per data
+rank (when the tokens split evenly) with capacity by E, otherwise one
+group of the whole batch with capacity by ``capacity_experts``
+(``_moe_rows``). Covered: GQA attention, the MLP, the MoE and the Mamba2
+block; MLA, local / global pairs, the shared hybrid block and the input
+frontends raise on a model axis, as does a decode cache whose sequence the
+rules put over ``data`` (batch 1, long context).
+
 The shared hybrid block (zamba2: ``params["shared_attn"]``, one unstacked
 attention block with ``shared_attn_d_ff``) runs after every segment with
 ``shared_attn_after``, at ``cfg.sliding_window``, under the masks with
@@ -106,22 +124,110 @@ def _masks_get(masks, name):
 
 
 def _ffn(bp, h, cfg: ModelConfig, masks, kernels, per_row: bool,
-         with_aux: bool = False):
+         with_aux: bool = False, mesh=None, rows=None):
     """The block's feed-forward: the MLP, or the MoE layer of a ``moe``
     block. h (B, S, d); with ``per_row`` every row of h is its own MoE
     group (own capacity, own expert prefix), else the B·S tokens form one
     group. Returns (out, aux): with ``with_aux`` a MoE block's aux loss
-    (load balance + router z) per group, else None."""
+    (load balance + router z) per group, else None. ``mesh``: the model
+    axis; ``rows`` ``(lo, hi, B)``, this data rank's rows of the batch
+    (``_moe_rows``)."""
     if "moe" not in bp:
         return mlp(bp["mlp"], h, cfg.act, width_mask=_masks_get(masks, "ff"),
-                   kernel=_masks_get(kernels, "mlp")), None
-    x = h if per_row else h.reshape(1, -1, h.shape[-1])
-    m, aux = moe_lib.moe_forward(
-        bp["moe"], x, cfg.moe, act=cfg.act,
-        expert_mask=_masks_get(masks, "experts"),
-        kernel=_masks_get(kernels, "moe"), return_aux=with_aux)
+                   kernel=_masks_get(kernels, "mlp"), mesh=mesh,
+                   d_ff=cfg.d_ff), None
+    kw = dict(act=cfg.act, expert_mask=_masks_get(masks, "experts"),
+              kernel=_masks_get(kernels, "moe"), return_aux=with_aux)
+    if mesh is not None and not per_row:
+        m, aux = _moe_rows(bp["moe"], h, cfg, mesh, rows, kw)
+    else:
+        x = h if per_row else h.reshape(1, -1, h.shape[-1])
+        cap = None if mesh is None else moe_lib.expert_plan(
+            cfg.moe, mesh, x.shape[1], split=False).cap
+        m, aux = moe_lib.moe_forward(bp["moe"], x, cfg.moe, mesh=mesh,
+                                     cap=cap, **kw)
     return m.reshape(h.shape), \
         aux["aux_loss"] + aux["z_loss"] if with_aux else None
+
+
+def _moe_rows(p, h, cfg: ModelConfig, mesh, rows, kw):
+    """The MoE over this data rank's rows h (B_loc, S, d) of a batch of B
+    (``rows`` ``(lo, hi, B)``) in the reference's token groups: in its
+    expert-parallel branch the B·S tokens split into one contiguous group
+    per data rank when they split evenly, else (and in its single-device
+    branch) they form one group. Where this rank's rows are one such group
+    (or it holds every row) it computes them alone; otherwise the rows are
+    gathered over ``data``, every group computed and this rank's rows
+    kept. Returns (out (B_loc, S, d), aux of the groups or None)."""
+    lo, hi, B = rows
+    S, d = h.shape[1], h.shape[2]
+    T = B * S
+    plan = moe_lib.expert_plan(cfg.moe, mesh, T)
+    groups, cap = plan.groups, plan.cap
+    per = T // groups
+    if (lo * S) % per == 0 and (hi - lo) * S == per:
+        out, aux = moe_lib.moe_forward(p, h.reshape(1, -1, d), cfg.moe,
+                                       mesh=mesh, cap=cap, **kw)
+        return out.reshape(h.shape), aux
+    if p["router"].dim() == 3:          # a one-client stack: its experts
+        p = tree_map(lambda t: t[0], p)
+    full = h if hi - lo == B else mesh.all_gather(h, 0, B, "data")
+    out, aux = moe_lib.moe_forward(p, full.reshape(groups, per, d), cfg.moe,
+                                   mesh=mesh, cap=cap, **kw)
+    return out.reshape(B, S, d)[lo:hi], aux
+
+
+def _check_mesh(cfg: ModelConfig, mesh, batch: int, caches: bool) -> None:
+    """Raise for what the model axis does not cover yet (module
+    docstring)."""
+    if mesh is None:
+        return
+    if mesh.model > 1 and (cfg.attn_type == "mla" or cfg.shared_attn_d_ff
+                           or cfg.frontend is not None or any(
+                               s.kind == "attn_pair" for s in cfg.segments)):
+        raise NotImplementedError(
+            f"{cfg.name}: the model axis covers GQA attention, the MLP, the "
+            "MoE and the Mamba2 block; MLA, local / global pairs, the shared "
+            "hybrid block and the input frontends wait for the remaining "
+            "families of ROADMAP A17b")
+    if caches and mesh.data > 1 and not mesh.sharded(batch, "data") and any(
+            s.kind != "ssm" for s in cfg.segments):
+        raise NotImplementedError(
+            f"a decode cache of batch {batch} on {mesh.data} data ranks: the "
+            "rules put its sequence over 'data' (sharding.specs."
+            "cache_shardings), the sequence-sharded decode cache of ROADMAP "
+            "A17b")
+
+
+def _batch_rows(mesh, batch: int):
+    """``(lo, hi, B)``: this data rank's rows of a batch of B — its block
+    where ``input_shardings`` puts the batch over ``data``, else all."""
+    if mesh is None:
+        return 0, batch, batch
+    return mesh.block(batch, "data") + (batch,)
+
+
+def _local_rows(t, rows):
+    """A tensor with a leading batch axis, cut to this rank's rows; any
+    other tensor (one value for every row) as it is."""
+    lo, hi, B = rows
+    if (lo, hi) == (0, B) or t.dim() == 0 or t.shape[0] != B:
+        return t
+    return t[lo:hi]
+
+
+def _local_masks(masks, rows):
+    """The masks of this rank's rows: each mask with a batch axis ((B, n),
+    or a (B, n_layers) depth gate) cut to them."""
+    if masks is None or rows[:2] == (0, rows[2]):
+        return masks
+    out = {}
+    for k, v in masks.items():
+        if k == "depth":
+            out[k] = [g[rows[0]:rows[1]] if g.dim() == 2 else g for g in v]
+        else:
+            out[k] = v[rows[0]:rows[1]] if v.dim() == 2 else v
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -237,15 +343,19 @@ def param_shapes(cfg: ModelConfig) -> Params:
     return _param_tree(cfg, lambda shape, init: shape)
 
 
-def _logits(params, cfg: ModelConfig, x):
+def _logits(params, cfg: ModelConfig, x, mesh=None):
     """x (..., d) -> softcapped logits in at least fp32 (fp64 stays fp64);
     the weights may carry a leading client axis matching x's (x (G, T,
-    d))."""
+    d)). ``mesh``: the weights hold this model rank's block of the vocab,
+    and the blocks' logits are gathered over ``model``."""
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["table"].transpose(-1, -2).to(x.dtype)
     else:
         logits = x @ params["lm_head"]["w"].to(x.dtype)
-    return softcap(at_least_fp32(logits), cfg.final_softcap)
+    logits = softcap(at_least_fp32(logits), cfg.final_softcap)
+    if mesh is not None:
+        logits = mesh.all_gather(logits, -1, cfg.padded_vocab)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +380,7 @@ def _pairs(seg_p, n: int, dim: int):
 
 def _cohort_attn_block(bp, x, cfg: ModelConfig, seq_len: int, window,
                        masks, kernels, gate=None, with_aux=False,
-                       remat=False):
+                       remat=False, mesh=None, rows=None):
     """One attention block over a cohort: x (G, T, d) with T = B·S token
     rows per client, every weight of ``bp`` with a leading client axis.
     ``gate`` (G,) 0/1 multiplies the block's residual contributions (CFL
@@ -278,7 +388,7 @@ def _cohort_attn_block(bp, x, cfg: ModelConfig, seq_len: int, window,
     Returns (x, aux): with ``with_aux`` the MoE aux loss (G,) of a ``moe``
     block (zeros for an MLP block), else None. ``remat``: the attention
     and the FFN are recomputed in the backward instead of saved
-    (``_ckpt``)."""
+    (``_ckpt``). ``mesh`` / ``rows``: the model axis (one client)."""
     wrap = _ckpt if remat else (lambda fn: fn)
     h = _norm(cfg, bp["ln1"], x)
     if cfg.attn_type == "mla":
@@ -293,16 +403,23 @@ def _cohort_attn_block(bp, x, cfg: ModelConfig, seq_len: int, window,
             rope_theta=cfg.rope_theta, causal=cfg.causal, window=window,
             cap=cfg.attn_softcap, qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
             head_mask=_masks_get(masks, "heads"),
-            kernel=_masks_get(kernels, "attention")))(bp["attn"], h)
+            kernel=_masks_get(kernels, "attention"), mesh=mesh))(
+                bp["attn"], h)
     if cfg.post_norms:
         a = _norm(cfg, bp["post_ln1"], a)
     if gate is not None:
         a = a * _gate(gate, a)
     x = x + a
     h = _norm(cfg, bp["ln2"], x)
-    m, aux = wrap(lambda bp_, h_: _ffn(bp_, h_, cfg, masks, kernels,
-                                       per_row=True, with_aux=with_aux))(
-        bp, h)
+    if mesh is not None and "moe" in bp:   # one client's tokens, by rows
+        hr = h.reshape(rows[1] - rows[0], seq_len, h.shape[-1])
+        m, aux = _ffn(bp, hr, cfg, masks, kernels, per_row=False,
+                      with_aux=with_aux, mesh=mesh, rows=rows)
+        m = m.reshape(h.shape)
+    else:
+        m, aux = wrap(lambda bp_, h_: _ffn(bp_, h_, cfg, masks, kernels,
+                                           per_row=True, with_aux=with_aux,
+                                           mesh=mesh))(bp, h)
     if cfg.post_norms:
         m = _norm(cfg, bp["post_ln2"], m)
     if gate is not None:
@@ -315,7 +432,8 @@ def _cohort_attn_block(bp, x, cfg: ModelConfig, seq_len: int, window,
 
 
 def _cohort_ssm_block(bp, x, cfg: ModelConfig, batch: int, masks, kernels,
-                      gate=None, with_aux=False, remat=False):
+                      gate=None, with_aux=False, remat=False, mesh=None,
+                      rows=None):
     """One SSM block over a cohort: x (G, T, d) with T = batch·S token rows
     per client; ``x + gate · mamba(ln(x))`` (the reference's
     ``_apply_ssm_block``). Returns (x, aux): zeros (G,) with
@@ -326,7 +444,8 @@ def _cohort_ssm_block(bp, x, cfg: ModelConfig, batch: int, masks, kernels,
     y = wrap(lambda p_, h_: ssm_lib.mamba_forward_cohort(
         p_, h_, cfg.ssm, norm_eps=cfg.norm_eps,
         head_mask=_masks_get(masks, "ssm_heads"),
-        kernel=_masks_get(kernels, "ssd")))(bp["mamba"], h).reshape(G, T, d)
+        kernel=_masks_get(kernels, "ssd"), mesh=mesh))(
+            bp["mamba"], h).reshape(G, T, d)
     if gate is not None:
         y = y * _gate(gate, y)
     aux = torch.zeros(G, device=x.device) if with_aux else None
@@ -352,7 +471,8 @@ def _remat_group(n: int) -> int:
 
 
 def _cohort_stack(params, cfg: ModelConfig, x, seq_len: int, batch: int,
-                  masks, kernels, with_aux=False, remat=False):
+                  masks, kernels, with_aux=False, remat=False, mesh=None,
+                  rows=None):
     """Every segment (and the shared block after the segments that have
     it) over a cohort x (G, T, d), T = batch · seq_len, then the final
     norm. Returns (x, aux): the MoE aux losses (G,) summed over the layers
@@ -360,10 +480,13 @@ def _cohort_stack(params, cfg: ModelConfig, x, seq_len: int, batch: int,
     remat — each segment's layers in groups of ``_remat_group(n)`` (half
     as many pairs) checkpointed at the group's boundary, and each block's
     attention and FFN checkpointed inside (``_ckpt``); the outputs and
-    gradients are the same, the forward runs up to three times."""
+    gradients are the same, the forward runs up to three times.
+    ``mesh`` / ``rows``: the model axis, for one client (``forward_batch``)."""
     depth = _masks_get(masks, "depth")
     aux = torch.zeros(x.shape[0], device=x.device) if with_aux else None
     kw = dict(with_aux=with_aux, remat=remat)
+    if mesh is not None:
+        kw.update(mesh=mesh, rows=rows)
 
     def add(total, a):
         return None if total is None else total + a
@@ -439,11 +562,12 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, masks=None,
 # training: the batch-dict forward of one model, the LM loss
 # ---------------------------------------------------------------------------
 def embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
-                 dtype=None):
+                 dtype=None, mesh=None):
     """x (B, S, d) of one (unstacked) model's batch: the token embedding,
     the audio frontend's precomputed ``frames`` (B, S, d), or the vision
     frontend's ``image_embeds`` (B, F, d) over the first F token
-    positions; cast to ``dtype`` where one is given."""
+    positions; cast to ``dtype`` where one is given. ``mesh``: the table
+    is this model rank's vocab block (``layers.embed``)."""
     if cfg.frontend == "audio":
         x = batch["frames"]
     elif cfg.frontend == "vision":
@@ -451,7 +575,8 @@ def embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
         img = batch["image_embeds"].to(tok.dtype)
         x = torch.cat([img, tok[:, img.shape[1]:, :]], dim=1)
     else:
-        x = embed(params["embed"], batch["tokens"], scale=cfg.embed_scale)
+        x = embed(params["embed"], batch["tokens"], scale=cfg.embed_scale,
+                  mesh=mesh, vocab=cfg.padded_vocab)
     return x if dtype is None else x.to(dtype)
 
 
@@ -470,7 +595,7 @@ def _one_client(tree):
 def forward_batch(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
                   *, masks=None, kernels=None, remat: bool = False,
                   activation_dtype=None, last_only: bool = False,
-                  return_hidden: bool = False):
+                  return_hidden: bool = False, mesh=None):
     """The reference's batch-dict forward of one model: ``batch`` holds
     ``tokens`` (B, S), and ``image_embeds`` (B, F, d) for a vision
     frontend, or an audio frontend's ``frames`` (B, S, d); ``params`` and
@@ -484,21 +609,40 @@ def forward_batch(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     aux is the scalar MoE aux loss summed over the layers under their
     depth gates. ``activation_dtype`` (e.g. ``torch.bfloat16``) casts the
     embeddings; the weights are cast to it at each product. ``remat``: see
-    ``_cohort_stack``."""
-    x = embed_inputs(params, cfg, batch, activation_dtype)
+    ``_cohort_stack``.
+
+    ``mesh``: the model axis (module docstring) for the logits — this
+    rank's parameter block in, the whole batch's logits out on every rank;
+    the aux loss is then not computed (None) and ``return_hidden`` raises
+    (the sharded loss and backward wait for ROADMAP A17b)."""
+    if mesh is not None:
+        B = next(iter(batch.values())).shape[0]
+        _check_mesh(cfg, mesh, B, caches=False)
+        if return_hidden:
+            raise NotImplementedError("forward_batch on a mesh returns "
+                                      "logits only (ROADMAP A17b)")
+        rows = _batch_rows(mesh, B)
+        batch = {k: _local_rows(v, rows) for k, v in batch.items()}
+        masks = _local_masks(masks, rows)
+    x = embed_inputs(params, cfg, batch, activation_dtype, mesh)
     B, S, d = x.shape
+    kw = {} if mesh is None else dict(mesh=mesh, rows=rows)
     h, aux = _cohort_stack(_one_client(params), cfg, x.reshape(1, B * S, d),
                            S, B, None if masks is None
-                           else _one_client(masks), kernels, with_aux=True,
-                           remat=remat)
+                           else _one_client(masks), kernels,
+                           with_aux=mesh is None, remat=remat, **kw)
     h = h.reshape(B, S, d)
-    aux = aux[0]
+    aux = None if aux is None else aux[0]
     if return_hidden:
         return h, aux
     if last_only:
         h = h[:, -1:, :]
-    logits = h @ _unembed_w(params, cfg).to(h.dtype)
-    return softcap(logits, cfg.final_softcap), aux
+    logits = softcap(h @ _unembed_w(params, cfg).to(h.dtype),
+                     cfg.final_softcap)
+    if mesh is not None:
+        logits = mesh.all_gather(logits, -1, cfg.padded_vocab)
+        logits = mesh.all_gather(logits, 0, rows[2], "data")
+    return logits, aux
 
 
 class _GradDtypeBarrier(torch.autograd.Function):
@@ -601,12 +745,14 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
 # prefill (full forward that also fills the decode caches)
 # ---------------------------------------------------------------------------
 def _apply_attn_block(bp, x, positions, cfg: ModelConfig, window, masks,
-                      kernels, gate=None, cache_len=None, cache_dtype=None):
+                      kernels, gate=None, cache_len=None, cache_dtype=None,
+                      mesh=None, rows=None):
     """One attention block over a full sequence. ``gate`` ((), or (B,)
     0/1) multiplies the block's residual contributions — with gate 0 the
     block is exactly the identity (CFL depth elasticity). ``cache_len``:
     also return the block's decode cache (fused prefill): a ring-buffer
-    KV cache, or MLA's compressed latents of ``cache_len`` positions."""
+    KV cache, or MLA's compressed latents of ``cache_len`` positions.
+    ``mesh`` / ``rows``: the model axis (``_ffn``)."""
     h = _norm(cfg, bp["ln1"], x)
     if cfg.attn_type == "mla":
         res = attn_lib.mla_forward(
@@ -624,7 +770,7 @@ def _apply_attn_block(bp, x, positions, cfg: ModelConfig, window, masks,
             cap=cfg.attn_softcap, qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
             head_mask=_masks_get(masks, "heads"),
             kernel=_masks_get(kernels, "attention"), cache_len=kv_len,
-            cache_dtype=cache_dtype)
+            cache_dtype=cache_dtype, mesh=mesh)
     a, cache = res if cache_len is not None else (res, None)
     if cfg.post_norms:
         a = _norm(cfg, bp["post_ln1"], a)
@@ -634,7 +780,8 @@ def _apply_attn_block(bp, x, positions, cfg: ModelConfig, window, masks,
     h = _norm(cfg, bp["ln2"], x)
     experts = _masks_get(masks, "experts")
     m, _ = _ffn(bp, h, cfg, masks, kernels,
-                per_row=experts is not None and experts.dim() == 2)
+                per_row=experts is not None and experts.dim() == 2,
+                mesh=mesh, rows=rows)
     if cfg.post_norms:
         m = _norm(cfg, bp["post_ln2"], m)
     if gate is not None:
@@ -644,7 +791,7 @@ def _apply_attn_block(bp, x, positions, cfg: ModelConfig, window, masks,
 
 
 def _apply_ssm_block(bp, x, cfg: ModelConfig, masks, kernels, gate=None,
-                     cache_dtype=None):
+                     cache_dtype=None, mesh=None):
     """One SSM block over a full sequence that also returns the block's
     decode cache (fused prefill): ``x + gate · mamba(ln(x))``."""
     h = _norm(cfg, bp["ln"], x)
@@ -652,7 +799,7 @@ def _apply_ssm_block(bp, x, cfg: ModelConfig, masks, kernels, gate=None,
         bp["mamba"], h, cfg.ssm, norm_eps=cfg.norm_eps,
         head_mask=_masks_get(masks, "ssm_heads"),
         kernel=_masks_get(kernels, "ssd"), return_cache=True,
-        cache_dtype=cache_dtype)
+        cache_dtype=cache_dtype, mesh=mesh)
     if gate is not None:
         y = y * _gate(gate, y)
     return x + y, cache
@@ -674,19 +821,29 @@ class DecodeCaches(NamedTuple):
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens, max_len: int, *,
-            masks=None, kernels=None, cache_dtype=torch.float32):
+            masks=None, kernels=None, cache_dtype=torch.float32, mesh=None):
     """One-shot prefill: full forward over ``tokens`` (B, S) that fills
     :class:`DecodeCaches` for positions 0..S-1.
 
     Returns ``(last_logits (B, V) fp32 softcapped, caches)``; generation
-    continues at ``pos = S`` with :func:`decode_step`."""
-    x = embed(params["embed"], tokens, scale=cfg.embed_scale)
+    continues at ``pos = S`` with :func:`decode_step`. ``mesh``: the model
+    axis (module docstring): ``params`` is this rank's block, the caches
+    come back as this rank's block, the logits whole."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    rows = _batch_rows(mesh, B)
+    if mesh is not None:
+        _check_mesh(cfg, mesh, B, caches=True)
+        tokens = tokens[rows[0]:rows[1]]
+        masks = _local_masks(masks, rows)
+    x = embed(params["embed"], tokens, scale=cfg.embed_scale, mesh=mesh,
+              vocab=cfg.padded_vocab)
+    positions = torch.arange(S, device=x.device).expand(tokens.shape[0], S)
     depth = _masks_get(masks, "depth")
     kw = dict(cache_len=max_len, cache_dtype=cache_dtype)
+    if mesh is not None:
+        kw.update(mesh=mesh, rows=rows)
     segs, sites = [], []
     for si, (seg_p, seg) in enumerate(zip(params["segments"], cfg.segments)):
         window = seg.sliding_window or cfg.sliding_window
@@ -712,7 +869,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens, max_len: int, *,
                 bp = _layer(seg_p["blocks"], l)
                 if seg.kind == "ssm":
                     x, c = _apply_ssm_block(bp, x, cfg, masks, kernels,
-                                            gate=g, cache_dtype=cache_dtype)
+                                            gate=g, cache_dtype=cache_dtype,
+                                            mesh=mesh)
                 else:
                     x, c = _apply_attn_block(bp, x, positions, cfg, window,
                                              masks, kernels, gate=g, **kw)
@@ -724,9 +882,11 @@ def prefill(params: Params, cfg: ModelConfig, tokens, max_len: int, *,
                                      _shared_masks(masks), kernels, **kw)
             sites.append(c)
     x = _norm(cfg, params["final_norm"], x)
-    logits = _logits(params, cfg, x[:, -1:, :])
+    logits = _logits(params, cfg, x[:, -1:, :], mesh)[:, 0]
+    if mesh is not None:
+        logits = mesh.all_gather(logits, 0, B, "data")
     shared = _stack_caches(sites) if sites else None
-    return logits[:, 0], DecodeCaches(tuple(segs), shared)
+    return logits, DecodeCaches(tuple(segs), shared)
 
 
 # ---------------------------------------------------------------------------
@@ -737,24 +897,40 @@ def _stacked_zeros(single, n: int):
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
-                       dtype=torch.float32, device=None) -> DecodeCaches:
+                       dtype=torch.float32, device=None,
+                       mesh=None) -> DecodeCaches:
     """Zeroed decode caches of ``batch`` rows on ``device`` (the card
     unless the caller asks for the CPU): ring-buffer KV caches
     (``min(max_len, window)`` slots), MLA latents of ``max_len``
     positions, SSM states and conv histories, and the shared block's KV
-    cache per site."""
+    cache per site. ``mesh``: this rank's block of them — its rows where
+    the batch goes over ``data``, its K/V heads where they shard with the
+    query heads, its SSD heads' state and ``conv_x`` where ``d_inner``
+    shards (the layouts ``prefill`` fills)."""
     device = resolve_device(device)
+    n_kv, nh = cfg.n_kv_heads, None
+    if mesh is not None:
+        _check_mesh(cfg, mesh, batch, caches=True)
+        lo, hi, _ = _batch_rows(mesh, batch)
+        batch = hi - lo
+        if mesh.sharded(cfg.n_heads) and n_kv % mesh.model == 0:
+            lo, hi = mesh.block(n_kv)
+            n_kv = hi - lo
+        if cfg.ssm is not None and ssm_lib._head_slice(mesh, cfg.ssm,
+                                                       cfg.d_model):
+            h0, h1 = ssm_lib._head_slice(mesh, cfg.ssm, cfg.d_model)
+            nh = h1 - h0
 
     def kv(window):
-        return attn_lib.gqa_cache_init(batch, max_len, cfg.n_kv_heads,
-                                       cfg.head_dim, window, dtype, device)
+        return attn_lib.gqa_cache_init(batch, max_len, n_kv, cfg.head_dim,
+                                       window, dtype, device)
     segs = []
     for seg in cfg.segments:
         window = seg.sliding_window or cfg.sliding_window
         n = seg.n_layers
         if seg.kind == "ssm":
             segs.append(_stacked_zeros(ssm_lib.ssm_cache_init(
-                batch, cfg.d_model, cfg.ssm, dtype, device), n))
+                batch, cfg.d_model, cfg.ssm, dtype, device, n_heads=nh), n))
         elif seg.kind == "attn_pair":
             segs.append({"local": _stacked_zeros(kv(seg.pair_local_window),
                                                  n),
@@ -771,7 +947,7 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _decode_attn_block(bp, x, cache, pos, cfg: ModelConfig, window,
-                       masks=None, kernels=None, gate=None):
+                       masks=None, kernels=None, gate=None, mesh=None):
     """One attention block over one token; ``cache`` (per-layer views of
     the stacked caches) is updated in place."""
     h = _norm(cfg, bp["ln1"], x)
@@ -786,14 +962,14 @@ def _decode_attn_block(bp, x, cache, pos, cfg: ModelConfig, window,
             n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
             rope_theta=cfg.rope_theta, window=window, cap=cfg.attn_softcap,
             qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
-            head_mask=_masks_get(masks, "heads"))
+            head_mask=_masks_get(masks, "heads"), mesh=mesh)
     if cfg.post_norms:
         a = _norm(cfg, bp["post_ln1"], a)
     if gate is not None:
         a = a * _gate(gate, a)
     x = x + a
     h = _norm(cfg, bp["ln2"], x)
-    m, _ = _ffn(bp, h, cfg, masks, kernels, per_row=True)
+    m, _ = _ffn(bp, h, cfg, masks, kernels, per_row=True, mesh=mesh)
     if cfg.post_norms:
         m = _norm(cfg, bp["post_ln2"], m)
     if gate is not None:
@@ -802,13 +978,14 @@ def _decode_attn_block(bp, x, cache, pos, cfg: ModelConfig, window,
 
 
 def _decode_ssm_block(bp, x, cache, cfg: ModelConfig, masks=None,
-                      gate=None):
+                      gate=None, mesh=None):
     """One SSM block over one token; ``cache`` (per-layer views of the
     stacked caches) is updated in place."""
     h = _norm(cfg, bp["ln"], x)
     y, new = ssm_lib.mamba_decode(bp["mamba"], h, cache, cfg.ssm,
                                   norm_eps=cfg.norm_eps,
-                                  head_mask=_masks_get(masks, "ssm_heads"))
+                                  head_mask=_masks_get(masks, "ssm_heads"),
+                                  mesh=mesh)
     for f, v in zip(cache, new):
         f.copy_(v)
     if gate is not None:
@@ -822,7 +999,7 @@ def _at(stacked, i: int):
 
 
 def decode_step(params: Params, cfg: ModelConfig, caches: DecodeCaches,
-                token, pos, masks=None, kernels=None):
+                token, pos, masks=None, kernels=None, mesh=None):
     """token: (B, 1) integer tensor; pos: (B,) integer tensor of per-row
     positions (or one position for every row). -> (logits (B, V) fp32,
     caches).
@@ -830,8 +1007,20 @@ def decode_step(params: Params, cfg: ModelConfig, caches: DecodeCaches,
     Each row writes its own cache entry and reads its own cache validity;
     the caches are updated **in place** and returned. ``masks`` /
     ``kernels`` mirror :func:`prefill`'s elastic surface; a mask with a
-    leading batch axis gives every row its own submodel."""
-    x = embed(params["embed"], token, scale=cfg.embed_scale)
+    leading batch axis gives every row its own submodel. ``mesh``: the
+    model axis (module docstring) — ``params`` and ``caches`` this rank's
+    blocks, ``token`` / ``pos`` / ``masks`` the whole batch's, the logits
+    whole."""
+    B = token.shape[0]
+    if mesh is not None:
+        _check_mesh(cfg, mesh, B, caches=True)
+        rows = _batch_rows(mesh, B)
+        token = token[rows[0]:rows[1]]
+        pos = torch.as_tensor(pos, device=token.device)
+        pos = pos if pos.dim() == 0 else _local_rows(pos.reshape(-1), rows)
+        masks = _local_masks(masks, rows)
+    x = embed(params["embed"], token, scale=cfg.embed_scale, mesh=mesh,
+              vocab=cfg.padded_vocab)
     depth = _masks_get(masks, "depth")
     site = 0
     for si, (seg_p, seg, seg_c) in enumerate(zip(
@@ -849,11 +1038,12 @@ def decode_step(params: Params, cfg: ModelConfig, caches: DecodeCaches,
                                        None, masks, kernels, gate=g)
             elif seg.kind == "ssm":
                 x = _decode_ssm_block(_layer(seg_p["blocks"], l), x,
-                                      _at(seg_c, l), cfg, masks, gate=g)
+                                      _at(seg_c, l), cfg, masks, gate=g,
+                                      mesh=mesh)
             else:
                 x = _decode_attn_block(_layer(seg_p["blocks"], l), x,
                                        _at(seg_c, l), pos, cfg, window,
-                                       masks, kernels, gate=g)
+                                       masks, kernels, gate=g, mesh=mesh)
         if seg.shared_attn_after:
             x = _decode_attn_block(params["shared_attn"], x,
                                    _at(caches.shared, site), pos, cfg,
@@ -861,4 +1051,7 @@ def decode_step(params: Params, cfg: ModelConfig, caches: DecodeCaches,
                                    kernels)
             site += 1
     x = _norm(cfg, params["final_norm"], x)
-    return _logits(params, cfg, x)[:, 0], caches
+    logits = _logits(params, cfg, x, mesh)[:, 0]
+    if mesh is not None:
+        logits = mesh.all_gather(logits, 0, B, "data")
+    return logits, caches

@@ -32,6 +32,8 @@ from repro_torch.configs.base import Segment
 from repro_torch.core.submodel import TransformerSubSpec
 from repro_torch.models import transformer as PT
 
+import jax_compile_cache  # noqa: F401  (the shared compile cache)
+
 TOL = 1e-5
 SLICE_TOL = 1e-4
 PARENTS = ("deepseek-v2-lite-16b", "gemma2-9b", "zamba2-1.2b")

@@ -1,11 +1,12 @@
 """Shared set-up of the CNN parity tests of the port's sessions and
-trainers (``tests/test_torch_session.py``, ``test_torch_baselines.py``,
+trainers (``tests/test_torch_session.py``, ``test_torch_baselines*.py``,
 ``test_torch_sequential.py``, ``test_torch_client.py``,
 ``test_torch_partial*.py``, ``test_torch_async*.py``): the quickstart
 CNN and round settings, the reference's session on its own synthetic
 population, the port's session on the reference's data, initial
-parameters and predictor, bridged, the tree comparisons, and the hold of
-a buffered or faulty run against the reference's."""
+parameters and predictor, bridged, the tree comparisons, and the holds
+of a buffered or faulty run and of a partial-participation session
+against the reference's."""
 import dataclasses
 
 import jax
@@ -22,6 +23,8 @@ from repro_torch.configs.paper_cnn import CNNConfig
 from repro_torch.fl.client import ClientInfo
 from repro_torch.fl.server import CFLConfig
 from repro_torch.fl.session import CFLSession
+
+import jax_compile_cache  # noqa: F401  (the shared compile cache)
 
 TOL = 1e-5
 # examples/quickstart.py's CNN and round settings
@@ -162,3 +165,75 @@ def hold_faulty_run(algorithm, kw, rounds):
                      init) <= 1e-3
     assert all(bool(torch.isfinite(t).all())
                for t in tree_leaves(sess.params))
+
+
+# ---------------------------------------------------------------------------
+# partial participation (tests/test_torch_partial_session*.py)
+# ---------------------------------------------------------------------------
+def record_selections(tracker):
+    """Keep every Selection the tracker hands out."""
+    real, sels = tracker.select, []
+
+    def select(r):
+        sels.append(real(r))
+        return sels[-1]
+    tracker.select = select
+    return sels
+
+
+def partial_reference(algorithm, selection):
+    """2 sync rounds of the reference's session under ``selection``:
+    (session, initial params, predictor weights, round-0 params, its
+    Selections, the FL settings)."""
+    fl = dict(FL, selection=selection)
+    sess = ref_session.CFLSession.from_synthetic(
+        REF_CFG, kind="synthmnist", n_workers=4, n_samples=400,
+        heterogeneity="quality", seed=0, algorithm=algorithm,
+        fl_cfg=ref_server.CFLConfig(**fl))
+    init = numpy_tree(sess._init_params)
+    pred0 = numpy_tree(sess.server.predictor.params) \
+        if algorithm == "cfl" else None
+    sels = record_selections(sess.server.tracker)
+    sess.run(1)
+    after0 = numpy_tree(sess.params)
+    sess.run(1)
+    return sess, init, pred0, after0, sels, fl
+
+
+def hold_partial_session(algorithm, selection):
+    """2 sync rounds of the port's session (kernel path) under
+    ``selection`` against the reference's, as the module docstring of
+    ``tests/test_torch_partial_session.py`` says."""
+    ref, init, pred0, after0, ref_sels, fl = partial_reference(algorithm,
+                                                              selection)
+    sess = port_session(ref, init, pred0, algorithm=algorithm, fl=fl,
+                        elastic_kernels=True)
+    assert sess.server.engine.kernel_path == "tile-skipping"
+    sels = record_selections(sess.server.tracker)
+    sess.run(1)
+    got0 = params_to_numpy(sess.params)
+    sess.run(1)
+    n_test = min(len(d["y"]) for d in ref.test_data)
+    equal_so_far = True
+    for r, (got, want) in enumerate(zip(sess.history, ref.history)):
+        if equal_so_far:
+            for k in ("idx", "valid", "weights"):
+                np.testing.assert_array_equal(getattr(sels[r], k),
+                                              getattr(ref_sels[r], k))
+            for col in ("participants", "selection", "timing", "sim_clock",
+                        "staleness", "aggregate_lag", "mode", "dropped"):
+                assert got[col] == want[col], col
+            if algorithm == "cfl":
+                assert got["specs"] == want["specs"]
+        assert len(got["participants"]) == 2
+        np.testing.assert_allclose(got["accs"], want["accs"],
+                                   atol=1.0 / n_test + 1e-6, rtol=0)
+        equal_so_far &= got["accs"] == want["accs"]
+    assert len(sels) == 2 and (sels[0].valid == 1).all()
+    if algorithm == "cfl":
+        assert ratio(got0, after0, init) <= TOL
+        assert ratio(params_to_numpy(sess.params), numpy_tree(ref.params),
+                     init) <= 1e-3
+    else:
+        assert ratio(got0, after0, init) <= 1e-3
+    assert all(np.isfinite(a).all() for a in jax.tree.leaves(got0))

@@ -9,14 +9,9 @@ K1's plain version).
   (the same difference of simulated times, which async takes on the
   absolute clock as the reference does: within 4 ulps of it), CFL and
   FedAvg.
-* Against the JAX reference on its data, initial parameters and
-  predictor, bridged: CFL's buffered async run (a buffer of one delta,
-  FedBuff's staleness discount, drops / straggles / corruption, the
-  quarantine gate) — identical event columns (participants, staleness,
-  simulated clock, dropped, retried, quarantined), accuracies within one
-  test sample, its first aggregate within 1e-5 of its movement and its
-  last within 1e-3 (``cnn_session_support.hold_faulty_run``; FedAvg's
-  and the faulty sync rounds: ``tests/test_torch_async_faults.py``).
+* Against the JAX reference: CFL's buffered async run,
+  ``tests/test_torch_async_buffered.py``; FedAvg's and the faulty sync
+  rounds, ``tests/test_torch_async_faults*.py``.
 * A buffer whose every delta is quarantined applies a no-op step (the
   parameters equal to the bit), as the reference's does.
 * The runtime's checkpoints raise, naming ROADMAP A14.
@@ -27,8 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from cnn_session_support import (BUFFERED, CFG, EVENTS, FL, hold_faulty_run,
-                                 port_session, reference_session)
+from cnn_session_support import (CFG, EVENTS, FL, port_session,
+                                 reference_session)
 from repro.fl import faults as ref_faults
 from repro_torch.fl import CFLConfig, CFLSession, faults
 from repro_torch.optim.optimizers import tree_leaves
@@ -62,11 +57,6 @@ def test_async_at_the_sync_point_is_sync_to_the_bit(algorithm, selection):
         assert abs(a["aggregate_lag"] - b["aggregate_lag"]) <= \
             4 * math.ulp(a["sim_clock"])
 
-
-def test_buffered_async_matches_reference():
-    """CFL's buffered run (the FedAvg run and the faulty sync rounds:
-    ``tests/test_torch_async_faults.py``)."""
-    hold_faulty_run("cfl", BUFFERED, 4)
 
 
 def _all_corrupt_seed(m):

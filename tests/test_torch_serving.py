@@ -137,7 +137,8 @@ def test_port_imports_neither_jax_nor_reference():
     names = {os.path.relpath(p, ROOT) for p in files}
     for new in ("checkpoint/fleet.py", "serving/export.py",
                 "serving/distill.py", "sharding/__init__.py",
-                "sharding/cohort.py"):
+                "sharding/cohort.py", "sharding/mesh.py",
+                "sharding/specs.py", "launch/mesh.py"):
         assert os.path.join("src", "repro_torch", new) in names
     for path in files:
         with open(path) as f:
@@ -168,6 +169,8 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.serving.export, repro_torch.serving.distill\n"
             "import repro_torch.fl.runtime, repro_torch.fl.faults\n"
             "import repro_torch.sharding, repro_torch.sharding.cohort\n"
+            "import repro_torch.sharding.mesh, repro_torch.sharding.specs\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.steps\n"
             "import chip_smoke, relu_replay\n"
             "print('ok')\n")
     env = dict(os.environ)

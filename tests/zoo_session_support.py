@@ -28,6 +28,8 @@ from repro_torch.fl.engine import pack_cohort_data
 from repro_torch.fl.server import CFLConfig
 from repro_torch.fl.session import CFLSession
 
+import jax_compile_cache  # noqa: F401  (the shared compile cache)
+
 TOL = 1e-5
 ZOO_CFG = reduced(ARCHS["granite-3-8b"], n_layers=4, d_model=64)
 REF_ZOO_CFG = ref_reduced(REF_ARCHS["granite-3-8b"], n_layers=4, d_model=64)
